@@ -1,0 +1,293 @@
+// Force-force and energy-force covariance blocks of the RBF many-body
+// kernel, exact fp32 FMA on CUDA cores (sm_90a).  Plain C interface,
+// loaded from Python with ctypes (gpr_calculator_tpu_torch/ops/kff.py).
+//
+// Replaces the Pallas TPU kernels of gpr_calculator_tpu/ops/kff_pallas.py:
+//   kff_tri  (K1) <- _kff_kernel_tri  (kff_pallas.py:282), symmetric K_FF
+//   kef_rect (K2) <- _kef_kernel      (kff_pallas.py:748), K_EF
+//   kff_rect (K3) <- _kff_kernel      (kff_pallas.py:269), rectangular K_FF
+//
+// Operands (built once per block side by ops/kff.py, so every block of one
+// training covariance reads the same rounded values):
+//   X  (4, N, 32) f32: rows [u; Jt_x; Jt_y; Jt_z] per environment, with
+//      u = x/|x| and Jt = J - (J.u) u; descriptor width zero-padded to 32
+//   re (2, N)     f32: [rinv or weight, element id]; 0 weight = padding
+// Environments of point p are rows p*B .. p*B+B-1.  For one env pair
+// (a in lhs point p, b in rhs point q):
+//   c = u_a.u_b,  p1_u = Jt_a,u.u_b,  p2_v = u_a.Jt_b,v,  m_uv = Jt_a,u.Jt_b,v
+//   k = s2 exp((c^z - 1) g),  A = k g z c^(z-1),
+//   B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g)       (times rinv_a rinv_b
+//   K_FF[(p,u),(q,v)] += A m_uv + B p1_u p2_v         and [ele_a == ele_b])
+//   K_EF[p,(q,v)]     += -k g z c^(z-1) w_a rinv_b [same] p2_v
+//
+// What bounds them on the card: each env pair costs 16 (K_FF) or 4 (K_EF)
+// length-32 dot products -- a thin-k product of the operand rows -- plus
+// one expf and the assembly.  The operands are small (49 MB at 3000 force
+// points x 32 envs) and stay in L2, so the kernels are bound by
+// shared-memory bandwidth and fp32 FMA issue, not device memory.  The
+// design keeps every env-pair intermediate in registers: one block owns a
+// tile of 8 x 8 points and loops over 4-env chunks of both sides staged in
+// shared memory (k-major, so a warp reads 16 consecutive float2); each
+// thread owns a 2 x 2 env micro-tile of one point pair (64 accumulators,
+// 4 FMA per shared load) and reduces env -> point in registers, then over
+// its 4 micro-tiles with warp shuffles.  No block reads another's output,
+// the ragged point and env edges are masked at load, and the (p,u) x (q,v)
+// interleaved layout is written directly.  K1 derives its upper-triangle
+// tile pair (I <= J) from the linear block index and writes each tile and
+// its transpose; on diagonal tiles only the upper entries are computed
+// into the output, so the result is exactly symmetric.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int DP = 32;        // padded descriptor width
+constexpr int TP = 8;         // points per tile side
+constexpr int CB = 4;         // envs per point per chunk
+constexpr int NE = TP * CB;   // envs per chunk per side
+constexpr int NT = 256;       // threads per block: TP x TP x 2 x 2
+
+// Stage envs [e0, e0+CB) of points [p0, p0+TP) of one side into shared
+// memory, k-major: s[c][k][env], env = point_local * CB + e.  Envs past
+// the point count or the env count load as zeros with zero weight.
+template <int NC>
+__device__ __forceinline__ void stage(const float* __restrict__ X,
+                                      const float* __restrict__ re,
+                                      int m, int B, int p0, int e0,
+                                      float (*s)[DP][NE], float (*sre)[NE]) {
+  const long long N = (long long)m * B;
+  for (int idx = threadIdx.x; idx < NC * (DP / 4) * NE; idx += NT) {
+    const int env = idx % NE;
+    const int rest = idx / NE;
+    const int k4 = rest % (DP / 4);
+    const int c = rest / (DP / 4);
+    const int p = p0 + env / CB;
+    const int e = e0 + env % CB;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < m && e < B) {
+      const long long n = (long long)p * B + e;
+      v = *reinterpret_cast<const float4*>(X + (c * N + n) * DP + k4 * 4);
+    }
+    s[c][k4 * 4 + 0][env] = v.x;
+    s[c][k4 * 4 + 1][env] = v.y;
+    s[c][k4 * 4 + 2][env] = v.z;
+    s[c][k4 * 4 + 3][env] = v.w;
+  }
+  for (int idx = threadIdx.x; idx < 2 * NE; idx += NT) {
+    const int row = idx / NE;
+    const int env = idx % NE;
+    const int p = p0 + env / CB;
+    const int e = e0 + env % CB;
+    float v = 0.f;
+    if (p < m && e < B) v = re[row * N + (long long)p * B + e];
+    sre[row][env] = v;
+  }
+}
+
+// c^(z-1) and z(z-1) c^(z-2) for an integer exponent z >= 1.
+__device__ __forceinline__ void powers(float c, int zeta, float& d1,
+                                       float& dm2) {
+  if (zeta == 1) {
+    d1 = 1.f;
+    dm2 = 0.f;
+  } else if (zeta == 2) {
+    d1 = c;
+    dm2 = 1.f;
+  } else {
+    dm2 = c;
+    for (int i = 0; i < zeta - 3; ++i) dm2 *= c;
+    d1 = dm2 * c;
+  }
+}
+
+// LC = 4: K_FF (lhs carries [u; Jt]), LC = 1: K_EF (lhs carries u only).
+// MODE 0: rectangular grid (blockIdx.y = lhs tile, blockIdx.x = rhs tile);
+// MODE 1: upper-triangle tiles of a symmetric K_FF from the linear index.
+template <int LC, int MODE>
+__global__ void __launch_bounds__(NT)
+cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
+           int m1, int B1, const float* __restrict__ X2,
+           const float* __restrict__ re2, int m2, int B2,
+           float* __restrict__ out, long long ldo, float sigma2,
+           float gamma, int zeta) {
+  constexpr int NOUT = LC == 4 ? 9 : 3;
+  __shared__ __align__(16) float s1[LC][DP][NE];
+  __shared__ __align__(16) float s2[4][DP][NE];
+  __shared__ float sre1[2][NE];
+  __shared__ float sre2[2][NE];
+
+  int I, J;
+  if (MODE == 1) {
+    const long long k = blockIdx.x;
+    long long j = (long long)((sqrt(8.0 * (double)k + 1.0) - 1.0) * 0.5);
+    while ((j + 1) * (j + 2) / 2 <= k) ++j;
+    while (j * (j + 1) / 2 > k) --j;
+    J = (int)j;
+    I = (int)(k - j * (j + 1) / 2);
+  } else {
+    I = blockIdx.y;
+    J = blockIdx.x;
+  }
+
+  const int t = threadIdx.x;
+  const int bs = t & 1;
+  const int as = (t >> 1) & 1;
+  const int ql = (t >> 2) & (TP - 1);
+  const int pl = t >> 5;
+  const int a0 = pl * CB + as * 2;   // this thread's two lhs envs
+  const int b0 = ql * CB + bs * 2;   // and two rhs envs
+
+  float acc[NOUT];
+#pragma unroll
+  for (int i = 0; i < NOUT; ++i) acc[i] = 0.f;
+
+  for (int ea = 0; ea < B1; ea += CB) {
+    stage<LC>(X1, re1, m1, B1, I * TP, ea, s1, sre1);
+    for (int eb = 0; eb < B2; eb += CB) {
+      stage<4>(X2, re2, m2, B2, J * TP, eb, s2, sre2);
+      __syncthreads();
+
+      // g[ia][ib][c1 * 4 + c2] = X1[c1]_a . X2[c2]_b
+      float g[2][2][LC * 4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < LC * 4; ++c) g[i][j][c] = 0.f;
+
+#pragma unroll 4
+      for (int k = 0; k < DP; ++k) {
+        float2 l[LC], r[4];
+#pragma unroll
+        for (int c = 0; c < LC; ++c)
+          l[c] = *reinterpret_cast<const float2*>(&s1[c][k][a0]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          r[c] = *reinterpret_cast<const float2*>(&s2[c][k][b0]);
+#pragma unroll
+        for (int c1 = 0; c1 < LC; ++c1)
+#pragma unroll
+          for (int c2 = 0; c2 < 4; ++c2) {
+            g[0][0][c1 * 4 + c2] = fmaf(l[c1].x, r[c2].x, g[0][0][c1 * 4 + c2]);
+            g[0][1][c1 * 4 + c2] = fmaf(l[c1].x, r[c2].y, g[0][1][c1 * 4 + c2]);
+            g[1][0][c1 * 4 + c2] = fmaf(l[c1].y, r[c2].x, g[1][0][c1 * 4 + c2]);
+            g[1][1][c1 * 4 + c2] = fmaf(l[c1].y, r[c2].y, g[1][1][c1 * 4 + c2]);
+          }
+      }
+
+#pragma unroll
+      for (int ia = 0; ia < 2; ++ia)
+#pragma unroll
+        for (int ib = 0; ib < 2; ++ib) {
+          const float same =
+              sre1[1][a0 + ia] == sre2[1][b0 + ib] ? 1.f : 0.f;
+          const float w = sre1[0][a0 + ia] * sre2[0][b0 + ib] * same;
+          if (w == 0.f) continue;
+          const float c = g[ia][ib][0];
+          float d1, dm2;
+          powers(c, zeta, d1, dm2);
+          const float D = d1 * c;
+          const float zd1 = (float)zeta * d1;
+          const float kg = sigma2 * expf((D - 1.f) * gamma) * gamma;
+          if constexpr (LC == 4) {
+            const float b0c = (float)(zeta * (zeta - 1)) * dm2;
+            const float A = kg * zd1 * w;
+            const float Bc = kg * (b0c + zd1 * zd1 * gamma) * w;
+#pragma unroll
+            for (int u = 0; u < 3; ++u) {
+              const float Bp1 = Bc * g[ia][ib][(1 + u) * 4];
+#pragma unroll
+              for (int v = 0; v < 3; ++v)
+                acc[u * 3 + v] += A * g[ia][ib][(1 + u) * 4 + 1 + v] +
+                                  Bp1 * g[ia][ib][1 + v];
+            }
+          } else {
+            const float A0 = -kg * zd1 * w;
+#pragma unroll
+            for (int v = 0; v < 3; ++v) acc[v] += A0 * g[ia][ib][1 + v];
+          }
+        }
+      __syncthreads();
+    }
+  }
+
+  // reduce the 2 x 2 micro-tiles of one point pair (lanes t^1, t^2)
+#pragma unroll
+  for (int i = 0; i < NOUT; ++i) {
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 2);
+  }
+  if ((t & 3) != 0) return;
+  const int p = I * TP + pl;
+  const int q = J * TP + ql;
+  if (p >= m1 || q >= m2) return;
+
+  if constexpr (LC == 1) {
+#pragma unroll
+    for (int v = 0; v < 3; ++v) out[(long long)p * ldo + 3 * q + v] = acc[v];
+  } else if (MODE == 0 || I < J || pl < ql) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+#pragma unroll
+      for (int v = 0; v < 3; ++v)
+        out[(long long)(3 * p + u) * ldo + 3 * q + v] = acc[u * 3 + v];
+    if (MODE == 1) {
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int v = 0; v < 3; ++v)
+          out[(long long)(3 * q + v) * ldo + 3 * p + u] = acc[u * 3 + v];
+    }
+  } else if (pl == ql) {
+    // diagonal 3 x 3 block: upper entries, mirrored
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+#pragma unroll
+      for (int v = u; v < 3; ++v) {
+        out[(long long)(3 * p + u) * ldo + 3 * p + v] = acc[u * 3 + v];
+        out[(long long)(3 * p + v) * ldo + 3 * p + u] = acc[u * 3 + v];
+      }
+  }
+}
+
+inline int tiles(int m) { return (m + TP - 1) / TP; }
+
+}  // namespace
+
+extern "C" {
+
+// K3: out (3 m1, 3 m2) = K_FF of lhs force points against rhs force points.
+int kff_rect(const float* X1, const float* re1, int m1, int B1,
+             const float* X2, const float* re2, int m2, int B2, float* out,
+             float sigma2, float gamma, int zeta, void* stream) {
+  dim3 grid(tiles(m2), tiles(m1));
+  cov_kernel<4, 0><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      X1, re1, m1, B1, X2, re2, m2, B2, out, 3LL * m2, sigma2, gamma, zeta);
+  return (int)cudaGetLastError();
+}
+
+// K1: out (3 m, 3 m) = symmetric K_FF of one force-point set.
+int kff_tri(const float* X, const float* re, int m, int B, float* out,
+            float sigma2, float gamma, int zeta, void* stream) {
+  const long long nt = tiles(m);
+  cov_kernel<4, 1><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
+                      (cudaStream_t)stream>>>(
+      X, re, m, B, X, re, m, B, out, 3LL * m, sigma2, gamma, zeta);
+  return (int)cudaGetLastError();
+}
+
+// K2: out (m1, 3 m2) = K_EF of energy points (U1 (N1, 32), w1 (2, N1)
+// = [valid/count, element]) against force points.
+int kef_rect(const float* U1, const float* w1, int m1, int A1,
+             const float* X2, const float* re2, int m2, int B2, float* out,
+             float sigma2, float gamma, int zeta, void* stream) {
+  dim3 grid(tiles(m2), tiles(m1));
+  cov_kernel<1, 0><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      U1, w1, m1, A1, X2, re2, m2, B2, out, 3LL * m2, sigma2, gamma, zeta);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

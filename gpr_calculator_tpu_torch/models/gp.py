@@ -1,0 +1,592 @@
+"""Gaussian-process regressor for on-the-fly force fields, in PyTorch.
+
+Port of the serving and gradient-free refit part of the JAX package's
+``models/gp.py`` (reference: gpr_calc/gaussianprocess.py): the same
+covariance structure, per-atom energy labels, queue semantics and
+dispatch thresholds.  Fitting is a full refactorisation with fixed
+hyperparameters; the covariance blocks come from ``ops/kernels.py`` (the
+hand-written CUDA kernels on the card), the Cholesky factor and the
+solves from ``torch.linalg``.
+
+Each GP works on one device and dtype (default ``config.device()`` /
+``config.dtype()``), so a card model and a CPU model can live side by
+side.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from .. import config
+from ..atoms.atoms import ATOMIC_NUMBERS
+from ..ops import kernels as K_ops
+from ..ops.packing import EnergyData, ForceData, pack_energy, pack_force
+
+NLL_TODO = ("hyperparameter optimisation is not ported yet (ROADMAP.md, "
+            "port queue: 'NLL and fit(opt=True)'); call fit(opt=False)")
+
+
+def _noise_diag(e: EnergyData, f: ForceData, noise_e: float,
+                noise_f: float):
+    """Noise diagonal with padded rows pinned to 1.0."""
+    de = torch.full((e.m,), 1.0, dtype=e.x.dtype, device=e.x.device)
+    de[:e.nreal] = noise_e ** 2
+    df = torch.full((f.m,), 1.0, dtype=f.x.dtype, device=f.x.device)
+    df[:f.nreal] = noise_f ** 2
+    return torch.cat([de, df.repeat_interleave(3)])
+
+
+def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
+               noise_f: float, zeta: int):
+    """K -> (L, alpha): the training covariance plus noise, its lower
+    Cholesky factor and the weights (gaussianprocess.py:288-310)."""
+    K = K_ops.k_self(e, f, params, zeta)
+    K.diagonal().add_(_noise_diag(e, f, noise_e, noise_f))
+    L, info = torch.linalg.cholesky_ex(K)
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    if int(info) != 0 or not bool(torch.isfinite(alpha).all()):
+        raise FloatingPointError(
+            f"Cholesky factorisation failed (info={int(info)}): K is not "
+            f"positive definite at noise_e={noise_e:.2e}, "
+            f"sigma={float(params['sigma']):.3g} in {K.dtype}")
+    return L, alpha
+
+
+def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
+                    tf: ForceData, params, alpha, L, zeta: int,
+                    return_std: bool):
+    """Cross covariance, GEMV with alpha and (optionally) the predictive
+    std by a triangular solve against the factor: var = diag - |L^-1 k|^2
+    (gaussianprocess.py:873-911), clamped at zero."""
+    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta)
+    mean = Kt @ alpha
+    if not return_std:
+        return mean, None
+    diag = torch.cat([K_ops.diag_energy(pe, params, zeta),
+                      K_ops.diag_force(pf, params, zeta).reshape(-1)])
+    V = torch.linalg.solve_triangular(L, Kt.T, upper=False)
+    var = torch.clamp(diag - (V * V).sum(dim=0), min=0.0)
+    return mean, torch.sqrt(var)
+
+
+# ---------------------------------------------------------------------------
+# serving pack: gather the prediction blocks from the device-resident
+# descriptor tensors (SO3.calculate_device), host index maps only
+# ---------------------------------------------------------------------------
+
+def _pack_on_device(xs, dxs, e_idx, ele_e, counts, nreal_e, centers, rows,
+                    ele_f, nreal_f):
+    """Build (EnergyData, ForceData) from per-structure descriptor tensors
+    (x (natoms_s, d), dxdr (nseq_s + 1, d, 3)); the index maps address
+    the concatenated tensors, pads pointing at zero rows."""
+    x_cat = torch.cat(list(xs), dim=0)
+    x_ext = torch.cat([x_cat, x_cat.new_zeros((1, x_cat.shape[1]))])
+    dx_cat = torch.cat(list(dxs), dim=0)
+    pe = EnergyData(x=x_ext[e_idx], ele=ele_e, counts=counts,
+                    nreal=nreal_e)
+    pf = ForceData(x=x_ext[centers], dxdr=dx_cat[rows], ele=ele_f,
+                   nreal=nreal_f)
+    return pe, pf
+
+
+def _group_force_points(d, ele, sel):
+    """Force points for the atoms in ``sel``: group the descriptor's seq
+    rows by target atom and gather (x_envs, dxdr_rows, ele_envs)."""
+    seq = d["seq"]
+    pts = []
+    for i in sel:
+        ids = np.flatnonzero(seq[:, 1] == i)
+        _i = seq[ids, 0]
+        pts.append((d["x"][_i], d["dxdr"][ids], ele[_i]))
+    return pts
+
+
+def _serve_gather_meta(descs, numbers_list, sel_lists):
+    """Host-side index maps for _pack_on_device (small int arrays only):
+    per structure one energy point, and one force point per atom of
+    ``sel_lists[s]`` whose envs are the seq rows targeting that atom."""
+    n_struc = len(descs)
+    natoms_tot = sum(len(z) for z in numbers_list)
+    a_pad = max(len(z) for z in numbers_list)
+    groups = []          # (struc_idx, atom_i, seq_row_ids, center_ids)
+    for s, d in enumerate(descs):
+        seq, nseq = d["seq"], d["nseq"]
+        order = np.argsort(seq[:nseq, 1], kind="stable")
+        tgt_sorted = seq[order, 1]
+        sel = np.asarray(sel_lists[s], np.int64)
+        starts = np.searchsorted(tgt_sorted, sel)
+        ends = np.searchsorted(tgt_sorted, sel, side="right")
+        for i, lo, hi in zip(sel, starts, ends):
+            ids = order[lo:hi]
+            groups.append((s, i, ids, seq[ids, 0]))
+    m_f = len(groups)
+    b_pad = max((len(g[2]) for g in groups), default=1)
+
+    x_off = np.concatenate([[0], np.cumsum(
+        [len(z) for z in numbers_list])])[:-1]
+    dx_off = np.concatenate([[0], np.cumsum(
+        [int(d["dxdr"].shape[0]) for d in descs])])[:-1]
+    x_zero = natoms_tot                     # appended zero row of x_ext
+
+    e_idx = np.full((n_struc, a_pad), x_zero, np.int64)
+    ele_e = np.zeros((n_struc, a_pad), np.int32)
+    counts = np.ones((n_struc,), np.float64)
+    for s, z in enumerate(numbers_list):
+        n = len(z)
+        e_idx[s, :n] = x_off[s] + np.arange(n)
+        ele_e[s, :n] = z
+        counts[s] = n
+
+    m_f_pad = max(m_f, 1)
+    centers = np.full((m_f_pad, b_pad), x_zero, np.int64)
+    # pad entries gather a structure's zero dxdr row (row nseq)
+    rows = np.full((m_f_pad, b_pad), dx_off[0] + descs[0]["nseq"], np.int64)
+    ele_f = np.zeros((m_f_pad, b_pad), np.int32)
+    for k, (s, i, ids, cen) in enumerate(groups):
+        n = len(ids)
+        rows[k] = dx_off[s] + descs[s]["nseq"]
+        rows[k, :n] = dx_off[s] + ids
+        centers[k, :n] = x_off[s] + cen
+        ele_f[k, :n] = numbers_list[s][cen]
+    return dict(e_idx=e_idx, ele_e=ele_e, counts=counts, centers=centers,
+                rows=rows, ele_f=ele_f, m_f=m_f)
+
+
+def _pack_from_device_descs(descs, numbers_list, sel_lists):
+    """calculate_device outputs -> (pe, pf) gathered on their device."""
+    meta = _serve_gather_meta(descs, numbers_list, sel_lists)
+    x0 = descs[0]["x"]
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=x0.device)
+
+    return _pack_on_device(
+        [d["x"] for d in descs], [d["dxdr"] for d in descs],
+        t(meta["e_idx"]), t(meta["ele_e"]), t(meta["counts"], x0.dtype),
+        len(descs), t(meta["centers"]), t(meta["rows"]), t(meta["ele_f"]),
+        meta["m_f"])
+
+
+# ---------------------------------------------------------------------------
+# novelty filter and metrics (utilities.py:32-95)
+# ---------------------------------------------------------------------------
+
+def new_pt(data, refs, d_tol: float = 1e-1, eps: float = 1e-8) -> bool:
+    X, ele = data
+    X = X / (np.linalg.norm(X) + eps)
+    for X1, ele1 in refs:
+        if ele1 == ele:
+            X1 = X1 / (np.linalg.norm(X1) + eps)
+            d = X @ X1.T
+            if 1 - d ** 2 < d_tol:
+                return False
+    return True
+
+
+def metric_values(y_true, y_pred):
+    """r2 / MAE / RMSE (utilities.py:44-95)."""
+    y_true, y_pred = np.asarray(y_true, float), np.asarray(y_pred, float)
+    n = max(len(y_true), 1)
+    mae = float(np.sum(np.abs(y_true - y_pred)) / n)
+    rmse = float(np.sqrt(np.sum((y_true - y_pred) ** 2) / n))
+    if len(y_true) == 0:
+        return 1.0, mae, rmse
+    tbar = y_true.mean()
+    r2 = float(1 - np.sum((y_true - y_pred) ** 2)
+               / (np.sum((y_true - tbar) ** 2) + 1e-8))
+    return r2, mae, rmse
+
+
+# ---------------------------------------------------------------------------
+# GP
+# ---------------------------------------------------------------------------
+
+class GP:
+    """Drop-in equivalent of gpr_calc.gaussianprocess.GP for serving and
+    gradient-free refits."""
+
+    def __init__(self, kernel=None, descriptor=None, base_potential=None,
+                 noise_e=0.005, noise_f=0.1, f_coef=10,
+                 log_file: str = "gpr.log", device=None, dtype=None):
+        self.log_file = log_file
+        logger = logging.getLogger(
+            f"gpr_calculator_tpu_torch.gp.{log_file or 'default'}")
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+        if not logger.handlers:
+            handler = (logging.FileHandler(log_file) if log_file
+                       else logging.StreamHandler())
+            handler.setFormatter(
+                logging.Formatter("%(asctime)s| %(message)s"))
+            logger.addHandler(handler)
+        self.logging = logger
+
+        self.noise_e = float(noise_e)
+        self.noise_f = float(noise_f)
+        self.noise_bounds = None
+        self.f_coef = f_coef
+        self.error = None
+
+        self.descriptor = descriptor
+        self.kernel = kernel
+        self.base_potential = base_potential
+        self.device = config.device() if device is None \
+            else torch.device(device)
+        self.dtype = config.dtype() if dtype is None else dtype
+
+        # host-side ragged training store
+        self._energy_pts: List[Tuple[np.ndarray, np.ndarray]] = []
+        self._energy_y: List[float] = []
+        self._force_pts: List[Tuple[np.ndarray, np.ndarray,
+                                    np.ndarray]] = []
+        self._force_y: List[np.ndarray] = []
+        self.train_db: list = []
+
+        self.N_energy = 0
+        self.N_forces = 0
+        self.N_energy_queue = 0
+        self.N_forces_queue = 0
+        self.N_queue = 0
+
+        self.alpha_ = None
+        self.L_ = None
+        self._fit_snapshot = None   # (EnergyData, ForceData, nE, nF)
+
+        self.fits = 0
+        self.use_base = 0
+        self.use_surrogate = 0
+        self.logging.info(self)
+
+    def __str__(self):
+        s = "------Gaussian Process Regression (PyTorch)------\n"
+        s += "Kernel: {:s}".format(str(self.kernel))
+        s += " {:d} energy ({:.5f})".format(self.N_energy, self.noise_e)
+        s += " {:d} forces ({:.5f})\n".format(self.N_forces, self.noise_f)
+        if self.use_base > 0:
+            s += "Total base/surrogate/gpr_fit calls: {}/{}/{}\n".format(
+                self.use_base, self.use_surrogate, self.fits)
+        return s
+
+    __repr__ = __str__
+
+    def save_dict(self, db_filename=None):
+        """Model metadata: noise, kernel and descriptor settings."""
+        d = {"noise": {"energy": self.noise_e, "force": self.noise_f,
+                       "f_coef": self.f_coef, "bounds": self.noise_bounds},
+             "kernel": self.kernel.save_dict(),
+             "descriptor": self.descriptor.save_dict(),
+             "db_filename": db_filename}
+        if self.error is not None:
+            d["error"] = self.error
+        return d
+
+    # -- packing -------------------------------------------------------------
+    def _pack(self, nE: int, nF: int) -> Tuple[EnergyData, ForceData]:
+        d = self.descriptor.ncoef if self.descriptor is not None else 1
+        epts = self._energy_pts[:nE]
+        fpts = self._force_pts[:nF]
+        if epts:
+            d = epts[0][0].shape[1]
+        if fpts:
+            d = fpts[0][0].shape[1]
+        kw = dict(d=d, device=self.device, dtype=self.dtype)
+        return pack_energy(epts, **kw), pack_force(fpts, **kw)
+
+    def _y_vector(self, e: EnergyData, f: ForceData, nE: int, nF: int):
+        y = np.zeros(e.m + 3 * f.m)
+        y[:nE] = self._energy_y[:nE]
+        yf = np.asarray(self._force_y[:nF], float).reshape(-1)
+        y[e.m:e.m + 3 * nF] = yf
+        return torch.as_tensor(y, dtype=self.dtype, device=self.device)
+
+    # -- training-data management (gaussianprocess.py:381-629) --------------
+    def set_train_pts(self, data: Dict, mode: str = "w"):
+        if mode == "w":
+            self._energy_pts, self._energy_y = [], []
+            self._force_pts, self._force_y = [], []
+            self.train_db = []
+            self.N_energy = self.N_forces = 0
+            self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
+
+        N_E, N_F = 0, 0
+        for d in data.get("db", []):
+            (atoms, energy, force, energy_in, force_in) = d
+            N_E += 1 if energy_in else 0
+            N_F += len(force_in)
+            self.train_db.append((atoms, energy, force, energy_in, force_in))
+
+        for (x, e, ele) in data.get("energy", []):
+            self._energy_pts.append((np.asarray(x, float),
+                                     np.asarray(ele, int)))
+            self._energy_y.append(float(e))
+        for (x, dxdr, fval, ele) in data.get("force", []):
+            self._force_pts.append((np.asarray(x, float),
+                                    np.asarray(dxdr, float),
+                                    np.asarray(ele, int)))
+            self._force_y.append(np.asarray(fval, float))
+
+        self.N_energy = len(self._energy_pts)
+        self.N_forces = len(self._force_pts)
+        self.N_energy_queue += N_E
+        self.N_forces_queue += N_F
+        self.N_queue += N_E + N_F
+
+    # -- fit -----------------------------------------------------------------
+    def fit(self, TrainData=None, show: bool = True, opt: bool = True,
+            maxiter: int = 10):
+        """Refactorise the training covariance at the current
+        hyperparameters (always a full factorisation).  opt=True needs
+        the NLL, which is not ported: it raises NotImplementedError."""
+        if opt:
+            raise NotImplementedError(NLL_TODO)
+        if self.kernel.kind != "rbf":
+            raise NotImplementedError(
+                f"only the RBF covariance is ported, not {self.kernel.name}")
+        if TrainData is not None:
+            self.set_train_pts(TrainData)
+        if show:
+            print(self)
+        e, f = self._pack(self.N_energy, self.N_forces)
+        y = self._y_vector(e, f, self.N_energy, self.N_forces)
+        try:
+            L, alpha = _factorize(e, f, y, self.kernel.params(),
+                                  self.noise_e, self.noise_f,
+                                  self.kernel.zeta)
+        except FloatingPointError as exc:
+            self.logging.error(str(exc))
+            raise
+        self.L_, self.alpha_ = L, alpha
+        self._fit_snapshot = (e, f, self.N_energy, self.N_forces)
+        self.logging.info("Cholesky decomposition complete")
+        self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
+        self.fits += 1
+
+    # -- prediction ----------------------------------------------------------
+    def _train_view(self):
+        """Training snapshot the current alpha_ was fitted on."""
+        if self._fit_snapshot is None:
+            raise RuntimeError("model is not fitted")
+        return self._fit_snapshot
+
+    def _serve(self, pe, pf, te, tf, return_std):
+        mean, std = _predict_packed(pe, pf, te, tf, self.kernel.params(),
+                                    self.alpha_, self.L_, self.kernel.zeta,
+                                    return_std)
+        mean = mean.cpu().numpy()
+        return mean, None if std is None else std.cpu().numpy()
+
+    def _predict_points(self, energy_pts, force_pts, return_std=False,
+                        total_E=False):
+        """Means (and stds) for explicit descriptor points, ordered
+        [energies..., forces...] (gaussianprocess.py:319-379)."""
+        te, tf, _, _ = self._train_view()
+        kw = dict(d=te.d, device=self.device, dtype=self.dtype)
+        pe = pack_energy(energy_pts, **kw)
+        pf = pack_force(force_pts, **kw)
+        mean, std = self._serve(pe, pf, te, tf, return_std)
+        nE, nF = len(energy_pts), len(force_pts)
+        mean_e = mean[:nE]
+        mean_f = mean[pe.m:pe.m + 3 * nF]
+        if total_E:
+            mean_e = mean_e * np.asarray([len(p[0]) for p in energy_pts])
+        if return_std:
+            std_e = std[:nE]
+            std_f = std[pe.m:pe.m + 3 * nF]
+            if total_E:
+                std_e = std_e * np.asarray([len(p[0]) for p in energy_pts])
+            return mean_e, mean_f, std_e, std_f
+        return mean_e, mean_f
+
+    def predict(self, X: Dict, total_E=False, return_std=False):
+        """Predict for explicit point dicts (gaussianprocess.py:319-379)."""
+        energy_pts = [(np.asarray(p[0], float), np.asarray(p[-1], int))
+                      for p in X.get("energy", [])]
+        force_pts = [(np.asarray(p[0], float), np.asarray(p[1], float),
+                      np.asarray(p[-1], int))
+                     for p in X.get("force", [])]
+        out = self._predict_points(energy_pts, force_pts,
+                                   return_std=return_std, total_E=total_E)
+        if return_std:
+            mean_e, mean_f, std_e, std_f = out
+            return (np.concatenate([mean_e, mean_f]),
+                    np.concatenate([std_e, std_f]))
+        mean_e, mean_f = out
+        return np.concatenate([mean_e, mean_f])
+
+    def predict_structure(self, struc, stress: bool = False,
+                          return_std: bool = False, f_tol: float = 1e-8):
+        """Main per-structure API (gaussianprocess.py:834-918): energy,
+        forces (fixed atoms zero) and, with return_std, their stds."""
+        if stress:
+            raise NotImplementedError(
+                "stress prediction is not ported yet (ROADMAP: stress)")
+        n_atoms = len(struc)
+        fix_ids = set(int(i) for i in struc.fixed_indices()) \
+            if hasattr(struc, "fixed_indices") else set()
+        free_ids = [i for i in range(n_atoms) if i not in fix_ids]
+        te, tf, _, _ = self._train_view()
+
+        dd = self.descriptor.calculate_device(struc, device=self.device,
+                                              dtype=self.dtype)
+        ele = np.asarray([ATOMIC_NUMBERS[s] for s in dd["elements"]], int)
+        pe, pf = _pack_from_device_descs([dd], [ele], [free_ids])
+        mean, std = self._serve(pe, pf, te, tf, return_std)
+        E = mean[0] * n_atoms
+        rows = mean[pe.m:pe.m + 3 * len(free_ids)].reshape(-1, 3)
+        F = np.zeros((n_atoms, 3))
+        F[free_ids] = rows
+
+        if self.base_potential is not None:
+            e_off, f_off, _ = self.compute_base_potential(struc)
+            E += e_off
+            F += f_off
+            if fix_ids:
+                F[sorted(fix_ids)] = 0.0
+
+        if not return_std:
+            return E, F, None
+        E_std = std[0]
+        F_std = np.zeros((n_atoms, 3))
+        F_std[free_ids] = std[pe.m:pe.m + 3 * len(free_ids)].reshape(-1, 3)
+        return E, F, None, E_std, F_std
+
+    # -- validation (gaussianprocess.py:490-551) -----------------------------
+    def validate_data(self, test_data=None, total_E=False,
+                      return_std=False, show=False):
+        if test_data is None:
+            energy_pts = list(self._energy_pts[:self.N_energy])
+            force_pts = list(self._force_pts[:self.N_forces])
+            E = np.asarray(self._energy_y[:self.N_energy])
+            F = np.asarray(self._force_y[:self.N_forces]).reshape(-1)
+        else:
+            energy_pts = [(p[0], p[2]) for p in test_data["energy"]]
+            force_pts = [(p[0], p[1], p[3]) for p in test_data["force"]]
+            E = np.asarray([p[1] for p in test_data["energy"]], float)
+            F = np.asarray([p[2] for p in test_data["force"]],
+                           float).reshape(-1)
+        if total_E:
+            E = E * np.asarray([len(p[0]) for p in energy_pts])
+
+        out = self._predict_points(energy_pts, force_pts,
+                                   return_std=return_std, total_E=total_E)
+        if return_std:
+            E_pred, F_pred, E_std, F_std = out
+            if show:
+                self.update_error(E, E_pred, F, F_pred)
+            return E, E_pred, E_std, F, F_pred, F_std
+        E_pred, F_pred = out
+        if show:
+            self.update_error(E, E_pred, F, F_pred)
+        return E, E_pred, F, F_pred
+
+    def update_error(self, E, E_pred, F, F_pred):
+        e_r2, e_mae, e_rmse = metric_values(E, E_pred)
+        f_r2, f_mae, f_rmse = metric_values(F, F_pred)
+        self.error = {"energy_r2": e_r2, "energy_mae": e_mae,
+                      "energy_rmse": e_rmse, "forces_r2": f_r2,
+                      "forces_mae": f_mae, "forces_rmse": f_rmse}
+        for key, val in self.error.items():
+            self.logging.info(f"{key:<12s}: {val:.4f}")
+
+    def compute_base_potential(self, atoms):
+        return self.base_potential.calculate(atoms)
+
+    # -- active learning (gaussianprocess.py:921-1002) ------------------------
+    def convert_train_data(self, data, N_force=100000):
+        """(struc, energy, forces) list -> descriptor training dict."""
+        energy_data, force_data, db_data = [], [], []
+        for struc, energy, forces in data:
+            d = self.descriptor.calculate(struc, device=self.device,
+                                          dtype=self.dtype)
+            ele = np.asarray([ATOMIC_NUMBERS[s] for s in d["elements"]], int)
+            f_ids = list(range(len(struc)))[
+                :max(0, N_force - len(force_data))]
+            for i, (x, dx, el) in zip(
+                    f_ids, _group_force_points(d, ele, f_ids)):
+                force_data.append((x, dx, forces[i], el))
+            energy_data.append((d["x"], energy / len(struc), ele))
+            db_data.append((struc, energy, forces, True, f_ids))
+        return {"energy": energy_data, "force": force_data, "db": db_data}
+
+    def add_structure(self, data, N_max: int = 20, tol_e_var: float = 1.2,
+                      tol_f_var: float = 1.2, add_force: bool = True):
+        """Add one (atoms, energy, forces) structure: its energy point
+        always, and up to N_max force points of atoms the model is unsure
+        about or gets wrong (gaussianprocess.py:921-1002)."""
+        tol_e_var *= self.noise_e
+        tol_f_var *= self.noise_f
+        pts_to_add = {"energy": [], "force": [], "db": []}
+        (atoms, energy, force) = data
+        energy = float(energy)
+        force = np.asarray(force, float)
+
+        if self.base_potential is not None:
+            energy_off, force_off, _ = self.compute_base_potential(atoms)
+        else:
+            energy_off, force_off = 0.0, np.zeros((len(atoms), 3))
+        energy = energy - energy_off
+        force = force - force_off
+        my_data = self.convert_train_data([(atoms, energy, force)])
+
+        if self.alpha_ is not None:
+            E, E1, E_std, F, F1, F_std = self.validate_data(
+                my_data, return_std=True)
+            E_std = float(E_std[0])
+            F_std = F_std.reshape(-1, 3)
+            f_sel = my_data["db"][0][4]
+            F_full = np.zeros((len(atoms), 3))
+            F1_full = np.zeros((len(atoms), 3))
+            Fstd_full = 2 * tol_f_var * np.ones((len(atoms), 3))
+            F_full[f_sel] = F.reshape(-1, 3)
+            F1_full[f_sel] = F1.reshape(-1, 3)
+            Fstd_full[f_sel] = F_std
+            F, F1, F_std = F_full, F1_full, Fstd_full
+            E, E1 = [float(E[0])], [float(E1[0])]
+        else:
+            E = E1 = [energy / len(atoms)]
+            F = F1 = force.copy()
+            E_std = 2 * tol_e_var
+            F_std = 2 * tol_f_var * np.ones((len(atoms), 3))
+
+        F = np.asarray(F).reshape(len(atoms), 3)
+        F1 = np.asarray(F1).reshape(len(atoms), 3)
+
+        # the energy row is always added (gaussianprocess.py:964-969)
+        pts_to_add["energy"] = my_data["energy"]
+        energy_in = True
+
+        force_in = []
+        if add_force:
+            xs_added = []
+            sel_map = {fi: k for k, fi in enumerate(my_data["db"][0][4])}
+            for f_id in range(len(atoms)):
+                include = False
+                if (np.max(F_std[f_id]) > tol_f_var
+                        or np.max(abs(F[f_id] - F1[f_id])) > 1.5 * tol_f_var):
+                    X = my_data["energy"][0][0][f_id]
+                    _ele = my_data["energy"][0][2][f_id]
+                    if f_id in sel_map and (
+                            len(xs_added) == 0 or new_pt((X, _ele),
+                                                         xs_added)):
+                        include = True
+                if include:
+                    force_in.append(f_id)
+                    xs_added.append((X, _ele))
+                    pts_to_add["force"].append(
+                        my_data["force"][sel_map[f_id]])
+                if len(force_in) == N_max:
+                    break
+
+        N_pts = (1 if energy_in else 0) + len(force_in)
+        if N_pts > 0:
+            pts_to_add["db"].append((atoms, energy, force, energy_in,
+                                     force_in))
+            self.set_train_pts(pts_to_add, mode="a+")
+        eoff_at = energy_off / max(len(atoms), 1)
+        errors = (E[0] + eoff_at, E1[0] + eoff_at, E_std,
+                  F.reshape(-1) + force_off.reshape(-1),
+                  F1.reshape(-1) + force_off.reshape(-1), F_std)
+        return pts_to_add, N_pts, errors

@@ -1,0 +1,327 @@
+r"""SO(3) power-spectrum descriptor in PyTorch -- port of the JAX
+package's ``ops/so3.py`` (reference: gpr_calc/SO3.py).
+
+  p_{n1 n2 l}(i) = Re sum_m c_{n1 l m}(i) conj(c_{n2 l m}(i)),  n1 >= n2
+
+  c_{nlm}(i) = 4 pi sum_{j in N(i)} w_j f_cut(r_ij) Y_lm(r_ij^)
+               * e^{-alpha r^2} Integral_0^rcut q^2 g_n(q) e^{-alpha q^2}
+                 i_l(2 alpha r q) dq
+
+The radial integral is Gauss-Chebyshev quadrature of the scaled Bessel
+integrand (ops/bessel.py); Y_lm are real (re, im) pairs (ops/sph.py).
+Everything after the host-built neighbour list runs on the tensors'
+device.  Outputs follow the reference dict contract:
+  {'x': (natoms, ncoef), 'dxdr': (nseq, ncoef, 3), 'elements': [str],
+   'seq': (nseq, 2)}
+with dxdr[s] = dP(centre i_s)/dr_{j_s} and the (i, i) rows carrying
+-sum_{j != i} dP_i/dr_j.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import config
+from ..atoms.atoms import CHEMICAL_SYMBOLS
+from .bessel import scaled_in
+from .sph import ylm_all_ri, ylm_gradients_ri
+
+
+def W_matrix(nmax: int) -> np.ndarray:
+    """Symmetric orthonormalisation of the (rcut - r)^(a+2) radial basis
+    (S^{-1/2} of the overlap matrix, SO3.py:417-430)."""
+    S = np.zeros((nmax, nmax))
+    for a in range(1, nmax + 1):
+        ta = (2 * a + 5) * (2 * a + 6) * (2 * a + 7)
+        for b in range(1, a + 1):
+            tb = (2 * b + 5) * (2 * b + 6) * (2 * b + 7)
+            S[a - 1, b - 1] = math.sqrt(ta * tb) / (
+                (5 + a + b) * (6 + a + b) * (7 + a + b))
+            S[b - 1, a - 1] = S[a - 1, b - 1]
+    sinv = np.linalg.inv(S)
+    eigvals, V = np.linalg.eig(sinv)
+    return (V @ np.diag(np.sqrt(eigvals)) @ np.linalg.inv(V)).real
+
+
+def gauss_chebyshev(nmax: int, lmax: int):
+    """Chebyshev nodes and the uniform weight pi/N (SO3.py:446-453)."""
+    N = (nmax + lmax + 1) * 10
+    i = np.arange(1, N + 1)
+    return np.cos((2 * i - 1) * np.pi / (2 * N)), np.pi / N
+
+
+def radial_quadrature(nmax: int, lmax: int, rcut: float, alpha: float):
+    """Quadrature nodes q, and G0[n, j] = w_j q^2 g_n(q) sqrt(1-x^2)
+    without the e^{-alpha q^2} factor (folded into the pair Gaussian)."""
+    gc, w = gauss_chebyshev(nmax, lmax)
+    w = w * rcut / 2.0
+    q = rcut / 2.0 * (gc + 1.0)
+    Wm = W_matrix(nmax)
+    phis = np.stack([
+        (rcut - q) ** (a + 2)
+        / math.sqrt(2 * rcut ** (2 * a + 7)
+                    / ((2 * a + 5) * (2 * a + 6) * (2 * a + 7)))
+        for a in range(1, nmax + 1)
+    ])
+    g = Wm @ phis
+    G0 = g * (q ** 2) * np.sqrt(1.0 - gc ** 2) * w
+    return q, G0
+
+
+def cosine_cutoff(r, rcut, derivative=False):
+    if derivative:
+        return -0.5 * math.pi / rcut * torch.sin(math.pi * r / rcut)
+    return 0.5 * (torch.cos(math.pi * r / rcut) + 1.0)
+
+
+CUTOFFS = {"cosine": cosine_cutoff}
+
+
+def _segment_sum(vals, seg, nseg):
+    out = torch.zeros((nseg,) + vals.shape[1:], dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add_(0, seg, vals)
+
+
+def _so3_core(rij, weights, pair_center, pair_seq, self_seq, self_ids,
+              seq_center, q, G0, *, nmax: int, lmax: int, natoms: int,
+              nseq: int, rcut: float, alpha: float, derivative: bool,
+              cutoff: str):
+    """Pair c/dc -> per-centre power spectrum and its gradients.
+
+    rij (P, 3), weights (P,), pair_center (P,), pair_seq (P,) with nseq
+    for pairs outside the selection, self_seq/self_ids the (i, i) seq
+    rows and their atom ids, seq_center (nseq,), q (NQ,), G0 (nmax, NQ).
+    Returns (x (natoms, ncoef), dxdr (nseq, ncoef, 3) or None)."""
+    P = rij.shape[0]
+    ncoef = nmax * (nmax + 1) // 2 * (lmax + 1)
+    cut_fn = CUTOFFS[cutoff]
+    tri = np.tril_indices(nmax)
+
+    r = torch.sqrt(torch.sum(rij * rij, dim=1))
+    u = rij / r[:, None]
+
+    # scaled radial integrand: E[p, j] = exp(-alpha (r - q_j)^2)
+    E = torch.exp(-alpha * (r[:, None] - q[None, :]) ** 2)
+    z = 2.0 * alpha * r[:, None] * q[None, :]
+    b, db = scaled_in(lmax, z)                       # (P, NQ, lmax+1)
+    I = torch.einsum("nj,pjl->pnl", G0, E[:, :, None] * b)
+
+    larange = torch.arange(lmax + 1, dtype=rij.dtype, device=rij.device)
+    norm_l = torch.sqrt(2.0 * math.sqrt(2.0) * math.pi
+                        / torch.sqrt(2.0 * larange + 1.0))
+    fourpi = 4.0 * math.pi
+    fcut = cut_fn(r, rcut)
+    ones = torch.ones_like(r)
+
+    if not derivative:
+        Yre, Yim = ylm_all_ri(lmax, u, ones)
+        pref = ((fourpi * (weights * fcut))[:, None, None, None]
+                * I[:, :, :, None] * norm_l[None, None, :, None])
+        ctot_re = _segment_sum(pref * Yre[:, None], pair_center,
+                               natoms + 1)[:natoms]
+        ctot_im = _segment_sum(pref * Yim[:, None], pair_center,
+                               natoms + 1)[:natoms]
+        Pfull = (torch.einsum("anlm,aklm->ankl", ctot_re, ctot_re)
+                 + torch.einsum("anlm,aklm->ankl", ctot_im, ctot_im))
+        return Pfull[:, tri[0], tri[1], :].reshape(natoms, ncoef), None
+
+    # Y to lmax+1 for the gradient recurrence
+    Yext = ylm_all_ri(lmax + 1, u, ones)
+    mid = lmax + 1
+    Yre = Yext[0][:, :lmax + 1, mid - lmax: mid + lmax + 1]
+    Yim = Yext[1][:, :lmax + 1, mid - lmax: mid + lmax + 1]
+    dYre, dYim = ylm_gradients_ri(lmax, Yext, r)
+
+    # dI~/dr [p, n, l] = sum_j G0 E (2 alpha q db - 2 alpha r b)
+    dEb = E[:, :, None] * (2.0 * alpha * q[None, :, None] * db
+                           - 2.0 * alpha * r[:, None, None] * b)
+    dIdr = torch.einsum("nj,pjl->pnl", G0, dEb)
+
+    pref = fourpi * weights
+    dfcut = cut_fn(r, rcut, derivative=True)
+    dfu = (dfcut[:, None] * u)[:, None, None, None, :]
+
+    def c_dc(Ypart, dYpart):
+        # c0 = 4pi w Y I~ ;  dc0 = 4pi w (dY I~ + Y u dI~/dr)
+        c0 = pref[:, None, None, None] * I[:, :, :, None] * Ypart[:, None]
+        dc0 = (pref[:, None, None, None, None]
+               * (dYpart[:, None] * I[:, :, :, None, None]
+                  + Ypart[:, None, :, :, None] * u[:, None, None, None, :]
+                  * dIdr[:, :, :, None, None]))
+        dc = dc0 * fcut[:, None, None, None, None] + c0[..., None] * dfu
+        c = c0 * fcut[:, None, None, None] * norm_l[None, None, :, None]
+        dc = dc * norm_l[None, None, :, None, None]
+        return c, dc
+
+    c_re, dc_re = c_dc(Yre, dYre)
+    c_im, dc_im = c_dc(Yim, dYim)
+    ctot_re = _segment_sum(c_re, pair_center, natoms + 1)[:natoms]
+    ctot_im = _segment_sum(c_im, pair_center, natoms + 1)[:natoms]
+
+    Pfull = (torch.einsum("anlm,aklm->ankl", ctot_re, ctot_re)
+             + torch.einsum("anlm,aklm->ankl", ctot_im, ctot_im))
+    x = Pfull[:, tri[0], tri[1], :].reshape(natoms, ncoef)
+
+    # dP[p, n, k, l, d] = Re[A] + swap_nk(Re[A]),
+    # Re[A] = dc_re . ctot_re + dc_im . ctot_im  (at the pair's centre)
+    A_re = (torch.einsum("pnlmd,pklm->pnkld", dc_re, ctot_re[pair_center])
+            + torch.einsum("pnlmd,pklm->pnkld", dc_im,
+                           ctot_im[pair_center]))
+    dP = A_re + A_re.transpose(1, 2)
+    dP_tri = dP[:, tri[0], tri[1], :, :].reshape(P, ncoef, 3)
+
+    # seq accumulation + translation-invariance self rows (SO3.py:261-273)
+    dxdr = _segment_sum(dP_tri, pair_seq, nseq + 1)[:nseq]
+    center_tot = _segment_sum(dxdr, seq_center, natoms + 1)[:natoms]
+    dxdr = dxdr.index_add(0, self_seq, -center_tot[self_ids])
+    return x, dxdr
+
+
+class SO3:
+    """Drop-in equivalent of gpr_calc.SO3.SO3 (constructor contract
+    SO3.py:23-34, validation SO3.py:67-174).  Stress (rdxdr) rows are not
+    ported."""
+
+    def __init__(self, nmax: int = 3, lmax: int = 3, rcut: float = 3.5,
+                 alpha: float = 2.0, derivative: bool = True,
+                 stress: bool = False, cutoff_function: str = "cosine",
+                 weight_on: bool = False):
+        if not isinstance(nmax, int) or not (1 <= nmax <= 11):
+            raise ValueError("nmax must be an integer in [1, 11]")
+        if not isinstance(lmax, int) or not (0 <= lmax <= 32):
+            raise ValueError("lmax must be an integer in [0, 32]")
+        if rcut <= 0:
+            raise ValueError("rcut must be positive")
+        if alpha <= 0:
+            raise ValueError("alpha must be positive")
+        if cutoff_function not in CUTOFFS:
+            raise NotImplementedError(
+                f"cutoff function {cutoff_function!r} not implemented")
+        if stress:
+            raise NotImplementedError(
+                "stress rows are not ported yet (ROADMAP: stress)")
+        self.nmax = nmax
+        self.lmax = lmax
+        self.rcut = float(rcut)
+        self.alpha = float(alpha)
+        self.derivative = derivative
+        self.stress = False
+        self.cutoff_function = cutoff_function
+        self.weight_on = weight_on
+        self._type = "SO3"
+        # quadrature constants stay float64 and are cast per call
+        self._q, self._G0 = radial_quadrature(nmax, lmax, self.rcut,
+                                              self.alpha)
+
+    def save_dict(self):
+        return {"nmax": self.nmax, "lmax": self.lmax, "rcut": self.rcut,
+                "alpha": self.alpha, "derivative": self.derivative,
+                "stress": self.stress, "_type": "SO3"}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(nmax=d["nmax"], lmax=d["lmax"], rcut=d["rcut"],
+                   alpha=d["alpha"], derivative=d.get("derivative", True),
+                   stress=d.get("stress", False))
+
+    @property
+    def ncoef(self) -> int:
+        return self.nmax * (self.nmax + 1) // 2 * (self.lmax + 1)
+
+    def __str__(self):
+        return (f"SO3 descriptor with Cutoff: {self.rcut:6.3f} "
+                f"lmax: {self.lmax:d}, nmax: {self.nmax:d}, "
+                f"alpha: {self.alpha:.3f}\n")
+
+    def calculate(self, atoms, atom_ids=None, device=None, dtype=None):
+        """Host (NumPy) descriptor dict, as gpr_calc.SO3.calculate."""
+        out = self.calculate_device(atoms, atom_ids, device=device,
+                                    dtype=dtype)
+        nseq = out["nseq"]
+        return {
+            "x": out["x"].cpu().numpy(),
+            "dxdr": None if out["dxdr"] is None
+            else out["dxdr"][:nseq].cpu().numpy(),
+            "rdxdr": None,
+            "elements": out["elements"],
+            "seq": out["seq"],
+        }
+
+    def _prep_structure(self, atoms, atom_ids=None):
+        """Host-side neighbour list and seq rows for one structure."""
+        from ..atoms.neighborlist import neighbor_pairs
+
+        numbers = np.asarray(atoms.numbers, int)
+        natoms = len(numbers)
+        if atom_ids is None:
+            atom_ids = list(range(natoms))
+
+        pi, pj, rij = neighbor_pairs(atoms, self.rcut)
+
+        # atomic weights: neighbour Z, negated for unlike species when
+        # weight_on (SO3.py:381-385)
+        w = numbers[pj].astype(float)
+        if self.weight_on:
+            w = np.where(numbers[pj] != numbers[pi], -w, w)
+
+        # seq rows: the unique (centre i, neighbour-or-self j) pairs in
+        # (i, j) lexicographic order (SO3.py:389-404)
+        ids_arr = np.asarray(atom_ids, np.int64)
+        if len(ids_arr) > 1 and np.any(np.diff(ids_arr) <= 0):
+            raise ValueError("atom_ids must be strictly ascending")
+        stride = natoms + 1
+        key_pairs = pi.astype(np.int64) * stride + pj
+        key_self = ids_arr * stride + ids_arr
+        if len(ids_arr) == natoms:
+            in_sel = None
+            keys = np.concatenate([key_pairs, key_self])
+        else:
+            in_sel = np.isin(pi, ids_arr)
+            keys = np.concatenate([key_pairs[in_sel], key_self])
+        uniq = np.unique(keys)
+        seq = np.stack([uniq // stride, uniq % stride], axis=1)
+        pair_seq = np.searchsorted(uniq, key_pairs)
+        if in_sel is not None:
+            pair_seq = np.where(in_sel, pair_seq, -1)
+        self_seq = np.searchsorted(uniq, key_self)
+        elements = list(getattr(atoms, "symbols", [])) or [
+            CHEMICAL_SYMBOLS[int(zz)] for zz in numbers]
+        return {"rij": rij, "w": w, "pair_center": pi, "pair_seq": pair_seq,
+                "self_seq": self_seq, "self_ids": ids_arr, "seq": seq,
+                "nseq": len(seq), "natoms": natoms, "elements": elements}
+
+    def calculate_device(self, atoms, atom_ids=None, device=None,
+                         dtype=None):
+        """Descriptor tensors on ``device`` (default ``config.device()``):
+
+          x     (natoms, ncoef)
+          dxdr  (nseq + 1, ncoef, 3) -- row nseq is zero, a safe gather
+                target for padding
+          seq   (nseq, 2) host numpy; 'elements' list; 'nseq' int
+        """
+        dev = config.device() if device is None else torch.device(device)
+        dt = config.dtype() if dtype is None else dtype
+        prep = self._prep_structure(atoms, atom_ids)
+        natoms, nseq, seq = prep["natoms"], prep["nseq"], prep["seq"]
+
+        def idx(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        pair_seq = np.where(prep["pair_seq"] < 0, nseq, prep["pair_seq"])
+        x, dxdr = _so3_core(
+            torch.as_tensor(prep["rij"], dtype=dt, device=dev),
+            torch.as_tensor(prep["w"], dtype=dt, device=dev),
+            idx(prep["pair_center"]), idx(pair_seq), idx(prep["self_seq"]),
+            idx(prep["self_ids"]), idx(seq[:, 0]),
+            torch.as_tensor(self._q, dtype=dt, device=dev),
+            torch.as_tensor(self._G0, dtype=dt, device=dev),
+            nmax=self.nmax, lmax=self.lmax, natoms=natoms, nseq=nseq,
+            rcut=self.rcut, alpha=self.alpha, derivative=self.derivative,
+            cutoff=self.cutoff_function)
+        if dxdr is not None:
+            dxdr = torch.cat([dxdr, dxdr.new_zeros((1,) + dxdr.shape[1:])])
+        return {"x": x, "dxdr": dxdr, "elements": prep["elements"],
+                "seq": seq if self.derivative else None, "nseq": nseq}

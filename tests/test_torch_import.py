@@ -1,0 +1,46 @@
+"""The PyTorch port imports and runs without JAX, and none of its sources
+(nor chip_smoke.py) imports JAX or the JAX package."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "gpr_calculator_tpu_torch"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib, pkgutil\n"
+        "import gpr_calculator_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(k == 'gpr_calculator_tpu'\n"
+        "               or k.startswith('gpr_calculator_tpu.')\n"
+        "               for k in sys.modules)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_port_source_names_jax_in_an_import():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "gpr_calculator_tpu"), (
+                f"{path.relative_to(ROOT)} imports {mod}")

@@ -1,0 +1,206 @@
+"""K_FF / K_EF blocks of the PyTorch port (gpr_calculator_tpu_torch.ops.kff)
+against the JAX package, and the CUDA kernels against their plain versions.
+
+CPU: the plain versions in float32 against the Pallas kernels in interpret
+mode at mm_precision="highest" (tolerances of tests/test_kff_pallas.py),
+and in float64 against the XLA builds of ops/kernels.py at 1e-10.  The
+``gpu`` tests run the kernels on the card (skipped without one) and hold
+them within 2e-5 max|plain| of the plain versions: float32 with the sums
+taken in another order.  JAX is imported inside the CPU tests only, so
+``pytest --noconftest -m gpu`` runs on a machine without it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from gpr_calculator_tpu_torch.ops import kff
+from gpr_calculator_tpu_torch.ops import kernels as TK
+from gpr_calculator_tpu_torch.ops.packing import pack_energy, pack_force
+
+PARAMS = {"sigma": 1.3, "l": 0.9}
+
+
+def make_points(rng, n_pts, n_env, d, elements=(13, 79)):
+    """Ragged points: env counts vary per point, two elements."""
+    pts = []
+    for _ in range(n_pts):
+        ne = rng.randint(max(1, n_env - 2), n_env + 1)
+        pts.append((rng.uniform(0.2, 1.0, (ne, d)),
+                    rng.uniform(-1.0, 1.0, (ne, d, 3)),
+                    rng.choice(elements, ne)))
+    return pts
+
+
+def _data(seed, dtype, device="cpu"):
+    """Energy/force blocks with padding envs (b_pad above the largest env
+    count) and a padded energy point."""
+    rng = np.random.RandomState(seed)
+    fp1, fp2 = make_points(rng, 5, 6, 30), make_points(rng, 3, 5, 30)
+    ep = [(x, el) for x, _, el in make_points(rng, 3, 7, 30)]
+    kw = dict(device=device, dtype=dtype)
+    return (pack_energy(ep, m_pad=4, a_pad=9, **kw),
+            pack_force(fp1, b_pad=8, **kw), pack_force(fp2, b_pad=7, **kw),
+            (ep, fp1, fp2))
+
+
+def _jax_blocks(ep, fp1, fp2):
+    from gpr_calculator_tpu.ops.packing import pack_energy as jpe
+    from gpr_calculator_tpu.ops.packing import pack_force as jpf
+    return (jpe(ep, m_pad=4, a_pad=9), jpf(fp1, b_pad=8),
+            jpf(fp2, b_pad=7))
+
+
+def _ops(e, f1, f2):
+    U, w = kff.energy_operand(e)
+    X1, re1 = kff.force_operand(f1)
+    X2, re2 = kff.force_operand(f2)
+    return (U, w, e.x.shape[1]), (X1, re1, f1.x.shape[1]), \
+        (X2, re2, f2.x.shape[1])
+
+
+@pytest.mark.parametrize("zeta", [1, 2, 3])
+def test_plain_f32_matches_pallas_interpret(zeta):
+    import jax.numpy as jnp
+    from gpr_calculator_tpu.ops.kff_pallas import kef_pallas, kff_pallas
+    e, f1, f2, raw = _data(11 + zeta, torch.float32)
+    je, jf1, jf2 = _jax_blocks(*raw)
+    p32 = {"sigma": jnp.asarray(PARAMS["sigma"], jnp.float32),
+           "l": jnp.asarray(PARAMS["l"], jnp.float32)}
+    (U, w, A), (X1, re1, B1), (X2, re2, B2) = _ops(e, f1, f2)
+    kw = dict(zeta=zeta, interpret=True, mm_precision="highest")
+    cases = [
+        (kff.kff_plain(X1, re1, B1, X2, re2, B2, PARAMS, zeta),
+         kff_pallas(jf1, jf2, p32, **kw)),
+        (kff.kff_plain(X1, re1, B1, X1, re1, B1, PARAMS, zeta,
+                       symmetric=True),
+         kff_pallas(jf1, jf1, p32, symmetric=True, **kw)),
+        (kff.kef_plain(U, w, A, X2, re2, B2, PARAMS, zeta),
+         kef_pallas(je, jf2, p32, **kw)),
+    ]
+    for ours, ref in cases:
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref),
+                                   rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("zeta", [1, 2, 3])
+def test_plain_f64_matches_xla(zeta):
+    import jax.numpy as jnp
+    from gpr_calculator_tpu.ops import kernels as JK
+    e, f1, f2, raw = _data(21 + zeta, torch.float64)
+    je, jf1, jf2 = _jax_blocks(*raw)
+    jp = {k: jnp.asarray(v) for k, v in PARAMS.items()}
+    (U, w, A), (X1, re1, B1), (X2, re2, B2) = _ops(e, f1, f2)
+    cases = [
+        (kff.kff_plain(X1, re1, B1, X2, re2, B2, PARAMS, zeta),
+         JK.kff(jf1, jf2, jp, "rbf", zeta)),
+        (kff.kef_plain(U, w, A, X2, re2, B2, PARAMS, zeta),
+         JK.kef(je, jf2, jp, "rbf", zeta)),
+        (kff.kee_from_ops(U, w, A, U, w, A, PARAMS, zeta),
+         JK.kee(je, je, jp, "rbf", zeta)),
+    ]
+    for ours, ref in cases:
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=0,
+                                   atol=1e-10 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_triangular_equals_rectangular_and_is_symmetric(dtype):
+    _, f1, _, _ = _data(5, dtype)
+    X, re = kff.force_operand(f1)
+    B = f1.x.shape[1]
+    rect = kff.kff_plain(X, re, B, X, re, B, PARAMS, 2)
+    tri = kff.kff_plain(X, re, B, X, re, B, PARAMS, 2, symmetric=True)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    np.testing.assert_allclose(tri.numpy(), rect.numpy(), rtol=0,
+                               atol=tol * rect.abs().max().item())
+    assert torch.equal(tri, tri.T)
+
+
+def test_cpu_wrappers_take_the_plain_version():
+    e, f1, f2, _ = _data(7, torch.float64)
+    (U, w, A), (X1, re1, B1), (X2, re2, B2) = _ops(e, f1, f2)
+    kff.reset_launches()
+    assert torch.equal(
+        kff.kff_from_ops(X1, re1, B1, X2, re2, B2, PARAMS, 2),
+        kff.kff_plain(X1, re1, B1, X2, re2, B2, PARAMS, 2))
+    assert torch.equal(
+        kff.kff_from_ops(X1, re1, B1, X1, re1, B1, PARAMS, 2,
+                         symmetric=True),
+        kff.kff_plain(X1, re1, B1, X1, re1, B1, PARAMS, 2, symmetric=True))
+    assert torch.equal(kff.kef_from_ops(U, w, A, X2, re2, B2, PARAMS, 2),
+                       kff.kef_plain(U, w, A, X2, re2, B2, PARAMS, 2))
+    assert all(n == 0 for n in kff.launches.values())
+
+
+def test_k_self_blocks_share_operands():
+    """k_self assembles K_EE, K_EF and the symmetric K_FF from one operand
+    set: the result is the block matrix of the three plain builds."""
+    e, f1, _, _ = _data(9, torch.float64)
+    (U, w, A), (X, re, B), _ = _ops(e, f1, f1)
+    K = TK.k_self(e, f1, PARAMS, 2)
+    m = e.m
+    assert torch.equal(K[:m, :m],
+                       kff.kee_from_ops(U, w, A, U, w, A, PARAMS, 2))
+    assert torch.equal(K[:m, m:], kff.kef_plain(U, w, A, X, re, B,
+                                                PARAMS, 2))
+    assert torch.equal(K[m:, :m], K[:m, m:].T)
+    assert torch.equal(K[m:, m:], kff.kff_plain(X, re, B, X, re, B, PARAMS,
+                                                2, symmetric=True))
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _close(kern, plain):
+    err = (kern - plain).abs().max().item()
+    assert err <= 2e-5 * plain.abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zeta", [1, 2, 3])
+def test_kernels_match_plain_on_card(cuda, zeta):
+    rng = np.random.RandomState(30 + zeta)
+    # ragged edges: 13 / 10 points (not multiples of the 8-point tile),
+    # env counts 5..11 padded to 11 / 9 (not multiples of 4)
+    fp1, fp2 = make_points(rng, 13, 11, 30), make_points(rng, 10, 9, 30)
+    ep = [(x, el) for x, _, el in make_points(rng, 6, 7, 30)]
+    kw = dict(device=cuda, dtype=torch.float32)
+    e = pack_energy(ep, m_pad=7, **kw)
+    f1, f2 = pack_force(fp1, **kw), pack_force(fp2, **kw)
+    (U, w, A), (X1, re1, B1), (X2, re2, B2) = _ops(e, f1, f2)
+    kff.reset_launches()
+    tri = kff.kff_from_ops(X1, re1, B1, X1, re1, B1, PARAMS, zeta,
+                           symmetric=True)
+    _close(tri, kff.kff_plain(X1, re1, B1, X1, re1, B1, PARAMS, zeta,
+                              symmetric=True))
+    assert torch.equal(tri, tri.T)
+    _close(kff.kff_from_ops(X1, re1, B1, X2, re2, B2, PARAMS, zeta),
+           kff.kff_plain(X1, re1, B1, X2, re2, B2, PARAMS, zeta))
+    _close(kff.kef_from_ops(U, w, A, X2, re2, B2, PARAMS, zeta),
+           kff.kef_plain(U, w, A, X2, re2, B2, PARAMS, zeta))
+    torch.cuda.synchronize()
+    assert kff.launches == {"kff_tri": 1, "kef_rect": 1, "kff_rect": 1}
+
+
+@pytest.mark.gpu
+def test_card_wrappers_raise_on_unsupported_input(cuda):
+    e, f1, f2, _ = _data(3, torch.float64, device=cuda)
+    (U, w, A), (X1, re1, B1), _ = _ops(e, f1, f2)
+    with pytest.raises(TypeError):
+        kff.kff_from_ops(X1, re1, B1, X1, re1, B1, PARAMS, 2)
+    X32, re32 = X1.float(), re1.float()
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(X32[:, ::2], re32[:, ::2], B1, X32, re32, B1,
+                         PARAMS, 2)
+    with pytest.raises(ValueError):
+        kff.kef_from_ops(U.float(), w.float(), A, X32.cpu(), re32.cpu(), B1,
+                         PARAMS, 2)
