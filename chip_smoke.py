@@ -3,19 +3,28 @@
 
 Usage (one CUDA card, no arguments):  python3 chip_smoke.py
 
-Builds the CUDA kernels from csrc/ and drives the port's main path once:
-the on-the-fly GP surrogate for Au on Al(100) (13 atoms, SO3 nmax=3
-lmax=4 rcut=5.0, RBF zeta=2) is trained on three NEB images, then served
-through the GPR calculator, which answers from the surrogate or calls EMT
-and refits.  Around that run it checks every kernel against its plain
-PyTorch version at the path's shapes and at the 10k-covariance bench
-shape, factorises that covariance, re-serves the frozen model against a
-float64 CPU model of the same training set, and times kernel and plain
-versions.  Any failure raises (non-zero exit).  The second-to-last line
-is the card's name and power limit, the last a JSON status object.
+Builds the CUDA kernels from csrc/ and drives the port's main paths,
+each with the launch counts reset just before and read just after, for
+Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, RBF zeta=2):
+  (d) the serving slice: a GP trained at fixed hyperparameters on three
+      NEB images, served through the GPR calculator, which answers from
+      the surrogate or calls EMT and refits;
+  (h) training: GP.set_GPR on the five images, L-BFGS-B over the
+      analytic NLL (the dual kernels), its NLL and gradient held against
+      a float64 CPU model of the same training set;
+  (i) the on-the-fly NEB from that model, every refit re-optimising the
+      hyperparameters, its barrier held against the JAX package's.
+Around those runs it checks every kernel against its plain PyTorch
+version at the paths' shapes and at the 10k-covariance bench shape,
+factorises that covariance, re-serves the frozen model against a float64
+CPU model, times kernel and plain versions and one NLL+gradient
+evaluation, and compares that evaluation with float64 on the card.  Any
+failure raises (non-zero exit).  The second-to-last line is the card's
+name and power limit, the last a JSON status object.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -31,13 +40,27 @@ sys.path.insert(0, ROOT)
 SIGMA, L_SCALE = 0.9000824419630231, 1.291296129835527
 NOISE_E, NOISE_F = 0.05 / 13, 0.05
 KERNEL_RTOL = 2e-5     # f32 kernel vs plain: |diff| <= 2e-5 max|plain|
+# card f32 vs CPU f64 NLL on one training set: |dNLL| <= 2e-4 |NLL_f64|,
+# |dg| <= 2e-3 |g_f64| (about 5x the plain f32 readings on a CPU)
+NLL_RTOL, GRAD_RTOL = 2e-4, 2e-3
+THETA0 = (1.0, 0.1)    # set_GPR's starting (sigma, l)
+# the JAX package's on-the-fly NEB (CPU float64): set_GPR + neb_calc(
+# images, GPR(base=EMT(), ff=gp, save=False), fmax=0.05, steps=150)
+JAX_NEB = dict(converged=True, nsteps=19, barrier=0.3555160, use_base=8,
+               use_surrogate=51, fits=4, N_energy=13, N_forces=40)
+BARRIER_TOL = 0.01     # eV
 
 REPLACES = {   # launch-counter name -> the Pallas kernel it replaces
     "kff_tri": "gpr_calculator_tpu/ops/kff_pallas.py:282",   # K1
     "kef_rect": "gpr_calculator_tpu/ops/kff_pallas.py:748",  # K2
     "kff_rect": "gpr_calculator_tpu/ops/kff_pallas.py:269",  # K3
+    "kff_tri_dual": "gpr_calculator_tpu/ops/kff_pallas.py:282",   # K1 dual
+    "kef_rect_dual": "gpr_calculator_tpu/ops/kff_pallas.py:748",  # K2 dual
 }
 SOURCE = "gpr_calculator_tpu_torch/csrc/kff.cu"
+# cov_kernel<LC, MODE, NS> instantiation -> kernel name (ptxas lines)
+INSTANCES = {"4,1,1": "kff_tri", "1,0,1": "kef_rect", "4,0,1": "kff_rect",
+             "4,1,2": "kff_tri_dual", "1,0,2": "kef_rect_dual"}
 
 
 def card_line() -> str:
@@ -94,6 +117,38 @@ def run_slice(T, device, dtype, log):
     return gp, images, out
 
 
+def run_training(T, device, dtype):
+    """GP.set_GPR on the five images: EMT labels, add_structure, then
+    fit(opt=True) -- L-BFGS-B from THETA0 over the analytic NLL."""
+    images = T.au_on_al100_images()
+    gp = T.GP.set_GPR(images, T.EMT(), noise_e=NOISE_E, noise_f=NOISE_F,
+                      log_file=None, device=device, dtype=dtype)
+    return gp, images
+
+
+def run_neb(T, gp, images):
+    """The on-the-fly NEB through a GPR calculator at its defaults
+    (opt_freq=1: every refit re-optimises the hyperparameters)."""
+    band = T.neb_calc(images, T.GPR(base=T.EMT(), ff=gp, save=False),
+                      fmax=0.05, steps=150)
+    E = np.asarray(band.energies, float)
+    return dict(converged=bool(band.converged), nsteps=band.nsteps,
+                barrier=float(E.max() - E[0]), use_base=gp.use_base,
+                use_surrogate=gp.use_surrogate, fits=gp.fits,
+                N_energy=gp.N_energy, N_forces=gp.N_forces), E
+
+
+def ptxas_lines(compiler_log):
+    """(kernel name, ptxas resource line) for each instantiation."""
+    name = None
+    for line in compiler_log.splitlines():
+        m = re.search(r"cov_kernelILi(\d)ELi(\d)ELi(\d)E", line)
+        if m:
+            name = INSTANCES.get(",".join(m.groups()), "?")
+        elif "registers" in line or "spill" in line:
+            yield name, line.strip()
+
+
 def bench_data(torch, device, m_e=1000, m_f=3000, envs=32, d=30):
     """bench.py's synthetic workload (1000 energy points, 3000 force
     points, 32 envs each, d=30: a 10k x 10k covariance), float32."""
@@ -133,6 +188,16 @@ def kernel_cases(kff, e1, f1, e2, f2, params):
                                   symmetric=True),
          lambda: kff.kff_plain(X2, re2, B2, X2, re2, B2, params, 2,
                                symmetric=True)),
+        ("kff_tri_dual",
+         lambda: kff.kff_from_ops(X2, re2, B2, X2, re2, B2, params, 2,
+                                  symmetric=True, dual=True),
+         lambda: kff.kff_plain(X2, re2, B2, X2, re2, B2, params, 2,
+                               symmetric=True, dual=True)),
+        ("kef_rect_dual",
+         lambda: kff.kef_from_ops(U2, w2, A2, X2, re2, B2, params, 2,
+                                  dual=True),
+         lambda: kff.kef_plain(U2, w2, A2, X2, re2, B2, params, 2,
+                               dual=True)),
         ("kef_rect",
          lambda: kff.kef_from_ops(U2, w2, A2, X2, re2, B2, params, 2),
          lambda: kff.kef_plain(U2, w2, A2, X2, re2, B2, params, 2)),
@@ -149,19 +214,49 @@ def kernel_cases(kff, e1, f1, e2, f2, params):
 
 
 def compare(torch, cases, tag, errs, log):
+    """Every plane of each kernel within KERNEL_RTOL max|plain| of the
+    same plane of its plain version (dual kernels: K and dK/dgamma)."""
     for name, kern, plain in cases:
-        K = kern()
-        P = plain()
+        Ks, Ps = kern(), plain()
         torch.cuda.synchronize()
-        err = float((K - P).abs().max())
-        scale = float(P.abs().max())
-        log(f"(b) {tag} {name} {tuple(K.shape)}: max|kernel-plain| = "
-            f"{err:.3e}, max|plain| = {scale:.3e}")
-        if not err <= KERNEL_RTOL * scale:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"at {tag}: {err:.3e} > {KERNEL_RTOL} * "
-                                 f"{scale:.3e}")
-        errs[name] = max(errs.get(name, 0.0), err)
+        if not isinstance(Ks, tuple):
+            Ks, Ps = (Ks,), (Ps,)
+        for plane, (K, P) in zip(("K", "dK/dgamma"), zip(Ks, Ps)):
+            err = float((K - P).abs().max())
+            scale = float(P.abs().max())
+            what = f"{name} {plane}" if len(Ks) > 1 else name
+            log(f"(b) {tag} {what} {tuple(K.shape)}: max|kernel-plain| = "
+                f"{err:.3e}, max|plain| = {scale:.3e}")
+            if not err <= KERNEL_RTOL * scale:
+                raise AssertionError(
+                    f"{what} disagrees with its plain version at {tag}: "
+                    f"{err:.3e} > {KERNEL_RTOL} * {scale:.3e}")
+            errs[name] = max(errs.get(name, 0.0), err)
+
+
+def check_launches(counts, names, path):
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never ran on the {path} "
+                                 "path")
+
+
+def nll_vs_f64(gp, ref, theta, tag, log):
+    """Card f32 NLL and gradient against the CPU f64 model's at theta."""
+    lml, g = gp.log_marginal_likelihood(list(theta), eval_gradient=True)
+    lml64, g64 = ref.log_marginal_likelihood(list(theta), eval_gradient=True)
+    dn, dg = abs(lml - lml64), float(np.linalg.norm(g - g64))
+    gn = float(np.linalg.norm(g64))
+    log(f"(h) NLL at {tag} = ({theta[0]:.6g}, {theta[1]:.6g}): card f32 "
+        f"{-lml:.8g}, CPU f64 {-lml64:.8g}, |dNLL| = {dn:.3e} "
+        f"({dn / abs(lml64):.3e} relative, limit {NLL_RTOL}); grad card "
+        f"{np.array2string(-g, precision=6)}, f64 "
+        f"{np.array2string(-g64, precision=6)}, |dg| = {dg:.3e} "
+        f"({dg / gn:.3e} relative, limit {GRAD_RTOL})")
+    if not (np.isfinite(lml) and dn <= NLL_RTOL * abs(lml64)
+            and dg <= GRAD_RTOL * gn):
+        raise AssertionError(f"card NLL/gradient at {tag} outside the "
+                             "limits against float64")
 
 
 def cuda_ms(torch, fn, reps):
@@ -195,9 +290,8 @@ def main() -> int:
     t0 = time.time()
     _, compiler_log = kff.build()
     log(f"(a) kernel build: {time.time() - t0:.1f} s")
-    for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"(a) ptxas: {line.strip()}")
+    for name, line in ptxas_lines(compiler_log):
+        log(f"(a) ptxas {name}: {line}")
 
     # (d) the main path, counted
     kff.reset_launches()
@@ -220,11 +314,52 @@ def main() -> int:
         raise AssertionError("training error above the dispatcher's gate")
     log("(d) gp.error under the gate (energy_mae <= 0.1, forces_mae <= 0.3)")
 
-    # (f) every kernel ran on the main path
-    log(f"(f) launches on the main path: {json.dumps(main_launches)}")
-    for name, n in main_launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never ran on the main path")
+    # (f) every kernel of the serving slice ran on it
+    log(f"(f) launches on the slice: {json.dumps(main_launches)}")
+    check_launches(main_launches, ("kff_tri", "kef_rect", "kff_rect"),
+                   "slice")
+
+    # (h) training on the card, counted
+    kff.reset_launches()
+    t0 = time.time()
+    tgp, timages = run_training(T, dev, f32)
+    torch.cuda.synchronize()
+    train_launches = dict(kff.launches)
+    theta = tgp.kernel.parameters()
+    log(f"(h) set_GPR: {time.time() - t0:.2f} s, N_energy={tgp.N_energy} "
+        f"N_forces={tgp.N_forces}; theta = ({theta[0]:.8f}, "
+        f"{theta[1]:.8f}), JAX CPU f64 ({SIGMA:.8f}, {L_SCALE:.8f}), "
+        f"relative diff ({theta[0] / SIGMA - 1:.2e}, "
+        f"{theta[1] / L_SCALE - 1:.2e})")
+    log(f"(h) launches in set_GPR: {json.dumps(train_launches)}")
+    check_launches(train_launches, ("kff_tri_dual", "kef_rect_dual"),
+                   "training")
+    state = convert.state_of(tgp)
+    for key in ("alpha", "L", "n_fit"):
+        state.pop(key, None)
+    tref = convert.gp_from_state(state, device="cpu", dtype=torch.float64,
+                                 log_file=None)
+    for tag, th in (("theta0", THETA0), ("JAX theta*", (SIGMA, L_SCALE))):
+        nll_vs_f64(tgp, tref, th, tag, log)
+
+    # (i) the on-the-fly NEB on the card from the card-trained model
+    kff.reset_launches()
+    t0 = time.time()
+    neb, E = run_neb(T, tgp, timages)
+    torch.cuda.synchronize()
+    neb_launches = dict(kff.launches)
+    log(f"(i) NEB: {time.time() - t0:.2f} s, band energies "
+        f"{np.array2string(E, precision=6)} eV")
+    for key, ref_val in JAX_NEB.items():
+        log(f"(i) {key}: card {neb[key]}, JAX CPU f64 {ref_val}")
+    log(f"(i) launches in the NEB: {json.dumps(neb_launches)}")
+    check_launches(neb_launches, REPLACES, "NEB")
+    if not neb["converged"] or \
+            abs(neb["barrier"] - JAX_NEB["barrier"]) > BARRIER_TOL:
+        raise AssertionError(f"the card NEB did not converge to the JAX "
+                             f"barrier within {BARRIER_TOL} eV")
+    path_launches = {"slice": main_launches, "training": train_launches,
+                     "neb": neb_launches}
 
     # (b) kernels vs plain, at the slice's shapes and at the bench shape
     params = gp.kernel.params()
@@ -239,6 +374,11 @@ def main() -> int:
     errs = {}
     slice_cases = kernel_cases(kff, pe, pf, te, tf, params)
     compare(torch, slice_cases, "slice", errs, log)
+    nte, ntf, _, _ = tgp._train_view()
+    compare(torch, [c for c in kernel_cases(kff, pe, pf, nte, ntf,
+                                            tgp.kernel.params())
+                    if c[0].endswith("_dual")], "NEB training set", errs,
+            log)
     be, bf = bench_data(torch, dev)
     bparams = {"sigma": 2.0, "l": 1.0}
     compare(torch, kernel_cases(kff, be, bf, be, bf, bparams), "bench",
@@ -291,9 +431,43 @@ def main() -> int:
                 f"{cuda_ms(torch, kern, 3):.3f} ms, plain "
                 f"{cuda_ms(torch, plain, 1):.3f} ms")
 
+    # (g) one NLL + gradient evaluation at the bench shape: k_self_dual
+    # (K1-dual, K2-dual, K_EE), Cholesky, cholesky_inverse, traces; and
+    # the same function in float64 on the card with the plain versions
+    from gpr_calculator_tpu_torch.models.gp import _nll_rbf_analytic
+    from gpr_calculator_tpu_torch.ops.packing import EnergyData, ForceData
+    n = be.m + 3 * bf.m
+    y = torch.as_tensor(np.random.RandomState(1).normal(0.0, 0.1, n),
+                        dtype=f32, device=dev)
+    args = ((2.0, 1.0), be, bf, y, (0.01, 0.1), 10.0, 2, False)
+    log(f"(g) bench (1000 E + 3000 F), 32 envs, NLL + gradient: "
+        f"{cuda_ms(torch, lambda: _nll_rbf_analytic(*args), 3):.3f} ms "
+        "per evaluation, of which k_self_dual "
+        f"{cuda_ms(torch, lambda: K_ops.k_self_dual(be, bf, bparams), 3):.3f}"
+        " ms")
+    nll32, g32 = _nll_rbf_analytic(*args)
+    f64 = torch.float64
+    be64 = EnergyData(x=be.x.to(f64), ele=be.ele, counts=be.counts.to(f64),
+                      nreal=be.nreal)
+    bf64 = ForceData(x=bf.x.to(f64), dxdr=bf.dxdr.to(f64), ele=bf.ele,
+                     nreal=bf.nreal)
+    nll64, g64 = _nll_rbf_analytic((2.0, 1.0), be64, bf64, y.to(f64),
+                                   (0.01, 0.1), 10.0, 2, False, plain=True)
+    nll32, nll64 = float(nll32), float(nll64)
+    g32, g64 = g32.cpu().double().numpy(), g64.cpu().numpy()
+    log(f"(g) bench NLL card f32 {nll32:.10g} vs card f64 (plain) "
+        f"{nll64:.10g}: |dNLL| = {abs(nll32 - nll64):.3e} "
+        f"({abs(nll32 - nll64) / abs(nll64):.3e} relative); grad f32 "
+        f"{np.array2string(g32, precision=8)}, f64 "
+        f"{np.array2string(g64, precision=8)}, |dg|/|g| = "
+        f"{np.linalg.norm(g32 - g64) / np.linalg.norm(g64):.3e} "
+        "(recorded, not a gate)")
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
-                "launches": main_launches[name],
+                "launches": sum(c[name] for c in path_launches.values()),
+                "launches_by_path": {p: c[name]
+                                     for p, c in path_launches.items()},
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1]} for name in REPLACES]
     print(json.dumps({"kernels": kernels}))

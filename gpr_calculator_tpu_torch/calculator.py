@@ -32,10 +32,10 @@ class GPR(Calculator):
         self.freq = self.parameters.get("freq", 10)
         self.save = self.parameters.get("save", True)
         # opt_freq > 1: re-optimise hyperparameters only every k-th refit;
-        # the other refits go through the O(n^2 k) rank-update path
-        # (ops/linalg.py) instead of a full refactorisation.  Default 1
-        # reproduces the reference behaviour (opt=True every refit,
-        # calculator.py:104).
+        # the other refits refactorise at the current hyperparameters
+        # (fit(opt=False); the incremental rank update is not ported).
+        # Default 1 reproduces the reference behaviour (opt=True every
+        # refit, calculator.py:104).
         self.opt_freq = self.parameters.get("opt_freq", 1)
 
     def __copy__(self):

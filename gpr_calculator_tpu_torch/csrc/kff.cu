@@ -6,6 +6,10 @@
 //   kff_tri  (K1) <- _kff_kernel_tri  (kff_pallas.py:282), symmetric K_FF
 //   kef_rect (K2) <- _kef_kernel      (kff_pallas.py:748), K_EF
 //   kff_rect (K3) <- _kff_kernel      (kff_pallas.py:269), rectangular K_FF
+//   kff_tri_dual, kef_rect_dual: K1 and K2 with dual=True (the same Pallas
+//      kernels' fused (K, dK/dgamma) pass, _coeff_sets kff_pallas.py:199-206
+//      and kff_pallas.py:785-791): both planes from one set of env-pair dot
+//      products and one expf, for the analytic NLL gradient
 //
 // Operands (built once per block side by ops/kff.py, so every block of one
 // training covariance reads the same rounded values):
@@ -19,6 +23,9 @@
 //   B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g)       (times rinv_a rinv_b
 //   K_FF[(p,u),(q,v)] += A m_uv + B p1_u p2_v         and [ele_a == ele_b])
 //   K_EF[p,(q,v)]     += -k g z c^(z-1) w_a rinv_b [same] p2_v
+// and the dual planes (dK/dg) take dA = A (D-1) + k z c^(z-1),
+// dB = B (D-1) + k (z(z-1) c^(z-2) + 2 (z c^(z-1))^2 g) and, for K_EF,
+// dA0 = A0 (D-1) - k z c^(z-1), with D = c^z.
 //
 // What bounds them on the card: each env pair costs 16 (K_FF) or 4 (K_EF)
 // length-32 dot products -- a thin-k product of the operand rows -- plus
@@ -105,14 +112,16 @@ __device__ __forceinline__ void powers(float c, int zeta, float& d1,
 // LC = 4: K_FF (lhs carries [u; Jt]), LC = 1: K_EF (lhs carries u only).
 // MODE 0: rectangular grid (blockIdx.y = lhs tile, blockIdx.x = rhs tile);
 // MODE 1: upper-triangle tiles of a symmetric K_FF from the linear index.
-template <int LC, int MODE>
+// NS = 1: K into out; NS = 2 (dual): K into out and dK/dgamma into outd.
+template <int LC, int MODE, int NS>
 __global__ void __launch_bounds__(NT)
 cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
            int m1, int B1, const float* __restrict__ X2,
            const float* __restrict__ re2, int m2, int B2,
-           float* __restrict__ out, long long ldo, float sigma2,
-           float gamma, int zeta) {
-  constexpr int NOUT = LC == 4 ? 9 : 3;
+           float* __restrict__ out, float* __restrict__ outd, long long ldo,
+           float sigma2, float gamma, int zeta) {
+  constexpr int NPL = LC == 4 ? 9 : 3;   // planes per coefficient set
+  constexpr int NOUT = NPL * NS;
   __shared__ __align__(16) float s1[LC][DP][NE];
   __shared__ __align__(16) float s2[4][DP][NE];
   __shared__ float sre1[2][NE];
@@ -191,7 +200,8 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
           powers(c, zeta, d1, dm2);
           const float D = d1 * c;
           const float zd1 = (float)zeta * d1;
-          const float kg = sigma2 * expf((D - 1.f) * gamma) * gamma;
+          const float k = sigma2 * expf((D - 1.f) * gamma);
+          const float kg = k * gamma;
           if constexpr (LC == 4) {
             const float b0c = (float)(zeta * (zeta - 1)) * dm2;
             const float A = kg * zd1 * w;
@@ -204,10 +214,32 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
                 acc[u * 3 + v] += A * g[ia][ib][(1 + u) * 4 + 1 + v] +
                                   Bp1 * g[ia][ib][1 + v];
             }
+            if constexpr (NS == 2) {
+              const float Dm1 = D - 1.f;
+              const float kw = k * w;
+              const float dA = A * Dm1 + kw * zd1;
+              const float dB =
+                  Bc * Dm1 + kw * (b0c + 2.f * zd1 * zd1 * gamma);
+#pragma unroll
+              for (int u = 0; u < 3; ++u) {
+                const float dBp1 = dB * g[ia][ib][(1 + u) * 4];
+#pragma unroll
+                for (int v = 0; v < 3; ++v)
+                  acc[9 + u * 3 + v] +=
+                      dA * g[ia][ib][(1 + u) * 4 + 1 + v] +
+                      dBp1 * g[ia][ib][1 + v];
+              }
+            }
           } else {
             const float A0 = -kg * zd1 * w;
 #pragma unroll
             for (int v = 0; v < 3; ++v) acc[v] += A0 * g[ia][ib][1 + v];
+            if constexpr (NS == 2) {
+              const float dA0 = A0 * (D - 1.f) - k * w * zd1;
+#pragma unroll
+              for (int v = 0; v < 3; ++v)
+                acc[3 + v] += dA0 * g[ia][ib][1 + v];
+            }
           }
         }
       __syncthreads();
@@ -225,31 +257,40 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
   const int q = J * TP + ql;
   if (p >= m1 || q >= m2) return;
 
-  if constexpr (LC == 1) {
 #pragma unroll
-    for (int v = 0; v < 3; ++v) out[(long long)p * ldo + 3 * q + v] = acc[v];
-  } else if (MODE == 0 || I < J || pl < ql) {
-#pragma unroll
-    for (int u = 0; u < 3; ++u)
+  for (int sset = 0; sset < NS; ++sset) {
+    float* __restrict__ o = sset == 0 ? out : outd;
+    const int a = sset * NPL;   // this set's first accumulator
+    if constexpr (LC == 1) {
 #pragma unroll
       for (int v = 0; v < 3; ++v)
-        out[(long long)(3 * p + u) * ldo + 3 * q + v] = acc[u * 3 + v];
-    if (MODE == 1) {
+        o[(long long)p * ldo + 3 * q + v] = acc[a + v];
+    } else if (MODE == 0 || I < J || pl < ql) {
 #pragma unroll
       for (int u = 0; u < 3; ++u)
 #pragma unroll
         for (int v = 0; v < 3; ++v)
-          out[(long long)(3 * q + v) * ldo + 3 * p + u] = acc[u * 3 + v];
-    }
-  } else if (pl == ql) {
-    // diagonal 3 x 3 block: upper entries, mirrored
+          o[(long long)(3 * p + u) * ldo + 3 * q + v] =
+              acc[a + u * 3 + v];
+      if (MODE == 1) {
 #pragma unroll
-    for (int u = 0; u < 3; ++u)
+        for (int u = 0; u < 3; ++u)
 #pragma unroll
-      for (int v = u; v < 3; ++v) {
-        out[(long long)(3 * p + u) * ldo + 3 * p + v] = acc[u * 3 + v];
-        out[(long long)(3 * p + v) * ldo + 3 * p + u] = acc[u * 3 + v];
+          for (int v = 0; v < 3; ++v)
+            o[(long long)(3 * q + v) * ldo + 3 * p + u] =
+                acc[a + u * 3 + v];
       }
+    } else if (pl == ql) {
+      // diagonal 3 x 3 block: upper entries, mirrored
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int v = u; v < 3; ++v) {
+          const float x = acc[a + u * 3 + v];
+          o[(long long)(3 * p + u) * ldo + 3 * p + v] = x;
+          o[(long long)(3 * p + v) * ldo + 3 * p + u] = x;
+        }
+    }
   }
 }
 
@@ -264,8 +305,9 @@ int kff_rect(const float* X1, const float* re1, int m1, int B1,
              const float* X2, const float* re2, int m2, int B2, float* out,
              float sigma2, float gamma, int zeta, void* stream) {
   dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<4, 0><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      X1, re1, m1, B1, X2, re2, m2, B2, out, 3LL * m2, sigma2, gamma, zeta);
+  cov_kernel<4, 0, 1><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      X1, re1, m1, B1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2,
+      gamma, zeta);
   return (int)cudaGetLastError();
 }
 
@@ -273,9 +315,21 @@ int kff_rect(const float* X1, const float* re1, int m1, int B1,
 int kff_tri(const float* X, const float* re, int m, int B, float* out,
             float sigma2, float gamma, int zeta, void* stream) {
   const long long nt = tiles(m);
-  cov_kernel<4, 1><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
-                      (cudaStream_t)stream>>>(
-      X, re, m, B, X, re, m, B, out, 3LL * m, sigma2, gamma, zeta);
+  cov_kernel<4, 1, 1><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
+                         (cudaStream_t)stream>>>(
+      X, re, m, B, X, re, m, B, out, nullptr, 3LL * m, sigma2, gamma, zeta);
+  return (int)cudaGetLastError();
+}
+
+// K1-dual: out = K_FF and outd = dK_FF/dgamma, both (3 m, 3 m), exactly
+// symmetric.
+int kff_tri_dual(const float* X, const float* re, int m, int B, float* out,
+                 float* outd, float sigma2, float gamma, int zeta,
+                 void* stream) {
+  const long long nt = tiles(m);
+  cov_kernel<4, 1, 2><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
+                         (cudaStream_t)stream>>>(
+      X, re, m, B, X, re, m, B, out, outd, 3LL * m, sigma2, gamma, zeta);
   return (int)cudaGetLastError();
 }
 
@@ -285,8 +339,21 @@ int kef_rect(const float* U1, const float* w1, int m1, int A1,
              const float* X2, const float* re2, int m2, int B2, float* out,
              float sigma2, float gamma, int zeta, void* stream) {
   dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<1, 0><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      U1, w1, m1, A1, X2, re2, m2, B2, out, 3LL * m2, sigma2, gamma, zeta);
+  cov_kernel<1, 0, 1><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      U1, w1, m1, A1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2,
+      gamma, zeta);
+  return (int)cudaGetLastError();
+}
+
+// K2-dual: out = K_EF and outd = dK_EF/dgamma, both (m1, 3 m2).
+int kef_rect_dual(const float* U1, const float* w1, int m1, int A1,
+                  const float* X2, const float* re2, int m2, int B2,
+                  float* out, float* outd, float sigma2, float gamma,
+                  int zeta, void* stream) {
+  dim3 grid(tiles(m2), tiles(m1));
+  cov_kernel<1, 0, 2><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      U1, w1, m1, A1, X2, re2, m2, B2, out, outd, 3LL * m2, sigma2, gamma,
+      zeta);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,13 @@
 """Gaussian-process regressor for on-the-fly force fields, in PyTorch.
 
-Port of the serving and gradient-free refit part of the JAX package's
-``models/gp.py`` (reference: gpr_calc/gaussianprocess.py): the same
-covariance structure, per-atom energy labels, queue semantics and
-dispatch thresholds.  Fitting is a full refactorisation with fixed
-hyperparameters; the covariance blocks come from ``ops/kernels.py`` (the
-hand-written CUDA kernels on the card), the Cholesky factor and the
-solves from ``torch.linalg``.
+Port of the JAX package's ``models/gp.py`` (reference:
+gpr_calc/gaussianprocess.py): the same covariance structure, per-atom
+energy labels, queue semantics and dispatch thresholds.  ``fit(opt=True)``
+first runs scipy's L-BFGS-B over the analytic-gradient NLL
+(``_nll_rbf_analytic``, one fused (K, dK/dgamma) pass per evaluation),
+then every fit is a full refactorisation.  The covariance blocks come
+from ``ops/kernels.py`` (the hand-written CUDA kernels on the card), the
+Cholesky factor, the solves and K^-1 from ``torch.linalg``.
 
 Each GP works on one device and dtype (default ``config.device()`` /
 ``config.dtype()``), so a card model and a CPU model can live side by
@@ -14,23 +15,31 @@ side.
 """
 from __future__ import annotations
 
+import json
 import logging
+import math
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from scipy.optimize import minimize
 
 from .. import config
 from ..atoms.atoms import ATOMIC_NUMBERS
 from ..ops import kernels as K_ops
 from ..ops.packing import EnergyData, ForceData, pack_energy, pack_force
+from ..ops.so3 import SO3
+from .kernels import RBF, Dot
 
-NLL_TODO = ("hyperparameter optimisation is not ported yet (ROADMAP.md, "
-            "port queue: 'NLL and fit(opt=True)'); call fit(opt=False)")
+
+def _params_from_theta(kind: str, kp):
+    if kind == "rbf":
+        return {"sigma": kp[0], "l": kp[1]}
+    return {"sigma": kp[0], "sigma0": kp[1]}
 
 
-def _noise_diag(e: EnergyData, f: ForceData, noise_e: float,
-                noise_f: float):
+def _noise_diag(e: EnergyData, f: ForceData, noise_e, noise_f):
     """Noise diagonal with padded rows pinned to 1.0."""
     de = torch.full((e.m,), 1.0, dtype=e.x.dtype, device=e.x.device)
     de[:e.nreal] = noise_e ** 2
@@ -53,6 +62,83 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
             f"positive definite at noise_e={noise_e:.2e}, "
             f"sigma={float(params['sigma']):.3g} in {K.dtype}")
     return L, alpha
+
+
+def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
+                      f_coef, zeta: int, noise_opt: bool,
+                      plain: bool = False):
+    """(-LML, grad) with ANALYTIC hyperparameter derivatives
+    (gp.py:270-346 of the JAX package), theta = (sigma, l[, noise_e]).
+
+    0.5 tr((K^-1 - aa^T) dK/dtheta) with dK/dsigma = 2 K_kernel / sigma
+    (free: it reuses the solve) and dK/dl = dK/dgamma * (-1/l^3), where
+    dK/dgamma comes from the same fused pass as K (``k_self_dual``).  The
+    trace is exact at every size: tr(K^-1 Kd) and diag(K^-1) from K^-1 =
+    ``cholesky_inverse(L)`` (n^2 float64 words: 800 MB at n = 10k).
+    The Hutchinson estimate the JAX package switches to at 6144 rows is
+    not ported.  A K that is not positive definite (``cholesky_ex``
+    info != 0) gives (+inf, zeros).
+
+    Precision: the blocks come in the working dtype (float32 on the card,
+    from the kernels); the factor, K^-1 and every reduction are float64.
+    K is ill-conditioned where L-BFGS-B starts (cond ~1e8 at l = 0.1), and
+    there a float32 Cholesky alone moved the NLL by ~1e-4 of its value,
+    and float32 reductions the l-gradient by ~1e-3.  On the card float64
+    costs ~2x the memory of those n^2 buffers and little time next to the
+    kernels.  plain=True builds the blocks with the plain versions on any
+    device."""
+    theta = [float(t) for t in theta]
+    if noise_opt:
+        noise_e = theta[-1]
+        noise_f = float(f_coef) * noise_e
+        kp = theta[:-1]
+    else:
+        noise_e, noise_f = float(noise_fixed[0]), float(noise_fixed[1])
+        kp = theta
+    params = _params_from_theta("rbf", kp)
+    sigma, l = params["sigma"], params["l"]
+    Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain)
+    f64 = torch.float64
+    nz = _noise_diag(e, f, noise_e, noise_f).to(f64)
+    K = Kk.to(f64)
+    del Kk
+    K.diagonal().add_(nz)
+    L, info = torch.linalg.cholesky_ex(K)
+    n = K.shape[0]
+    del K
+    if int(info) != 0:
+        return (torch.tensor(math.inf, dtype=f64),
+                torch.zeros(len(theta), dtype=f64))
+    y = y.to(f64)
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    n_real = e.nreal + 3 * f.nreal
+    ya = torch.dot(y, alpha)
+    nll = (0.5 * ya + torch.log(L.diagonal()).sum()
+           + 0.5 * n_real * math.log(2 * math.pi))
+
+    Kinv = torch.cholesky_inverse(L)
+    del L
+    Kd = Kd.to(f64)
+    kinv_diag = Kinv.diagonal().clone()
+    tr_kd = torch.dot(Kinv.reshape(-1), Kd.reshape(-1))
+    del Kinv
+    # tr(Kinv Kk) = n - tr(Kinv Nz); a^T Kk a = a^T y - a^T Nz a
+    # (padding rows cancel through the unit noise placed on them)
+    tr_kk = n - torch.dot(kinv_diag, nz)
+    aKka = ya - torch.dot(nz * alpha, alpha)
+    g_sigma = (tr_kk - aKka) / sigma
+    g_gamma = 0.5 * (tr_kd - torch.dot(alpha, Kd @ alpha))
+    g_l = g_gamma * (-1.0 / l ** 3)
+    grads = [g_sigma, g_l]
+    if noise_opt:
+        valid_e = (torch.arange(e.m, device=y.device) < e.nreal).to(f64)
+        valid_f = (torch.arange(f.m, device=y.device)
+                   < f.nreal).to(f64).repeat_interleave(3)
+        dnz = torch.cat([valid_e * (2.0 * noise_e),
+                         valid_f * (2.0 * float(f_coef) ** 2 * noise_e)])
+        grads.append(0.5 * (torch.dot(kinv_diag, dnz)
+                            - torch.dot(alpha * alpha, dnz)))
+    return nll, torch.stack(grads)
 
 
 def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
@@ -205,8 +291,8 @@ def metric_values(y_true, y_pred):
 # ---------------------------------------------------------------------------
 
 class GP:
-    """Drop-in equivalent of gpr_calc.gaussianprocess.GP for serving and
-    gradient-free refits."""
+    """Drop-in equivalent of gpr_calc.gaussianprocess.GP: training with
+    hyperparameter optimisation, serving, and saving the training set."""
 
     def __init__(self, kernel=None, descriptor=None, base_potential=None,
                  noise_e=0.005, noise_f=0.1, f_coef=10,
@@ -272,6 +358,13 @@ class GP:
 
     __repr__ = __str__
 
+    @property
+    def train_y(self):
+        """Training labels: per-atom, base-subtracted energies and the
+        force vectors (gp.py:869 of the JAX package)."""
+        return {"energy": list(self._energy_y),
+                "force": [np.asarray(f) for f in self._force_y]}
+
     def save_dict(self, db_filename=None):
         """Model metadata: noise, kernel and descriptor settings."""
         d = {"noise": {"energy": self.noise_e, "force": self.noise_f,
@@ -281,7 +374,41 @@ class GP:
              "db_filename": db_filename}
         if self.error is not None:
             d["error"] = self.error
+        if self.base_potential is not None:
+            d["base_potential"] = self.base_potential.save_dict()
         return d
+
+    def save(self, filename, db_filename, verbose=True):
+        """The model's JSON metadata and its training structures as an
+        ASE-compatible database (gp.py:2190-2218 of the JAX package)."""
+        with open(filename, "w") as fp:
+            json.dump(self.save_dict(db_filename), fp, indent=4)
+        self.export_ase_db(db_filename, permission="w")
+        if verbose:
+            print(f"save model to {filename} and {db_filename}")
+
+    def export_ase_db(self, db_filename, permission="w"):
+        from ..io.ase_db import write_db
+        rows = []
+        for (struc, energy, force, energy_in, force_in) in self.train_db:
+            actual_energy = float(energy)
+            actual_forces = np.array(force, float)
+            if self.base_potential is not None:
+                e_off, f_off, _ = self.compute_base_potential(struc)
+                actual_energy += e_off
+                actual_forces += f_off
+            rows.append({
+                "atoms": struc,
+                "data": {"energy": energy, "force": np.asarray(force),
+                         "energy_in": energy_in,
+                         "force_in": list(force_in)},
+                "key_value_pairs": {
+                    "dft_energy": actual_energy / len(force),
+                    "dft_fmax": float(np.max(np.abs(
+                        actual_forces.reshape(-1)))),
+                },
+            })
+        write_db(db_filename, rows, permission=permission)
 
     # -- packing -------------------------------------------------------------
     def _pack(self, nE: int, nF: int) -> Tuple[EnergyData, ForceData]:
@@ -334,23 +461,109 @@ class GP:
         self.N_forces_queue += N_F
         self.N_queue += N_E + N_F
 
-    # -- fit -----------------------------------------------------------------
-    def fit(self, TrainData=None, show: bool = True, opt: bool = True,
-            maxiter: int = 10):
-        """Refactorise the training covariance at the current
-        hyperparameters (always a full factorisation).  opt=True needs
-        the NLL, which is not ported: it raises NotImplementedError."""
-        if opt:
-            raise NotImplementedError(NLL_TODO)
+    # -- LML / fit -----------------------------------------------------------
+    def _nll_fn(self):
+        """The analytic-gradient NLL of the kernel kind (RBF only)."""
         if self.kernel.kind != "rbf":
             raise NotImplementedError(
-                f"only the RBF covariance is ported, not {self.kernel.name}")
+                f"the NLL of the {self.kernel.name} kernel is not ported yet "
+                "(ROADMAP.md, port queue item 10)")
+        zeta = self.kernel.zeta
+
+        def call(theta, e, f, y, noise_fixed, f_coef, noise_opt):
+            return _nll_rbf_analytic(theta, e, f, y, noise_fixed, f_coef,
+                                     zeta, noise_opt)
+        return call
+
+    def _theta(self):
+        """(theta0, bounds, noise_opt) of the hyperparameter search."""
+        noise_opt = self.noise_bounds is not None
+        theta0 = list(self.kernel.parameters())
+        bounds = [list(b) for b in self.kernel.bounds]
+        if noise_opt:
+            theta0 = theta0 + [self.noise_e]
+            bounds = bounds + [list(self.noise_bounds)]
+        return theta0, bounds, noise_opt
+
+    def _objective(self, e, f, y, noise_opt: bool, show: bool = False):
+        """theta -> (NLL, gradient) as float and float64 array for
+        L-BFGS-B; a non-finite NLL (K not positive definite) gives
+        (inf, zeros), gp.py:1163-1164 of the JAX package."""
+        nll_fn = self._nll_fn()
+        noise_fixed = (self.noise_e, self.noise_f)
+
+        def obj(theta):
+            nll, grad = nll_fn(theta, e, f, y, noise_fixed,
+                               float(self.f_coef), noise_opt)
+            nll = float(nll)
+            grad = grad.detach().cpu().numpy().astype(float)
+            if not np.isfinite(nll):
+                return np.inf, np.zeros_like(grad)
+            if show:
+                strs = "Loss: {:12.3f} ".format(nll)
+                for para in theta:
+                    strs += "{:6.3f} ".format(para)
+                print(strs)
+                self.logging.info(strs)
+            return nll, grad
+        return obj
+
+    def log_marginal_likelihood(self, params, eval_gradient=False,
+                                clone_kernel=False):
+        """LML (and its gradient) at theta = (sigma, l[, noise_e]) over the
+        whole training set."""
+        theta0, _, noise_opt = self._theta()
+        if len(params) != len(theta0):
+            raise ValueError(f"expected {len(theta0)} hyperparameters")
+        e, f = self._pack(self.N_energy, self.N_forces)
+        y = self._y_vector(e, f, self.N_energy, self.N_forces)
+        nll, grad = self._nll_fn()(params, e, f, y,
+                                   (self.noise_e, self.noise_f),
+                                   float(self.f_coef), noise_opt)
+        lml = -float(nll)
+        if not np.isfinite(lml):
+            lml = -np.inf
+        if eval_gradient:
+            g = -grad.detach().cpu().numpy().astype(float)
+            if not np.all(np.isfinite(g)):
+                g = np.zeros_like(g)
+            return lml, g
+        return lml
+
+    def optimize(self, fun, theta0, bounds, maxiter: int = 10):
+        """L-BFGS-B host loop over the objective (the optimizer settings of
+        gaussianprocess.py:204-220)."""
+        res = minimize(fun, theta0, method="L-BFGS-B", bounds=bounds,
+                       jac=True, options={"maxiter": maxiter, "ftol": 1e-2})
+        return res.x, res.fun
+
+    def fit(self, TrainData=None, show: bool = True, opt: bool = True,
+            maxiter: int = 10):
+        """opt=True: optimise (sigma, l[, noise]) by L-BFGS-B over the
+        NLL from the current values; then refactorise the training
+        covariance (always a full factorisation)."""
+        if self.kernel.kind != "rbf":
+            raise NotImplementedError(
+                f"only the RBF covariance is ported, not {self.kernel.name} "
+                "(its NLL: ROADMAP.md, port queue item 10)")
         if TrainData is not None:
             self.set_train_pts(TrainData)
         if show:
             print(self)
         e, f = self._pack(self.N_energy, self.N_forces)
         y = self._y_vector(e, f, self.N_energy, self.N_forces)
+        if opt:
+            print(f"Update GP model => {self.N_queue}/{maxiter}")
+            theta0, bounds, noise_opt = self._theta()
+            params, _ = self.optimize(
+                self._objective(e, f, y, noise_opt, show), theta0, bounds,
+                maxiter=maxiter)
+            if noise_opt:
+                self.kernel.update(params[:-1])
+                self.noise_e = float(params[-1])
+                self.noise_f = float(self.f_coef * params[-1])
+            else:
+                self.kernel.update(params)
         try:
             L, alpha = _factorize(e, f, y, self.kernel.params(),
                                   self.noise_e, self.noise_f,
@@ -496,11 +709,17 @@ class GP:
 
     # -- active learning (gaussianprocess.py:921-1002) ------------------------
     def convert_train_data(self, data, N_force=100000):
-        """(struc, energy, forces) list -> descriptor training dict."""
+        """(struc, energy, forces) list -> descriptor training dict.  The
+        training descriptors are computed in float64 on the model's
+        device whatever its working dtype: the host store keeps float64,
+        and structures that are equal up to a symmetry must give equal
+        training points (their float32 descriptors differ by rounding,
+        which the RBF's gamma = 1 / (2 l^2) amplifies at small l into a
+        spurious split of duplicate rows of K)."""
         energy_data, force_data, db_data = [], [], []
         for struc, energy, forces in data:
             d = self.descriptor.calculate(struc, device=self.device,
-                                          dtype=self.dtype)
+                                          dtype=torch.float64)
             ele = np.asarray([ATOMIC_NUMBERS[s] for s in d["elements"]], int)
             f_ids = list(range(len(struc)))[
                 :max(0, N_force - len(force_data))]
@@ -590,3 +809,37 @@ class GP:
                   F.reshape(-1) + force_off.reshape(-1),
                   F1.reshape(-1) + force_off.reshape(-1), F_std)
         return pts_to_add, N_pts, errors
+
+    # -- bootstrap (gaussianprocess.py:1025-1116) -----------------------------
+    @classmethod
+    def set_GPR(cls, images, base, kernel="RBF", zeta=2.0, noise_e=0.002,
+                noise_f=0.1, lmax=4, nmax=3, rcut=5.0, json_file=None,
+                overwrite=False, **kwargs):
+        """A GP trained on ``images`` with the ``base`` calculator, its
+        hyperparameters optimised from (sigma, l) = (1.0, 0.1).  kwargs go
+        to the constructor (device, dtype, log_file)."""
+        if json_file is not None and os.path.exists(json_file):
+            raise NotImplementedError(
+                "GP.load is not ported yet (ROADMAP.md, port queue item 3): "
+                f"{json_file} exists")
+        instance = cls(kernel=None, descriptor=None, base_potential=None,
+                       **kwargs)
+        instance.kernel = (Dot(para=[2, 2.0], zeta=int(zeta))
+                           if kernel == "Dot"
+                           else RBF(para=[1.0, 0.1], zeta=int(zeta)))
+        instance.descriptor = SO3(nmax=nmax, lmax=lmax, rcut=rcut)
+        instance.noise_e = float(noise_e)
+        instance.noise_f = float(noise_f)
+        instance.train_images(images, base)
+        return instance
+
+    def train_images(self, images, base):
+        for i, image in enumerate(images):
+            image.calc = base
+            eng = float(image.get_potential_energy())
+            forces = np.asarray(image.get_forces(), float)
+            print(f"Calculate E/F for image {i}: {eng:.6f}")
+            image.calc = None
+            self.add_structure((image.copy(), eng, forces))
+        self.fit()
+        self.validate_data(show=True)

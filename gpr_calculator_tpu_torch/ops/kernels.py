@@ -1,7 +1,7 @@
-r"""Covariance assembly for the GP: the training covariance ``k_self``, the
-serving cross-covariance ``k_block`` and the variance diagonals -- the
-part of the JAX package's ``ops/kernels.py`` that fitting and serving
-call.
+r"""Covariance assembly for the GP: the training covariance ``k_self``,
+its hyperparameter pair ``k_self_dual``, the serving cross-covariance
+``k_block`` and the variance diagonals -- the part of the JAX package's
+``ops/kernels.py`` that fitting, training and serving call.
 
 Both builders go through the operand form of ``ops/kff.py``: K_FF and
 K_EF run the CUDA kernels for float32 tensors on the card and the plain
@@ -14,8 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from .kff import (_coeffs, _scalars, energy_operand, force_operand,
-                  kee_from_ops, kef_from_ops, kff_from_ops)
+from .kff import (_coeffs, _mirror, _scalars, energy_operand, force_operand,
+                  kee_from_ops, kef_from_ops, kef_plain, kff_from_ops,
+                  kff_plain)
 from .packing import EnergyData, ForceData
 
 
@@ -38,6 +39,28 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2):
     K_ef = kef_from_ops(U, w, A, X, re, B, params, zeta)
     K_ff = kff_from_ops(X, re, B, X, re, B, params, zeta, symmetric=True)
     return _blocks(K_ee, K_ef, K_ef.T, K_ff)
+
+
+def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
+                plain: bool = False):
+    """(K, dK/dgamma) of the symmetric training covariance, gamma =
+    1 / (2 l^2): one fused pass per block (K1-dual, K2-dual on the card),
+    which the analytic NLL gradient runs at every L-BFGS-B evaluation.
+
+    As in ``k_self`` the operands are built once and all three blocks
+    read the same tensors (PSD contract); both matrices come out exactly
+    symmetric.  plain=True takes the plain versions on any device (the
+    float64 reference on the card)."""
+    A, B = e.x.shape[1], f.x.shape[1]
+    U, w = energy_operand(e)
+    X, re = force_operand(f)
+    ee = [_mirror(b) for b in kee_from_ops(U, w, A, U, w, A, params, zeta,
+                                           dual=True)]
+    kef = kef_plain if plain else kef_from_ops
+    kff = kff_plain if plain else kff_from_ops
+    ef = kef(U, w, A, X, re, B, params, zeta, dual=True)
+    ff = kff(X, re, B, X, re, B, params, zeta, symmetric=True, dual=True)
+    return tuple(_blocks(ee[i], ef[i], ef[i].T, ff[i]) for i in range(2))
 
 
 def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,

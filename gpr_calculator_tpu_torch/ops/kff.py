@@ -15,16 +15,19 @@ to c = u1.u2, p1_u = Jt1_u.u2, p2_v = u1.Jt2_v, m_uv = Jt1_u.Jt2_v and
     K_EF[p,(q,v)]     = sum_{a in p, b in q} -k g z c^(z-1) w_a rinv_b p2_v
 
 with the RBF coefficients of ``_coeffs``; padding and |x| < EPS carry
-rinv = 0 (w = 0 on the energy side).  Every block of one training
+rinv = 0 (w = 0 on the energy side).  ``dual=True`` adds the same sums
+with the d/dgamma coefficients (gamma = 1 / (2 l^2)), so one pass gives
+(K, dK/dgamma) for the analytic NLL gradient.  Every block of one training
 covariance must consume the SAME operand tensors (PSD contract,
 kff_pallas.py:448-459): build once, pass everywhere.
 
 Routes.  ``kff_from_ops`` and ``kef_from_ops`` take the plain version for
 tensors on the CPU (any float dtype) and launch the CUDA kernels for
 float32 tensors on a CUDA device; anything else on CUDA raises.  The
-kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect``) are built with
-nvcc at first use into the package's git-ignored ``build/`` directory and
-bound with ctypes.  ``launches`` counts each kernel launch.
+kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect`` and the dual
+passes ``kff_tri_dual``, ``kef_rect_dual``) are built with nvcc at first
+use into the package's git-ignored ``build/`` directory and bound with
+ctypes.  ``launches`` counts each kernel launch.
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc" / "kff.cu"
 _MAX_POINTS = 65535 * 8  # grid.y limit at 8 points per tile (csrc/kff.cu)
 
 # kernel name -> launches since the last reset_launches()
-launches = {"kff_tri": 0, "kef_rect": 0, "kff_rect": 0}
+launches = {"kff_tri": 0, "kef_rect": 0, "kff_rect": 0,
+            "kff_tri_dual": 0, "kef_rect_dual": 0}
 
 
 def reset_launches() -> None:
@@ -101,14 +105,21 @@ def energy_operand(e):
 
 
 def _scalars(params):
-    sigma, l = float(params["sigma"]), float(params["l"])
+    """(sigma^2, gamma = 1 / (2 l^2)).  Tensor hyperparameters pass
+    through, so the plain versions can be differentiated by autograd."""
+    sigma, l = params["sigma"], params["l"]
+    sigma = sigma if torch.is_tensor(sigma) else float(sigma)
+    l = l if torch.is_tensor(l) else float(l)
     return sigma * sigma, 1.0 / (2.0 * l * l)
 
 
-def _coeffs(c, sigma2: float, gamma: float, zeta: int):
+def _coeffs(c, sigma2, gamma, zeta: int, dual: bool = False):
     """Per-pair RBF scalars: (k, A, B, -k g z c^(z-1)) with
     k = s2 exp((c^z - 1) g), A = k g z c^(z-1),
-    B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g)."""
+    B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g).  dual=True also returns
+    their d/dg, (k (D-1), A (D-1) + k z c^(z-1),
+    B (D-1) + k (z(z-1) c^(z-2) + 2 (z c^(z-1))^2 g), -dA), D = c^z
+    (kff_pallas.py:199-206, 785-791)."""
     if zeta == 1:
         d1 = torch.ones_like(c)
         dm2 = torch.zeros_like(c)
@@ -124,9 +135,27 @@ def _coeffs(c, sigma2: float, gamma: float, zeta: int):
     zd1 = zeta * d1
     k = sigma2 * torch.exp((D - 1.0) * gamma)
     kg = k * gamma
+    b0 = zeta * (zeta - 1) * dm2
     A = kg * zd1
-    B = kg * (zeta * (zeta - 1) * dm2 + zd1 * zd1 * gamma)
-    return k, A, B, -A
+    B = kg * (b0 + zd1 * zd1 * gamma)
+    if not dual:
+        return k, A, B, -A
+    Dm1 = D - 1.0
+    dA = A * Dm1 + k * zd1
+    dB = B * Dm1 + k * (b0 + 2.0 * zd1 * zd1 * gamma)
+    return (k, A, B, -A), (k * Dm1, dA, dB, -dA)
+
+
+def _sets(c, sigma2, gamma, zeta: int, dual: bool):
+    """The coefficient sets of one pass: [K] or [K, dK/dgamma]."""
+    if dual:
+        return list(_coeffs(c, sigma2, gamma, zeta, dual=True))
+    return [_coeffs(c, sigma2, gamma, zeta)]
+
+
+def _mirror(K):
+    """Exactly symmetric K from its upper triangle."""
+    return torch.triu(K) + torch.triu(K, 1).T
 
 
 def _point_sum(env, b1: int, b2: int):
@@ -145,13 +174,14 @@ def _chunk_points(b1: int, n2: int) -> int:
 # ---------------------------------------------------------------------------
 
 def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
-              symmetric: bool = False):
-    """K_FF (3 m1, 3 m2) from operands.  symmetric=True (X1 is X2)
-    computes the row stripes' upper part only and mirrors the strict upper
-    triangle, so the result is exactly symmetric."""
+              symmetric: bool = False, dual: bool = False):
+    """K_FF (3 m1, 3 m2) from operands; dual=True returns (K, dK/dgamma)
+    from one pass.  symmetric=True (X1 is X2) computes the row stripes'
+    upper part only and mirrors the strict upper triangle, so the result
+    is exactly symmetric."""
     sigma2, gamma = _scalars(params)
     m1, m2 = X1.shape[1] // B1, X2.shape[1] // B2
-    out = X1.new_zeros((m1, 3, m2, 3))
+    outs = [X1.new_zeros((m1, 3, m2, 3)) for _ in range(1 + dual)]
     pc = _chunk_points(B1, X2.shape[1])
     for p0 in range(0, m1, pc):
         p1 = min(m1, p0 + pc)
@@ -162,24 +192,26 @@ def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
         rl, rr = re1[:, p0 * B1:p1 * B1], re2[:, q0 * B2:]
         w = (rl[0][:, None] * rr[0][None, :]
              * (rl[1][:, None] == rr[1][None, :]))
-        _, A, B, _ = _coeffs(G[0, 0], sigma2, gamma, zeta)
-        A, B = A * w, B * w
-        for u in range(3):
-            Bp1 = B * G[1 + u, 0]
-            for v in range(3):
-                env = A * G[1 + u, 1 + v] + Bp1 * G[0, 1 + v]
-                out[p0:p1, u, q0:, v] = _point_sum(env, B1, B2)
-    out = out.reshape(3 * m1, 3 * m2)
+        for out, (_, A, B, _) in zip(
+                outs, _sets(G[0, 0], sigma2, gamma, zeta, dual)):
+            A, B = A * w, B * w
+            for u in range(3):
+                Bp1 = B * G[1 + u, 0]
+                for v in range(3):
+                    env = A * G[1 + u, 1 + v] + Bp1 * G[0, 1 + v]
+                    out[p0:p1, u, q0:, v] = _point_sum(env, B1, B2)
+    outs = [o.reshape(3 * m1, 3 * m2) for o in outs]
     if symmetric:
-        out = torch.triu(out) + torch.triu(out, 1).T
-    return out
+        outs = [_mirror(o) for o in outs]
+    return tuple(outs) if dual else outs[0]
 
 
-def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int):
-    """K_EF (m1, 3 m2) from operands."""
+def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
+              dual: bool = False):
+    """K_EF (m1, 3 m2) from operands; dual=True returns (K, dK/dgamma)."""
     sigma2, gamma = _scalars(params)
     m1, m2 = U1.shape[0] // A1, X2.shape[1] // B2
-    out = U1.new_zeros((m1, m2, 3))
+    outs = [U1.new_zeros((m1, m2, 3)) for _ in range(1 + dual)]
     pc = _chunk_points(A1, X2.shape[1])
     for p0 in range(0, m1, pc):
         p1 = min(m1, p0 + pc)
@@ -188,20 +220,24 @@ def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int):
         wl = w1[:, p0 * A1:p1 * A1]
         w = (wl[0][:, None] * re2[0][None, :]
              * (wl[1][:, None] == re2[1][None, :]))
-        _, _, _, A0 = _coeffs(G[0], sigma2, gamma, zeta)
-        A0 = A0 * w
-        for v in range(3):
-            out[p0:p1, :, v] = _point_sum(A0 * G[1 + v], A1, B2)
-    return out.reshape(m1, 3 * m2)
+        for out, (_, _, _, A0) in zip(
+                outs, _sets(G[0], sigma2, gamma, zeta, dual)):
+            A0 = A0 * w
+            for v in range(3):
+                out[p0:p1, :, v] = _point_sum(A0 * G[1 + v], A1, B2)
+    outs = [o.reshape(m1, 3 * m2) for o in outs]
+    return tuple(outs) if dual else outs[0]
 
 
-def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int):
+def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int,
+                 dual: bool = False):
     """K_EE (m1, m2) from energy operands (plain PyTorch on any device: the
     block is small next to K_FF, but it reads the same operand tensors as
-    the kernels so the training covariance stays one consistent Gram)."""
+    the kernels so the training covariance stays one consistent Gram).
+    dual=True returns (K, dK/dgamma)."""
     sigma2, gamma = _scalars(params)
     m1, m2 = U1.shape[0] // A1, U2.shape[0] // A2
-    out = U1.new_zeros((m1, m2))
+    outs = [U1.new_zeros((m1, m2)) for _ in range(1 + dual)]
     pc = _chunk_points(A1, U2.shape[0])
     for p0 in range(0, m1, pc):
         p1 = min(m1, p0 + pc)
@@ -213,8 +249,10 @@ def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int):
         for _ in range(zeta - 1):
             D = D * c
         k = sigma2 * torch.exp((D - 1.0) * gamma)
-        out[p0:p1] = _point_sum(k * w, A1, A2)
-    return out
+        outs[0][p0:p1] = _point_sum(k * w, A1, A2)
+        if dual:
+            outs[1][p0:p1] = _point_sum(k * (D - 1.0) * w, A1, A2)
+    return tuple(outs) if dual else outs[0]
 
 
 # ---------------------------------------------------------------------------
@@ -271,8 +309,13 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [P, P, I, I, P, P, I, I, P, F, F, I, P]
             fn.restype = I
+        lib.kef_rect_dual.argtypes = [P, P, I, I, P, P, I, I, P, P, F, F,
+                                      I, P]
+        lib.kef_rect_dual.restype = I
         lib.kff_tri.argtypes = [P, P, I, I, P, F, F, I, P]
         lib.kff_tri.restype = I
+        lib.kff_tri_dual.argtypes = [P, P, I, I, P, P, F, F, I, P]
+        lib.kff_tri_dual.restype = I
         _LIB = lib
     return _LIB
 
@@ -312,12 +355,17 @@ def _launch(name, device, *args):
 
 
 def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
-                 symmetric: bool = False):
+                 symmetric: bool = False, dual: bool = False):
     """K_FF (3 m1, 3 m2) from force operands; symmetric=True (X1 is X2)
-    runs the triangular kernel K1, else the rectangular K3."""
+    runs the triangular kernel K1, else the rectangular K3.  dual=True
+    (symmetric only) returns (K, dK/dgamma) from one pass, K1-dual."""
+    if dual and not symmetric:
+        raise NotImplementedError(
+            "the dK/dgamma pass of the rectangular K_FF (K3 deriv) is not "
+            "ported yet (ROADMAP.md, section 2)")
     if X1.device.type == "cpu":
         return kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
-                         symmetric=symmetric)
+                         symmetric=symmetric, dual=dual)
     _check_cuda(zeta, X1, re1, X2, re2)
     _check_side(X1, re1, B1, 4)
     _check_side(X2, re2, B2, 4)
@@ -328,6 +376,12 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
     if symmetric:
         if X1.data_ptr() != X2.data_ptr() or B1 != B2:
             raise ValueError("symmetric K_FF needs one operand set")
+        if dual:
+            outd = torch.empty_like(out)
+            _launch("kff_tri_dual", X1.device, X1.data_ptr(),
+                    re1.data_ptr(), m1, B1, out.data_ptr(), outd.data_ptr(),
+                    sigma2, gamma, zeta)
+            return out, outd
         _launch("kff_tri", X1.device, X1.data_ptr(), re1.data_ptr(), m1, B1,
                 out.data_ptr(), sigma2, gamma, zeta)
     else:
@@ -337,17 +391,24 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
     return out
 
 
-def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int):
-    """K_EF (m1, 3 m2) from energy and force operands (kernel K2)."""
+def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
+                 dual: bool = False):
+    """K_EF (m1, 3 m2) from energy and force operands (kernel K2);
+    dual=True returns (K, dK/dgamma) from one pass, K2-dual."""
     if U1.device.type == "cpu":
-        return kef_plain(U1, w1, A1, X2, re2, B2, params, zeta)
+        return kef_plain(U1, w1, A1, X2, re2, B2, params, zeta, dual=dual)
     _check_cuda(zeta, U1, w1, X2, re2)
     _check_side(U1[None], w1, A1, 1)
     _check_side(X2, re2, B2, 4)
     sigma2, gamma = _scalars(params)
     m1, m2 = U1.shape[0] // A1, X2.shape[1] // B2
     out = torch.empty((m1, 3 * m2), dtype=torch.float32, device=U1.device)
-    _launch("kef_rect", U1.device, U1.data_ptr(), w1.data_ptr(), m1, A1,
-            X2.data_ptr(), re2.data_ptr(), m2, B2, out.data_ptr(),
-            sigma2, gamma, zeta)
+    args = (U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
+            re2.data_ptr(), m2, B2, out.data_ptr())
+    if dual:
+        outd = torch.empty_like(out)
+        _launch("kef_rect_dual", U1.device, *args, outd.data_ptr(), sigma2,
+                gamma, zeta)
+        return out, outd
+    _launch("kef_rect", U1.device, *args, sigma2, gamma, zeta)
     return out

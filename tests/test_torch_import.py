@@ -17,6 +17,10 @@ def test_port_imports_with_jax_blocked():
         "import gpr_calculator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('neb', 'mep', 'optimize', 'io.ase_db'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
+        "assert callable(p.neb_calc) and callable(p.get_images)\n"
+        "assert callable(p.GP.set_GPR)\n"
         "assert not any(k == 'gpr_calculator_tpu'\n"
         "               or k.startswith('gpr_calculator_tpu.')\n"
         "               for k in sys.modules)\n"

@@ -188,7 +188,39 @@ def test_kernels_match_plain_on_card(cuda, zeta):
     _close(kff.kef_from_ops(U, w, A, X2, re2, B2, PARAMS, zeta),
            kff.kef_plain(U, w, A, X2, re2, B2, PARAMS, zeta))
     torch.cuda.synchronize()
-    assert kff.launches == {"kff_tri": 1, "kef_rect": 1, "kff_rect": 1}
+    assert kff.launches == {"kff_tri": 1, "kef_rect": 1, "kff_rect": 1,
+                            "kff_tri_dual": 0, "kef_rect_dual": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zeta", [1, 2, 3])
+def test_dual_kernels_match_plain_on_card(cuda, zeta):
+    """K1-dual and K2-dual: both planes within 2e-5 max|plain| of the
+    plain dual pass (and the K plane of the single-pass kernel's), both
+    planes of K1-dual exactly symmetric."""
+    rng = np.random.RandomState(40 + zeta)
+    fp = make_points(rng, 13, 11, 30)
+    ep = [(x, el) for x, _, el in make_points(rng, 6, 7, 30)]
+    kw = dict(device=cuda, dtype=torch.float32)
+    e, f = pack_energy(ep, m_pad=7, **kw), pack_force(fp, **kw)
+    (U, w, A), (X, re, B), _ = _ops(e, f, f)
+    kff.reset_launches()
+    tri = kff.kff_from_ops(X, re, B, X, re, B, PARAMS, zeta, symmetric=True,
+                           dual=True)
+    ef = kff.kef_from_ops(U, w, A, X, re, B, PARAMS, zeta, dual=True)
+    plain_tri = kff.kff_plain(X, re, B, X, re, B, PARAMS, zeta,
+                              symmetric=True, dual=True)
+    plain_ef = kff.kef_plain(U, w, A, X, re, B, PARAMS, zeta, dual=True)
+    for plane in range(2):
+        _close(tri[plane], plain_tri[plane])
+        assert torch.equal(tri[plane], tri[plane].T)
+        _close(ef[plane], plain_ef[plane])
+    _close(tri[0], kff.kff_from_ops(X, re, B, X, re, B, PARAMS, zeta,
+                                    symmetric=True))
+    _close(ef[0], kff.kef_from_ops(U, w, A, X, re, B, PARAMS, zeta))
+    torch.cuda.synchronize()
+    assert kff.launches == {"kff_tri": 1, "kef_rect": 1, "kff_rect": 0,
+                            "kff_tri_dual": 1, "kef_rect_dual": 1}
 
 
 @pytest.mark.gpu
@@ -204,3 +236,11 @@ def test_card_wrappers_raise_on_unsupported_input(cuda):
     with pytest.raises(ValueError):
         kff.kef_from_ops(U.float(), w.float(), A, X32.cpu(), re32.cpu(), B1,
                          PARAMS, 2)
+    with pytest.raises(TypeError):
+        kff.kff_from_ops(X1, re1, B1, X1, re1, B1, PARAMS, 2, symmetric=True,
+                         dual=True)
+    with pytest.raises(TypeError):
+        kff.kef_from_ops(U, w, A, X1, re1, B1, PARAMS, 2, dual=True)
+    with pytest.raises(ValueError):
+        kff.kef_from_ops(U.float(), w.float(), A, X32[:, ::2], re32[:, ::2],
+                         B1, PARAMS, 2, dual=True)
