@@ -5,22 +5,28 @@ Usage (one CUDA card, no arguments):  python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ and drives the port's main paths,
 each with the launch counts reset just before and read just after, for
-Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, RBF zeta=2):
-  (d) the serving slice: a GP trained at fixed hyperparameters on three
-      NEB images, served through the GPR calculator, which answers from
-      the surrogate or calls EMT and refits;
+Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
+  (d) the serving slice: an RBF GP trained at fixed hyperparameters on
+      three NEB images, served through the GPR calculator, which answers
+      from the surrogate or calls EMT and refits;
   (h) training: GP.set_GPR on the five images, L-BFGS-B over the
-      analytic NLL (the dual kernels), its NLL and gradient held against
-      a float64 CPU model of the same training set;
+      analytic RBF NLL (the dual kernels), its NLL and gradient held
+      against a float64 CPU model of the same training set;
   (i) the on-the-fly NEB from that model, every refit re-optimising the
-      hyperparameters, its barrier held against the JAX package's.
+      hyperparameters, its barrier held against the JAX package's;
+  (j) the same with the Dot kernel: GP.set_GPR(kernel="Dot") over the
+      analytic Dot NLL, its NLL and gradient against float64, the NEB
+      and a re-serve of its final model against float64 -- through the
+      Dot kernels alone.
 Around those runs it checks every kernel against its plain PyTorch
 version at the paths' shapes and at the 10k-covariance bench shape,
-factorises that covariance, re-serves the frozen model against a float64
-CPU model, times kernel and plain versions and one NLL+gradient
-evaluation, and compares that evaluation with float64 on the card.  Any
-failure raises (non-zero exit).  The second-to-last line is the card's
-name and power limit, the last a JSON status object.
+factorises that covariance, re-serves the frozen slice model against a
+float64 CPU model, times kernel and plain versions (with each one's
+bound on the card) and one NLL+gradient evaluation, and compares that
+evaluation with float64 on the card.  Any failure raises (non-zero
+exit).  The third-to-last line is a JSON list of the kernels, the
+second-to-last the card's name and power limit, the last a JSON status
+object.
 """
 import json
 import os
@@ -48,7 +54,17 @@ THETA0 = (1.0, 0.1)    # set_GPR's starting (sigma, l)
 # images, GPR(base=EMT(), ff=gp, save=False), fmax=0.05, steps=150)
 JAX_NEB = dict(converged=True, nsteps=19, barrier=0.3555160, use_base=8,
                use_surrogate=51, fits=4, N_energy=13, N_forces=40)
+# the same with GP.set_GPR(..., kernel="Dot") (zeta=2): its (sigma,
+# sigma0), set_GPR's starting point, and the NEB
+DOT_THETA = (0.5980691048753912, 1.6996223564233595)
+DOT_THETA0 = (2.0, 2.0)
+JAX_DOT_NEB = dict(converged=True, nsteps=24, barrier=0.3560402,
+                   use_base=10, use_surrogate=64, fits=5, N_energy=15,
+                   N_forces=40)
 BARRIER_TOL = 0.01     # eV
+# one NVIDIA H100 SXM (data sheet, dense): fp32 outside the tensor cores,
+# and HBM3 bandwidth
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 
 REPLACES = {   # launch-counter name -> the Pallas kernel it replaces
     "kff_tri": "gpr_calculator_tpu/ops/kff_pallas.py:282",   # K1
@@ -56,11 +72,18 @@ REPLACES = {   # launch-counter name -> the Pallas kernel it replaces
     "kff_rect": "gpr_calculator_tpu/ops/kff_pallas.py:269",  # K3
     "kff_tri_dual": "gpr_calculator_tpu/ops/kff_pallas.py:282",   # K1 dual
     "kef_rect_dual": "gpr_calculator_tpu/ops/kff_pallas.py:748",  # K2 dual
+    "kff_tri_dot": "gpr_calculator_tpu/ops/kff_pallas.py:282",    # K1 Dot
+    "kef_rect_dot": "gpr_calculator_tpu/ops/kff_pallas.py:748",   # K2 Dot
+    "kff_rect_dot": "gpr_calculator_tpu/ops/kff_pallas.py:269",   # K3 Dot
 }
+DOT = ("kff_tri_dot", "kef_rect_dot", "kff_rect_dot")
+RBF = tuple(n for n in REPLACES if n not in DOT)
 SOURCE = "gpr_calculator_tpu_torch/csrc/kff.cu"
-# cov_kernel<LC, MODE, NS> instantiation -> kernel name (ptxas lines)
-INSTANCES = {"4,1,1": "kff_tri", "1,0,1": "kef_rect", "4,0,1": "kff_rect",
-             "4,1,2": "kff_tri_dual", "1,0,2": "kef_rect_dual"}
+# cov_kernel<LC, MODE, NS, KIND> instantiation -> kernel name (ptxas)
+INSTANCES = {"4,1,1,0": "kff_tri", "1,0,1,0": "kef_rect",
+             "4,0,1,0": "kff_rect", "4,1,2,0": "kff_tri_dual",
+             "1,0,2,0": "kef_rect_dual", "4,1,1,1": "kff_tri_dot",
+             "1,0,1,1": "kef_rect_dot", "4,0,1,1": "kff_rect_dot"}
 
 
 def card_line() -> str:
@@ -117,12 +140,14 @@ def run_slice(T, device, dtype, log):
     return gp, images, out
 
 
-def run_training(T, device, dtype):
+def run_training(T, device, dtype, kernel="RBF"):
     """GP.set_GPR on the five images: EMT labels, add_structure, then
-    fit(opt=True) -- L-BFGS-B from THETA0 over the analytic NLL."""
+    fit(opt=True) -- L-BFGS-B from set_GPR's starting point over the
+    analytic NLL of the kernel."""
     images = T.au_on_al100_images()
-    gp = T.GP.set_GPR(images, T.EMT(), noise_e=NOISE_E, noise_f=NOISE_F,
-                      log_file=None, device=device, dtype=dtype)
+    gp = T.GP.set_GPR(images, T.EMT(), kernel=kernel, noise_e=NOISE_E,
+                      noise_f=NOISE_F, log_file=None, device=device,
+                      dtype=dtype)
     return gp, images
 
 
@@ -142,7 +167,7 @@ def ptxas_lines(compiler_log):
     """(kernel name, ptxas resource line) for each instantiation."""
     name = None
     for line in compiler_log.splitlines():
-        m = re.search(r"cov_kernelILi(\d)ELi(\d)ELi(\d)E", line)
+        m = re.search(r"cov_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E", line)
         if m:
             name = INSTANCES.get(",".join(m.groups()), "?")
         elif "registers" in line or "spill" in line:
@@ -173,50 +198,96 @@ def bench_data(torch, device, m_e=1000, m_f=3000, envs=32, d=30):
     return e, f
 
 
-def kernel_cases(kff, e1, f1, e2, f2, params):
-    """(name, kernel call, plain call) for every kernel at the shapes of
-    one serving request (e1, f1) against a training set (e2, f2)."""
+def pair_count(re1, B1, re2, B2, symmetric):
+    """Valid same-element env pairs a block needs: the pairs whose
+    coefficients are not zero, over the upper triangle of point pairs
+    for a symmetric block (diagonal point blocks whole)."""
+    v1, v2 = re1[0] != 0, re2[0] != 0
+    total = diag = 0
+    for el in re1[1][v1].unique().tolist():
+        a, b = (re1[1] == el) & v1, (re2[1] == el) & v2
+        total += int(a.sum()) * int(b.sum())
+        if symmetric:
+            per = a.reshape(-1, B1).sum(1).double()
+            diag += int((per * per).sum())
+    return (total + diag) // 2 if symmetric else total
+
+
+def bound(ops, nbytes):
+    """(least ms on the card, what binds it): operations over the fp32
+    peak outside the tensor cores, or bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def work(name, d, lhs, rhs, out_numel):
+    """(fp32 operations, bytes) one call of kernel ``name`` needs: per
+    valid same-element env pair, the 16 (K_FF) or 4 (K_EF) length-d dot
+    products at 2 d operations each, plus the coefficients and the
+    assembly (40 / 12, and 46 / 10 more for the dK/dgamma plane); each
+    operand read once, each output written once."""
+    (X1, re1, B1), (X2, re2, B2) = lhs, rhs
+    symmetric = name.startswith("kff_tri")
+    pairs = pair_count(re1, B1, re2, B2, symmetric)
+    if name.startswith("kff"):
+        per = 16 * 2 * d + 40 + (46 if name.endswith("_dual") else 0)
+    else:
+        per = 4 * 2 * d + 12 + (10 if name.endswith("_dual") else 0)
+    tensors = {t.data_ptr(): t for t in (X1, re1, X2, re2)}.values()
+    nbytes = 4 * (sum(t.numel() for t in tensors) + out_numel)
+    return pairs * per, nbytes
+
+
+def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf"):
+    """(name, kernel call, plain call, (operations, bytes)) for every
+    kernel of the family at the shapes of one serving request (e1, f1)
+    against a training set (e2, f2), zeta = 2."""
     U1, w1 = kff.energy_operand(e1)
     X1, re1 = kff.force_operand(f1)
     U2, w2 = kff.energy_operand(e2)
     X2, re2 = kff.force_operand(f2)
     A1, B1, A2, B2 = e1.x.shape[1], f1.x.shape[1], e2.x.shape[1], \
         f2.x.shape[1]
-    return [
-        ("kff_tri",
-         lambda: kff.kff_from_ops(X2, re2, B2, X2, re2, B2, params, 2,
-                                  symmetric=True),
-         lambda: kff.kff_plain(X2, re2, B2, X2, re2, B2, params, 2,
-                               symmetric=True)),
-        ("kff_tri_dual",
-         lambda: kff.kff_from_ops(X2, re2, B2, X2, re2, B2, params, 2,
-                                  symmetric=True, dual=True),
-         lambda: kff.kff_plain(X2, re2, B2, X2, re2, B2, params, 2,
-                               symmetric=True, dual=True)),
-        ("kef_rect_dual",
-         lambda: kff.kef_from_ops(U2, w2, A2, X2, re2, B2, params, 2,
-                                  dual=True),
-         lambda: kff.kef_plain(U2, w2, A2, X2, re2, B2, params, 2,
-                               dual=True)),
-        ("kef_rect",
-         lambda: kff.kef_from_ops(U2, w2, A2, X2, re2, B2, params, 2),
-         lambda: kff.kef_plain(U2, w2, A2, X2, re2, B2, params, 2)),
-        ("kef_rect",
-         lambda: kff.kef_from_ops(U1, w1, A1, X2, re2, B2, params, 2),
-         lambda: kff.kef_plain(U1, w1, A1, X2, re2, B2, params, 2)),
-        ("kef_rect",
-         lambda: kff.kef_from_ops(U2, w2, A2, X1, re1, B1, params, 2),
-         lambda: kff.kef_plain(U2, w2, A2, X1, re1, B1, params, 2)),
-        ("kff_rect",
-         lambda: kff.kff_from_ops(X1, re1, B1, X2, re2, B2, params, 2),
-         lambda: kff.kff_plain(X1, re1, B1, X2, re2, B2, params, 2)),
-    ]
+    d = e2.x.shape[2]
+    E1, F1, E2, F2 = (U1, w1, A1), (X1, re1, B1), (U2, w2, A2), (X2, re2, B2)
+
+    def kff_case(name, lhs, rhs, symmetric=False, dual=False):
+        def call(fn):
+            return lambda: fn(*lhs, *rhs, params, 2, symmetric=symmetric,
+                              dual=dual, kind=kind)
+        out = 3 * (lhs[0].shape[1] // lhs[2]) * 3 * (rhs[0].shape[1]
+                                                     // rhs[2])
+        return (name, call(kff.kff_from_ops), call(kff.kff_plain),
+                work(name, d, lhs, rhs, out * (1 + dual)))
+
+    def kef_case(name, lhs, rhs, dual=False):
+        def call(fn):
+            return lambda: fn(*lhs, *rhs, params, 2, dual=dual, kind=kind)
+        out = (lhs[0].shape[0] // lhs[2]) * 3 * (rhs[0].shape[1] // rhs[2])
+        return (name, call(kff.kef_from_ops), call(kff.kef_plain),
+                work(name, d, (lhs[0][None],) + lhs[1:], rhs,
+                     out * (1 + dual)))
+
+    if kind == "dot":
+        return [kff_case("kff_tri_dot", F2, F2, symmetric=True),
+                kef_case("kef_rect_dot", E2, F2),
+                kef_case("kef_rect_dot", E1, F2),
+                kef_case("kef_rect_dot", E2, F1),
+                kff_case("kff_rect_dot", F1, F2)]
+    return [kff_case("kff_tri", F2, F2, symmetric=True),
+            kff_case("kff_tri_dual", F2, F2, symmetric=True, dual=True),
+            kef_case("kef_rect_dual", E2, F2, dual=True),
+            kef_case("kef_rect", E2, F2),
+            kef_case("kef_rect", E1, F2),
+            kef_case("kef_rect", E2, F1),
+            kff_case("kff_rect", F1, F2)]
 
 
 def compare(torch, cases, tag, errs, log):
     """Every plane of each kernel within KERNEL_RTOL max|plain| of the
     same plane of its plain version (dual kernels: K and dK/dgamma)."""
-    for name, kern, plain in cases:
+    for name, kern, plain, _ in cases:
         Ks, Ps = kern(), plain()
         torch.cuda.synchronize()
         if not isinstance(Ks, tuple):
@@ -234,21 +305,25 @@ def compare(torch, cases, tag, errs, log):
             errs[name] = max(errs.get(name, 0.0), err)
 
 
-def check_launches(counts, names, path):
+def check_launches(counts, names, path, absent=()):
+    """Every kernel of ``names`` ran on the path, none of ``absent``."""
     for name in names:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never ran on the {path} "
                                  "path")
+    for name in absent:
+        if counts[name] != 0:
+            raise AssertionError(f"kernel {name} ran on the {path} path")
 
 
-def nll_vs_f64(gp, ref, theta, tag, log):
+def nll_vs_f64(gp, ref, theta, tag, log, phase="(h)"):
     """Card f32 NLL and gradient against the CPU f64 model's at theta."""
     lml, g = gp.log_marginal_likelihood(list(theta), eval_gradient=True)
     lml64, g64 = ref.log_marginal_likelihood(list(theta), eval_gradient=True)
     dn, dg = abs(lml - lml64), float(np.linalg.norm(g - g64))
     gn = float(np.linalg.norm(g64))
-    log(f"(h) NLL at {tag} = ({theta[0]:.6g}, {theta[1]:.6g}): card f32 "
-        f"{-lml:.8g}, CPU f64 {-lml64:.8g}, |dNLL| = {dn:.3e} "
+    log(f"{phase} NLL at {tag} = ({theta[0]:.6g}, {theta[1]:.6g}): card "
+        f"f32 {-lml:.8g}, CPU f64 {-lml64:.8g}, |dNLL| = {dn:.3e} "
         f"({dn / abs(lml64):.3e} relative, limit {NLL_RTOL}); grad card "
         f"{np.array2string(-g, precision=6)}, f64 "
         f"{np.array2string(-g64, precision=6)}, |dg| = {dg:.3e} "
@@ -257,6 +332,54 @@ def nll_vs_f64(gp, ref, theta, tag, log):
             and dg <= GRAD_RTOL * gn):
         raise AssertionError(f"card NLL/gradient at {tag} outside the "
                              "limits against float64")
+    return -lml64, -g64
+
+
+def cpu_f64_copy(T, gp, fit):
+    """A CPU float64 model holding ``gp``'s training set (refit at its
+    hyperparameters when ``fit``)."""
+    import torch
+    from gpr_calculator_tpu_torch import convert
+    state = convert.state_of(gp)
+    for key in ("alpha", "L", "n_fit"):
+        state.pop(key, None)
+    ref = convert.gp_from_state(state, device="cpu", dtype=torch.float64,
+                                log_file=None)
+    if fit:
+        ref.fit(opt=False, show=False)
+    return ref
+
+
+def reserve_vs_f64(T, gp, images, log, phase):
+    """The card model and a CPU f64 model of its training set serve the
+    images: |dE| <= 0.1 noise_e natoms, max|dF| <= 0.1 noise_f."""
+    ref = cpu_f64_copy(T, gp, fit=True)
+    for k, img in enumerate(images):
+        E1, F1, _, _, _ = gp.predict_structure(img, return_std=True)
+        E2, F2, _, _, _ = ref.predict_structure(img, return_std=True)
+        dE, dF = abs(E1 - E2), float(np.abs(F1 - F2).max())
+        log(f"{phase} image {k}: |dE| = {dE:.3e} eV "
+            f"(limit {0.1 * NOISE_E * len(img):.3e}), max|dF| = {dF:.3e} "
+            f"eV/A (limit {0.1 * NOISE_F:.3e})")
+        if dE > 0.1 * NOISE_E * len(img) or dF > 0.1 * NOISE_F:
+            raise AssertionError("card model and CPU f64 model disagree")
+
+
+def dot_nll_f32_ee(torch, gp, theta):
+    """The card model's Dot NLL and dNLL/dsigma at theta with K_EE in
+    float32 too (the port builds K_EE in float64 for the NLL): the
+    reading that choice rests on."""
+    from gpr_calculator_tpu_torch.models import gp as gp_mod
+    from gpr_calculator_tpu_torch.ops import kernels as K_ops
+    e, f = gp._pack(gp.N_energy, gp.N_forces)
+    y = gp._y_vector(e, f, gp.N_energy, gp.N_forces)
+    params = {"sigma": theta[0], "sigma0": theta[1]}
+    nll, g = gp_mod._analytic_nll(
+        K_ops.k_self(e, f, params, gp.kernel.zeta, "dot"), e, f, y,
+        theta[0], gp.noise_e, gp.noise_f, gp.f_coef, False,
+        lambda Kinv, alpha: torch.zeros((), dtype=torch.float64,
+                                        device=alpha.device))
+    return float(nll), float(g[0])
 
 
 def cuda_ms(torch, fn, reps):
@@ -278,7 +401,6 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 1
     import gpr_calculator_tpu_torch as T
-    from gpr_calculator_tpu_torch import convert
     from gpr_calculator_tpu_torch.ops import kff
     from gpr_calculator_tpu_torch.ops import kernels as K_ops
 
@@ -290,6 +412,8 @@ def main() -> int:
     t0 = time.time()
     _, compiler_log = kff.build()
     log(f"(a) kernel build: {time.time() - t0:.1f} s")
+    if not compiler_log:
+        log("(a) the library was built before this run: no ptxas lines")
     for name, line in ptxas_lines(compiler_log):
         log(f"(a) ptxas {name}: {line}")
 
@@ -317,7 +441,7 @@ def main() -> int:
     # (f) every kernel of the serving slice ran on it
     log(f"(f) launches on the slice: {json.dumps(main_launches)}")
     check_launches(main_launches, ("kff_tri", "kef_rect", "kff_rect"),
-                   "slice")
+                   "slice", absent=DOT)
 
     # (h) training on the card, counted
     kff.reset_launches()
@@ -333,12 +457,8 @@ def main() -> int:
         f"{theta[1] / L_SCALE - 1:.2e})")
     log(f"(h) launches in set_GPR: {json.dumps(train_launches)}")
     check_launches(train_launches, ("kff_tri_dual", "kef_rect_dual"),
-                   "training")
-    state = convert.state_of(tgp)
-    for key in ("alpha", "L", "n_fit"):
-        state.pop(key, None)
-    tref = convert.gp_from_state(state, device="cpu", dtype=torch.float64,
-                                 log_file=None)
+                   "training", absent=DOT)
+    tref = cpu_f64_copy(T, tgp, fit=False)
     for tag, th in (("theta0", THETA0), ("JAX theta*", (SIGMA, L_SCALE))):
         nll_vs_f64(tgp, tref, th, tag, log)
 
@@ -353,16 +473,63 @@ def main() -> int:
     for key, ref_val in JAX_NEB.items():
         log(f"(i) {key}: card {neb[key]}, JAX CPU f64 {ref_val}")
     log(f"(i) launches in the NEB: {json.dumps(neb_launches)}")
-    check_launches(neb_launches, REPLACES, "NEB")
+    check_launches(neb_launches, RBF, "NEB", absent=DOT)
     if not neb["converged"] or \
             abs(neb["barrier"] - JAX_NEB["barrier"]) > BARRIER_TOL:
         raise AssertionError(f"the card NEB did not converge to the JAX "
                              f"barrier within {BARRIER_TOL} eV")
-    path_launches = {"slice": main_launches, "training": train_launches,
-                     "neb": neb_launches}
 
-    # (b) kernels vs plain, at the slice's shapes and at the bench shape
+    # (j) the Dot kernel: training, NLL against float64, the NEB and a
+    # re-serve of its final model, each counted
+    kff.reset_launches()
+    t0 = time.time()
+    dgp, dimages = run_training(T, dev, f32, kernel="Dot")
+    torch.cuda.synchronize()
+    dot_train_launches = dict(kff.launches)
+    theta = dgp.kernel.parameters()
+    log(f"(j) set_GPR(kernel='Dot'): {time.time() - t0:.2f} s, "
+        f"N_energy={dgp.N_energy} N_forces={dgp.N_forces}; (sigma, sigma0)"
+        f" = ({theta[0]:.8f}, {theta[1]:.8f}), JAX CPU f64 "
+        f"({DOT_THETA[0]:.8f}, {DOT_THETA[1]:.8f}), relative diff "
+        f"({theta[0] / DOT_THETA[0] - 1:.2e}, "
+        f"{theta[1] / DOT_THETA[1] - 1:.2e})")
+    log(f"(j) launches in set_GPR(kernel='Dot'): "
+        f"{json.dumps(dot_train_launches)}")
+    check_launches(dot_train_launches, ("kff_tri_dot", "kef_rect_dot"),
+                   "Dot training", absent=RBF)
+    dref = cpu_f64_copy(T, dgp, fit=False)
+    for tag, th in (("theta0", DOT_THETA0), ("JAX theta*", DOT_THETA)):
+        nll64, g64 = nll_vs_f64(dgp, dref, th, tag, log, phase="(j)")
+        nll_ee, gs_ee = dot_nll_f32_ee(torch, dgp, th)
+        log(f"(j) NLL at {tag} with K_EE in float32 too: {nll_ee:.8g}, "
+            f"|dNLL| = {abs(nll_ee - nll64):.3e} "
+            f"({abs(nll_ee - nll64) / abs(nll64):.3e} relative); "
+            f"dNLL/dsigma {gs_ee:.6g} vs f64 {g64[0]:.6g} "
+            f"({abs(gs_ee - g64[0]) / np.linalg.norm(g64):.3e} of |g|) "
+            "(recorded, not a gate)")
+    kff.reset_launches()
+    t0 = time.time()
+    dneb, E = run_neb(T, dgp, dimages)
+    torch.cuda.synchronize()
+    dot_neb_launches = dict(kff.launches)
+    log(f"(j) Dot NEB: {time.time() - t0:.2f} s, band energies "
+        f"{np.array2string(E, precision=6)} eV")
+    for key, ref_val in JAX_DOT_NEB.items():
+        log(f"(j) {key}: card {dneb[key]}, JAX CPU f64 {ref_val}")
+    log(f"(j) launches in the Dot NEB: {json.dumps(dot_neb_launches)}")
+    check_launches(dot_neb_launches, DOT, "Dot NEB", absent=RBF)
+    if not dneb["converged"] or \
+            abs(dneb["barrier"] - JAX_DOT_NEB["barrier"]) > BARRIER_TOL:
+        raise AssertionError(f"the card Dot NEB did not converge to the JAX "
+                             f"barrier within {BARRIER_TOL} eV")
+    reserve_vs_f64(T, dgp, dimages, log, "(j) re-serve")
+    path_launches = {"slice": main_launches, "training": train_launches,
+                     "neb": neb_launches, "dot_training": dot_train_launches,
+                     "dot_neb": dot_neb_launches}
+
+    # (b) kernels vs plain, at the paths' shapes and at the bench shape
     params = gp.kernel.params()
+    dparams = dgp.kernel.params()
     te, tf, _, _ = gp._train_view()
     from gpr_calculator_tpu_torch.atoms.atoms import ATOMIC_NUMBERS
     from gpr_calculator_tpu_torch.models.gp import _pack_from_device_descs
@@ -372,16 +539,22 @@ def main() -> int:
         [dd], [ele], [[i for i in range(len(ele))
                        if i not in set(images[2].fixed_indices())]])
     errs = {}
-    slice_cases = kernel_cases(kff, pe, pf, te, tf, params)
+    slice_cases = (kernel_cases(kff, pe, pf, te, tf, params)
+                   + kernel_cases(kff, pe, pf, te, tf, dparams, "dot"))
     compare(torch, slice_cases, "slice", errs, log)
     nte, ntf, _, _ = tgp._train_view()
     compare(torch, [c for c in kernel_cases(kff, pe, pf, nte, ntf,
                                             tgp.kernel.params())
                     if c[0].endswith("_dual")], "NEB training set", errs,
             log)
+    dte, dtf, _, _ = dgp._train_view()
+    compare(torch, kernel_cases(kff, pe, pf, dte, dtf, dparams, "dot"),
+            "Dot NEB training set", errs, log)
     be, bf = bench_data(torch, dev)
     bparams = {"sigma": 2.0, "l": 1.0}
-    compare(torch, kernel_cases(kff, be, bf, be, bf, bparams), "bench",
+    bdparams = {"sigma": 2.0, "sigma0": 2.0}
+    compare(torch, kernel_cases(kff, be, bf, be, bf, bparams)
+            + kernel_cases(kff, be, bf, be, bf, bdparams, "dot"), "bench",
             errs, log)
 
     # (c) PSD: the bench covariance plus noise factorises
@@ -396,80 +569,89 @@ def main() -> int:
     del Kb, Lb
 
     # (e) frozen re-serve: card f32 kernels vs a CPU f64 plain model
-    state = convert.state_of(gp)
-    for key in ("alpha", "L", "n_fit"):
-        state.pop(key, None)
-    ref = convert.gp_from_state(state, device="cpu", dtype=torch.float64,
-                                log_file=None)
-    ref.fit(opt=False, show=False)
-    for k, img in enumerate(images):
-        E1, F1, _, _, _ = gp.predict_structure(img, return_std=True)
-        E2, F2, _, _, _ = ref.predict_structure(img, return_std=True)
-        dE, dF = abs(E1 - E2), float(np.abs(F1 - F2).max())
-        log(f"(e) image {k}: |dE| = {dE:.3e} eV "
-            f"(limit {0.1 * NOISE_E * len(img):.3e}), max|dF| = {dF:.3e} "
-            f"eV/A (limit {0.1 * NOISE_F:.3e})")
-        if dE > 0.1 * NOISE_E * len(img) or dF > 0.1 * NOISE_F:
-            raise AssertionError("card model and CPU f64 model disagree")
+    reserve_vs_f64(T, gp, images, log, "(e)")
 
-    # (g) times at the slice's shapes and at a mid shape
+    # (g) times and bounds at the slice's shapes, a mid and the bench
+    # shape (the first case of each kernel)
     times = {}
-    for name, kern, plain in slice_cases:
+    for name, kern, plain, (ops, nbytes) in slice_cases:
         if name not in times:
-            times[name] = (cuda_ms(torch, kern, 50), cuda_ms(torch, plain, 10))
-    for name, (ms, pms) in times.items():
-        log(f"(g) slice {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            times[name] = (cuda_ms(torch, kern, 50),
+                           cuda_ms(torch, plain, 10), *bound(ops, nbytes))
+    for name, (ms, pms, bms, by) in times.items():
+        log(f"(g) slice {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {bms:.3g} ms ({by})")
+    at_bench = {}
     for tag, (m_e, m_f) in (("mid (250 E + 750 F)", (250, 750)),
                             ("bench (1000 E + 3000 F)", (1000, 3000))):
         me, mf = bench_data(torch, dev, m_e=m_e, m_f=m_f)
         seen = set()
-        for name, kern, plain in kernel_cases(kff, me, mf, me, mf, bparams):
+        for name, kern, plain, (ops, nbytes) in (
+                kernel_cases(kff, me, mf, me, mf, bparams)
+                + kernel_cases(kff, me, mf, me, mf, bdparams, "dot")):
             if name in seen:
                 continue
             seen.add(name)
-            log(f"(g) {tag}, 32 envs, {name}: kernel "
-                f"{cuda_ms(torch, kern, 3):.3f} ms, plain "
-                f"{cuda_ms(torch, plain, 1):.3f} ms")
+            ms, pms = cuda_ms(torch, kern, 3), cuda_ms(torch, plain, 1)
+            bms, by = bound(ops, nbytes)
+            log(f"(g) {tag}, 32 envs, {name}: kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms, bound {bms:.3f} ms ({by}; {ops:.4g} "
+                f"operations, {nbytes:.4g} bytes)")
+            at_bench[name] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                  bound_by=by)
 
     # (g) one NLL + gradient evaluation at the bench shape: k_self_dual
     # (K1-dual, K2-dual, K_EE), Cholesky, cholesky_inverse, traces; and
     # the same function in float64 on the card with the plain versions
-    from gpr_calculator_tpu_torch.models.gp import _nll_rbf_analytic
+    from gpr_calculator_tpu_torch.models.gp import (_nll_dot_analytic,
+                                                    _nll_rbf_analytic)
     from gpr_calculator_tpu_torch.ops.packing import EnergyData, ForceData
     n = be.m + 3 * bf.m
     y = torch.as_tensor(np.random.RandomState(1).normal(0.0, 0.1, n),
                         dtype=f32, device=dev)
     args = ((2.0, 1.0), be, bf, y, (0.01, 0.1), 10.0, 2, False)
+    dargs = ((2.0, 2.0),) + args[1:]
+    def dot_k_self():
+        return K_ops.k_self(be, bf, bdparams, 2, "dot", dtype=torch.float64)
     log(f"(g) bench (1000 E + 3000 F), 32 envs, NLL + gradient: "
         f"{cuda_ms(torch, lambda: _nll_rbf_analytic(*args), 3):.3f} ms "
         "per evaluation, of which k_self_dual "
         f"{cuda_ms(torch, lambda: K_ops.k_self_dual(be, bf, bparams), 3):.3f}"
+        " ms; Dot NLL + gradient "
+        f"{cuda_ms(torch, lambda: _nll_dot_analytic(*dargs), 3):.3f} ms, "
+        f"of which k_self (float64 K_EE) {cuda_ms(torch, dot_k_self, 3):.3f}"
         " ms")
-    nll32, g32 = _nll_rbf_analytic(*args)
     f64 = torch.float64
     be64 = EnergyData(x=be.x.to(f64), ele=be.ele, counts=be.counts.to(f64),
                       nreal=be.nreal)
     bf64 = ForceData(x=bf.x.to(f64), dxdr=bf.dxdr.to(f64), ele=bf.ele,
                      nreal=bf.nreal)
-    nll64, g64 = _nll_rbf_analytic((2.0, 1.0), be64, bf64, y.to(f64),
-                                   (0.01, 0.1), 10.0, 2, False, plain=True)
-    nll32, nll64 = float(nll32), float(nll64)
-    g32, g64 = g32.cpu().double().numpy(), g64.cpu().numpy()
-    log(f"(g) bench NLL card f32 {nll32:.10g} vs card f64 (plain) "
-        f"{nll64:.10g}: |dNLL| = {abs(nll32 - nll64):.3e} "
-        f"({abs(nll32 - nll64) / abs(nll64):.3e} relative); grad f32 "
-        f"{np.array2string(g32, precision=8)}, f64 "
-        f"{np.array2string(g64, precision=8)}, |dg|/|g| = "
-        f"{np.linalg.norm(g32 - g64) / np.linalg.norm(g64):.3e} "
-        "(recorded, not a gate)")
+    for label, fn, a in (("RBF", _nll_rbf_analytic, args),
+                         ("Dot", _nll_dot_analytic, dargs)):
+        nll32, g32 = fn(*a)
+        nll64, g64 = fn(a[0], be64, bf64, y.to(f64), *a[4:], plain=True)
+        nll32, nll64 = float(nll32), float(nll64)
+        g32, g64 = g32.cpu().double().numpy(), g64.cpu().numpy()
+        log(f"(g) bench {label} NLL card f32 {nll32:.10g} vs card f64 "
+            f"(plain) {nll64:.10g}: |dNLL| = {abs(nll32 - nll64):.3e} "
+            f"({abs(nll32 - nll64) / abs(nll64):.3e} relative); grad f32 "
+            f"{np.array2string(g32, precision=8)}, f64 "
+            f"{np.array2string(g64, precision=8)}, |dg|/|g| = "
+            f"{np.linalg.norm(g32 - g64) / np.linalg.norm(g64):.3e} "
+            "(recorded, not a gate)")
 
+    # ms / plain_ms / bound_ms: the slice's shapes; "bench": the 10k
+    # bench shape.  No single PyTorch call computes these blocks, so
+    # there is no library time.
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in path_launches.values()),
                 "launches_by_path": {p: c[name]
                                      for p, c in path_launches.items()},
                 "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name in REPLACES]
+                "plain_ms": times[name][1], "bound_ms": times[name][2],
+                "bound_by": times[name][3], "library_ms": None,
+                "bench": at_bench[name]} for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """gpr_calculator_tpu_torch -- the on-the-fly GPR force field in PyTorch.
 
 Port of ``gpr_calculator_tpu`` (JAX) for one NVIDIA H100: the SO(3)
-descriptor, the RBF many-body covariance with hand-written CUDA K_FF/K_EF
-kernels (and their fused dK/dgamma passes), the Cholesky-factored GP with
-analytic-gradient hyperparameter training, the uncertainty-dispatched
-hybrid calculator and the on-the-fly NEB.  Imports PyTorch, never JAX.
+descriptor, the RBF and Dot many-body covariances with hand-written CUDA
+K_FF/K_EF kernels (and the RBF's fused dK/dgamma passes), the
+Cholesky-factored GP with analytic-gradient hyperparameter training, the
+uncertainty-dispatched hybrid calculator and the on-the-fly NEB.
+Imports PyTorch, never JAX.
 """
 from . import config  # noqa: F401  (sets the float32 matmul precision)
 

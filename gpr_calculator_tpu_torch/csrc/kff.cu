@@ -1,6 +1,7 @@
-// Force-force and energy-force covariance blocks of the RBF many-body
-// kernel, exact fp32 FMA on CUDA cores (sm_90a).  Plain C interface,
-// loaded from Python with ctypes (gpr_calculator_tpu_torch/ops/kff.py).
+// Force-force and energy-force covariance blocks of the RBF and Dot
+// many-body kernels, exact fp32 FMA on CUDA cores (sm_90a).  Plain C
+// interface, loaded from Python with ctypes
+// (gpr_calculator_tpu_torch/ops/kff.py).
 //
 // Replaces the Pallas TPU kernels of gpr_calculator_tpu/ops/kff_pallas.py:
 //   kff_tri  (K1) <- _kff_kernel_tri  (kff_pallas.py:282), symmetric K_FF
@@ -10,6 +11,8 @@
 //      kernels' fused (K, dK/dgamma) pass, _coeff_sets kff_pallas.py:199-206
 //      and kff_pallas.py:785-791): both planes from one set of env-pair dot
 //      products and one expf, for the analytic NLL gradient
+//   kff_tri_dot, kef_rect_dot, kff_rect_dot: K1, K2 and K3 with
+//      kind="dot" (_coeff_sets kff_pallas.py:189-192, _kef_kernel :780-781)
 //
 // Operands (built once per block side by ops/kff.py, so every block of one
 // training covariance reads the same rounded values):
@@ -19,27 +22,34 @@
 // Environments of point p are rows p*B .. p*B+B-1.  For one env pair
 // (a in lhs point p, b in rhs point q):
 //   c = u_a.u_b,  p1_u = Jt_a,u.u_b,  p2_v = u_a.Jt_b,v,  m_uv = Jt_a,u.Jt_b,v
-//   k = s2 exp((c^z - 1) g),  A = k g z c^(z-1),
-//   B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g)       (times rinv_a rinv_b
-//   K_FF[(p,u),(q,v)] += A m_uv + B p1_u p2_v         and [ele_a == ele_b])
-//   K_EF[p,(q,v)]     += -k g z c^(z-1) w_a rinv_b [same] p2_v
-// and the dual planes (dK/dg) take dA = A (D-1) + k z c^(z-1),
-// dB = B (D-1) + k (z(z-1) c^(z-2) + 2 (z c^(z-1))^2 g) and, for K_EF,
-// dA0 = A0 (D-1) - k z c^(z-1), with D = c^z.
+//   RBF: k = s2 exp((c^z - 1) g),  A = k g z c^(z-1),
+//        B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g)
+//   Dot: k = s2 (c^z + s0^2),      A = s2 z c^(z-1),  B = s2 z(z-1) c^(z-2)
+//   K_FF[(p,u),(q,v)] += w (A m_uv + B p1_u p2_v),  w = rinv_a rinv_b [same]
+//   K_EF[p,(q,v)]     += w A0 p2_v,  A0 = -A,       w = w_a rinv_b [same]
+// with [same] = [ele_a == ele_b].  The Dot force blocks need s2 alone: s0
+// enters K_EE only, and there is no expf.  The dual planes (dK/dg, RBF
+// only) take dA = A (D-1) + k z c^(z-1), dB = B (D-1) + k (z(z-1) c^(z-2)
+// + 2 (z c^(z-1))^2 g) and dA0 = A0 (D-1) - k z c^(z-1), with D = c^z.
 //
 // What bounds them on the card: each env pair costs 16 (K_FF) or 4 (K_EF)
 // length-32 dot products -- a thin-k product of the operand rows -- plus
-// one expf and the assembly.  The operands are small (49 MB at 3000 force
-// points x 32 envs) and stay in L2, so the kernels are bound by
-// shared-memory bandwidth and fp32 FMA issue, not device memory.  The
-// design keeps every env-pair intermediate in registers: one block owns a
-// tile of 8 x 8 points and loops over 4-env chunks of both sides staged in
-// shared memory (k-major, so a warp reads 16 consecutive float2); each
-// thread owns a 2 x 2 env micro-tile of one point pair (64 accumulators,
-// 4 FMA per shared load) and reduces env -> point in registers, then over
-// its 4 micro-tiles with warp shuffles.  No block reads another's output,
-// the ragged point and env edges are masked at load, and the (p,u) x (q,v)
-// interleaved layout is written directly.  K1 derives its upper-triangle
+// the coefficients (one expf for RBF, none for Dot) and the assembly.  The
+// operands are small (49 MB at 3000 force points x 32 envs) and stay in
+// L2, so the kernels are bound by shared-memory bandwidth and fp32 FMA
+// throughput, not device memory.  The dot products are taken for every
+// env pair; the element mask skips only the coefficients and the
+// assembly.
+// The design keeps every env-pair intermediate in registers: one block
+// owns a tile of 8 x 8 points and loops over 4-env chunks of both sides
+// staged in shared memory (k-major, so a warp reads 16 consecutive
+// float2); each thread owns a 2 x 2 env micro-tile of one point pair (64
+// accumulators, 4 FMA per shared load) and reduces env -> point in
+// registers, then over its 4 micro-tiles with warp shuffles.  The Dot
+// variants differ from the RBF ones in the coefficients alone (KIND).
+// No block reads another's output, the ragged point and env edges are
+// masked at load, and the (p,u) x (q,v) interleaved layout is written
+// directly.  K1 derives its upper-triangle
 // tile pair (I <= J) from the linear block index and writes each tile and
 // its transpose; on diagonal tiles only the upper entries are computed
 // into the output, so the result is exactly symmetric.
@@ -55,6 +65,8 @@ constexpr int TP = 8;         // points per tile side
 constexpr int CB = 4;         // envs per point per chunk
 constexpr int NE = TP * CB;   // envs per chunk per side
 constexpr int NT = 256;       // threads per block: TP x TP x 2 x 2
+constexpr int RBF = 0;        // kernel families (template KIND)
+constexpr int DOT = 1;
 
 // Stage envs [e0, e0+CB) of points [p0, p0+TP) of one side into shared
 // memory, k-major: s[c][k][env], env = point_local * CB + e.  Envs past
@@ -113,13 +125,20 @@ __device__ __forceinline__ void powers(float c, int zeta, float& d1,
 // MODE 0: rectangular grid (blockIdx.y = lhs tile, blockIdx.x = rhs tile);
 // MODE 1: upper-triangle tiles of a symmetric K_FF from the linear index.
 // NS = 1: K into out; NS = 2 (dual): K into out and dK/dgamma into outd.
-template <int LC, int MODE, int NS>
-__global__ void __launch_bounds__(NT)
+// KIND = RBF (gamma = 1 / (2 l^2)) or DOT (gamma unused).
+// The K_FF instantiations ask for two resident blocks per SM, which caps
+// them at 128 registers, and the K_EF ones for four (64 registers): left
+// free, ptxas gave some K_FF ones 129-139 registers, the card then held
+// one block per SM and they ran slower; a K_EF one given more than 64
+// registers ran slower too (PERF.md).
+template <int LC, int MODE, int NS, int KIND>
+__global__ void __launch_bounds__(NT, LC == 4 ? 2 : 4)
 cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
            int m1, int B1, const float* __restrict__ X2,
            const float* __restrict__ re2, int m2, int B2,
            float* __restrict__ out, float* __restrict__ outd, long long ldo,
            float sigma2, float gamma, int zeta) {
+  static_assert(KIND == RBF || NS == 1, "the Dot kernel has no dual pass");
   constexpr int NPL = LC == 4 ? 9 : 3;   // planes per coefficient set
   constexpr int NOUT = NPL * NS;
   __shared__ __align__(16) float s1[LC][DP][NE];
@@ -200,12 +219,20 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
           powers(c, zeta, d1, dm2);
           const float D = d1 * c;
           const float zd1 = (float)zeta * d1;
-          const float k = sigma2 * expf((D - 1.f) * gamma);
-          const float kg = k * gamma;
+          const float b0c = (float)(zeta * (zeta - 1)) * dm2;
+          // A: coefficient of m_uv (K_FF) and -A of p2_v (K_EF);
+          // Bc: of p1_u p2_v (K_FF); both carry the pair weight w
+          float k = 0.f, A, Bc;
+          if constexpr (KIND == DOT) {
+            A = sigma2 * zd1 * w;
+            Bc = sigma2 * b0c * w;
+          } else {
+            k = sigma2 * expf((D - 1.f) * gamma);
+            const float kg = k * gamma;
+            A = kg * zd1 * w;
+            Bc = kg * (b0c + zd1 * zd1 * gamma) * w;
+          }
           if constexpr (LC == 4) {
-            const float b0c = (float)(zeta * (zeta - 1)) * dm2;
-            const float A = kg * zd1 * w;
-            const float Bc = kg * (b0c + zd1 * zd1 * gamma) * w;
 #pragma unroll
             for (int u = 0; u < 3; ++u) {
               const float Bp1 = Bc * g[ia][ib][(1 + u) * 4];
@@ -231,7 +258,7 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
               }
             }
           } else {
-            const float A0 = -kg * zd1 * w;
+            const float A0 = -A;
 #pragma unroll
             for (int v = 0; v < 3; ++v) acc[v] += A0 * g[ia][ib][1 + v];
             if constexpr (NS == 2) {
@@ -305,7 +332,7 @@ int kff_rect(const float* X1, const float* re1, int m1, int B1,
              const float* X2, const float* re2, int m2, int B2, float* out,
              float sigma2, float gamma, int zeta, void* stream) {
   dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<4, 0, 1><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  cov_kernel<4, 0, 1, RBF><<<grid, NT, 0, (cudaStream_t)stream>>>(
       X1, re1, m1, B1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2,
       gamma, zeta);
   return (int)cudaGetLastError();
@@ -315,7 +342,7 @@ int kff_rect(const float* X1, const float* re1, int m1, int B1,
 int kff_tri(const float* X, const float* re, int m, int B, float* out,
             float sigma2, float gamma, int zeta, void* stream) {
   const long long nt = tiles(m);
-  cov_kernel<4, 1, 1><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
+  cov_kernel<4, 1, 1, RBF><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
                          (cudaStream_t)stream>>>(
       X, re, m, B, X, re, m, B, out, nullptr, 3LL * m, sigma2, gamma, zeta);
   return (int)cudaGetLastError();
@@ -327,7 +354,7 @@ int kff_tri_dual(const float* X, const float* re, int m, int B, float* out,
                  float* outd, float sigma2, float gamma, int zeta,
                  void* stream) {
   const long long nt = tiles(m);
-  cov_kernel<4, 1, 2><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
+  cov_kernel<4, 1, 2, RBF><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
                          (cudaStream_t)stream>>>(
       X, re, m, B, X, re, m, B, out, outd, 3LL * m, sigma2, gamma, zeta);
   return (int)cudaGetLastError();
@@ -339,7 +366,7 @@ int kef_rect(const float* U1, const float* w1, int m1, int A1,
              const float* X2, const float* re2, int m2, int B2, float* out,
              float sigma2, float gamma, int zeta, void* stream) {
   dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<1, 0, 1><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  cov_kernel<1, 0, 1, RBF><<<grid, NT, 0, (cudaStream_t)stream>>>(
       U1, w1, m1, A1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2,
       gamma, zeta);
   return (int)cudaGetLastError();
@@ -351,8 +378,40 @@ int kef_rect_dual(const float* U1, const float* w1, int m1, int A1,
                   float* out, float* outd, float sigma2, float gamma,
                   int zeta, void* stream) {
   dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<1, 0, 2><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  cov_kernel<1, 0, 2, RBF><<<grid, NT, 0, (cudaStream_t)stream>>>(
       U1, w1, m1, A1, X2, re2, m2, B2, out, outd, 3LL * m2, sigma2, gamma,
+      zeta);
+  return (int)cudaGetLastError();
+}
+
+// K3-dot: out (3 m1, 3 m2) = Dot K_FF of lhs against rhs force points.
+int kff_rect_dot(const float* X1, const float* re1, int m1, int B1,
+                 const float* X2, const float* re2, int m2, int B2,
+                 float* out, float sigma2, int zeta, void* stream) {
+  dim3 grid(tiles(m2), tiles(m1));
+  cov_kernel<4, 0, 1, DOT><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      X1, re1, m1, B1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2, 0.f,
+      zeta);
+  return (int)cudaGetLastError();
+}
+
+// K1-dot: out (3 m, 3 m) = symmetric Dot K_FF of one force-point set.
+int kff_tri_dot(const float* X, const float* re, int m, int B, float* out,
+                float sigma2, int zeta, void* stream) {
+  const long long nt = tiles(m);
+  cov_kernel<4, 1, 1, DOT><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
+                             (cudaStream_t)stream>>>(
+      X, re, m, B, X, re, m, B, out, nullptr, 3LL * m, sigma2, 0.f, zeta);
+  return (int)cudaGetLastError();
+}
+
+// K2-dot: out (m1, 3 m2) = Dot K_EF of energy points against force points.
+int kef_rect_dot(const float* U1, const float* w1, int m1, int A1,
+                 const float* X2, const float* re2, int m2, int B2,
+                 float* out, float sigma2, int zeta, void* stream) {
+  dim3 grid(tiles(m2), tiles(m1));
+  cov_kernel<1, 0, 1, DOT><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      U1, w1, m1, A1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2, 0.f,
       zeta);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,13 @@
 Port of the JAX package's ``models/gp.py`` (reference:
 gpr_calc/gaussianprocess.py): the same covariance structure, per-atom
 energy labels, queue semantics and dispatch thresholds.  ``fit(opt=True)``
-first runs scipy's L-BFGS-B over the analytic-gradient NLL
-(``_nll_rbf_analytic``, one fused (K, dK/dgamma) pass per evaluation),
-then every fit is a full refactorisation.  The covariance blocks come
-from ``ops/kernels.py`` (the hand-written CUDA kernels on the card), the
-Cholesky factor, the solves and K^-1 from ``torch.linalg``.
+first runs scipy's L-BFGS-B over the analytic-gradient NLL of the
+kernel's family (``_nll_rbf_analytic``: one fused (K, dK/dgamma) pass
+per evaluation; ``_nll_dot_analytic``: one K build and the pair-count
+matrix), then every fit is a full refactorisation.  The covariance
+blocks come from ``ops/kernels.py`` (the hand-written CUDA kernels on
+the card), the Cholesky factor, the solves and K^-1 from
+``torch.linalg``.
 
 Each GP works on one device and dtype (default ``config.device()`` /
 ``config.dtype()``), so a card model and a CPU model can live side by
@@ -49,10 +51,10 @@ def _noise_diag(e: EnergyData, f: ForceData, noise_e, noise_f):
 
 
 def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
-               noise_f: float, zeta: int):
+               noise_f: float, zeta: int, kind: str = "rbf"):
     """K -> (L, alpha): the training covariance plus noise, its lower
     Cholesky factor and the weights (gaussianprocess.py:288-310)."""
-    K = K_ops.k_self(e, f, params, zeta)
+    K = K_ops.k_self(e, f, params, zeta, kind)
     K.diagonal().add_(_noise_diag(e, f, noise_e, noise_f))
     L, info = torch.linalg.cholesky_ex(K)
     alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
@@ -64,40 +66,36 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
     return L, alpha
 
 
-def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
-                      f_coef, zeta: int, noise_opt: bool,
-                      plain: bool = False):
-    """(-LML, grad) with ANALYTIC hyperparameter derivatives
-    (gp.py:270-346 of the JAX package), theta = (sigma, l[, noise_e]).
+def _split_theta(theta, noise_fixed, f_coef, noise_opt: bool):
+    """theta = (sigma, second[, noise_e]) -> (kernel theta, noise_e,
+    noise_f), with noise_f = f_coef noise_e when the noise is optimised."""
+    theta = [float(t) for t in theta]
+    if noise_opt:
+        return theta[:-1], theta[-1], float(f_coef) * theta[-1]
+    return theta, float(noise_fixed[0]), float(noise_fixed[1])
 
-    0.5 tr((K^-1 - aa^T) dK/dtheta) with dK/dsigma = 2 K_kernel / sigma
-    (free: it reuses the solve) and dK/dl = dK/dgamma * (-1/l^3), where
-    dK/dgamma comes from the same fused pass as K (``k_self_dual``).  The
-    trace is exact at every size: tr(K^-1 Kd) and diag(K^-1) from K^-1 =
-    ``cholesky_inverse(L)`` (n^2 float64 words: 800 MB at n = 10k).
-    The Hutchinson estimate the JAX package switches to at 6144 rows is
-    not ported.  A K that is not positive definite (``cholesky_ex``
-    info != 0) gives (+inf, zeros).
 
-    Precision: the blocks come in the working dtype (float32 on the card,
-    from the kernels); the factor, K^-1 and every reduction are float64.
-    K is ill-conditioned where L-BFGS-B starts (cond ~1e8 at l = 0.1), and
+def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
+                  noise_e: float, noise_f: float, f_coef, noise_opt: bool,
+                  second_grad):
+    """(-LML, grad) from the kernel covariance Kk: the part both kernel
+    families share (gp.py:270-436 of the JAX package).
+
+    0.5 tr((K^-1 - aa^T) dK/dtheta) with dK/dsigma = 2 Kk / sigma (free:
+    it reuses the solve); ``second_grad(Kinv, alpha)`` gives the second
+    kernel hyperparameter's.  The trace is exact at every size, from
+    K^-1 = ``cholesky_inverse(L)`` (n^2 float64 words: 800 MB at
+    n = 10k); the Hutchinson estimate the JAX package switches to at 6144
+    rows is not ported.  A K that is not positive definite
+    (``cholesky_ex`` info != 0) gives (+inf, zeros).
+
+    Precision: Kk comes in the working dtype (float32 on the card, from
+    the kernels); the factor, K^-1 and every reduction are float64.  K is
+    ill-conditioned where L-BFGS-B starts (RBF: cond ~1e8 at l = 0.1), and
     there a float32 Cholesky alone moved the NLL by ~1e-4 of its value,
     and float32 reductions the l-gradient by ~1e-3.  On the card float64
     costs ~2x the memory of those n^2 buffers and little time next to the
-    kernels.  plain=True builds the blocks with the plain versions on any
-    device."""
-    theta = [float(t) for t in theta]
-    if noise_opt:
-        noise_e = theta[-1]
-        noise_f = float(f_coef) * noise_e
-        kp = theta[:-1]
-    else:
-        noise_e, noise_f = float(noise_fixed[0]), float(noise_fixed[1])
-        kp = theta
-    params = _params_from_theta("rbf", kp)
-    sigma, l = params["sigma"], params["l"]
-    Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain)
+    kernels."""
     f64 = torch.float64
     nz = _noise_diag(e, f, noise_e, noise_f).to(f64)
     K = Kk.to(f64)
@@ -106,9 +104,10 @@ def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
     L, info = torch.linalg.cholesky_ex(K)
     n = K.shape[0]
     del K
+    n_theta = 3 if noise_opt else 2
     if int(info) != 0:
         return (torch.tensor(math.inf, dtype=f64),
-                torch.zeros(len(theta), dtype=f64))
+                torch.zeros(n_theta, dtype=f64))
     y = y.to(f64)
     alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
     n_real = e.nreal + 3 * f.nreal
@@ -118,18 +117,15 @@ def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
 
     Kinv = torch.cholesky_inverse(L)
     del L
-    Kd = Kd.to(f64)
     kinv_diag = Kinv.diagonal().clone()
-    tr_kd = torch.dot(Kinv.reshape(-1), Kd.reshape(-1))
+    g_second = second_grad(Kinv, alpha)
     del Kinv
     # tr(Kinv Kk) = n - tr(Kinv Nz); a^T Kk a = a^T y - a^T Nz a
     # (padding rows cancel through the unit noise placed on them)
     tr_kk = n - torch.dot(kinv_diag, nz)
     aKka = ya - torch.dot(nz * alpha, alpha)
     g_sigma = (tr_kk - aKka) / sigma
-    g_gamma = 0.5 * (tr_kd - torch.dot(alpha, Kd @ alpha))
-    g_l = g_gamma * (-1.0 / l ** 3)
-    grads = [g_sigma, g_l]
+    grads = [g_sigma, g_second]
     if noise_opt:
         valid_e = (torch.arange(e.m, device=y.device) < e.nreal).to(f64)
         valid_f = (torch.arange(f.m, device=y.device)
@@ -141,18 +137,69 @@ def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
     return nll, torch.stack(grads)
 
 
+def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
+                      f_coef, zeta: int, noise_opt: bool,
+                      plain: bool = False):
+    """(-LML, grad) of the RBF kernel with ANALYTIC hyperparameter
+    derivatives (gp.py:270-346 of the JAX package), theta = (sigma,
+    l[, noise_e]): dK/dl = dK/dgamma * (-1/l^3), where dK/dgamma comes
+    from the same fused pass as K (``k_self_dual``), and the trace
+    tr(K^-1 dK/dgamma) is exact.  plain=True builds the blocks with the
+    plain versions on any device."""
+    kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
+                                        noise_opt)
+    params = _params_from_theta("rbf", kp)
+    Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain)
+
+    def g_l(Kinv, alpha):
+        Kd64 = Kd.to(torch.float64)
+        tr_kd = torch.dot(Kinv.reshape(-1), Kd64.reshape(-1))
+        g_gamma = 0.5 * (tr_kd - torch.dot(alpha, Kd64 @ alpha))
+        return g_gamma * (-1.0 / params["l"] ** 3)
+    return _analytic_nll(Kk, e, f, y, params["sigma"], noise_e, noise_f,
+                         f_coef, noise_opt, g_l)
+
+
+def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
+                      f_coef, zeta: int, noise_opt: bool,
+                      plain: bool = False):
+    """(-LML, grad) of the Dot kernel with ANALYTIC hyperparameter
+    derivatives (gp.py:353-436 of the JAX package), theta = (sigma,
+    sigma0[, noise_e]).  K comes from ONE gradient-free build per
+    evaluation (K1-dot, K2-dot on the card): sigma0 enters k = s2 (c^z +
+    s0^2) only through the additive constant, so dK/dsigma0 = 2 s2 s0 W
+    on the energy block alone, W = ``count_ee`` (float64), and g_sigma0 =
+    0.5 * 2 s2 s0 (tr(K^-1_EE W) - a_E^T W a_E).  plain=True builds the
+    blocks with the plain versions on any device."""
+    kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
+                                        noise_opt)
+    params = _params_from_theta("dot", kp)
+    sigma, sigma0 = params["sigma"], params["sigma0"]
+    Kk = K_ops.k_self(e, f, params, zeta, "dot", plain=plain,
+                      dtype=torch.float64)
+    W = K_ops.count_ee(e).to(torch.float64)
+    m = e.m
+
+    def g_sigma0(Kinv, alpha):
+        a_e = alpha[:m]
+        tr_dee = (Kinv[:m, :m] * W).sum()
+        return sigma * sigma * sigma0 * (tr_dee - torch.dot(a_e, W @ a_e))
+    return _analytic_nll(Kk, e, f, y, sigma, noise_e, noise_f, f_coef,
+                         noise_opt, g_sigma0)
+
+
 def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
                     tf: ForceData, params, alpha, L, zeta: int,
-                    return_std: bool):
+                    return_std: bool, kind: str = "rbf"):
     """Cross covariance, GEMV with alpha and (optionally) the predictive
     std by a triangular solve against the factor: var = diag - |L^-1 k|^2
     (gaussianprocess.py:873-911), clamped at zero."""
-    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta)
+    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind)
     mean = Kt @ alpha
     if not return_std:
         return mean, None
-    diag = torch.cat([K_ops.diag_energy(pe, params, zeta),
-                      K_ops.diag_force(pf, params, zeta).reshape(-1)])
+    diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind),
+                      K_ops.diag_force(pf, params, zeta, kind).reshape(-1)])
     V = torch.linalg.solve_triangular(L, Kt.T, upper=False)
     var = torch.clamp(diag - (V * V).sum(dim=0), min=0.0)
     return mean, torch.sqrt(var)
@@ -463,16 +510,16 @@ class GP:
 
     # -- LML / fit -----------------------------------------------------------
     def _nll_fn(self):
-        """The analytic-gradient NLL of the kernel kind (RBF only)."""
-        if self.kernel.kind != "rbf":
+        """The analytic-gradient NLL of the kernel's family."""
+        nll = {"rbf": _nll_rbf_analytic,
+               "dot": _nll_dot_analytic}.get(self.kernel.kind)
+        if nll is None:
             raise NotImplementedError(
-                f"the NLL of the {self.kernel.name} kernel is not ported yet "
-                "(ROADMAP.md, port queue item 10)")
+                f"no NLL for the {self.kernel.name} kernel")
         zeta = self.kernel.zeta
 
         def call(theta, e, f, y, noise_fixed, f_coef, noise_opt):
-            return _nll_rbf_analytic(theta, e, f, y, noise_fixed, f_coef,
-                                     zeta, noise_opt)
+            return nll(theta, e, f, y, noise_fixed, f_coef, zeta, noise_opt)
         return call
 
     def _theta(self):
@@ -510,8 +557,8 @@ class GP:
 
     def log_marginal_likelihood(self, params, eval_gradient=False,
                                 clone_kernel=False):
-        """LML (and its gradient) at theta = (sigma, l[, noise_e]) over the
-        whole training set."""
+        """LML (and its gradient) at theta = (sigma, l or sigma0[,
+        noise_e]) over the whole training set."""
         theta0, _, noise_opt = self._theta()
         if len(params) != len(theta0):
             raise ValueError(f"expected {len(theta0)} hyperparameters")
@@ -539,13 +586,10 @@ class GP:
 
     def fit(self, TrainData=None, show: bool = True, opt: bool = True,
             maxiter: int = 10):
-        """opt=True: optimise (sigma, l[, noise]) by L-BFGS-B over the
-        NLL from the current values; then refactorise the training
-        covariance (always a full factorisation)."""
-        if self.kernel.kind != "rbf":
-            raise NotImplementedError(
-                f"only the RBF covariance is ported, not {self.kernel.name} "
-                "(its NLL: ROADMAP.md, port queue item 10)")
+        """opt=True: optimise the kernel's (sigma, l) or (sigma, sigma0)
+        [and the noise] by L-BFGS-B over the NLL from the current values;
+        then refactorise the training covariance (always a full
+        factorisation)."""
         if TrainData is not None:
             self.set_train_pts(TrainData)
         if show:
@@ -567,7 +611,7 @@ class GP:
         try:
             L, alpha = _factorize(e, f, y, self.kernel.params(),
                                   self.noise_e, self.noise_f,
-                                  self.kernel.zeta)
+                                  self.kernel.zeta, self.kernel.kind)
         except FloatingPointError as exc:
             self.logging.error(str(exc))
             raise
@@ -587,7 +631,7 @@ class GP:
     def _serve(self, pe, pf, te, tf, return_std):
         mean, std = _predict_packed(pe, pf, te, tf, self.kernel.params(),
                                     self.alpha_, self.L_, self.kernel.zeta,
-                                    return_std)
+                                    return_std, self.kernel.kind)
         mean = mean.cpu().numpy()
         return mean, None if std is None else std.cpu().numpy()
 
@@ -816,8 +860,9 @@ class GP:
                 noise_f=0.1, lmax=4, nmax=3, rcut=5.0, json_file=None,
                 overwrite=False, **kwargs):
         """A GP trained on ``images`` with the ``base`` calculator, its
-        hyperparameters optimised from (sigma, l) = (1.0, 0.1).  kwargs go
-        to the constructor (device, dtype, log_file)."""
+        hyperparameters optimised from (sigma, l) = (1.0, 0.1) for RBF or
+        (sigma, sigma0) = (2.0, 2.0) for kernel="Dot".  kwargs go to the
+        constructor (device, dtype, log_file)."""
         if json_file is not None and os.path.exists(json_file):
             raise NotImplementedError(
                 "GP.load is not ported yet (ROADMAP.md, port queue item 3): "

@@ -12,22 +12,32 @@ which reduces the reference's force-force formula (rbf_kernel.cpp:342-473)
 to c = u1.u2, p1_u = Jt1_u.u2, p2_v = u1.Jt2_v, m_uv = Jt1_u.Jt2_v and
 
     K_FF[(p,u),(q,v)] = sum_{a in p, b in q} A(c) m_uv + B(c) p1_u p2_v
-    K_EF[p,(q,v)]     = sum_{a in p, b in q} -k g z c^(z-1) w_a rinv_b p2_v
+    K_EF[p,(q,v)]     = sum_{a in p, b in q} A0(c) w_a rinv_b p2_v
 
-with the RBF coefficients of ``_coeffs``; padding and |x| < EPS carry
-rinv = 0 (w = 0 on the energy side).  ``dual=True`` adds the same sums
-with the d/dgamma coefficients (gamma = 1 / (2 l^2)), so one pass gives
-(K, dK/dgamma) for the analytic NLL gradient.  Every block of one training
-covariance must consume the SAME operand tensors (PSD contract,
-kff_pallas.py:448-459): build once, pass everywhere.
+with the coefficients of ``_coeffs`` for the kernel family ``kind``:
+
+    rbf: k = s2 exp((c^z - 1) g),  A = k g z c^(z-1),
+         B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g),  A0 = -A
+    dot: k = s2 (c^z + s0^2),      A = s2 z c^(z-1),
+         B = s2 z(z-1) c^(z-2),                      A0 = -A
+
+(gamma = 1 / (2 l^2)).  The Dot force blocks carry no exp, and sigma0
+enters K_EE alone, through the additive constant s2 s0^2.  Padding and
+|x| < EPS carry rinv = 0 (w = 0 on the energy side).  ``dual=True``
+(RBF only, as in the JAX package) adds the same sums with the d/dgamma
+coefficients, so one pass gives (K, dK/dgamma) for the analytic NLL
+gradient.  Every block of one training covariance must consume the SAME
+operand tensors (PSD contract, kff_pallas.py:448-459): build once, pass
+everywhere.
 
 Routes.  ``kff_from_ops`` and ``kef_from_ops`` take the plain version for
 tensors on the CPU (any float dtype) and launch the CUDA kernels for
 float32 tensors on a CUDA device; anything else on CUDA raises.  The
-kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect`` and the dual
-passes ``kff_tri_dual``, ``kef_rect_dual``) are built with nvcc at first
-use into the package's git-ignored ``build/`` directory and bound with
-ctypes.  ``launches`` counts each kernel launch.
+kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect``, the dual
+passes ``kff_tri_dual``, ``kef_rect_dual`` and the Dot variants
+``kff_tri_dot``, ``kef_rect_dot``, ``kff_rect_dot``) are built with nvcc
+at first use into the package's git-ignored ``build/`` directory and
+bound with ctypes.  ``launches`` counts each kernel launch.
 """
 from __future__ import annotations
 
@@ -51,7 +61,9 @@ _MAX_POINTS = 65535 * 8  # grid.y limit at 8 points per tile (csrc/kff.cu)
 
 # kernel name -> launches since the last reset_launches()
 launches = {"kff_tri": 0, "kef_rect": 0, "kff_rect": 0,
-            "kff_tri_dual": 0, "kef_rect_dual": 0}
+            "kff_tri_dual": 0, "kef_rect_dual": 0,
+            "kff_tri_dot": 0, "kef_rect_dot": 0, "kff_rect_dot": 0}
+KINDS = ("rbf", "dot")
 
 
 def reset_launches() -> None:
@@ -104,22 +116,37 @@ def energy_operand(e):
     return _pad_lanes(u), w.contiguous()
 
 
-def _scalars(params):
-    """(sigma^2, gamma = 1 / (2 l^2)).  Tensor hyperparameters pass
-    through, so the plain versions can be differentiated by autograd."""
-    sigma, l = params["sigma"], params["l"]
+def _scalars(params, kind: str = "rbf", dual: bool = False):
+    """(sigma^2, gamma = 1 / (2 l^2)) for RBF, (sigma^2, sigma0^2) for Dot.
+    Tensor hyperparameters pass through, so the plain versions can be
+    differentiated by autograd.  Every block function reads its scalars
+    here first, so an unknown kind or a Dot dual pass raises before any
+    work."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    if dual and kind != "rbf":
+        raise NotImplementedError(
+            "the Dot kernel has no dual pass (its sigma0 derivative is "
+            "count_ee, ops/kernels.py)")
+    second = params["l" if kind == "rbf" else "sigma0"]
+    sigma = params["sigma"]
     sigma = sigma if torch.is_tensor(sigma) else float(sigma)
-    l = l if torch.is_tensor(l) else float(l)
-    return sigma * sigma, 1.0 / (2.0 * l * l)
+    second = second if torch.is_tensor(second) else float(second)
+    if kind == "rbf":
+        return sigma * sigma, 1.0 / (2.0 * second * second)
+    return sigma * sigma, second * second
 
 
-def _coeffs(c, sigma2, gamma, zeta: int, dual: bool = False):
-    """Per-pair RBF scalars: (k, A, B, -k g z c^(z-1)) with
-    k = s2 exp((c^z - 1) g), A = k g z c^(z-1),
-    B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g).  dual=True also returns
-    their d/dg, (k (D-1), A (D-1) + k z c^(z-1),
+def _coeffs(c, sigma2, p2, zeta: int, kind: str = "rbf",
+            dual: bool = False):
+    """Per-pair scalars (k, A, B, A0) of the kernel family; p2 is the
+    second scalar of ``_scalars``.  RBF: k = s2 exp((c^z - 1) g),
+    A = k g z c^(z-1), B = k g (z(z-1) c^(z-2) + (z c^(z-1))^2 g).
+    Dot: k = s2 (c^z + s0^2), A = s2 z c^(z-1), B = s2 z(z-1) c^(z-2).
+    A0 = -A for both.  dual=True (RBF) also returns their d/dg,
+    (k (D-1), A (D-1) + k z c^(z-1),
     B (D-1) + k (z(z-1) c^(z-2) + 2 (z c^(z-1))^2 g), -dA), D = c^z
-    (kff_pallas.py:199-206, 785-791)."""
+    (kff_pallas.py:189-206, 780-791)."""
     if zeta == 1:
         d1 = torch.ones_like(c)
         dm2 = torch.zeros_like(c)
@@ -133,9 +160,13 @@ def _coeffs(c, sigma2, gamma, zeta: int, dual: bool = False):
         d1 = dm2 * c
     D = d1 * c
     zd1 = zeta * d1
+    b0 = zeta * (zeta - 1) * dm2
+    if kind == "dot":
+        A = sigma2 * zd1
+        return sigma2 * (D + p2), A, sigma2 * b0, -A
+    gamma = p2
     k = sigma2 * torch.exp((D - 1.0) * gamma)
     kg = k * gamma
-    b0 = zeta * (zeta - 1) * dm2
     A = kg * zd1
     B = kg * (b0 + zd1 * zd1 * gamma)
     if not dual:
@@ -146,11 +177,11 @@ def _coeffs(c, sigma2, gamma, zeta: int, dual: bool = False):
     return (k, A, B, -A), (k * Dm1, dA, dB, -dA)
 
 
-def _sets(c, sigma2, gamma, zeta: int, dual: bool):
+def _sets(c, sigma2, p2, zeta: int, kind: str, dual: bool):
     """The coefficient sets of one pass: [K] or [K, dK/dgamma]."""
     if dual:
-        return list(_coeffs(c, sigma2, gamma, zeta, dual=True))
-    return [_coeffs(c, sigma2, gamma, zeta)]
+        return list(_coeffs(c, sigma2, p2, zeta, kind, dual=True))
+    return [_coeffs(c, sigma2, p2, zeta, kind)]
 
 
 def _mirror(K):
@@ -174,12 +205,13 @@ def _chunk_points(b1: int, n2: int) -> int:
 # ---------------------------------------------------------------------------
 
 def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
-              symmetric: bool = False, dual: bool = False):
+              symmetric: bool = False, dual: bool = False,
+              kind: str = "rbf"):
     """K_FF (3 m1, 3 m2) from operands; dual=True returns (K, dK/dgamma)
     from one pass.  symmetric=True (X1 is X2) computes the row stripes'
     upper part only and mirrors the strict upper triangle, so the result
     is exactly symmetric."""
-    sigma2, gamma = _scalars(params)
+    sigma2, p2 = _scalars(params, kind, dual)
     m1, m2 = X1.shape[1] // B1, X2.shape[1] // B2
     outs = [X1.new_zeros((m1, 3, m2, 3)) for _ in range(1 + dual)]
     pc = _chunk_points(B1, X2.shape[1])
@@ -193,7 +225,7 @@ def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
         w = (rl[0][:, None] * rr[0][None, :]
              * (rl[1][:, None] == rr[1][None, :]))
         for out, (_, A, B, _) in zip(
-                outs, _sets(G[0, 0], sigma2, gamma, zeta, dual)):
+                outs, _sets(G[0, 0], sigma2, p2, zeta, kind, dual)):
             A, B = A * w, B * w
             for u in range(3):
                 Bp1 = B * G[1 + u, 0]
@@ -207,9 +239,9 @@ def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
 
 
 def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
-              dual: bool = False):
+              dual: bool = False, kind: str = "rbf"):
     """K_EF (m1, 3 m2) from operands; dual=True returns (K, dK/dgamma)."""
-    sigma2, gamma = _scalars(params)
+    sigma2, p2 = _scalars(params, kind, dual)
     m1, m2 = U1.shape[0] // A1, X2.shape[1] // B2
     outs = [U1.new_zeros((m1, m2, 3)) for _ in range(1 + dual)]
     pc = _chunk_points(A1, X2.shape[1])
@@ -221,7 +253,7 @@ def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
         w = (wl[0][:, None] * re2[0][None, :]
              * (wl[1][:, None] == re2[1][None, :]))
         for out, (_, _, _, A0) in zip(
-                outs, _sets(G[0], sigma2, gamma, zeta, dual)):
+                outs, _sets(G[0], sigma2, p2, zeta, kind, dual)):
             A0 = A0 * w
             for v in range(3):
                 out[p0:p1, :, v] = _point_sum(A0 * G[1 + v], A1, B2)
@@ -230,12 +262,13 @@ def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
 
 
 def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int,
-                 dual: bool = False):
+                 dual: bool = False, kind: str = "rbf"):
     """K_EE (m1, m2) from energy operands (plain PyTorch on any device: the
     block is small next to K_FF, but it reads the same operand tensors as
     the kernels so the training covariance stays one consistent Gram).
-    dual=True returns (K, dK/dgamma)."""
-    sigma2, gamma = _scalars(params)
+    dual=True returns (K, dK/dgamma).  Dot: s2 (c^z + s0^2) over the
+    masked pairs; its constant part is s2 s0^2 count_ee."""
+    sigma2, p2 = _scalars(params, kind, dual)
     m1, m2 = U1.shape[0] // A1, U2.shape[0] // A2
     outs = [U1.new_zeros((m1, m2)) for _ in range(1 + dual)]
     pc = _chunk_points(A1, U2.shape[0])
@@ -248,7 +281,10 @@ def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int,
         D = c
         for _ in range(zeta - 1):
             D = D * c
-        k = sigma2 * torch.exp((D - 1.0) * gamma)
+        if kind == "dot":
+            k = sigma2 * (D + p2)
+        else:
+            k = sigma2 * torch.exp((D - 1.0) * p2)
         outs[0][p0:p1] = _point_sum(k * w, A1, A2)
         if dual:
             outs[1][p0:p1] = _point_sum(k * (D - 1.0) * w, A1, A2)
@@ -316,6 +352,12 @@ def _lib():
         lib.kff_tri.restype = I
         lib.kff_tri_dual.argtypes = [P, P, I, I, P, P, F, F, I, P]
         lib.kff_tri_dual.restype = I
+        for name in ("kff_rect_dot", "kef_rect_dot"):
+            fn = getattr(lib, name)
+            fn.argtypes = [P, P, I, I, P, P, I, I, P, F, I, P]
+            fn.restype = I
+        lib.kff_tri_dot.argtypes = [P, P, I, I, P, F, I, P]
+        lib.kff_tri_dot.restype = I
         _LIB = lib
     return _LIB
 
@@ -355,21 +397,26 @@ def _launch(name, device, *args):
 
 
 def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
-                 symmetric: bool = False, dual: bool = False):
+                 symmetric: bool = False, dual: bool = False,
+                 kind: str = "rbf"):
     """K_FF (3 m1, 3 m2) from force operands; symmetric=True (X1 is X2)
-    runs the triangular kernel K1, else the rectangular K3.  dual=True
-    (symmetric only) returns (K, dK/dgamma) from one pass, K1-dual."""
+    runs the triangular kernel K1, else the rectangular K3 (``_dot`` for
+    kind="dot").  dual=True (RBF, symmetric only) returns (K, dK/dgamma)
+    from one pass, K1-dual."""
+    sigma2, p2 = _scalars(params, kind, dual)
     if dual and not symmetric:
         raise NotImplementedError(
             "the dK/dgamma pass of the rectangular K_FF (K3 deriv) is not "
             "ported yet (ROADMAP.md, section 2)")
     if X1.device.type == "cpu":
         return kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
-                         symmetric=symmetric, dual=dual)
+                         symmetric=symmetric, dual=dual, kind=kind)
     _check_cuda(zeta, X1, re1, X2, re2)
     _check_side(X1, re1, B1, 4)
     _check_side(X2, re2, B2, 4)
-    sigma2, gamma = _scalars(params)
+    # the Dot force blocks need sigma^2 alone (sigma0 enters K_EE only)
+    scalars = (sigma2, p2) if kind == "rbf" else (sigma2,)
+    suffix = "_dot" if kind == "dot" else ""
     m1, m2 = X1.shape[1] // B1, X2.shape[1] // B2
     out = torch.empty((3 * m1, 3 * m2), dtype=torch.float32,
                       device=X1.device)
@@ -380,35 +427,40 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
             outd = torch.empty_like(out)
             _launch("kff_tri_dual", X1.device, X1.data_ptr(),
                     re1.data_ptr(), m1, B1, out.data_ptr(), outd.data_ptr(),
-                    sigma2, gamma, zeta)
+                    *scalars, zeta)
             return out, outd
-        _launch("kff_tri", X1.device, X1.data_ptr(), re1.data_ptr(), m1, B1,
-                out.data_ptr(), sigma2, gamma, zeta)
+        _launch("kff_tri" + suffix, X1.device, X1.data_ptr(),
+                re1.data_ptr(), m1, B1, out.data_ptr(), *scalars, zeta)
     else:
-        _launch("kff_rect", X1.device, X1.data_ptr(), re1.data_ptr(), m1, B1,
-                X2.data_ptr(), re2.data_ptr(), m2, B2, out.data_ptr(),
-                sigma2, gamma, zeta)
+        _launch("kff_rect" + suffix, X1.device, X1.data_ptr(),
+                re1.data_ptr(), m1, B1, X2.data_ptr(), re2.data_ptr(), m2,
+                B2, out.data_ptr(), *scalars, zeta)
     return out
 
 
 def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
-                 dual: bool = False):
-    """K_EF (m1, 3 m2) from energy and force operands (kernel K2);
-    dual=True returns (K, dK/dgamma) from one pass, K2-dual."""
+                 dual: bool = False, kind: str = "rbf"):
+    """K_EF (m1, 3 m2) from energy and force operands (kernel K2, or
+    K2-dot); dual=True (RBF) returns (K, dK/dgamma) from one pass,
+    K2-dual."""
+    sigma2, p2 = _scalars(params, kind, dual)
     if U1.device.type == "cpu":
-        return kef_plain(U1, w1, A1, X2, re2, B2, params, zeta, dual=dual)
+        return kef_plain(U1, w1, A1, X2, re2, B2, params, zeta, dual=dual,
+                         kind=kind)
     _check_cuda(zeta, U1, w1, X2, re2)
     _check_side(U1[None], w1, A1, 1)
     _check_side(X2, re2, B2, 4)
-    sigma2, gamma = _scalars(params)
     m1, m2 = U1.shape[0] // A1, X2.shape[1] // B2
     out = torch.empty((m1, 3 * m2), dtype=torch.float32, device=U1.device)
     args = (U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
             re2.data_ptr(), m2, B2, out.data_ptr())
+    if kind == "dot":
+        _launch("kef_rect_dot", U1.device, *args, sigma2, zeta)
+        return out
     if dual:
         outd = torch.empty_like(out)
         _launch("kef_rect_dual", U1.device, *args, outd.data_ptr(), sigma2,
-                gamma, zeta)
+                p2, zeta)
         return out, outd
-    _launch("kef_rect", U1.device, *args, sigma2, gamma, zeta)
+    _launch("kef_rect", U1.device, *args, sigma2, p2, zeta)
     return out

@@ -119,16 +119,23 @@ def test_carried_weights_and_factor_serve_like_jax(models):
 
 
 def test_fit_with_optimisation_raises(models):
-    """fit(opt=True) runs for RBF now; the Dot kernel's NLL is not
-    ported, and training a Dot model says so."""
-    _, _, tgp, state = models
-    dot = convert.gp_from_state(
-        {k: v for k, v in state.items() if k not in ("alpha", "L", "n_fit")},
-        device="cpu", log_file=None)
-    dot.kernel = T.Dot(para=[2.0, 2.0])
-    with pytest.raises(NotImplementedError, match="NLL"):
-        dot.fit(opt=True, show=False)
-    assert dot.fits == 0 and tgp.kernel.kind == "rbf"
+    """fit(opt=True) trains the RBF and the Dot kernel (a Dot model on the
+    RBF model's training set optimises (sigma, sigma0) and serves); a
+    kernel family without an NLL raises."""
+    images, _, tgp, state = models
+    fresh = {k: v for k, v in state.items() if k not in ("alpha", "L",
+                                                         "n_fit")}
+    dot = convert.gp_from_state(fresh, device="cpu", log_file=None)
+    dot.kernel = T.Dot(para=[2.0, 2.0], zeta=2)
+    dot.fit(opt=True, show=False)
+    assert dot.fits == 1 and dot.kernel.parameters() != [2.0, 2.0]
+    E, F, _ = dot.predict_structure(images[3])
+    assert np.isfinite(E) and np.all(np.isfinite(F))
+    other = convert.gp_from_state(fresh, device="cpu", log_file=None)
+    other.kernel.kind = "poly"
+    with pytest.raises(NotImplementedError, match="no NLL"):
+        other.fit(opt=True, show=False)
+    assert other.fits == 0 and tgp.kernel.kind == "rbf"
 
 
 def test_train_y_matches_jax(models):

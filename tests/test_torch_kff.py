@@ -188,8 +188,8 @@ def test_kernels_match_plain_on_card(cuda, zeta):
     _close(kff.kef_from_ops(U, w, A, X2, re2, B2, PARAMS, zeta),
            kff.kef_plain(U, w, A, X2, re2, B2, PARAMS, zeta))
     torch.cuda.synchronize()
-    assert kff.launches == {"kff_tri": 1, "kef_rect": 1, "kff_rect": 1,
-                            "kff_tri_dual": 0, "kef_rect_dual": 0}
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            "kff_tri": 1, "kef_rect": 1, "kff_rect": 1}
 
 
 @pytest.mark.gpu
@@ -219,8 +219,38 @@ def test_dual_kernels_match_plain_on_card(cuda, zeta):
                                     symmetric=True))
     _close(ef[0], kff.kef_from_ops(U, w, A, X, re, B, PARAMS, zeta))
     torch.cuda.synchronize()
-    assert kff.launches == {"kff_tri": 1, "kef_rect": 1, "kff_rect": 0,
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            "kff_tri": 1, "kef_rect": 1,
                             "kff_tri_dual": 1, "kef_rect_dual": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zeta", [1, 2, 3])
+def test_dot_kernels_match_plain_on_card(cuda, zeta):
+    """K1-dot, K2-dot and K3-dot within 2e-5 max|plain| of the plain Dot
+    versions at ragged edges; K1-dot exactly symmetric."""
+    rng = np.random.RandomState(50 + zeta)
+    fp1, fp2 = make_points(rng, 13, 11, 30), make_points(rng, 10, 9, 30)
+    ep = [(x, el) for x, _, el in make_points(rng, 6, 7, 30)]
+    kw = dict(device=cuda, dtype=torch.float32)
+    e = pack_energy(ep, m_pad=7, **kw)
+    f1, f2 = pack_force(fp1, **kw), pack_force(fp2, **kw)
+    (U, w, A), (X1, re1, B1), (X2, re2, B2) = _ops(e, f1, f2)
+    p = {"sigma": 1.3, "sigma0": 0.7}
+    kff.reset_launches()
+    tri = kff.kff_from_ops(X1, re1, B1, X1, re1, B1, p, zeta,
+                           symmetric=True, kind="dot")
+    _close(tri, kff.kff_plain(X1, re1, B1, X1, re1, B1, p, zeta,
+                              symmetric=True, kind="dot"))
+    assert torch.equal(tri, tri.T)
+    _close(kff.kff_from_ops(X1, re1, B1, X2, re2, B2, p, zeta, kind="dot"),
+           kff.kff_plain(X1, re1, B1, X2, re2, B2, p, zeta, kind="dot"))
+    _close(kff.kef_from_ops(U, w, A, X2, re2, B2, p, zeta, kind="dot"),
+           kff.kef_plain(U, w, A, X2, re2, B2, p, zeta, kind="dot"))
+    torch.cuda.synchronize()
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            "kff_tri_dot": 1, "kef_rect_dot": 1,
+                            "kff_rect_dot": 1}
 
 
 @pytest.mark.gpu
@@ -244,3 +274,12 @@ def test_card_wrappers_raise_on_unsupported_input(cuda):
     with pytest.raises(ValueError):
         kff.kef_from_ops(U.float(), w.float(), A, X32[:, ::2], re32[:, ::2],
                          B1, PARAMS, 2, dual=True)
+    dot = {"sigma": 1.3, "sigma0": 0.7}
+    with pytest.raises(TypeError):
+        kff.kff_from_ops(X1, re1, B1, X1, re1, B1, dot, 2, symmetric=True,
+                         kind="dot")
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(X32[:, ::2], re32[:, ::2], B1, X32, re32, B1, dot,
+                         2, kind="dot")
+    with pytest.raises(TypeError):
+        kff.kef_from_ops(U, w, A, X1, re1, B1, dot, 2, kind="dot")

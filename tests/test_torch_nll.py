@@ -255,6 +255,7 @@ def test_set_gpr_reproduces_jax_theta():
                                rtol=1e-6)
     assert (gp.N_energy, gp.N_forces, gp.fits) == (5, 15, 1)
     assert all(im.calc is None for im in images)
-    with pytest.raises(NotImplementedError, match="queue item 10"):
-        gp.kernel = T.Dot()
-        gp.log_marginal_likelihood([1.0, 1.0])
+    # the same training set under the Dot kernel: its analytic NLL
+    gp.kernel = T.Dot(zeta=2)
+    lml, g = gp.log_marginal_likelihood([2.0, 2.0], eval_gradient=True)
+    assert np.isfinite(lml) and g.shape == (2,) and np.all(np.isfinite(g))
