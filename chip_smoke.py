@@ -17,16 +17,26 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
   (j) the same with the Dot kernel: GP.set_GPR(kernel="Dot") over the
       analytic Dot NLL, its NLL and gradient against float64, the NEB
       and a re-serve of its final model against float64 -- through the
-      Dot kernels alone.
-Around those runs it checks every kernel against its plain PyTorch
-version at the paths' shapes and at the 10k-covariance bench shape,
-factorises that covariance, re-serves the frozen slice model against a
-float64 CPU model, times kernel and plain versions (with each one's
-bound on the card) and one NLL+gradient evaluation, and compares that
-evaluation with float64 on the card.  Any failure raises (non-zero
-exit).  The third-to-last line is a JSON list of the kernels, the
-second-to-last the card's name and power limit, the last a JSON status
-object.
+      Dot kernels alone;
+  (k1) the matmul precision modes: with config.set_kff_precision(
+      "bf16x4"), set_GPR and the NEB (RBF, then Dot) through the
+      tensor-core kernels of that mode alone, with the NLL and a
+      re-serve against float64 recorded, then the RBF path once in
+      "bf16" (its outcome recorded: it may end on another band, or at
+      the dispatcher's training-error gate).
+(a)-(j) run in the default precision, "highest".  Around those runs it
+checks every kernel (every mode, and the deriv and K3-dual kernels no
+path reaches) against its plain PyTorch version at the paths' shapes
+and at the 10k-covariance bench shape, and the card's bf16 split of the
+operand rows against the CPU's ((b), (k2)); factorises that covariance
+in each mode and holds alpha from bf16x4 to float32 ((c), (k3));
+re-serves the frozen slice model against a float64 CPU model; times
+kernel and plain versions at the slice, a mid and the bench shape, with
+each one's bound on the card, and one NLL+gradient evaluation, and
+compares that evaluation with float64 on the card (g).  Any failure
+raises (non-zero exit).  The third-to-last line is a JSON list of the
+kernels, the second-to-last the card's name and power limit, the last a
+JSON status object.
 """
 import json
 import os
@@ -63,27 +73,44 @@ JAX_DOT_NEB = dict(converged=True, nsteps=24, barrier=0.3560402,
                    N_forces=40)
 BARRIER_TOL = 0.01     # eV
 # one NVIDIA H100 SXM (data sheet, dense): fp32 outside the tensor cores,
-# and HBM3 bandwidth
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
-
-REPLACES = {   # launch-counter name -> the Pallas kernel it replaces
-    "kff_tri": "gpr_calculator_tpu/ops/kff_pallas.py:282",   # K1
-    "kef_rect": "gpr_calculator_tpu/ops/kff_pallas.py:748",  # K2
-    "kff_rect": "gpr_calculator_tpu/ops/kff_pallas.py:269",  # K3
-    "kff_tri_dual": "gpr_calculator_tpu/ops/kff_pallas.py:282",   # K1 dual
-    "kef_rect_dual": "gpr_calculator_tpu/ops/kff_pallas.py:748",  # K2 dual
-    "kff_tri_dot": "gpr_calculator_tpu/ops/kff_pallas.py:282",    # K1 Dot
-    "kef_rect_dot": "gpr_calculator_tpu/ops/kff_pallas.py:748",   # K2 Dot
-    "kff_rect_dot": "gpr_calculator_tpu/ops/kff_pallas.py:269",   # K3 Dot
-}
+# bf16 on the tensor cores, and HBM3 bandwidth
+PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+MODES = ("bf16x4", "bf16")
+PREC = {"highest": 0, "bf16x4": 1, "bf16": 2}   # template PREC
+# kernel base name -> (cov_kernel<LC, MODE, SEL, KIND> parameters, the
+# Pallas kernel it replaces); each base runs in every precision mode
+BASES = {
+    "kff_tri": ("4,1,0,0", 282), "kff_tri_dual": ("4,1,1,0", 282),
+    "kff_tri_deriv": ("4,1,2,0", 282), "kff_tri_dot": ("4,1,0,1", 282),
+    "kef_rect": ("1,0,0,0", 748), "kef_rect_dual": ("1,0,1,0", 748),
+    "kef_rect_deriv": ("1,0,2,0", 748), "kef_rect_dot": ("1,0,0,1", 748),
+    "kff_rect": ("4,0,0,0", 269), "kff_rect_dual": ("4,0,1,0", 269),
+    "kff_rect_deriv": ("4,0,2,0", 269), "kff_rect_dot": ("4,0,0,1", 269)}
+# the kernels each family's main path runs (the deriv kernels and K3-dual
+# are on no path of the JAX package or of the port)
+RBF = ("kff_tri", "kff_tri_dual", "kef_rect", "kef_rect_dual", "kff_rect")
 DOT = ("kff_tri_dot", "kef_rect_dot", "kff_rect_dot")
-RBF = tuple(n for n in REPLACES if n not in DOT)
 SOURCE = "gpr_calculator_tpu_torch/csrc/kff.cu"
-# cov_kernel<LC, MODE, NS, KIND> instantiation -> kernel name (ptxas)
-INSTANCES = {"4,1,1,0": "kff_tri", "1,0,1,0": "kef_rect",
-             "4,0,1,0": "kff_rect", "4,1,2,0": "kff_tri_dual",
-             "1,0,2,0": "kef_rect_dual", "4,1,1,1": "kff_tri_dot",
-             "1,0,1,1": "kef_rect_dot", "4,0,1,1": "kff_rect_dot"}
+
+
+def kname(base, mode):
+    return base if mode == "highest" else f"{base}_{mode}"
+
+
+def split_name(name):
+    """kernel name -> (base, mode)."""
+    for mode in MODES:
+        if name.endswith("_" + mode):
+            return name[:-len(mode) - 1], mode
+    return name, "highest"
+
+
+NAMES = [kname(b, m) for m in PREC for b in BASES]
+
+
+def replaces(name):
+    line = BASES[split_name(name)[0]][1]
+    return f"gpr_calculator_tpu/ops/kff_pallas.py:{line}"
 
 
 def card_line() -> str:
@@ -164,12 +191,16 @@ def run_neb(T, gp, images):
 
 
 def ptxas_lines(compiler_log):
-    """(kernel name, ptxas resource line) for each instantiation."""
+    """(kernel name, ptxas resource line) for each instantiation of
+    cov_kernel<LC, MODE, SEL, KIND, PREC>."""
+    instances = {f"{params},{PREC[m]}": kname(b, m)
+                 for b, (params, _) in BASES.items() for m in PREC}
     name = None
     for line in compiler_log.splitlines():
-        m = re.search(r"cov_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E", line)
+        m = re.search(r"cov_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)ELi(\d)E",
+                      line)
         if m:
-            name = INSTANCES.get(",".join(m.groups()), "?")
+            name = instances.get(",".join(m.groups()), "?")
         elif "registers" in line or "spill" in line:
             yield name, line.strip()
 
@@ -198,6 +229,13 @@ def bench_data(torch, device, m_e=1000, m_f=3000, envs=32, d=30):
     return e, f
 
 
+def to_f64(torch, e, f):
+    """The (EnergyData, ForceData) pair with float64 descriptors."""
+    f64 = torch.float64
+    return (e._replace(x=e.x.to(f64), counts=e.counts.to(f64)),
+            f._replace(x=f.x.to(f64), dxdr=f.dxdr.to(f64)))
+
+
 def pair_count(re1, B1, re2, B2, symmetric):
     """Valid same-element env pairs a block needs: the pairs whose
     coefficients are not zero, over the upper triangle of point pairs
@@ -213,61 +251,83 @@ def pair_count(re1, B1, re2, B2, symmetric):
     return (total + diag) // 2 if symmetric else total
 
 
-def bound(ops, nbytes):
-    """(least ms on the card, what binds it): operations over the fp32
-    peak outside the tensor cores, or bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(mma_ops, fp32_ops, nbytes):
+    """(least ms on the card, what binds it): the bf16 tensor-core
+    operations at their peak plus the fp32 operations at the fp32 peak
+    outside the tensor cores, or the bytes over the memory rate."""
+    t_ops = mma_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
+    t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def work(name, d, lhs, rhs, out_numel):
-    """(fp32 operations, bytes) one call of kernel ``name`` needs: per
-    valid same-element env pair, the 16 (K_FF) or 4 (K_EF) length-d dot
-    products at 2 d operations each, plus the coefficients and the
-    assembly (40 / 12, and 46 / 10 more for the dK/dgamma plane); each
+    """(bf16 tensor-core operations, fp32 operations, bytes) one call of
+    kernel ``name`` needs: per valid same-element env pair, the 16 (K_FF)
+    or 4 (K_EF) length-d dot products at 2 d operations each -- in fp32
+    for highest, as four bf16 products (bf16x4) or one (bf16) on the
+    tensor cores -- plus the coefficients and the assembly in fp32 (K_FF
+    40 per plane set, 46 for the dK/dgamma one; K_EF 12 and 10); each
     operand read once, each output written once."""
     (X1, re1, B1), (X2, re2, B2) = lhs, rhs
-    symmetric = name.startswith("kff_tri")
-    pairs = pair_count(re1, B1, re2, B2, symmetric)
-    if name.startswith("kff"):
-        per = 16 * 2 * d + 40 + (46 if name.endswith("_dual") else 0)
-    else:
-        per = 4 * 2 * d + 12 + (10 if name.endswith("_dual") else 0)
+    base, mode = split_name(name)
+    pairs = pair_count(re1, B1, re2, B2, base.startswith("kff_tri"))
+    kff_block = base.startswith("kff")
+    dots = (16 if kff_block else 4) * 2 * d
+    planes = (40, 46) if kff_block else (12, 10)
+    asm = {"_dual": planes[0] + planes[1],
+           "_deriv": planes[1]}.get(base[base.rfind("_"):], planes[0])
+    mma = {"highest": 0, "bf16x4": 4 * dots, "bf16": dots}[mode]
+    fp32 = asm + (dots if mode == "highest" else 0)
     tensors = {t.data_ptr(): t for t in (X1, re1, X2, re2)}.values()
-    nbytes = 4 * (sum(t.numel() for t in tensors) + out_numel)
-    return pairs * per, nbytes
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) \
+        + 4 * out_numel
+    return pairs * mma, pairs * fp32, nbytes
 
 
-def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf"):
-    """(name, kernel call, plain call, (operations, bytes)) for every
-    kernel of the family at the shapes of one serving request (e1, f1)
-    against a training set (e2, f2), zeta = 2."""
-    U1, w1 = kff.energy_operand(e1)
-    X1, re1 = kff.force_operand(f1)
-    U2, w2 = kff.energy_operand(e2)
-    X2, re2 = kff.force_operand(f2)
+def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest"):
+    """(name, kernel call, plain call, (mma ops, fp32 ops, bytes)) for
+    every kernel of the family in ``mode`` at the shapes of one serving
+    request (e1, f1) against a training set (e2, f2), zeta = 2; the
+    operands are built in the mode, and the plain version reads the same
+    rounded values."""
+    U1, w1 = kff.energy_operand(e1, mode)
+    X1, re1 = kff.force_operand(f1, mode)
+    U2, w2 = kff.energy_operand(e2, mode)
+    X2, re2 = kff.force_operand(f2, mode)
     A1, B1, A2, B2 = e1.x.shape[1], f1.x.shape[1], e2.x.shape[1], \
         f2.x.shape[1]
     d = e2.x.shape[2]
     E1, F1, E2, F2 = (U1, w1, A1), (X1, re1, B1), (U2, w2, A2), (X2, re2, B2)
 
-    def kff_case(name, lhs, rhs, symmetric=False, dual=False):
-        def call(fn):
-            return lambda: fn(*lhs, *rhs, params, 2, symmetric=symmetric,
-                              dual=dual, kind=kind)
-        out = 3 * (lhs[0].shape[1] // lhs[2]) * 3 * (rhs[0].shape[1]
-                                                     // rhs[2])
-        return (name, call(kff.kff_from_ops), call(kff.kff_plain),
-                work(name, d, lhs, rhs, out * (1 + dual)))
+    def flags(base):
+        return dict(dual=base.endswith("_dual"),
+                    deriv=base.endswith("_deriv"), kind=kind)
 
-    def kef_case(name, lhs, rhs, dual=False):
-        def call(fn):
-            return lambda: fn(*lhs, *rhs, params, 2, dual=dual, kind=kind)
-        out = (lhs[0].shape[0] // lhs[2]) * 3 * (rhs[0].shape[1] // rhs[2])
-        return (name, call(kff.kef_from_ops), call(kff.kef_plain),
-                work(name, d, (lhs[0][None],) + lhs[1:], rhs,
-                     out * (1 + dual)))
+    def kff_case(base, lhs, rhs, symmetric=False):
+        fl = flags(base)
+
+        def call(fn, **kw):
+            return lambda: fn(*lhs, *rhs, params, 2, symmetric=symmetric,
+                              **fl, **kw)
+        out = 3 * (lhs[0].shape[-2] // lhs[2]) * 3 * (rhs[0].shape[-2]
+                                                      // rhs[2])
+        name = kname(base, mode)
+        return (name, call(kff.kff_from_ops, mm_precision=mode),
+                call(kff.kff_plain),
+                work(name, d, lhs, rhs, out * (1 + fl["dual"])))
+
+    def kef_case(base, lhs, rhs):
+        fl = flags(base)
+
+        def call(fn, **kw):
+            return lambda: fn(*lhs, *rhs, params, 2, **fl, **kw)
+        out = (lhs[0].shape[-2] // lhs[2]) * 3 * (rhs[0].shape[-2]
+                                                  // rhs[2])
+        name = kname(base, mode)
+        return (name, call(kff.kef_from_ops, mm_precision=mode),
+                call(kff.kef_plain),
+                work(name, d, lhs, rhs, out * (1 + fl["dual"])))
 
     if kind == "dot":
         return [kff_case("kff_tri_dot", F2, F2, symmetric=True),
@@ -276,33 +336,62 @@ def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf"):
                 kef_case("kef_rect_dot", E2, F1),
                 kff_case("kff_rect_dot", F1, F2)]
     return [kff_case("kff_tri", F2, F2, symmetric=True),
-            kff_case("kff_tri_dual", F2, F2, symmetric=True, dual=True),
-            kef_case("kef_rect_dual", E2, F2, dual=True),
+            kff_case("kff_tri_dual", F2, F2, symmetric=True),
+            kff_case("kff_tri_deriv", F2, F2, symmetric=True),
+            kef_case("kef_rect_dual", E2, F2),
+            kef_case("kef_rect_deriv", E2, F2),
             kef_case("kef_rect", E2, F2),
             kef_case("kef_rect", E1, F2),
             kef_case("kef_rect", E2, F1),
-            kff_case("kff_rect", F1, F2)]
+            kff_case("kff_rect", F1, F2),
+            kff_case("kff_rect_dual", F1, F2),
+            kff_case("kff_rect_deriv", F1, F2)]
 
 
-def compare(torch, cases, tag, errs, log):
+def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC)):
+    """kernel_cases of both families in each of ``modes``."""
+    return [c for m in modes
+            for c in (kernel_cases(kff, e1, f1, e2, f2, params, mode=m)
+                      + kernel_cases(kff, e1, f1, e2, f2, dparams, "dot",
+                                     m))]
+
+
+def compare(torch, cases, tag, errs, log, plain_ms=None):
     """Every plane of each kernel within KERNEL_RTOL max|plain| of the
-    same plane of its plain version (dual kernels: K and dK/dgamma)."""
+    same plane of its plain version (dual kernels: K and dK/dgamma); K1
+    exactly symmetric.  plain_ms, when given, receives the time of each
+    kernel's first plain call (CUDA events, one call)."""
+    phase = "(b)" if all(split_name(c[0])[1] == "highest"
+                         for c in cases) else "(k2)"
     for name, kern, plain, _ in cases:
-        Ks, Ps = kern(), plain()
+        Ks = kern()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        Ps = plain()
+        end.record()
         torch.cuda.synchronize()
+        if plain_ms is not None:
+            plain_ms.setdefault(name, start.elapsed_time(end))
         if not isinstance(Ks, tuple):
             Ks, Ps = (Ks,), (Ps,)
         for plane, (K, P) in zip(("K", "dK/dgamma"), zip(Ks, Ps)):
             err = float((K - P).abs().max())
             scale = float(P.abs().max())
             what = f"{name} {plane}" if len(Ks) > 1 else name
-            log(f"(b) {tag} {what} {tuple(K.shape)}: max|kernel-plain| = "
-                f"{err:.3e}, max|plain| = {scale:.3e}")
+            log(f"{phase} {tag} {what} {tuple(K.shape)}: max|kernel-plain| "
+                f"= {err:.3e}, max|plain| = {scale:.3e}")
             if not err <= KERNEL_RTOL * scale:
                 raise AssertionError(
                     f"{what} disagrees with its plain version at {tag}: "
                     f"{err:.3e} > {KERNEL_RTOL} * {scale:.3e}")
+            if name.startswith("kff_tri") and not torch.equal(K, K.T):
+                raise AssertionError(f"{what} is not exactly symmetric")
             errs[name] = max(errs.get(name, 0.0), err)
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 def check_launches(counts, names, path, absent=()):
@@ -316,8 +405,9 @@ def check_launches(counts, names, path, absent=()):
             raise AssertionError(f"kernel {name} ran on the {path} path")
 
 
-def nll_vs_f64(gp, ref, theta, tag, log, phase="(h)"):
-    """Card f32 NLL and gradient against the CPU f64 model's at theta."""
+def nll_vs_f64(gp, ref, theta, tag, log, phase="(h)", gate=True):
+    """Card f32 NLL and gradient against the CPU f64 model's at theta
+    (held to the limits when ``gate``, else recorded)."""
     lml, g = gp.log_marginal_likelihood(list(theta), eval_gradient=True)
     lml64, g64 = ref.log_marginal_likelihood(list(theta), eval_gradient=True)
     dn, dg = abs(lml - lml64), float(np.linalg.norm(g - g64))
@@ -327,9 +417,10 @@ def nll_vs_f64(gp, ref, theta, tag, log, phase="(h)"):
         f"({dn / abs(lml64):.3e} relative, limit {NLL_RTOL}); grad card "
         f"{np.array2string(-g, precision=6)}, f64 "
         f"{np.array2string(-g64, precision=6)}, |dg| = {dg:.3e} "
-        f"({dg / gn:.3e} relative, limit {GRAD_RTOL})")
-    if not (np.isfinite(lml) and dn <= NLL_RTOL * abs(lml64)
-            and dg <= GRAD_RTOL * gn):
+        f"({dg / gn:.3e} relative, limit {GRAD_RTOL})"
+        + ("" if gate else " (recorded, not a gate)"))
+    if not np.isfinite(lml) or gate and not (dn <= NLL_RTOL * abs(lml64)
+                                             and dg <= GRAD_RTOL * gn):
         raise AssertionError(f"card NLL/gradient at {tag} outside the "
                              "limits against float64")
     return -lml64, -g64
@@ -350,9 +441,10 @@ def cpu_f64_copy(T, gp, fit):
     return ref
 
 
-def reserve_vs_f64(T, gp, images, log, phase):
+def reserve_vs_f64(T, gp, images, log, phase, gate=True):
     """The card model and a CPU f64 model of its training set serve the
-    images: |dE| <= 0.1 noise_e natoms, max|dF| <= 0.1 noise_f."""
+    images: |dE| <= 0.1 noise_e natoms, max|dF| <= 0.1 noise_f (held
+    when ``gate``, else recorded)."""
     ref = cpu_f64_copy(T, gp, fit=True)
     for k, img in enumerate(images):
         E1, F1, _, _, _ = gp.predict_structure(img, return_std=True)
@@ -360,8 +452,10 @@ def reserve_vs_f64(T, gp, images, log, phase):
         dE, dF = abs(E1 - E2), float(np.abs(F1 - F2).max())
         log(f"{phase} image {k}: |dE| = {dE:.3e} eV "
             f"(limit {0.1 * NOISE_E * len(img):.3e}), max|dF| = {dF:.3e} "
-            f"eV/A (limit {0.1 * NOISE_F:.3e})")
-        if dE > 0.1 * NOISE_E * len(img) or dF > 0.1 * NOISE_F:
+            f"eV/A (limit {0.1 * NOISE_F:.3e})"
+            + ("" if gate else " (recorded, not a gate)"))
+        if not np.isfinite(E1) or gate and (
+                dE > 0.1 * NOISE_E * len(img) or dF > 0.1 * NOISE_F):
             raise AssertionError("card model and CPU f64 model disagree")
 
 
@@ -439,7 +533,7 @@ def main() -> int:
     log("(d) gp.error under the gate (energy_mae <= 0.1, forces_mae <= 0.3)")
 
     # (f) every kernel of the serving slice ran on it
-    log(f"(f) launches on the slice: {json.dumps(main_launches)}")
+    log(f"(f) launches on the slice: {json.dumps(nonzero(main_launches))}")
     check_launches(main_launches, ("kff_tri", "kef_rect", "kff_rect"),
                    "slice", absent=DOT)
 
@@ -455,7 +549,7 @@ def main() -> int:
         f"{theta[1]:.8f}), JAX CPU f64 ({SIGMA:.8f}, {L_SCALE:.8f}), "
         f"relative diff ({theta[0] / SIGMA - 1:.2e}, "
         f"{theta[1] / L_SCALE - 1:.2e})")
-    log(f"(h) launches in set_GPR: {json.dumps(train_launches)}")
+    log(f"(h) launches in set_GPR: {json.dumps(nonzero(train_launches))}")
     check_launches(train_launches, ("kff_tri_dual", "kef_rect_dual"),
                    "training", absent=DOT)
     tref = cpu_f64_copy(T, tgp, fit=False)
@@ -472,7 +566,7 @@ def main() -> int:
         f"{np.array2string(E, precision=6)} eV")
     for key, ref_val in JAX_NEB.items():
         log(f"(i) {key}: card {neb[key]}, JAX CPU f64 {ref_val}")
-    log(f"(i) launches in the NEB: {json.dumps(neb_launches)}")
+    log(f"(i) launches in the NEB: {json.dumps(nonzero(neb_launches))}")
     check_launches(neb_launches, RBF, "NEB", absent=DOT)
     if not neb["converged"] or \
             abs(neb["barrier"] - JAX_NEB["barrier"]) > BARRIER_TOL:
@@ -494,7 +588,7 @@ def main() -> int:
         f"({theta[0] / DOT_THETA[0] - 1:.2e}, "
         f"{theta[1] / DOT_THETA[1] - 1:.2e})")
     log(f"(j) launches in set_GPR(kernel='Dot'): "
-        f"{json.dumps(dot_train_launches)}")
+        f"{json.dumps(nonzero(dot_train_launches))}")
     check_launches(dot_train_launches, ("kff_tri_dot", "kef_rect_dot"),
                    "Dot training", absent=RBF)
     dref = cpu_f64_copy(T, dgp, fit=False)
@@ -516,7 +610,8 @@ def main() -> int:
         f"{np.array2string(E, precision=6)} eV")
     for key, ref_val in JAX_DOT_NEB.items():
         log(f"(j) {key}: card {dneb[key]}, JAX CPU f64 {ref_val}")
-    log(f"(j) launches in the Dot NEB: {json.dumps(dot_neb_launches)}")
+    log("(j) launches in the Dot NEB: "
+        f"{json.dumps(nonzero(dot_neb_launches))}")
     check_launches(dot_neb_launches, DOT, "Dot NEB", absent=RBF)
     if not dneb["converged"] or \
             abs(dneb["barrier"] - JAX_DOT_NEB["barrier"]) > BARRIER_TOL:
@@ -527,7 +622,86 @@ def main() -> int:
                      "neb": neb_launches, "dot_training": dot_train_launches,
                      "dot_neb": dot_neb_launches}
 
-    # (b) kernels vs plain, at the paths' shapes and at the bench shape
+    # (k1) the precision modes on the path: set_GPR and the NEB in bf16x4
+    # (RBF, then Dot), then the RBF path in bf16, each counted
+    mode_models = {}
+    for mode, kernel in (("bf16x4", "RBF"), ("bf16x4", "Dot"),
+                         ("bf16", "RBF")):
+        T.config.set_kff_precision(mode)
+        fam = RBF if kernel == "RBF" else DOT
+        names = [kname(b, mode) for b in fam]
+        tag = f"{mode}{'_dot' if kernel == 'Dot' else ''}"
+        kff.reset_launches()
+        t0 = time.time()
+        mgp, mimages = run_training(T, dev, f32, kernel=kernel)
+        torch.cuda.synchronize()
+        path_launches[f"{tag}_training"] = dict(kff.launches)
+        theta = mgp.kernel.parameters()
+        log(f"(k1) {mode} set_GPR(kernel={kernel!r}): {time.time() - t0:.2f}"
+            f" s, N_energy={mgp.N_energy} N_forces={mgp.N_forces}; theta = "
+            f"({theta[0]:.8f}, {theta[1]:.8f})")
+        log(f"(k1) {mode} launches in set_GPR(kernel={kernel!r}): "
+            f"{json.dumps(nonzero(kff.launches))}")
+        train = (("kff_tri_dual", "kef_rect_dual") if kernel == "RBF"
+                 else ("kff_tri_dot", "kef_rect_dot"))
+        check_launches(kff.launches, [kname(b, mode) for b in train],
+                       f"{mode} {kernel} training",
+                       absent=[n for n in NAMES if n not in names])
+        if not np.all(np.isfinite(theta)):
+            raise AssertionError(f"non-finite theta in {mode}")
+        if mode == "bf16x4":
+            ref = cpu_f64_copy(T, mgp, fit=False)
+            jth = (SIGMA, L_SCALE) if kernel == "RBF" else DOT_THETA
+            th0 = THETA0 if kernel == "RBF" else DOT_THETA0
+            for ttag, th in (("theta0", th0), ("JAX theta*", jth)):
+                nll_vs_f64(mgp, ref, th, ttag, log, phase=f"(k1) {mode}",
+                           gate=False)
+        kff.reset_launches()
+        t0 = time.time()
+        try:
+            mneb, E = run_neb(T, mgp, mimages)
+        except RuntimeError as err:
+            # bf16 alone: the dispatcher's own gate (the JAX package's,
+            # dispatch.py) may refuse a refit whose training error is too
+            # large; that ends the run and is its recorded outcome
+            if mode != "bf16" or "training error is too large" not in \
+                    str(err):
+                raise
+            mneb, E = None, np.asarray(list(mgp.error.values()))
+            log(f"(k1) {mode} {kernel} NEB: stopped after "
+                f"{time.time() - t0:.2f} s by the dispatcher's training-error "
+                f"gate at refit "
+                f"{mgp.fits}, N_energy={mgp.N_energy} N_forces="
+                f"{mgp.N_forces}: {err} (recorded, not a gate)")
+        torch.cuda.synchronize()
+        path_launches[f"{tag}_neb"] = dict(kff.launches)
+        jax_neb = JAX_NEB if kernel == "RBF" else JAX_DOT_NEB
+        if mneb is not None:
+            log(f"(k1) {mode} {kernel} NEB: {time.time() - t0:.2f} s, band "
+                f"energies {np.array2string(E, precision=6)} eV")
+            for key, ref_val in jax_neb.items():
+                log(f"(k1) {mode} {kernel} {key}: card {mneb[key]}, JAX CPU "
+                    f"f64 {ref_val}")
+        log(f"(k1) {mode} launches in the {kernel} NEB: "
+            f"{json.dumps(nonzero(kff.launches))}")
+        check_launches(kff.launches, names, f"{mode} {kernel} NEB",
+                       absent=[n for n in NAMES if n not in names])
+        if not np.all(np.isfinite(E)):
+            raise AssertionError(f"non-finite band energies or training "
+                                 f"error in {mode}")
+        if mode == "bf16x4" and (
+                not mneb["converged"]
+                or abs(mneb["barrier"] - jax_neb["barrier"]) > BARRIER_TOL):
+            raise AssertionError(f"the {mode} {kernel} NEB did not converge "
+                                 f"to the JAX barrier within {BARRIER_TOL} eV")
+        if mode == "bf16x4":
+            reserve_vs_f64(T, mgp, mimages, log, f"(k1) {mode} {kernel} "
+                           "re-serve", gate=False)
+        mode_models[tag] = mgp
+    T.config.set_kff_precision("highest")
+
+    # (b), (k2) kernels vs plain, at the paths' shapes and at the bench
+    # shape, in every mode, and the card's split against the CPU's
     params = gp.kernel.params()
     dparams = dgp.kernel.params()
     te, tf, _, _ = gp._train_view()
@@ -539,8 +713,7 @@ def main() -> int:
         [dd], [ele], [[i for i in range(len(ele))
                        if i not in set(images[2].fixed_indices())]])
     errs = {}
-    slice_cases = (kernel_cases(kff, pe, pf, te, tf, params)
-                   + kernel_cases(kff, pe, pf, te, tf, dparams, "dot"))
+    slice_cases = all_cases(kff, pe, pf, te, tf, params, dparams)
     compare(torch, slice_cases, "slice", errs, log)
     nte, ntf, _, _ = tgp._train_view()
     compare(torch, [c for c in kernel_cases(kff, pe, pf, nte, ntf,
@@ -550,62 +723,115 @@ def main() -> int:
     dte, dtf, _, _ = dgp._train_view()
     compare(torch, kernel_cases(kff, pe, pf, dte, dtf, dparams, "dot"),
             "Dot NEB training set", errs, log)
+    for tag, mgp in mode_models.items():
+        mode = tag.split("_")[0]
+        kind = "dot" if tag.endswith("_dot") else "rbf"
+        mte, mtf, _, _ = mgp._train_view()
+        compare(torch, kernel_cases(kff, pe, pf, mte, mtf,
+                                    mgp.kernel.params(), kind, mode),
+                f"{tag} NEB training set", errs, log)
     be, bf = bench_data(torch, dev)
     bparams = {"sigma": 2.0, "l": 1.0}
     bdparams = {"sigma": 2.0, "sigma0": 2.0}
-    compare(torch, kernel_cases(kff, be, bf, be, bf, bparams)
-            + kernel_cases(kff, be, bf, be, bf, bdparams, "dot"), "bench",
-            errs, log)
+    bench_plain_ms = {}
+    bench_cases = all_cases(kff, be, bf, be, bf, bparams, bdparams)
+    compare(torch, bench_cases, "bench", errs, log, bench_plain_ms)
+    for name, f in (("slice request", pf), ("bench", bf)):
+        Xh, _ = kff.force_operand(f, "highest")
+        for mode in MODES:
+            Xm, _ = kff.force_operand(f, mode)
+            if not torch.equal(Xm.cpu().view(torch.int16),
+                               kff.split(Xh.cpu(), mode).view(torch.int16)):
+                raise AssertionError(f"the card's {mode} split of the "
+                                     f"{name} rows is not the CPU's")
+            log(f"(k2) {name} force rows {tuple(Xh.shape)}: the card's "
+                f"{mode} split equals the CPU split bit for bit")
 
-    # (c) PSD: the bench covariance plus noise factorises
+    # (c), (k3) PSD: the bench covariance plus noise factorises in each
+    # mode; alpha from bf16x4 is the float32 alpha
     from gpr_calculator_tpu_torch.models.gp import _noise_diag
-    Kb = K_ops.k_self(be, bf, bparams, 2)
-    Kb.diagonal().add_(_noise_diag(be, bf, 0.01, 0.1))
-    Lb, info = torch.linalg.cholesky_ex(Kb)
-    if int(info) != 0:
-        raise AssertionError(f"bench covariance not PD (info={int(info)})")
-    log(f"(c) cholesky_ex of the {tuple(Kb.shape)} bench covariance: "
-        f"info=0, min diag(L)={float(Lb.diagonal().min()):.4e}")
-    del Kb, Lb
+    for mode in PREC:
+        Kb = K_ops.k_self(be, bf, bparams, 2, mm_precision=mode)
+        Kb.diagonal().add_(_noise_diag(be, bf, 0.01, 0.1))
+        Lb, info = torch.linalg.cholesky_ex(Kb)
+        phase = "(c)" if mode == "highest" else "(k3)"
+        if int(info) != 0:
+            raise AssertionError(f"bench covariance not PD in {mode} "
+                                 f"(info={int(info)})")
+        log(f"{phase} cholesky_ex of the {tuple(Kb.shape)} bench covariance "
+            f"in {mode}: info=0, min diag(L)="
+            f"{float(Lb.diagonal().min()):.4e}")
+        del Kb, Lb
+    se, sf = bench_data(torch, dev, m_e=64, m_f=192)
+    sy = torch.as_tensor(np.random.RandomState(7).randn(se.m + 3 * sf.m)
+                         * 0.1, dtype=f32, device=dev)
+
+    def alpha(mode):
+        K = K_ops.k_self(se, sf, bparams, 2, mm_precision=mode)
+        K.diagonal().add_(_noise_diag(se, sf, 0.01, 0.1))
+        return torch.cholesky_solve(sy[:, None],
+                                    torch.linalg.cholesky(K))[:, 0]
+
+    a_hi, a_x4, a_b1 = alpha("highest"), alpha("bf16x4"), alpha("bf16")
+    rel_x4 = float((a_x4 - a_hi).norm() / a_hi.norm())
+    rel_b1 = float((a_b1 - a_hi).norm() / a_hi.norm())
+    log(f"(k3) alpha at 64 E + 192 F: |a_bf16x4 - a_highest| / |a_highest| "
+        f"= {rel_x4:.3e} (limit 2e-2, and below 0.3 x the bf16 gap "
+        f"{rel_b1:.3e})")
+    if not (rel_x4 < 2e-2 and rel_x4 < 0.3 * max(rel_b1, 1e-9)):
+        raise AssertionError("alpha from bf16x4 is not the float32 alpha")
+    # the float32 floor: each mode's alpha against a float64 one (plain
+    # versions on float64 data)
+    se64, sf64 = to_f64(torch, se, sf)
+    K64 = K_ops.k_self(se64, sf64, bparams, 2, plain=True)
+    K64.diagonal().add_(_noise_diag(se64, sf64, 0.01, 0.1))
+    a64 = torch.cholesky_solve(sy.double()[:, None],
+                               torch.linalg.cholesky(K64))[:, 0]
+    log("(k3) alpha against float64 (recorded, not a gate): " + ", ".join(
+        f"{m} {float((a.double() - a64).norm() / a64.norm()):.3e}"
+        for m, a in (("highest", a_hi), ("bf16x4", a_x4), ("bf16", a_b1))))
 
     # (e) frozen re-serve: card f32 kernels vs a CPU f64 plain model
     reserve_vs_f64(T, gp, images, log, "(e)")
 
     # (g) times and bounds at the slice's shapes, a mid and the bench
-    # shape (the first case of each kernel)
+    # shape (the first case of each kernel; the plain version at the bench
+    # shape: its one call in (b)/(k2))
     times = {}
-    for name, kern, plain, (ops, nbytes) in slice_cases:
+    for name, kern, plain, (mma, ops, nbytes) in slice_cases:
         if name not in times:
             times[name] = (cuda_ms(torch, kern, 50),
-                           cuda_ms(torch, plain, 10), *bound(ops, nbytes))
+                           cuda_ms(torch, plain, 10),
+                           *bound(mma, ops, nbytes))
     for name, (ms, pms, bms, by) in times.items():
         log(f"(g) slice {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
             f"bound {bms:.3g} ms ({by})")
-    at_bench = {}
-    for tag, (m_e, m_f) in (("mid (250 E + 750 F)", (250, 750)),
-                            ("bench (1000 E + 3000 F)", (1000, 3000))):
-        me, mf = bench_data(torch, dev, m_e=m_e, m_f=m_f)
-        seen = set()
-        for name, kern, plain, (ops, nbytes) in (
-                kernel_cases(kff, me, mf, me, mf, bparams)
-                + kernel_cases(kff, me, mf, me, mf, bdparams, "dot")):
-            if name in seen:
+    at = {"mid": {}, "bench": {}}
+    me, mf = bench_data(torch, dev, m_e=250, m_f=750)
+    for tag, cases in (("mid", all_cases(kff, me, mf, me, mf, bparams,
+                                         bdparams)),
+                       ("bench", bench_cases)):
+        label = ("mid (250 E + 750 F)" if tag == "mid"
+                 else "bench (1000 E + 3000 F)")
+        for name, kern, plain, (mma, ops, nbytes) in cases:
+            if name in at[tag]:
                 continue
-            seen.add(name)
-            ms, pms = cuda_ms(torch, kern, 3), cuda_ms(torch, plain, 1)
-            bms, by = bound(ops, nbytes)
-            log(f"(g) {tag}, 32 envs, {name}: kernel {ms:.3f} ms, plain "
-                f"{pms:.3f} ms, bound {bms:.3f} ms ({by}; {ops:.4g} "
-                f"operations, {nbytes:.4g} bytes)")
-            at_bench[name] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
-                                  bound_by=by)
+            ms = cuda_ms(torch, kern, 3)
+            pms = (cuda_ms(torch, plain, 1) if tag == "mid"
+                   else bench_plain_ms[name])
+            bms, by = bound(mma, ops, nbytes)
+            log(f"(g) {label}, 32 envs, {name}: kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms, bound {bms:.3f} ms ({by}; {mma:.4g} "
+                f"tensor-core and {ops:.4g} fp32 operations, {nbytes:.4g} "
+                "bytes)")
+            at[tag][name] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                 bound_by=by)
 
     # (g) one NLL + gradient evaluation at the bench shape: k_self_dual
     # (K1-dual, K2-dual, K_EE), Cholesky, cholesky_inverse, traces; and
     # the same function in float64 on the card with the plain versions
     from gpr_calculator_tpu_torch.models.gp import (_nll_dot_analytic,
                                                     _nll_rbf_analytic)
-    from gpr_calculator_tpu_torch.ops.packing import EnergyData, ForceData
     n = be.m + 3 * bf.m
     y = torch.as_tensor(np.random.RandomState(1).normal(0.0, 0.1, n),
                         dtype=f32, device=dev)
@@ -621,37 +847,46 @@ def main() -> int:
         f"{cuda_ms(torch, lambda: _nll_dot_analytic(*dargs), 3):.3f} ms, "
         f"of which k_self (float64 K_EE) {cuda_ms(torch, dot_k_self, 3):.3f}"
         " ms")
-    f64 = torch.float64
-    be64 = EnergyData(x=be.x.to(f64), ele=be.ele, counts=be.counts.to(f64),
-                      nreal=be.nreal)
-    bf64 = ForceData(x=bf.x.to(f64), dxdr=bf.dxdr.to(f64), ele=bf.ele,
-                     nreal=bf.nreal)
-    for label, fn, a in (("RBF", _nll_rbf_analytic, args),
-                         ("Dot", _nll_dot_analytic, dargs)):
+    be64, bf64 = to_f64(torch, be, bf)
+    f64_nll = {}
+    for label, fn, a, mode in (("RBF", _nll_rbf_analytic, args, "highest"),
+                               ("Dot", _nll_dot_analytic, dargs, "highest"),
+                               ("RBF", _nll_rbf_analytic, args, "bf16x4"),
+                               ("Dot", _nll_dot_analytic, dargs, "bf16x4")):
+        T.config.set_kff_precision(mode)
+        if mode != "highest":
+            log(f"(g) bench (1000 E + 3000 F), 32 envs, {label} NLL + "
+                f"gradient in {mode}: "
+                f"{cuda_ms(torch, lambda: fn(*a), 3):.3f} ms per evaluation")
         nll32, g32 = fn(*a)
-        nll64, g64 = fn(a[0], be64, bf64, y.to(f64), *a[4:], plain=True)
+        T.config.set_kff_precision("highest")
+        if label not in f64_nll:
+            f64_nll[label] = fn(a[0], be64, bf64, y.double(), *a[4:],
+                                plain=True)
+        nll64, g64 = f64_nll[label]
         nll32, nll64 = float(nll32), float(nll64)
         g32, g64 = g32.cpu().double().numpy(), g64.cpu().numpy()
-        log(f"(g) bench {label} NLL card f32 {nll32:.10g} vs card f64 "
-            f"(plain) {nll64:.10g}: |dNLL| = {abs(nll32 - nll64):.3e} "
+        log(f"(g) bench {label} NLL card f32 ({mode}) {nll32:.10g} vs card "
+            f"f64 (plain) {nll64:.10g}: |dNLL| = {abs(nll32 - nll64):.3e} "
             f"({abs(nll32 - nll64) / abs(nll64):.3e} relative); grad f32 "
             f"{np.array2string(g32, precision=8)}, f64 "
             f"{np.array2string(g64, precision=8)}, |dg|/|g| = "
             f"{np.linalg.norm(g32 - g64) / np.linalg.norm(g64):.3e} "
             "(recorded, not a gate)")
 
-    # ms / plain_ms / bound_ms: the slice's shapes; "bench": the 10k
-    # bench shape.  No single PyTorch call computes these blocks, so
-    # there is no library time.
+    # ms / plain_ms / bound_ms: the slice's shapes; "mid" and "bench":
+    # the 2.5k and 10k bench shapes.  No single PyTorch call computes
+    # these blocks, so there is no library time.
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name],
+                "replaces": replaces(name),
                 "launches": sum(c[name] for c in path_launches.values()),
                 "launches_by_path": {p: c[name]
                                      for p, c in path_launches.items()},
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": times[name][2],
                 "bound_by": times[name][3], "library_ms": None,
-                "bench": at_bench[name]} for name in REPLACES]
+                "mid": at["mid"][name], "bench": at["bench"][name]}
+               for name in NAMES]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

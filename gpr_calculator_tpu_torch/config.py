@@ -1,9 +1,26 @@
-"""Global configuration for the PyTorch port: working device and dtype.
+"""Global configuration for the PyTorch port: working device, dtype and
+the matmul precision of the covariance kernels.
+
+The working device is the CUDA card.  With no card the port refuses to
+guess: ``device()`` raises until ``set_device("cpu")`` asks for the CPU
+(the tests and CPU scripts do), and explicit ``device=`` arguments
+(``GP(device="cpu")``) keep working either way.
 
 The working dtype follows the device unless set explicitly: float64 on
 the CPU (the parity target against the JAX package, ~1e-10) and float32
-on CUDA, where the hand-written covariance kernels run in exact fp32 FMA
-(the counterpart of the JAX package's ``GPR_CALC_TPU_X64=0`` mode).
+on CUDA, where the hand-written covariance kernels run (the counterpart
+of the JAX package's ``GPR_CALC_TPU_X64=0`` mode).
+
+``kff_precision()`` is the matmul precision of the float32 covariance
+blocks, the counterpart of the JAX package's ``_resolve_precision``
+(ops/kff_pallas.py:102-108), with the same three names:
+
+  highest  exact fp32 dot products (CUDA-core FMA)
+  bf16x4   the exact Gram of inputs split into hi + lo bf16 pairs, all
+           four cross terms (tensor cores, fp32 accumulation)
+  bf16     the exact Gram of inputs rounded once to bf16
+
+The port's default is "highest"; float64 operands ignore the mode.
 """
 from __future__ import annotations
 
@@ -18,22 +35,56 @@ torch.backends.cudnn.allow_tf32 = False
 # eps=1e-8, gpr_calc/kernels/rbf_kernel.cpp:10).
 EPS = 1e-8
 
+PRECISIONS = ("highest", "bf16x4", "bf16")
+
 _DTYPE: torch.dtype | None = None
+_DEVICE: torch.device | None = None
+_PRECISION = "highest"
 
 
 def device() -> torch.device:
-    """The working device: CUDA when a card is present, else the CPU.
-    A GP can be pinned elsewhere with ``GP(device=...)``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The working device: the one ``set_device`` chose, else CUDA.
+    Raises when no card is present and nothing was chosen."""
+    if _DEVICE is not None:
+        return _DEVICE
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: gpr_calculator_tpu_torch runs on the card; "
+            "call gpr_calculator_tpu_torch.config.set_device('cpu') (or "
+            "pass device='cpu') to run on the CPU")
+    return torch.device("cuda")
 
 
-def dtype() -> torch.dtype:
-    """The working floating dtype: float64 on the CPU, float32 on CUDA."""
+def set_device(dev) -> None:
+    """Pin the working device (None: back to the card)."""
+    global _DEVICE
+    _DEVICE = None if dev is None else torch.device(dev)
+
+
+def dtype(dev=None) -> torch.dtype:
+    """The working floating dtype on ``dev`` (default: the working
+    device): float64 on the CPU, float32 on CUDA."""
     if _DTYPE is not None:
         return _DTYPE
-    return torch.float32 if device().type == "cuda" else torch.float64
+    dev = device() if dev is None else torch.device(dev)
+    return torch.float32 if dev.type == "cuda" else torch.float64
 
 
 def set_dtype(dt) -> None:
     global _DTYPE
     _DTYPE = dt
+
+
+def kff_precision(mode: str | None = None) -> str:
+    """``mode`` checked, or the configured precision when it is None."""
+    if mode is None:
+        return _PRECISION
+    if mode not in PRECISIONS:
+        raise ValueError(f"unknown kff matmul precision: {mode!r} "
+                         f"(one of {', '.join(PRECISIONS)})")
+    return mode
+
+
+def set_kff_precision(mode: str) -> None:
+    global _PRECISION
+    _PRECISION = kff_precision(mode)

@@ -1,23 +1,30 @@
 // Force-force and energy-force covariance blocks of the RBF and Dot
-// many-body kernels, exact fp32 FMA on CUDA cores (sm_90a).  Plain C
-// interface, loaded from Python with ctypes
+// many-body kernels for sm_90a: exact fp32 FMA on CUDA cores ("highest")
+// or bf16 tensor-core products with fp32 sums (the "bf16x4" and "bf16"
+// matmul precisions).  Plain C interface, loaded from Python with ctypes
 // (gpr_calculator_tpu_torch/ops/kff.py).
 //
 // Replaces the Pallas TPU kernels of gpr_calculator_tpu/ops/kff_pallas.py:
 //   kff_tri  (K1) <- _kff_kernel_tri  (kff_pallas.py:282), symmetric K_FF
 //   kef_rect (K2) <- _kef_kernel      (kff_pallas.py:748), K_EF
 //   kff_rect (K3) <- _kff_kernel      (kff_pallas.py:269), rectangular K_FF
-//   kff_tri_dual, kef_rect_dual: K1 and K2 with dual=True (the same Pallas
-//      kernels' fused (K, dK/dgamma) pass, _coeff_sets kff_pallas.py:199-206
-//      and kff_pallas.py:785-791): both planes from one set of env-pair dot
-//      products and one expf, for the analytic NLL gradient
-//   kff_tri_dot, kef_rect_dot, kff_rect_dot: K1, K2 and K3 with
-//      kind="dot" (_coeff_sets kff_pallas.py:189-192, _kef_kernel :780-781)
+// each in the variants (suffix):
+//   _dual   dual=True: K and dK/dgamma from one set of env-pair dot
+//           products and one expf (_coeff_sets kff_pallas.py:199-206,
+//           kff_pallas.py:785-791), for the analytic NLL gradient
+//   _deriv  deriv=True: dK/dgamma alone (the same coefficient sets)
+//   _dot    kind="dot" (_coeff_sets kff_pallas.py:189-192, :780-781)
+// (K1, K2: all three; K3: all three) and each in the three matmul
+// precisions of kff_pallas.py:38-63 (_pair_blocks :151, _lhs_rhs :394):
+// no further suffix for highest, then _bf16x4 and _bf16.
 //
 // Operands (built once per block side by ops/kff.py, so every block of one
 // training covariance reads the same rounded values):
-//   X  (4, N, 32) f32: rows [u; Jt_x; Jt_y; Jt_z] per environment, with
-//      u = x/|x| and Jt = J - (J.u) u; descriptor width zero-padded to 32
+//   X  (4, N, 32) f32 (highest), or its bf16 parts (P, 4, N, 32): P = 2,
+//      [hi; lo] (bf16x4), or P = 1, [bf16(X)] (bf16).  Rows [u; Jt_x;
+//      Jt_y; Jt_z] per environment, with u = x/|x| and Jt = J - (J.u) u;
+//      descriptor width zero-padded to 32.  The energy side has one row
+//      per environment, (N, 32) or (P, N, 32).
 //   re (2, N)     f32: [rinv or weight, element id]; 0 weight = padding
 // Environments of point p are rows p*B .. p*B+B-1.  For one env pair
 // (a in lhs point p, b in rhs point q):
@@ -28,35 +35,49 @@
 //   K_FF[(p,u),(q,v)] += w (A m_uv + B p1_u p2_v),  w = rinv_a rinv_b [same]
 //   K_EF[p,(q,v)]     += w A0 p2_v,  A0 = -A,       w = w_a rinv_b [same]
 // with [same] = [ele_a == ele_b].  The Dot force blocks need s2 alone: s0
-// enters K_EE only, and there is no expf.  The dual planes (dK/dg, RBF
-// only) take dA = A (D-1) + k z c^(z-1), dB = B (D-1) + k (z(z-1) c^(z-2)
+// enters K_EE only, and there is no expf.  The dK/dg planes (RBF only)
+// take dA = A (D-1) + k z c^(z-1), dB = B (D-1) + k (z(z-1) c^(z-2)
 // + 2 (z c^(z-1))^2 g) and dA0 = A0 (D-1) - k z c^(z-1), with D = c^z.
+// In bf16x4 each dot product is hi.hi + hi.lo + lo.hi + lo.lo: the exact
+// product of the (hi + lo) values with fp32 sums, so every block is the
+// exact Gram of the same rounded rows and the covariance stays PSD; bf16
+// takes the one product of the rounded rows.
 //
 // What bounds them on the card: each env pair costs 16 (K_FF) or 4 (K_EF)
 // length-32 dot products -- a thin-k product of the operand rows -- plus
 // the coefficients (one expf for RBF, none for Dot) and the assembly.  The
-// operands are small (49 MB at 3000 force points x 32 envs) and stay in
-// L2, so the kernels are bound by shared-memory bandwidth and fp32 FMA
-// throughput, not device memory.  The dot products are taken for every
-// env pair; the element mask skips only the coefficients and the
-// assembly.
+// operands are small (49 MB at 3000 force points x 32 envs in f32) and
+// stay in L2, so the kernels are bound by the dot products (fp32 FMA, or
+// the tensor cores' bf16 rate) and the assembly, not device memory.  The
+// dot products are taken for every env pair; the element mask skips only
+// the coefficients and the assembly.
 // The design keeps every env-pair intermediate in registers: one block
-// owns a tile of 8 x 8 points and loops over 4-env chunks of both sides
-// staged in shared memory (k-major, so a warp reads 16 consecutive
-// float2); each thread owns a 2 x 2 env micro-tile of one point pair (64
-// accumulators, 4 FMA per shared load) and reduces env -> point in
-// registers, then over its 4 micro-tiles with warp shuffles.  The Dot
-// variants differ from the RBF ones in the coefficients alone (KIND).
-// No block reads another's output, the ragged point and env edges are
-// masked at load, and the (p,u) x (q,v) interleaved layout is written
-// directly.  K1 derives its upper-triangle
-// tile pair (I <= J) from the linear block index and writes each tile and
-// its transpose; on diagonal tiles only the upper entries are computed
-// into the output, so the result is exactly symmetric.
+// (8 warps) owns a tile of 8 x 8 points and loops over 4-env chunks of
+// both sides staged in shared memory; each thread owns a 2 x 2 env
+// micro-tile of one point pair and its 16 (K_EF: 4) dot products, reduces
+// env -> point in registers across the chunks, then over the 4 threads of
+// its point pair with warp shuffles.  highest stages the chunk k-major and
+// takes the dot products by FMA (4 per shared load).  The bf16 modes stage
+// the parts env-major (k contiguous, the layout mma.row.col reads) and
+// take them with mma.sync m16n8k16: warp (wa, wb) multiplies 16 lhs envs
+// x 4 components (4 m-tiles) by 8 rhs envs x 4 components (4 n-tiles),
+// and the lhs envs are staged so that fragment row g holds env 2g and row
+// g + 8 env 2g + 1: then each thread's accumulators hold all (c1, c2)
+// products of its lhs envs 2g, 2g+1 and rhs envs 2q, 2q+1 (q = lane % 4),
+// one point pair's 2 x 2 micro-tile, and the assembly is the same code.
+// The Dot variants differ from the RBF ones in the coefficients alone
+// (KIND).  No block reads another's output, the ragged point and env
+// edges are masked at load, and the (p,u) x (q,v) interleaved layout is
+// written directly.  K1 derives its upper-triangle tile pair (I <= J) from
+// the linear block index and writes each tile and its transpose; on
+// diagonal tiles only the upper entries are computed into the output, so
+// the result is exactly symmetric.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -64,18 +85,25 @@ constexpr int DP = 32;        // padded descriptor width
 constexpr int TP = 8;         // points per tile side
 constexpr int CB = 4;         // envs per point per chunk
 constexpr int NE = TP * CB;   // envs per chunk per side
-constexpr int NT = 256;       // threads per block: TP x TP x 2 x 2
+constexpr int NT = 256;       // threads per block: 8 warps
+constexpr int RS = DP + 8;    // bf16 row stride in shared memory (80 bytes:
+                              // conflict-free fragment loads)
 constexpr int RBF = 0;        // kernel families (template KIND)
 constexpr int DOT = 1;
+constexpr int KONLY = 0;      // coefficient sets (template SEL): K,
+constexpr int DUAL = 1;       // K and dK/dgamma,
+constexpr int DERIV = 2;      // dK/dgamma alone
+constexpr int HIGHEST = 0;    // matmul precision (template PREC)
+constexpr int BF16X4 = 1;
+constexpr int BF16 = 2;
 
 // Stage envs [e0, e0+CB) of points [p0, p0+TP) of one side into shared
 // memory, k-major: s[c][k][env], env = point_local * CB + e.  Envs past
 // the point count or the env count load as zeros with zero weight.
 template <int NC>
 __device__ __forceinline__ void stage(const float* __restrict__ X,
-                                      const float* __restrict__ re,
                                       int m, int B, int p0, int e0,
-                                      float (*s)[DP][NE], float (*sre)[NE]) {
+                                      float (*s)[DP][NE]) {
   const long long N = (long long)m * B;
   for (int idx = threadIdx.x; idx < NC * (DP / 4) * NE; idx += NT) {
     const int env = idx % NE;
@@ -94,6 +122,39 @@ __device__ __forceinline__ void stage(const float* __restrict__ X,
     s[c][k4 * 4 + 2][env] = v.z;
     s[c][k4 * 4 + 3][env] = v.w;
   }
+}
+
+// The bf16 modes: stage the NP parts of the same envs env-major with k
+// contiguous, s[(part * NC + c) * NE + slot][k] with row stride RS.  On
+// the lhs (PERM) side env 2g + h of each 16-env group goes to slot
+// g + 8 h, the fragment row that reads it (see the file comment).
+template <int NC, int NP, bool PERM>
+__device__ __forceinline__ void stage_bf16(const uint16_t* __restrict__ X,
+                                           int m, int B, int p0, int e0,
+                                           uint16_t* __restrict__ s) {
+  const long long N = (long long)m * B;
+  for (int idx = threadIdx.x; idx < NP * NC * NE * (DP / 8); idx += NT) {
+    const int k8 = idx % (DP / 8);
+    const int env = (idx / (DP / 8)) % NE;
+    const int pc = idx / (DP / 8 * NE);   // part * NC + c
+    const int p = p0 + env / CB;
+    const int e = e0 + env % CB;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (p < m && e < B) {
+      const long long n = (long long)p * B + e;
+      v = *reinterpret_cast<const uint4*>(X + (pc * N + n) * DP + k8 * 8);
+    }
+    const int slot =
+        PERM ? (env & ~15) | ((env & 1) << 3) | ((env & 15) >> 1) : env;
+    *reinterpret_cast<uint4*>(s + (pc * NE + slot) * RS + k8 * 8) = v;
+  }
+}
+
+// [weight, element] of the staged envs, in env order.
+__device__ __forceinline__ void stage_re(const float* __restrict__ re,
+                                         int m, int B, int p0, int e0,
+                                         float (*sre)[NE]) {
+  const long long N = (long long)m * B;
   for (int idx = threadIdx.x; idx < 2 * NE; idx += NT) {
     const int row = idx / NE;
     const int env = idx % NE;
@@ -104,6 +165,115 @@ __device__ __forceinline__ void stage(const float* __restrict__ X,
     sre[row][env] = v;
   }
 }
+
+// G[c1 * 4 + c2][ia * 2 + ib] = X1[c1]_(a0+ia) . X2[c2]_(b0+ib) in fp32
+// FMA from the k-major chunk.
+template <int LC>
+__device__ __forceinline__ void pair_blocks_fma(const float (*s1)[DP][NE],
+                                                const float (*s2)[DP][NE],
+                                                int a0, int b0,
+                                                float (&G)[LC * 4][4]) {
+#pragma unroll
+  for (int c = 0; c < LC * 4; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) G[c][i] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < DP; ++k) {
+    float2 l[LC], r[4];
+#pragma unroll
+    for (int c = 0; c < LC; ++c)
+      l[c] = *reinterpret_cast<const float2*>(&s1[c][k][a0]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      r[c] = *reinterpret_cast<const float2*>(&s2[c][k][b0]);
+#pragma unroll
+    for (int c1 = 0; c1 < LC; ++c1)
+#pragma unroll
+      for (int c2 = 0; c2 < 4; ++c2) {
+        float* gc = G[c1 * 4 + c2];
+        gc[0] = fmaf(l[c1].x, r[c2].x, gc[0]);
+        gc[1] = fmaf(l[c1].x, r[c2].y, gc[1]);
+        gc[2] = fmaf(l[c1].y, r[c2].x, gc[2]);
+        gc[3] = fmaf(l[c1].y, r[c2].y, gc[3]);
+      }
+  }
+}
+
+// D += A B (16 x 8 x 16, bf16 in, fp32 sums) on the tensor cores.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The same G from the staged bf16 parts with mma.sync: warp (wa, wb)
+// takes lhs envs [16 wa, 16 wa + 16) x LC components against rhs envs
+// [8 wb, 8 wb + 8) x 4 components, every (lhs part, rhs part) product
+// (bf16x4: four, bf16: one) into one fp32 accumulator.  Accumulator
+// element i sits at fragment row g + 8 (i >> 1) = lhs env 2g + (i >> 1)
+// and column 2q + (i & 1) = rhs env 2q + (i & 1): G[c][ia * 2 + ib].
+template <int LC, int NP>
+__device__ __forceinline__ void pair_blocks_mma(const uint16_t* __restrict__ sA,
+                                                const uint16_t* __restrict__ sB,
+                                                int wa, int wb, int lane,
+                                                float (&G)[LC * 4][4]) {
+  const int g = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int c = 0; c < LC * 4; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) G[c][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DP; ks += 16) {
+    uint32_t b[NP][4][2];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int c2 = 0; c2 < 4; ++c2) {
+        const uint16_t* r =
+            sB + ((p * 4 + c2) * NE + 8 * wb + g) * RS + ks + 2 * q;
+        b[p][c2][0] = ld32(r);
+        b[p][c2][1] = ld32(r + 8);
+      }
+#pragma unroll
+    for (int c1 = 0; c1 < LC; ++c1) {
+      uint32_t a[NP][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const uint16_t* r =
+            sA + ((p * LC + c1) * NE + 16 * wa + g) * RS + ks + 2 * q;
+        a[p][0] = ld32(r);
+        a[p][1] = ld32(r + 8 * RS);
+        a[p][2] = ld32(r + 8);
+        a[p][3] = ld32(r + 8 * RS + 8);
+      }
+#pragma unroll
+      for (int c2 = 0; c2 < 4; ++c2)
+#pragma unroll
+        for (int pa = 0; pa < NP; ++pa)
+#pragma unroll
+          for (int pb = 0; pb < NP; ++pb)
+            mma_bf16(G[c1 * 4 + c2], a[pa], b[pb][c2]);
+    }
+  }
+}
+
+// One side's staged chunk with NC components: k-major fp32 rows
+// (highest), or the bf16 parts env-major with row stride RS (the bf16
+// modes).  The two sides are two __shared__ arrays: one object holding
+// both made ptxas spill 40-96 bytes in the fp32 K_FF kernels (PERF.md).
+template <int NC, int PREC>
+using Staged = std::conditional_t<
+    PREC == HIGHEST, float[NC][DP][NE],
+    uint16_t[(PREC == BF16X4 ? 2 : 1) * NC * NE * RS]>;
 
 // c^(z-1) and z(z-1) c^(z-2) for an integer exponent z >= 1.
 __device__ __forceinline__ void powers(float c, int zeta, float& d1,
@@ -124,25 +294,31 @@ __device__ __forceinline__ void powers(float c, int zeta, float& d1,
 // LC = 4: K_FF (lhs carries [u; Jt]), LC = 1: K_EF (lhs carries u only).
 // MODE 0: rectangular grid (blockIdx.y = lhs tile, blockIdx.x = rhs tile);
 // MODE 1: upper-triangle tiles of a symmetric K_FF from the linear index.
-// NS = 1: K into out; NS = 2 (dual): K into out and dK/dgamma into outd.
+// SEL = KONLY: K into out; DUAL: K into out and dK/dgamma into outd;
+// DERIV: dK/dgamma into out.
 // KIND = RBF (gamma = 1 / (2 l^2)) or DOT (gamma unused).
+// PREC = HIGHEST (fp32 FMA), BF16X4 or BF16 (tensor cores).
 // The K_FF instantiations ask for two resident blocks per SM, which caps
 // them at 128 registers, and the K_EF ones for four (64 registers): left
 // free, ptxas gave some K_FF ones 129-139 registers, the card then held
 // one block per SM and they ran slower; a K_EF one given more than 64
 // registers ran slower too (PERF.md).
-template <int LC, int MODE, int NS, int KIND>
+template <int LC, int MODE, int SEL, int KIND, int PREC>
 __global__ void __launch_bounds__(NT, LC == 4 ? 2 : 4)
-cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
-           int m1, int B1, const float* __restrict__ X2,
+cov_kernel(const void* __restrict__ X1, const float* __restrict__ re1,
+           int m1, int B1, const void* __restrict__ X2,
            const float* __restrict__ re2, int m2, int B2,
            float* __restrict__ out, float* __restrict__ outd, long long ldo,
            float sigma2, float gamma, int zeta) {
-  static_assert(KIND == RBF || NS == 1, "the Dot kernel has no dual pass");
+  static_assert(KIND == RBF || SEL == KONLY,
+                "the Dot kernel has no dK/dgamma pass");
   constexpr int NPL = LC == 4 ? 9 : 3;   // planes per coefficient set
+  constexpr int NS = SEL == DUAL ? 2 : 1;
   constexpr int NOUT = NPL * NS;
-  __shared__ __align__(16) float s1[LC][DP][NE];
-  __shared__ __align__(16) float s2[4][DP][NE];
+  constexpr int DSET = SEL == DUAL ? NPL : 0;   // first dK/dgamma plane
+  constexpr int NP = PREC == BF16X4 ? 2 : 1;    // bf16 parts per value
+  __shared__ __align__(16) Staged<LC, PREC> s1;
+  __shared__ __align__(16) Staged<4, PREC> s2;
   __shared__ float sre1[2][NE];
   __shared__ float sre2[2][NE];
 
@@ -159,62 +335,64 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
     J = blockIdx.x;
   }
 
+  // this thread's point pair (pl, ql) in the tile, its two lhs envs a0,
+  // a0 + 1 and two rhs envs b0, b0 + 1 of each chunk, and the lanes of
+  // the other three threads of the pair (xor 1, xor SH)
   const int t = threadIdx.x;
-  const int bs = t & 1;
-  const int as = (t >> 1) & 1;
-  const int ql = (t >> 2) & (TP - 1);
-  const int pl = t >> 5;
-  const int a0 = pl * CB + as * 2;   // this thread's two lhs envs
-  const int b0 = ql * CB + bs * 2;   // and two rhs envs
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int pl, ql, a0, b0;
+  if constexpr (PREC == HIGHEST) {
+    ql = (t >> 2) & (TP - 1);
+    pl = warp;
+    a0 = pl * CB + ((t >> 1) & 1) * 2;
+    b0 = ql * CB + (t & 1) * 2;
+  } else {
+    const int g = lane >> 2, q = lane & 3;
+    pl = 4 * (warp >> 2) + (g >> 1);
+    ql = 2 * (warp & 3) + (q >> 1);
+    a0 = 16 * (warp >> 2) + 2 * g;
+    b0 = 8 * (warp & 3) + 2 * q;
+  }
+  constexpr int SH = PREC == HIGHEST ? 2 : 4;
 
   float acc[NOUT];
 #pragma unroll
   for (int i = 0; i < NOUT; ++i) acc[i] = 0.f;
 
   for (int ea = 0; ea < B1; ea += CB) {
-    stage<LC>(X1, re1, m1, B1, I * TP, ea, s1, sre1);
+    if constexpr (PREC == HIGHEST)
+      stage<LC>(static_cast<const float*>(X1), m1, B1, I * TP, ea, s1);
+    else
+      stage_bf16<LC, NP, true>(static_cast<const uint16_t*>(X1), m1, B1,
+                               I * TP, ea, s1);
+    stage_re(re1, m1, B1, I * TP, ea, sre1);
     for (int eb = 0; eb < B2; eb += CB) {
-      stage<4>(X2, re2, m2, B2, J * TP, eb, s2, sre2);
+      if constexpr (PREC == HIGHEST)
+        stage<4>(static_cast<const float*>(X2), m2, B2, J * TP, eb, s2);
+      else
+        stage_bf16<4, NP, false>(static_cast<const uint16_t*>(X2), m2, B2,
+                                 J * TP, eb, s2);
+      stage_re(re2, m2, B2, J * TP, eb, sre2);
       __syncthreads();
 
-      // g[ia][ib][c1 * 4 + c2] = X1[c1]_a . X2[c2]_b
-      float g[2][2][LC * 4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int c = 0; c < LC * 4; ++c) g[i][j][c] = 0.f;
-
-#pragma unroll 4
-      for (int k = 0; k < DP; ++k) {
-        float2 l[LC], r[4];
-#pragma unroll
-        for (int c = 0; c < LC; ++c)
-          l[c] = *reinterpret_cast<const float2*>(&s1[c][k][a0]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          r[c] = *reinterpret_cast<const float2*>(&s2[c][k][b0]);
-#pragma unroll
-        for (int c1 = 0; c1 < LC; ++c1)
-#pragma unroll
-          for (int c2 = 0; c2 < 4; ++c2) {
-            g[0][0][c1 * 4 + c2] = fmaf(l[c1].x, r[c2].x, g[0][0][c1 * 4 + c2]);
-            g[0][1][c1 * 4 + c2] = fmaf(l[c1].x, r[c2].y, g[0][1][c1 * 4 + c2]);
-            g[1][0][c1 * 4 + c2] = fmaf(l[c1].y, r[c2].x, g[1][0][c1 * 4 + c2]);
-            g[1][1][c1 * 4 + c2] = fmaf(l[c1].y, r[c2].y, g[1][1][c1 * 4 + c2]);
-          }
-      }
+      // G[c1 * 4 + c2][ia * 2 + ib] = X1[c1]_(a0+ia) . X2[c2]_(b0+ib)
+      float G[LC * 4][4];
+      if constexpr (PREC == HIGHEST)
+        pair_blocks_fma<LC>(s1, s2, a0, b0, G);
+      else
+        pair_blocks_mma<LC, NP>(s1, s2, warp >> 2, warp & 3, lane, G);
 
 #pragma unroll
       for (int ia = 0; ia < 2; ++ia)
 #pragma unroll
         for (int ib = 0; ib < 2; ++ib) {
+          const int e = ia * 2 + ib;
           const float same =
               sre1[1][a0 + ia] == sre2[1][b0 + ib] ? 1.f : 0.f;
           const float w = sre1[0][a0 + ia] * sre2[0][b0 + ib] * same;
           if (w == 0.f) continue;
-          const float c = g[ia][ib][0];
+          const float c = G[0][e];
           float d1, dm2;
           powers(c, zeta, d1, dm2);
           const float D = d1 * c;
@@ -233,15 +411,17 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
             Bc = kg * (b0c + zd1 * zd1 * gamma) * w;
           }
           if constexpr (LC == 4) {
+            if constexpr (SEL != DERIV) {
 #pragma unroll
-            for (int u = 0; u < 3; ++u) {
-              const float Bp1 = Bc * g[ia][ib][(1 + u) * 4];
+              for (int u = 0; u < 3; ++u) {
+                const float Bp1 = Bc * G[(1 + u) * 4][e];
 #pragma unroll
-              for (int v = 0; v < 3; ++v)
-                acc[u * 3 + v] += A * g[ia][ib][(1 + u) * 4 + 1 + v] +
-                                  Bp1 * g[ia][ib][1 + v];
+                for (int v = 0; v < 3; ++v)
+                  acc[u * 3 + v] += A * G[(1 + u) * 4 + 1 + v][e] +
+                                    Bp1 * G[1 + v][e];
+              }
             }
-            if constexpr (NS == 2) {
+            if constexpr (SEL != KONLY) {
               const float Dm1 = D - 1.f;
               const float kw = k * w;
               const float dA = A * Dm1 + kw * zd1;
@@ -249,23 +429,24 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
                   Bc * Dm1 + kw * (b0c + 2.f * zd1 * zd1 * gamma);
 #pragma unroll
               for (int u = 0; u < 3; ++u) {
-                const float dBp1 = dB * g[ia][ib][(1 + u) * 4];
+                const float dBp1 = dB * G[(1 + u) * 4][e];
 #pragma unroll
                 for (int v = 0; v < 3; ++v)
-                  acc[9 + u * 3 + v] +=
-                      dA * g[ia][ib][(1 + u) * 4 + 1 + v] +
-                      dBp1 * g[ia][ib][1 + v];
+                  acc[DSET + u * 3 + v] +=
+                      dA * G[(1 + u) * 4 + 1 + v][e] + dBp1 * G[1 + v][e];
               }
             }
           } else {
             const float A0 = -A;
+            if constexpr (SEL != DERIV) {
 #pragma unroll
-            for (int v = 0; v < 3; ++v) acc[v] += A0 * g[ia][ib][1 + v];
-            if constexpr (NS == 2) {
+              for (int v = 0; v < 3; ++v) acc[v] += A0 * G[1 + v][e];
+            }
+            if constexpr (SEL != KONLY) {
               const float dA0 = A0 * (D - 1.f) - k * w * zd1;
 #pragma unroll
               for (int v = 0; v < 3; ++v)
-                acc[3 + v] += dA0 * g[ia][ib][1 + v];
+                acc[DSET + v] += dA0 * G[1 + v][e];
             }
           }
         }
@@ -273,13 +454,13 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
     }
   }
 
-  // reduce the 2 x 2 micro-tiles of one point pair (lanes t^1, t^2)
+  // reduce the 2 x 2 micro-tiles of one point pair (lanes xor 1, xor SH)
 #pragma unroll
   for (int i = 0; i < NOUT; ++i) {
     acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
-    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 2);
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], SH);
   }
-  if ((t & 3) != 0) return;
+  if ((lane & (1 | SH)) != 0) return;
   const int p = I * TP + pl;
   const int q = J * TP + ql;
   if (p >= m1 || q >= m2) return;
@@ -323,97 +504,58 @@ cov_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
 
 inline int tiles(int m) { return (m + TP - 1) / TP; }
 
+// MODE 1 (K1): the upper-triangle tiles of one (m1 = m2) point set;
+// MODE 0: every (lhs tile, rhs tile).  Returns the launch status.
+template <int LC, int MODE, int SEL, int KIND, int PREC>
+int launch(const void* X1, const float* re1, int m1, int B1, const void* X2,
+           const float* re2, int m2, int B2, float* out, float* outd,
+           float sigma2, float gamma, int zeta, void* stream) {
+  dim3 grid(tiles(m2), tiles(m1));
+  if (MODE == 1) {
+    const long long nt = tiles(m1);
+    grid = dim3((unsigned)(nt * (nt + 1) / 2));
+  }
+  cov_kernel<LC, MODE, SEL, KIND, PREC>
+      <<<grid, NT, 0, (cudaStream_t)stream>>>(X1, re1, m1, B1, X2, re2, m2,
+                                              B2, out, outd, 3LL * m2,
+                                              sigma2, gamma, zeta);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd, sigma2,
+// gamma, zeta, stream).  K_FF: out (3 m1, 3 m2); K_EF: out (m1, 3 m2)
+// from energy operands (U1, w1 = [valid/count, element]) against force
+// operands.  outd receives dK/dgamma for _dual and is unused otherwise;
+// gamma is unused by _dot.  K1 (kff_tri*) takes X2 = X1, re2 = re1, m2 =
+// m1, B2 = B1 and writes an exactly symmetric out (and outd).
+#define COV_ENTRY(NAME, LC, MODE, SEL, KIND, PREC)                          \
+  int NAME(const void* X1, const float* re1, int m1, int B1,                \
+           const void* X2, const float* re2, int m2, int B2, float* out,    \
+           float* outd, float sigma2, float gamma, int zeta,                \
+           void* stream) {                                                  \
+    return launch<LC, MODE, SEL, KIND, PREC>(X1, re1, m1, B1, X2, re2, m2,  \
+                                             B2, out, outd, sigma2, gamma,  \
+                                             zeta, stream);                 \
+  }
+
+#define COV_FAMILY(SUFFIX, PREC)                                    \
+  COV_ENTRY(kff_tri##SUFFIX, 4, 1, KONLY, RBF, PREC)                \
+  COV_ENTRY(kff_tri_dual##SUFFIX, 4, 1, DUAL, RBF, PREC)            \
+  COV_ENTRY(kff_tri_deriv##SUFFIX, 4, 1, DERIV, RBF, PREC)          \
+  COV_ENTRY(kff_tri_dot##SUFFIX, 4, 1, KONLY, DOT, PREC)            \
+  COV_ENTRY(kef_rect##SUFFIX, 1, 0, KONLY, RBF, PREC)               \
+  COV_ENTRY(kef_rect_dual##SUFFIX, 1, 0, DUAL, RBF, PREC)           \
+  COV_ENTRY(kef_rect_deriv##SUFFIX, 1, 0, DERIV, RBF, PREC)         \
+  COV_ENTRY(kef_rect_dot##SUFFIX, 1, 0, KONLY, DOT, PREC)           \
+  COV_ENTRY(kff_rect##SUFFIX, 4, 0, KONLY, RBF, PREC)               \
+  COV_ENTRY(kff_rect_dual##SUFFIX, 4, 0, DUAL, RBF, PREC)           \
+  COV_ENTRY(kff_rect_deriv##SUFFIX, 4, 0, DERIV, RBF, PREC)         \
+  COV_ENTRY(kff_rect_dot##SUFFIX, 4, 0, KONLY, DOT, PREC)
+
 extern "C" {
-
-// K3: out (3 m1, 3 m2) = K_FF of lhs force points against rhs force points.
-int kff_rect(const float* X1, const float* re1, int m1, int B1,
-             const float* X2, const float* re2, int m2, int B2, float* out,
-             float sigma2, float gamma, int zeta, void* stream) {
-  dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<4, 0, 1, RBF><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      X1, re1, m1, B1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2,
-      gamma, zeta);
-  return (int)cudaGetLastError();
-}
-
-// K1: out (3 m, 3 m) = symmetric K_FF of one force-point set.
-int kff_tri(const float* X, const float* re, int m, int B, float* out,
-            float sigma2, float gamma, int zeta, void* stream) {
-  const long long nt = tiles(m);
-  cov_kernel<4, 1, 1, RBF><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
-                         (cudaStream_t)stream>>>(
-      X, re, m, B, X, re, m, B, out, nullptr, 3LL * m, sigma2, gamma, zeta);
-  return (int)cudaGetLastError();
-}
-
-// K1-dual: out = K_FF and outd = dK_FF/dgamma, both (3 m, 3 m), exactly
-// symmetric.
-int kff_tri_dual(const float* X, const float* re, int m, int B, float* out,
-                 float* outd, float sigma2, float gamma, int zeta,
-                 void* stream) {
-  const long long nt = tiles(m);
-  cov_kernel<4, 1, 2, RBF><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
-                         (cudaStream_t)stream>>>(
-      X, re, m, B, X, re, m, B, out, outd, 3LL * m, sigma2, gamma, zeta);
-  return (int)cudaGetLastError();
-}
-
-// K2: out (m1, 3 m2) = K_EF of energy points (U1 (N1, 32), w1 (2, N1)
-// = [valid/count, element]) against force points.
-int kef_rect(const float* U1, const float* w1, int m1, int A1,
-             const float* X2, const float* re2, int m2, int B2, float* out,
-             float sigma2, float gamma, int zeta, void* stream) {
-  dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<1, 0, 1, RBF><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      U1, w1, m1, A1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2,
-      gamma, zeta);
-  return (int)cudaGetLastError();
-}
-
-// K2-dual: out = K_EF and outd = dK_EF/dgamma, both (m1, 3 m2).
-int kef_rect_dual(const float* U1, const float* w1, int m1, int A1,
-                  const float* X2, const float* re2, int m2, int B2,
-                  float* out, float* outd, float sigma2, float gamma,
-                  int zeta, void* stream) {
-  dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<1, 0, 2, RBF><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      U1, w1, m1, A1, X2, re2, m2, B2, out, outd, 3LL * m2, sigma2, gamma,
-      zeta);
-  return (int)cudaGetLastError();
-}
-
-// K3-dot: out (3 m1, 3 m2) = Dot K_FF of lhs against rhs force points.
-int kff_rect_dot(const float* X1, const float* re1, int m1, int B1,
-                 const float* X2, const float* re2, int m2, int B2,
-                 float* out, float sigma2, int zeta, void* stream) {
-  dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<4, 0, 1, DOT><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      X1, re1, m1, B1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2, 0.f,
-      zeta);
-  return (int)cudaGetLastError();
-}
-
-// K1-dot: out (3 m, 3 m) = symmetric Dot K_FF of one force-point set.
-int kff_tri_dot(const float* X, const float* re, int m, int B, float* out,
-                float sigma2, int zeta, void* stream) {
-  const long long nt = tiles(m);
-  cov_kernel<4, 1, 1, DOT><<<(unsigned)(nt * (nt + 1) / 2), NT, 0,
-                             (cudaStream_t)stream>>>(
-      X, re, m, B, X, re, m, B, out, nullptr, 3LL * m, sigma2, 0.f, zeta);
-  return (int)cudaGetLastError();
-}
-
-// K2-dot: out (m1, 3 m2) = Dot K_EF of energy points against force points.
-int kef_rect_dot(const float* U1, const float* w1, int m1, int A1,
-                 const float* X2, const float* re2, int m2, int B2,
-                 float* out, float sigma2, int zeta, void* stream) {
-  dim3 grid(tiles(m2), tiles(m1));
-  cov_kernel<1, 0, 1, DOT><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      U1, w1, m1, A1, X2, re2, m2, B2, out, nullptr, 3LL * m2, sigma2, 0.f,
-      zeta);
-  return (int)cudaGetLastError();
-}
-
+COV_FAMILY(, HIGHEST)
+COV_FAMILY(_bf16x4, BF16X4)
+COV_FAMILY(_bf16, BF16)
 }  // extern "C"

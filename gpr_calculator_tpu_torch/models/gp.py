@@ -368,7 +368,7 @@ class GP:
         self.base_potential = base_potential
         self.device = config.device() if device is None \
             else torch.device(device)
-        self.dtype = config.dtype() if dtype is None else dtype
+        self.dtype = config.dtype(self.device) if dtype is None else dtype
 
         # host-side ragged training store
         self._energy_pts: List[Tuple[np.ndarray, np.ndarray]] = []

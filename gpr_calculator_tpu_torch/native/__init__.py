@@ -1,12 +1,13 @@
 """Native (C++) neighbour-list builder, compiled on demand with g++.
 
-The source is the JAX package's ``gpr_calculator_tpu/native/neighbor.cpp``,
-read by path (the JAX package itself is never imported).  The library is
-built into the port's git-ignored ``build/`` directory under a name keyed
-by the source hash and the host's ISA flags (``-march=native`` code must
-not be loaded on a lesser CPU), written under a temporary name and
-renamed into place so concurrent processes never load a half-written
-file.  Without a compiler the callers use the NumPy fallback.
+The source is ``neighbor.cpp`` beside this file, the port's own
+byte-identical copy of the JAX package's native neighbour list.  The
+library is built into the port's git-ignored ``build/`` directory under
+a name keyed by the source hash and the host's ISA flags
+(``-march=native`` code must not be loaded on a lesser CPU), written
+under a temporary name and renamed into place so concurrent processes
+never load a half-written file.  Without a compiler the callers use the
+NumPy fallback.
 """
 from __future__ import annotations
 
@@ -18,8 +19,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-_SRC = (Path(__file__).resolve().parents[2] / "gpr_calculator_tpu"
-        / "native" / "neighbor.cpp")
+_SRC = Path(__file__).resolve().parent / "neighbor.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 _LIB = None
 _TRIED = False

@@ -26,18 +26,36 @@ enters K_EE alone, through the additive constant s2 s0^2.  Padding and
 |x| < EPS carry rinv = 0 (w = 0 on the energy side).  ``dual=True``
 (RBF only, as in the JAX package) adds the same sums with the d/dgamma
 coefficients, so one pass gives (K, dK/dgamma) for the analytic NLL
-gradient.  Every block of one training covariance must consume the SAME
-operand tensors (PSD contract, kff_pallas.py:448-459): build once, pass
-everywhere.
+gradient; ``deriv=True`` (RBF only) gives dK/dgamma alone.  Every block
+of one training covariance must consume the SAME operand tensors (PSD
+contract, kff_pallas.py:448-459): build once, pass everywhere.
+
+Matmul precision (``mm_precision``, default ``config.kff_precision()``;
+the JAX package's ``_lhs_rhs``, kff_pallas.py:394-436).  For float32
+data the operand rows are rounded once, before lane padding:
+
+    highest  X itself, float32 (4, N, DP)
+    bf16x4   bf16 parts (2, 4, N, DP): hi = the top 16 bits of X (an
+             integer mask, exactly bf16), lo = bf16(X - hi), rounded to
+             nearest even
+    bf16     bf16 parts (1, 4, N, DP): bf16(X)
+
+The parts tensor is the one operand object of its side: the kernels read
+the bf16 parts and form hi.hi + hi.lo + lo.hi + lo.lo themselves (bf16
+tensor-core products, float32 sums), while the plain versions and K_EE
+read the recombined value ``dense(X)`` = hi + lo, which float32 holds
+exactly, or bf16(X).  Every block is then the exact Gram of the same
+rounded rows, and the covariance stays PSD by construction.  Float64
+data ignores the mode.
 
 Routes.  ``kff_from_ops`` and ``kef_from_ops`` take the plain version for
 tensors on the CPU (any float dtype) and launch the CUDA kernels for
-float32 tensors on a CUDA device; anything else on CUDA raises.  The
-kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect``, the dual
-passes ``kff_tri_dual``, ``kef_rect_dual`` and the Dot variants
-``kff_tri_dot``, ``kef_rect_dot``, ``kff_rect_dot``) are built with nvcc
-at first use into the package's git-ignored ``build/`` directory and
-bound with ctypes.  ``launches`` counts each kernel launch.
+float32 or bf16-parts operands on a CUDA device; anything else on CUDA
+raises.  The kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect``
+with the suffixes ``_dual``, ``_deriv`` (K1-K3; K3 also ``_dual``) and
+``_dot``, each also with ``_bf16x4`` and ``_bf16`` for the modes) are
+built with nvcc at first use into the package's git-ignored ``build/``
+directory and bound with ctypes.  ``launches`` counts each kernel launch.
 """
 from __future__ import annotations
 
@@ -58,12 +76,22 @@ DP = 32                  # padded descriptor width of the operand rows
 _PAIR_BUDGET = 2 ** 24   # env pairs per chunk of the plain versions
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "kff.cu"
 _MAX_POINTS = 65535 * 8  # grid.y limit at 8 points per tile (csrc/kff.cu)
+_HI_MASK = -65536        # 0xFFFF0000 as int32: sign, exponent, 7 bits
+
+KINDS = ("rbf", "dot", "rbf_dgamma")
+# kernel base names: K1 kff_tri, K2 kef_rect, K3 kff_rect and variants
+BASES = ("kff_tri", "kff_tri_dual", "kff_tri_deriv", "kff_tri_dot",
+         "kef_rect", "kef_rect_dual", "kef_rect_deriv", "kef_rect_dot",
+         "kff_rect", "kff_rect_dual", "kff_rect_deriv", "kff_rect_dot")
+
+
+def kernel_name(base: str, mode: str) -> str:
+    """Launch-counter (and entry-point) name of ``base`` in ``mode``."""
+    return base if mode == "highest" else f"{base}_{mode}"
+
 
 # kernel name -> launches since the last reset_launches()
-launches = {"kff_tri": 0, "kef_rect": 0, "kff_rect": 0,
-            "kff_tri_dual": 0, "kef_rect_dual": 0,
-            "kff_tri_dot": 0, "kef_rect_dot": 0, "kff_rect_dot": 0}
-KINDS = ("rbf", "dot")
+launches = {kernel_name(b, m): 0 for m in config.PRECISIONS for b in BASES}
 
 
 def reset_launches() -> None:
@@ -83,8 +111,43 @@ def _pad_lanes(a: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, width - d)).contiguous()
 
 
-def force_operand(f):
-    """(X (4, N, DP), re (2, N)) for a ForceData side, N = m * B."""
+def split(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """bf16 parts (P, *x.shape) of float32 ``x`` in ``mode`` ("bf16x4":
+    [hi, lo], "bf16": [bf16(x)]), bit for bit the JAX ``_lhs_rhs``.  hi
+    masks the low 16 bits of the int32 view (no dtype round trip, which
+    a compiler may fold away: kff_pallas.py:407-416)."""
+    if mode == "bf16":
+        return x.to(torch.bfloat16)[None]
+    hi = (x.view(torch.int32) & _HI_MASK).view(torch.float32)
+    return torch.stack([hi.to(torch.bfloat16), (x - hi).to(torch.bfloat16)])
+
+
+def dense(X: torch.Tensor) -> torch.Tensor:
+    """The float values an operand stands for: bf16 parts recombined
+    (hi + lo, exact in float32), any other operand as it is."""
+    if X.dtype != torch.bfloat16:
+        return X
+    return X.float().sum(0)
+
+
+def operand_precision(X: torch.Tensor) -> str:
+    """The mode an operand was built in ("highest" for float operands)."""
+    if X.dtype != torch.bfloat16:
+        return "highest"
+    return "bf16x4" if X.shape[0] == 2 else "bf16"
+
+
+def _rounded(X: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "highest" or X.dtype != torch.float32:
+        return X
+    return split(X.contiguous(), mode)
+
+
+def force_operand(f, mm_precision: str | None = None):
+    """(X, re (2, N)) for a ForceData side, N = m * B: X (4, N, DP) in
+    the data's dtype, or its bf16 parts (P, 4, N, DP) for float32 data
+    in a bf16 mode."""
+    mode = config.kff_precision(mm_precision)
     m, B, d = f.x.shape
     x = f.x.reshape(m * B, d)
     ele = f.ele.reshape(-1)
@@ -98,12 +161,14 @@ def force_operand(f):
     Jt = J - u[:, :, None] * q[:, None, :]
     X = torch.cat([u[None], Jt.permute(2, 0, 1)], dim=0)     # (4, N, d)
     re = torch.stack([rinv, ele.to(x.dtype)])
-    return _pad_lanes(X), re.contiguous()
+    return _pad_lanes(_rounded(X, mode)), re.contiguous()
 
 
-def energy_operand(e):
-    """(U (N, DP), w (2, N)) for an EnergyData side: unit descriptors and
-    [valid / count, element id], N = m * A."""
+def energy_operand(e, mm_precision: str | None = None):
+    """(U (N, DP), w (2, N)) for an EnergyData side: unit descriptors (or
+    their bf16 parts (P, N, DP), as in ``force_operand``) and [valid /
+    count, element id], N = m * A."""
+    mode = config.kff_precision(mm_precision)
     m, A, d = e.x.shape
     x = e.x.reshape(m * A, d)
     ele = e.ele.reshape(-1)
@@ -113,28 +178,40 @@ def energy_operand(e):
     inv_count = torch.repeat_interleave(1.0 / e.counts, A)
     w = torch.stack([torch.where(valid, inv_count, torch.zeros_like(n)),
                      ele.to(x.dtype)])
-    return _pad_lanes(u), w.contiguous()
+    return _pad_lanes(_rounded(u, mode)), w.contiguous()
 
 
-def _scalars(params, kind: str = "rbf", dual: bool = False):
-    """(sigma^2, gamma = 1 / (2 l^2)) for RBF, (sigma^2, sigma0^2) for Dot.
-    Tensor hyperparameters pass through, so the plain versions can be
-    differentiated by autograd.  Every block function reads its scalars
-    here first, so an unknown kind or a Dot dual pass raises before any
-    work."""
+def _family(kind: str, deriv: bool):
+    """kind="rbf_dgamma" (the JAX ops/kernels.py kind) is RBF with
+    deriv=True."""
+    if kind == "rbf_dgamma":
+        return "rbf", True
+    return kind, deriv
+
+
+def _scalars(params, kind: str = "rbf", dual: bool = False,
+             deriv: bool = False):
+    """(sigma^2, gamma = 1 / (2 l^2)) for RBF and rbf_dgamma, (sigma^2,
+    sigma0^2) for Dot.  Tensor hyperparameters pass through, so the plain
+    versions can be differentiated by autograd.  Every block function
+    reads its scalars here first, so an unknown kind, a Dot dual or
+    deriv pass, or dual with deriv raises before any work (the JAX
+    assertions, kff_pallas.py:557-559 and 864-866)."""
     if kind not in KINDS:
         raise ValueError(f"unknown kernel kind {kind!r}")
-    if dual and kind != "rbf":
+    if dual and (deriv or kind == "rbf_dgamma"):
+        raise ValueError("dual already includes the deriv set")
+    if (dual or deriv) and kind == "dot":
         raise NotImplementedError(
             "the Dot kernel has no dual pass (its sigma0 derivative is "
             "count_ee, ops/kernels.py)")
-    second = params["l" if kind == "rbf" else "sigma0"]
+    second = params["sigma0" if kind == "dot" else "l"]
     sigma = params["sigma"]
     sigma = sigma if torch.is_tensor(sigma) else float(sigma)
     second = second if torch.is_tensor(second) else float(second)
-    if kind == "rbf":
-        return sigma * sigma, 1.0 / (2.0 * second * second)
-    return sigma * sigma, second * second
+    if kind == "dot":
+        return sigma * sigma, second * second
+    return sigma * sigma, 1.0 / (2.0 * second * second)
 
 
 def _coeffs(c, sigma2, p2, zeta: int, kind: str = "rbf",
@@ -147,6 +224,8 @@ def _coeffs(c, sigma2, p2, zeta: int, kind: str = "rbf",
     (k (D-1), A (D-1) + k z c^(z-1),
     B (D-1) + k (z(z-1) c^(z-2) + 2 (z c^(z-1))^2 g), -dA), D = c^z
     (kff_pallas.py:189-206, 780-791)."""
+    if kind not in ("rbf", "dot"):
+        raise ValueError(f"no coefficients for kernel kind {kind!r}")
     if zeta == 1:
         d1 = torch.ones_like(c)
         dm2 = torch.zeros_like(c)
@@ -177,10 +256,13 @@ def _coeffs(c, sigma2, p2, zeta: int, kind: str = "rbf",
     return (k, A, B, -A), (k * Dm1, dA, dB, -dA)
 
 
-def _sets(c, sigma2, p2, zeta: int, kind: str, dual: bool):
-    """The coefficient sets of one pass: [K] or [K, dK/dgamma]."""
+def _sets(c, sigma2, p2, zeta: int, kind: str, dual: bool, deriv: bool):
+    """The coefficient sets of one pass: [K], [K, dK/dgamma] (dual) or
+    [dK/dgamma] (deriv)."""
     if dual:
         return list(_coeffs(c, sigma2, p2, zeta, kind, dual=True))
+    if deriv:
+        return [_coeffs(c, sigma2, p2, zeta, kind, dual=True)[1]]
     return [_coeffs(c, sigma2, p2, zeta, kind)]
 
 
@@ -206,12 +288,15 @@ def _chunk_points(b1: int, n2: int) -> int:
 
 def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
               symmetric: bool = False, dual: bool = False,
-              kind: str = "rbf"):
-    """K_FF (3 m1, 3 m2) from operands; dual=True returns (K, dK/dgamma)
-    from one pass.  symmetric=True (X1 is X2) computes the row stripes'
-    upper part only and mirrors the strict upper triangle, so the result
-    is exactly symmetric."""
-    sigma2, p2 = _scalars(params, kind, dual)
+              kind: str = "rbf", deriv: bool = False):
+    """K_FF (3 m1, 3 m2) from operands (in any mode: the rounded values,
+    ``dense``); dual=True returns (K, dK/dgamma) from one pass,
+    deriv=True dK/dgamma alone.  symmetric=True (X1 is X2) computes the
+    row stripes' upper part only and mirrors the strict upper triangle,
+    so the result is exactly symmetric."""
+    kind, deriv = _family(kind, deriv)
+    sigma2, p2 = _scalars(params, kind, dual, deriv)
+    X1, X2 = dense(X1), dense(X2)
     m1, m2 = X1.shape[1] // B1, X2.shape[1] // B2
     outs = [X1.new_zeros((m1, 3, m2, 3)) for _ in range(1 + dual)]
     pc = _chunk_points(B1, X2.shape[1])
@@ -225,7 +310,7 @@ def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
         w = (rl[0][:, None] * rr[0][None, :]
              * (rl[1][:, None] == rr[1][None, :]))
         for out, (_, A, B, _) in zip(
-                outs, _sets(G[0, 0], sigma2, p2, zeta, kind, dual)):
+                outs, _sets(G[0, 0], sigma2, p2, zeta, kind, dual, deriv)):
             A, B = A * w, B * w
             for u in range(3):
                 Bp1 = B * G[1 + u, 0]
@@ -239,9 +324,12 @@ def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
 
 
 def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
-              dual: bool = False, kind: str = "rbf"):
-    """K_EF (m1, 3 m2) from operands; dual=True returns (K, dK/dgamma)."""
-    sigma2, p2 = _scalars(params, kind, dual)
+              dual: bool = False, kind: str = "rbf", deriv: bool = False):
+    """K_EF (m1, 3 m2) from operands; dual=True returns (K, dK/dgamma),
+    deriv=True dK/dgamma alone."""
+    kind, deriv = _family(kind, deriv)
+    sigma2, p2 = _scalars(params, kind, dual, deriv)
+    U1, X2 = dense(U1), dense(X2)
     m1, m2 = U1.shape[0] // A1, X2.shape[1] // B2
     outs = [U1.new_zeros((m1, m2, 3)) for _ in range(1 + dual)]
     pc = _chunk_points(A1, X2.shape[1])
@@ -253,7 +341,7 @@ def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
         w = (wl[0][:, None] * re2[0][None, :]
              * (wl[1][:, None] == re2[1][None, :]))
         for out, (_, _, _, A0) in zip(
-                outs, _sets(G[0], sigma2, p2, zeta, kind, dual)):
+                outs, _sets(G[0], sigma2, p2, zeta, kind, dual, deriv)):
             A0 = A0 * w
             for v in range(3):
                 out[p0:p1, :, v] = _point_sum(A0 * G[1 + v], A1, B2)
@@ -262,13 +350,16 @@ def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
 
 
 def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int,
-                 dual: bool = False, kind: str = "rbf"):
+                 dual: bool = False, kind: str = "rbf", deriv: bool = False):
     """K_EE (m1, m2) from energy operands (plain PyTorch on any device: the
-    block is small next to K_FF, but it reads the same operand tensors as
+    block is small next to K_FF, but it reads the same operand values as
     the kernels so the training covariance stays one consistent Gram).
-    dual=True returns (K, dK/dgamma).  Dot: s2 (c^z + s0^2) over the
-    masked pairs; its constant part is s2 s0^2 count_ee."""
-    sigma2, p2 = _scalars(params, kind, dual)
+    dual=True returns (K, dK/dgamma), deriv=True dK/dgamma alone.  Dot:
+    s2 (c^z + s0^2) over the masked pairs; its constant part is s2 s0^2
+    count_ee."""
+    kind, deriv = _family(kind, deriv)
+    sigma2, p2 = _scalars(params, kind, dual, deriv)
+    U1, U2 = dense(U1), dense(U2)
     m1, m2 = U1.shape[0] // A1, U2.shape[0] // A2
     outs = [U1.new_zeros((m1, m2)) for _ in range(1 + dual)]
     pc = _chunk_points(A1, U2.shape[0])
@@ -285,9 +376,11 @@ def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int,
             k = sigma2 * (D + p2)
         else:
             k = sigma2 * torch.exp((D - 1.0) * p2)
-        outs[0][p0:p1] = _point_sum(k * w, A1, A2)
-        if dual:
-            outs[1][p0:p1] = _point_sum(k * (D - 1.0) * w, A1, A2)
+        planes = [] if deriv else [k]
+        if dual or deriv:
+            planes.append(k * (D - 1.0))
+        for out, plane in zip(outs, planes):
+            out[p0:p1] = _point_sum(plane * w, A1, A2)
     return tuple(outs) if dual else outs[0]
 
 
@@ -341,23 +434,12 @@ def _lib():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name in ("kff_rect", "kef_rect"):
+        # every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd,
+        # sigma2, second scalar, zeta, stream)
+        for name in launches:
             fn = getattr(lib, name)
-            fn.argtypes = [P, P, I, I, P, P, I, I, P, F, F, I, P]
+            fn.argtypes = [P, P, I, I, P, P, I, I, P, P, F, F, I, P]
             fn.restype = I
-        lib.kef_rect_dual.argtypes = [P, P, I, I, P, P, I, I, P, P, F, F,
-                                      I, P]
-        lib.kef_rect_dual.restype = I
-        lib.kff_tri.argtypes = [P, P, I, I, P, F, F, I, P]
-        lib.kff_tri.restype = I
-        lib.kff_tri_dual.argtypes = [P, P, I, I, P, P, F, F, I, P]
-        lib.kff_tri_dual.restype = I
-        for name in ("kff_rect_dot", "kef_rect_dot"):
-            fn = getattr(lib, name)
-            fn.argtypes = [P, P, I, I, P, P, I, I, P, F, I, P]
-            fn.restype = I
-        lib.kff_tri_dot.argtypes = [P, P, I, I, P, F, I, P]
-        lib.kff_tri_dot.restype = I
         _LIB = lib
     return _LIB
 
@@ -368,7 +450,7 @@ def _check_cuda(zeta: int, *tensors):
     for t in tensors:
         if t.device != tensors[0].device or t.device.type != "cuda":
             raise ValueError("kernel operands must all lie on one card")
-        if t.dtype != torch.float32:
+        if t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"the CUDA kernels take float32, got {t.dtype} "
                             "(float64 on the card is not ported yet)")
         if not t.is_contiguous():
@@ -377,14 +459,35 @@ def _check_cuda(zeta: int, *tensors):
             raise ValueError("kernel operands must be 16-byte aligned")
 
 
-def _check_side(X, re, B: int, comps: int):
-    if X.dim() != 3 or X.shape[0] != comps or X.shape[2] != DP:
+def _check_side(X, re, B: int, comps: int, mode: str):
+    parts = X.dim() - 2 - (comps > 1)
+    rows = X.shape[-3] if comps > 1 else 1
+    if (rows != comps or X.shape[-1] != DP
+            or parts != (mode != "highest")):
         raise ValueError(f"operand shape {tuple(X.shape)} is not "
-                         f"({comps}, N, {DP})")
-    if re.shape != (2, X.shape[1]) or B < 1 or X.shape[1] % B:
+                         f"({comps}, N, {DP}) in mode {mode}")
+    N = X.shape[-2]
+    if re.dtype != torch.float32:
+        raise TypeError(f"operand metadata must be float32, got {re.dtype}")
+    if re.shape != (2, N) or B < 1 or N % B:
         raise ValueError("operand rows do not match the env count")
-    if X.shape[1] // B > _MAX_POINTS:
+    if N // B > _MAX_POINTS:
         raise ValueError("too many points for one kernel launch")
+
+
+def _mode(mm_precision, *ops) -> str:
+    """The kernel mode: ``mm_precision`` (default: the configured one),
+    which float32 and bf16 operands must have been built in; float64
+    operands ignore it."""
+    mode = config.kff_precision(mm_precision)
+    if any(X.dtype == torch.float64 for X in ops):
+        return "highest"
+    for X in ops:
+        if operand_precision(X) != mode:
+            raise ValueError(f"operand built in mode "
+                             f"{operand_precision(X)!r}, kernel asked for "
+                             f"{mode!r}")
+    return mode
 
 
 def _launch(name, device, *args):
@@ -396,71 +499,67 @@ def _launch(name, device, *args):
     launches[name] += 1
 
 
+def _variant(kind: str, dual: bool, deriv: bool) -> str:
+    return ("_dot" if kind == "dot" else "_dual" if dual
+            else "_deriv" if deriv else "")
+
+
 def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
                  symmetric: bool = False, dual: bool = False,
-                 kind: str = "rbf"):
+                 kind: str = "rbf", deriv: bool = False,
+                 mm_precision: str | None = None):
     """K_FF (3 m1, 3 m2) from force operands; symmetric=True (X1 is X2)
     runs the triangular kernel K1, else the rectangular K3 (``_dot`` for
-    kind="dot").  dual=True (RBF, symmetric only) returns (K, dK/dgamma)
-    from one pass, K1-dual."""
-    sigma2, p2 = _scalars(params, kind, dual)
-    if dual and not symmetric:
-        raise NotImplementedError(
-            "the dK/dgamma pass of the rectangular K_FF (K3 deriv) is not "
-            "ported yet (ROADMAP.md, section 2)")
+    kind="dot").  dual=True (RBF) returns (K, dK/dgamma) from one pass
+    (K1-dual, K3-dual), deriv=True dK/dgamma alone (``_deriv``).  The
+    mode's kernel (``_bf16x4``, ``_bf16``) runs on operands built in that
+    mode."""
+    kind, deriv = _family(kind, deriv)
+    sigma2, p2 = _scalars(params, kind, dual, deriv)
+    mode = _mode(mm_precision, X1, X2)
     if X1.device.type == "cpu":
         return kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
-                         symmetric=symmetric, dual=dual, kind=kind)
+                         symmetric=symmetric, dual=dual, kind=kind,
+                         deriv=deriv)
     _check_cuda(zeta, X1, re1, X2, re2)
-    _check_side(X1, re1, B1, 4)
-    _check_side(X2, re2, B2, 4)
-    # the Dot force blocks need sigma^2 alone (sigma0 enters K_EE only)
-    scalars = (sigma2, p2) if kind == "rbf" else (sigma2,)
-    suffix = "_dot" if kind == "dot" else ""
-    m1, m2 = X1.shape[1] // B1, X2.shape[1] // B2
+    _check_side(X1, re1, B1, 4, mode)
+    _check_side(X2, re2, B2, 4, mode)
+    m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
     out = torch.empty((3 * m1, 3 * m2), dtype=torch.float32,
                       device=X1.device)
-    if symmetric:
-        if X1.data_ptr() != X2.data_ptr() or B1 != B2:
-            raise ValueError("symmetric K_FF needs one operand set")
-        if dual:
-            outd = torch.empty_like(out)
-            _launch("kff_tri_dual", X1.device, X1.data_ptr(),
-                    re1.data_ptr(), m1, B1, out.data_ptr(), outd.data_ptr(),
-                    *scalars, zeta)
-            return out, outd
-        _launch("kff_tri" + suffix, X1.device, X1.data_ptr(),
-                re1.data_ptr(), m1, B1, out.data_ptr(), *scalars, zeta)
-    else:
-        _launch("kff_rect" + suffix, X1.device, X1.data_ptr(),
-                re1.data_ptr(), m1, B1, X2.data_ptr(), re2.data_ptr(), m2,
-                B2, out.data_ptr(), *scalars, zeta)
-    return out
+    outd = torch.empty_like(out) if dual else out
+    if symmetric and (X1.data_ptr() != X2.data_ptr() or B1 != B2):
+        raise ValueError("symmetric K_FF needs one operand set")
+    base = ("kff_tri" if symmetric else "kff_rect") + _variant(kind, dual,
+                                                                deriv)
+    # the Dot force blocks need sigma^2 alone (sigma0 enters K_EE only)
+    _launch(kernel_name(base, mode), X1.device, X1.data_ptr(),
+            re1.data_ptr(), m1, B1, X2.data_ptr(), re2.data_ptr(), m2, B2,
+            out.data_ptr(), outd.data_ptr(), sigma2,
+            0.0 if kind == "dot" else p2, zeta)
+    return (out, outd) if dual else out
 
 
 def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
-                 dual: bool = False, kind: str = "rbf"):
+                 dual: bool = False, kind: str = "rbf", deriv: bool = False,
+                 mm_precision: str | None = None):
     """K_EF (m1, 3 m2) from energy and force operands (kernel K2, or
     K2-dot); dual=True (RBF) returns (K, dK/dgamma) from one pass,
-    K2-dual."""
-    sigma2, p2 = _scalars(params, kind, dual)
+    K2-dual; deriv=True dK/dgamma alone, K2-deriv."""
+    kind, deriv = _family(kind, deriv)
+    sigma2, p2 = _scalars(params, kind, dual, deriv)
+    mode = _mode(mm_precision, U1, X2)
     if U1.device.type == "cpu":
         return kef_plain(U1, w1, A1, X2, re2, B2, params, zeta, dual=dual,
-                         kind=kind)
+                         kind=kind, deriv=deriv)
     _check_cuda(zeta, U1, w1, X2, re2)
-    _check_side(U1[None], w1, A1, 1)
-    _check_side(X2, re2, B2, 4)
-    m1, m2 = U1.shape[0] // A1, X2.shape[1] // B2
+    _check_side(U1, w1, A1, 1, mode)
+    _check_side(X2, re2, B2, 4, mode)
+    m1, m2 = U1.shape[-2] // A1, X2.shape[-2] // B2
     out = torch.empty((m1, 3 * m2), dtype=torch.float32, device=U1.device)
-    args = (U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
-            re2.data_ptr(), m2, B2, out.data_ptr())
-    if kind == "dot":
-        _launch("kef_rect_dot", U1.device, *args, sigma2, zeta)
-        return out
-    if dual:
-        outd = torch.empty_like(out)
-        _launch("kef_rect_dual", U1.device, *args, outd.data_ptr(), sigma2,
-                p2, zeta)
-        return out, outd
-    _launch("kef_rect", U1.device, *args, sigma2, p2, zeta)
-    return out
+    outd = torch.empty_like(out) if dual else out
+    _launch(kernel_name("kef_rect" + _variant(kind, dual, deriv), mode),
+            U1.device, U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
+            re2.data_ptr(), m2, B2, out.data_ptr(), outd.data_ptr(), sigma2,
+            0.0 if kind == "dot" else p2, zeta)
+    return (out, outd) if dual else out

@@ -88,8 +88,8 @@ def bucket_size(n: int, multiple: int = 8, grow: float = 1.25) -> int:
 
 
 def _placement(device, dtype):
-    return (config.device() if device is None else torch.device(device),
-            config.dtype() if dtype is None else dtype)
+    dev = config.device() if device is None else torch.device(device)
+    return dev, config.dtype(dev) if dtype is None else dtype
 
 
 def pack_energy(points: Sequence, m_pad: Optional[int] = None,

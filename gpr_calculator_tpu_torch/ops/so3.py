@@ -303,7 +303,7 @@ class SO3:
           seq   (nseq, 2) host numpy; 'elements' list; 'nseq' int
         """
         dev = config.device() if device is None else torch.device(device)
-        dt = config.dtype() if dtype is None else dtype
+        dt = config.dtype(dev) if dtype is None else dtype
         prep = self._prep_structure(atoms, atom_ids)
         natoms, nseq, seq = prep["natoms"], prep["nseq"], prep["seq"]
 

@@ -20,7 +20,8 @@ from gpr_calculator_tpu_torch.ops import kff
 from gpr_calculator_tpu_torch.ops import kernels as TK
 from gpr_calculator_tpu_torch.ops.packing import pack_energy, pack_force
 
-from test_torch_kff import make_points
+from test_torch_kff import _on_cpu, make_points  # noqa: F401 (fixture)
+
 
 PARAMS = {"sigma": 1.3, "sigma0": 0.7}
 NOISE_E, NOISE_F = 0.05 / 13, 0.05

@@ -14,6 +14,9 @@ from gpr_calculator_tpu.ops import kernels as JK
 from gpr_calculator_tpu_torch import convert
 from gpr_calculator_tpu_torch.ops import kernels as TK
 
+from test_torch_kff import _on_cpu  # noqa: F401 (fixture)
+
+
 # (sigma, l) of the JAX package's GP.set_GPR(images, EMT(),
 # noise_e=0.05/13, noise_f=0.05) on au_on_al100_images(), CPU float64
 SIGMA, L_SCALE = 0.9000824419630231, 1.291296129835527

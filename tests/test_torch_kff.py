@@ -13,9 +13,22 @@ import numpy as np
 import pytest
 import torch
 
+from gpr_calculator_tpu_torch import config
 from gpr_calculator_tpu_torch.ops import kff
 from gpr_calculator_tpu_torch.ops import kernels as TK
 from gpr_calculator_tpu_torch.ops.packing import pack_energy, pack_force
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_cpu():
+    """The port runs on the card unless asked: the port's test modules
+    (each imports this fixture) ask for the CPU, and leave the default
+    device and matmul precision as they found them."""
+    config.set_device("cpu")
+    yield
+    config.set_device(None)
+    config.set_kff_precision("highest")
+
 
 PARAMS = {"sigma": 1.3, "l": 0.9}
 
@@ -140,8 +153,8 @@ def test_k_self_blocks_share_operands():
     (U, w, A), (X, re, B), _ = _ops(e, f1, f1)
     K = TK.k_self(e, f1, PARAMS, 2)
     m = e.m
-    assert torch.equal(K[:m, :m],
-                       kff.kee_from_ops(U, w, A, U, w, A, PARAMS, 2))
+    assert torch.equal(K[:m, :m], kff._mirror(
+        kff.kee_from_ops(U, w, A, U, w, A, PARAMS, 2)))
     assert torch.equal(K[:m, m:], kff.kef_plain(U, w, A, X, re, B,
                                                 PARAMS, 2))
     assert torch.equal(K[m:, :m], K[:m, m:].T)
@@ -254,6 +267,53 @@ def test_dot_kernels_match_plain_on_card(cuda, zeta):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("base", kff.BASES)
+@pytest.mark.parametrize("mode", ["bf16x4", "bf16"])
+def test_mode_kernels_match_plain_on_card(cuda, mode, base):
+    """Each tensor-core kernel of a precision mode (and its deriv and
+    K3-dual variants) within 2e-5 max|plain| of its plain version on the
+    same rounded operands, at ragged edges; K1 exactly symmetric; one
+    launch of that kernel alone; the card's split of the float32 rows is
+    the CPU's bit for bit."""
+    rng = np.random.RandomState(60)
+    fp1, fp2 = make_points(rng, 13, 11, 30), make_points(rng, 10, 9, 30)
+    ep = [(x, el) for x, _, el in make_points(rng, 6, 7, 30)]
+    kw = dict(device=cuda, dtype=torch.float32)
+    e = pack_energy(ep, m_pad=7, **kw)
+    f1, f2 = pack_force(fp1, **kw), pack_force(fp2, **kw)
+    U, w = kff.energy_operand(e, mode)
+    X1, re1 = kff.force_operand(f1, mode)
+    X2, re2 = kff.force_operand(f2, mode)
+    A, B1, B2 = e.x.shape[1], f1.x.shape[1], f2.x.shape[1]
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    sym = base.startswith("kff_tri")
+    kff.reset_launches()
+    if base.startswith("kef"):
+        args = (U, w, A, X2, re2, B2, p, 2)
+        K = kff.kef_from_ops(*args, mm_precision=mode, **flags)
+        P = kff.kef_plain(*args, **flags)
+    else:
+        args = (X1, re1, B1) + ((X1, re1, B1) if sym else (X2, re2, B2)) \
+            + (p, 2)
+        K = kff.kff_from_ops(*args, symmetric=sym, mm_precision=mode,
+                             **flags)
+        P = kff.kff_plain(*args, symmetric=sym, **flags)
+    torch.cuda.synchronize()
+    for k, plain in zip(*((K, P) if flags["dual"] else ((K,), (P,)))):
+        _close(k, plain)
+        if sym:
+            assert torch.equal(k, k.T)
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            kff.kernel_name(base, mode): 1}
+    Xh, _ = kff.force_operand(f1, "highest")
+    assert torch.equal(X1.cpu().view(torch.int16),
+                       kff.split(Xh.cpu(), mode).view(torch.int16))
+
+
+@pytest.mark.gpu
 def test_card_wrappers_raise_on_unsupported_input(cuda):
     e, f1, f2, _ = _data(3, torch.float64, device=cuda)
     (U, w, A), (X1, re1, B1), _ = _ops(e, f1, f2)
@@ -283,3 +343,8 @@ def test_card_wrappers_raise_on_unsupported_input(cuda):
                          2, kind="dot")
     with pytest.raises(TypeError):
         kff.kef_from_ops(U, w, A, X1, re1, B1, dot, 2, kind="dot")
+    Xb, reb = kff.force_operand(
+        f1._replace(x=f1.x.float(), dxdr=f1.dxdr.float()), "bf16x4")
+    with pytest.raises(ValueError, match="operand built in mode"):
+        kff.kff_from_ops(Xb, reb, B1, Xb, reb, B1, PARAMS, 2,
+                         symmetric=True, mm_precision="bf16")

@@ -16,6 +16,9 @@ from gpr_calculator_tpu import neb as jax_neb
 from gpr_calculator_tpu import optimize as jax_opt
 from gpr_calculator_tpu_torch import mep, neb as port_neb, optimize
 
+from test_torch_kff import _on_cpu  # noqa: F401 (fixture)
+
+
 NOISE_E, NOISE_F = 0.05 / 13, 0.05
 # the JAX package's run (CPU, float64)
 THETA = (0.9000824419630231, 1.291296129835527)

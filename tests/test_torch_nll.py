@@ -18,7 +18,8 @@ from gpr_calculator_tpu_torch.ops import kff
 from gpr_calculator_tpu_torch.ops import kernels as TK
 from gpr_calculator_tpu_torch.ops.packing import pack_energy, pack_force
 
-from test_torch_kff import PARAMS, make_points
+from test_torch_kff import _on_cpu, PARAMS, make_points  # noqa: F401 (fixture)
+
 
 # (sigma, l) of the JAX package's GP.set_GPR(images, EMT(),
 # noise_e=0.05/13, noise_f=0.05) on au_on_al100_images(), CPU float64
@@ -131,8 +132,13 @@ def test_plain_dual_equals_separate_planes():
     assert torch.equal(kff.kee_from_ops(U, w, A, U, w, A, PARAMS, 2,
                                         dual=True)[0],
                        kff.kee_from_ops(U, w, A, U, w, A, PARAMS, 2))
-    with pytest.raises(NotImplementedError):
-        kff.kff_from_ops(X, re, B, X, re, B, PARAMS, 2, dual=True)
+    # the rectangular dual pass (K3-dual) gives the same planes, and a
+    # dual pass with deriv=True (already in it) raises
+    rect = kff.kff_from_ops(X, re, B, X, re, B, PARAMS, 2, dual=True)
+    assert torch.equal(rect[0], kff.kff_plain(X, re, B, X, re, B, PARAMS, 2))
+    with pytest.raises(ValueError, match="dual already includes"):
+        kff.kff_from_ops(X, re, B, X, re, B, PARAMS, 2, dual=True,
+                         deriv=True)
 
 
 @pytest.mark.parametrize("zeta", [2, 3])

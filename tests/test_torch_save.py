@@ -11,6 +11,9 @@ import gpr_calculator_tpu_torch as T
 from gpr_calculator_tpu.io import ase_db as jax_db
 from gpr_calculator_tpu_torch.io import ase_db
 
+from test_torch_kff import _on_cpu  # noqa: F401 (fixture)
+
+
 SIGMA, L_SCALE = 0.9000824419630231, 1.291296129835527
 NOISE_E, NOISE_F = 0.05 / 13, 0.05
 

@@ -11,6 +11,9 @@ import numpy as np
 import gpr_calculator_tpu as J
 import gpr_calculator_tpu_torch as T
 
+from test_torch_kff import _on_cpu  # noqa: F401 (fixture)
+
+
 # (sigma, l) of the JAX package's GP.set_GPR(images, EMT(),
 # noise_e=0.05/13, noise_f=0.05) on au_on_al100_images(), CPU float64
 SIGMA, L_SCALE = 0.9000824419630231, 1.291296129835527

@@ -7,6 +7,8 @@ import pytest
 import gpr_calculator_tpu as J
 import gpr_calculator_tpu_torch as T
 
+from test_torch_kff import _on_cpu  # noqa: F401 (fixture)
+
 
 def slab():
     return T.au_on_al100_images()[1]
