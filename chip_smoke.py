@@ -23,7 +23,20 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       tensor-core kernels of that mode alone, with the NLL and a
       re-serve against float64 recorded, then the RBF path once in
       "bf16" (its outcome recorded: it may end on another band, or at
-      the dispatcher's training-error gate).
+      the dispatcher's training-error gate);
+  (l) the mesh-sharded builds on a mesh of four shards over the cards
+      present (shard i on card i % count, so on one card four virtual
+      shards): (l1) the tile-range form of every K1 kernel in every mode
+      against kff_plain(tiles=) and, summed over the shards, against the
+      single launch bit for bit, and the K2/K3 stripes against the single
+      launch; (l2) at the bench shape, in "highest" and "bf16x4",
+      k_self_dual, both NLLs, _factorize with the replicated and the
+      sharded Cholesky, cholesky_sharded and a served block, each against
+      the unsharded one; (l3) GP(mesh=...) through set_GPR and the
+      on-the-fly NEB with the sharded route forced, through range-form
+      launches alone, then parallel.dryrun.dryrun_multichip(4); and the
+      times of the sharded builds beside the single launches (on one
+      card: overhead, not speed-up).
 (a)-(j) run in the default precision, "highest".  Around those runs it
 checks every kernel (every mode, and the deriv and K3-dual kernels no
 path reaches) against its plain PyTorch version at the paths' shapes
@@ -34,7 +47,7 @@ re-serves the frozen slice model against a float64 CPU model; times
 kernel and plain versions at the slice, a mid and the bench shape, with
 each one's bound on the card, and one NLL+gradient evaluation, and
 compares that evaluation with float64 on the card (g).  Any failure
-raises (non-zero exit).  The third-to-last line is a JSON list of the
+raises (non-zero exit); nothing falls back.  The third-to-last line is a JSON list of the
 kernels, the second-to-last the card's name and power limit, the last a
 JSON status object.
 """
@@ -91,6 +104,11 @@ BASES = {
 RBF = ("kff_tri", "kff_tri_dual", "kef_rect", "kef_rect_dual", "kff_rect")
 DOT = ("kff_tri_dot", "kef_rect_dot", "kff_rect_dot")
 SOURCE = "gpr_calculator_tpu_torch/csrc/kff.cu"
+# the tile-range form of the K1 kernels (the mesh-sharded training build)
+K1_BASES = [b for b in BASES if b.startswith("kff_tri")]
+RANGE_REPLACES = ("gpr_calculator_tpu/parallel/sharded_kernels.py:200, "
+                  "gpr_calculator_tpu/ops/kff_pallas.py:703")
+N_SHARDS = 4
 
 
 def kname(base, mode):
@@ -106,6 +124,7 @@ def split_name(name):
 
 
 NAMES = [kname(b, m) for m in PREC for b in BASES]
+RANGE_NAMES = [kname(b + "_range", m) for m in PREC for b in K1_BASES]
 
 
 def replaces(name):
@@ -167,14 +186,14 @@ def run_slice(T, device, dtype, log):
     return gp, images, out
 
 
-def run_training(T, device, dtype, kernel="RBF"):
+def run_training(T, device, dtype, kernel="RBF", mesh=None):
     """GP.set_GPR on the five images: EMT labels, add_structure, then
     fit(opt=True) -- L-BFGS-B from set_GPR's starting point over the
     analytic NLL of the kernel."""
     images = T.au_on_al100_images()
     gp = T.GP.set_GPR(images, T.EMT(), kernel=kernel, noise_e=NOISE_E,
                       noise_f=NOISE_F, log_file=None, device=device,
-                      dtype=dtype)
+                      dtype=dtype, mesh=mesh)
     return gp, images
 
 
@@ -261,9 +280,25 @@ def bound(mma_ops, fp32_ops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def work(name, d, lhs, rhs, out_numel):
+def range_pair_count(torch, kff, re, B, tiles):
+    """pair_count of a tile-range launch of K1: the valid same-element
+    env pairs of the point pairs p <= q inside upper-triangle tiles
+    [k0, k0 + nk) (diagonal point blocks whole)."""
+    m = re.shape[1] // B
+    valid = re[0] != 0
+    pairs = torch.zeros((m, m), dtype=torch.float64, device=re.device)
+    for el in re[1][valid].unique().tolist():
+        per = ((re[1] == el) & valid).reshape(m, B).sum(1).double()
+        pairs += per[:, None] * per[None, :]
+    own = kff.tile_mask(m, tiles, re.device)[::3, ::3]
+    return int((pairs * torch.triu(own)).sum())
+
+
+def work(name, d, lhs, rhs, out_numel, pairs=None):
     """(bf16 tensor-core operations, fp32 operations, bytes) one call of
-    kernel ``name`` needs: per valid same-element env pair, the 16 (K_FF)
+    kernel ``name`` needs (``pairs``: the env pairs of a tile-range
+    launch, whose bytes are the whole zeroed output and the operands):
+    per valid same-element env pair, the 16 (K_FF)
     or 4 (K_EF) length-d dot products at 2 d operations each -- in fp32
     for highest, as four bf16 products (bf16x4) or one (bf16) on the
     tensor cores -- plus the coefficients and the assembly in fp32 (K_FF
@@ -271,7 +306,9 @@ def work(name, d, lhs, rhs, out_numel):
     operand read once, each output written once."""
     (X1, re1, B1), (X2, re2, B2) = lhs, rhs
     base, mode = split_name(name)
-    pairs = pair_count(re1, B1, re2, B2, base.startswith("kff_tri"))
+    base = base.removesuffix("_range")
+    if pairs is None:
+        pairs = pair_count(re1, B1, re2, B2, base.startswith("kff_tri"))
     kff_block = base.startswith("kff")
     dots = (16 if kff_block else 4) * 2 * d
     planes = (40, 46) if kff_block else (12, 10)
@@ -487,6 +524,320 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+
+# ---------------------------------------------------------------------------
+# (l) the mesh-sharded builds
+# ---------------------------------------------------------------------------
+
+def planes_of(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def k1_flags(base, kind):
+    return dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                kind=kind)
+
+
+def sharded_k1(torch, kff, par, mesh, f, params, kind, mode, tag, errs, log,
+               with_plain):
+    """(l1) every K1 variant of the family in ``mode`` over the mesh's
+    tile ranges: each shard's output within KERNEL_RTOL max|plain| of
+    kff_plain(tiles=) (``with_plain``), and the sum of the shards' outputs
+    on the root equal to the single launch bit for bit, every plane
+    exactly symmetric."""
+    X, re = kff.force_operand(f, mode)
+    B = f.x.shape[1]
+    ranges = par.partition_tri_tiles(kff.n_tri_tiles(f.m), mesh.size)
+    shards = par.shard_train_data(mesh, X, re)
+    bases = ("kff_tri_dot",) if kind == "dot" else (
+        "kff_tri", "kff_tri_dual", "kff_tri_deriv")
+    for base in bases:
+        fl = k1_flags(base, kind)
+        name = kname(base + "_range", mode)
+        single = planes_of(kff.kff_from_ops(
+            X, re, B, X, re, B, params, 2, symmetric=True, mm_precision=mode,
+            **fl))
+        total = None
+        for (Xs, res), tiles in zip(shards, ranges):
+            if not tiles[1]:
+                continue
+            part = planes_of(kff.kff_from_ops(
+                Xs, res, B, Xs, res, B, params, 2, symmetric=True,
+                mm_precision=mode, tiles=tiles, **fl))
+            if with_plain:
+                plain = planes_of(kff.kff_plain(
+                    Xs, res, B, Xs, res, B, params, 2, symmetric=True,
+                    tiles=tiles, **fl))
+                for K, P in zip(part, plain):
+                    err, scale = float((K - P).abs().max()), \
+                        float(P.abs().max())
+                    if not err <= KERNEL_RTOL * scale:
+                        raise AssertionError(
+                            f"{name} tiles {tiles} disagrees with "
+                            f"kff_plain(tiles=) at {tag}: {err:.3e} > "
+                            f"{KERNEL_RTOL} * {scale:.3e}")
+                    errs[name] = max(errs.get(name, 0.0), err)
+            moved = [p.to(mesh.root) for p in part]
+            if total is None:
+                total = moved
+            else:
+                for acc, p in zip(total, moved):
+                    acc.add_(p)
+        for K, S in zip(total, single):
+            if not (torch.equal(K, S) and torch.equal(K, K.T)):
+                raise AssertionError(
+                    f"the sum of {name} over {ranges} is not the single "
+                    f"launch bit for bit at {tag} (max diff "
+                    f"{float((K - S).abs().max()):.3e})")
+        log(f"(l1) {tag} {name} {tuple(single[0].shape)}: tile ranges "
+            f"{ranges}, sum over shards == single launch bit for bit"
+            + (f", max|range - plain(tiles)| = {errs[name]:.3e}"
+               if with_plain else ""))
+
+
+def sharded_stripes(torch, kff, par, mesh, e, f, params, kind, mode, tag,
+                    log):
+    """(l1) the K3 row stripes (kff_sharded) and the K2 energy-row stripes
+    (kef_sharded), concatenated, equal the single launch bit for bit."""
+    U, w = kff.energy_operand(e, mode)
+    X, re = kff.force_operand(f, mode)
+    A, B = e.x.shape[1], f.x.shape[1]
+    kw = dict(kind=kind, mm_precision=mode)
+    for what, single, parts in (
+            ("K3", kff.kff_from_ops(X, re, B, X, re, B, params, 2, **kw),
+             par.kff_sharded(f, params, mesh, 2, **kw)),
+            ("K2", kff.kef_from_ops(U, w, A, X, re, B, params, 2, **kw),
+             par.kef_sharded(e, f, params, mesh, 2, **kw))):
+        striped = torch.cat([t.to(mesh.root) for t in parts])
+        if not torch.equal(striped, single):
+            raise AssertionError(f"{what} {kind} {mode} stripes differ from "
+                                 f"the single launch at {tag}")
+        log(f"(l1) {tag} {what} {kind} {mode} {tuple(single.shape)}: stripes "
+            f"{[t.shape[0] for t in parts]} rows on "
+            f"{[str(t.device) for t in parts]}, concatenated == single "
+            "launch bit for bit")
+        del striped, single, parts
+
+
+def rel_to(a, b):
+    """max|a - b| / max|b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def sharded_bench(T, torch, K_ops, par, mesh, be, bf, pe, pf, params, y,
+                  mode, log):
+    """(l2) the slice at full width in ``mode``: every sharded build at
+    the bench shape against the unsharded one."""
+    from gpr_calculator_tpu_torch.models.gp import (
+        _factorize, _nll_dot_analytic, _nll_rbf_analytic, _noise_diag,
+        _predict_packed, _resolve_chol_mode)
+    T.config.set_kff_precision(mode)
+    m, n = be.m, be.m + 3 * bf.m
+    tag = f"(l2) bench {mode}"
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    Ks = K_ops.k_self_dual(be, bf, params, mesh=mesh)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    Ku = K_ops.k_self_dual(be, bf, params)
+    for plane, a, b in zip(("K", "dK/dgamma"), Ks, Ku):
+        same = (torch.equal(a[m:, m:], b[m:, m:])
+                and torch.equal(a[:m, m:], b[:m, m:])
+                and torch.equal(a[m:, :m], b[m:, :m]))
+        ee = rel_to(a[:m, :m], b[:m, :m])
+        log(f"{tag} k_self_dual(mesh=) {plane}: K_FF, K_EF, K_FE equal the "
+            f"unsharded ones bit for bit: {same}; K_EE max diff {ee:.3e} of "
+            f"max|K_EE| (limit {KERNEL_RTOL})")
+        if not same or not ee <= KERNEL_RTOL:
+            raise AssertionError(f"sharded k_self_dual {plane} differs from "
+                                 f"the unsharded one in {mode}")
+    log(f"{tag} k_self_dual(mesh=): peak device memory above the data "
+        f"{peak / 1e9:.3f} GB on {mesh}")
+    del Ks, Ku, a, b
+    chol = _resolve_chol_mode(mesh, n)
+    log(f"{tag}: _resolve_chol_mode({mesh.size} shards, n={n}) = {chol}")
+    for label, fn, theta in (("RBF", _nll_rbf_analytic, (2.0, 1.0)),
+                             ("Dot", _nll_dot_analytic, (2.0, 2.0))):
+        args = (theta, be, bf, y, (0.01, 0.1), 10.0, 2, False)
+        nll_u, g_u = fn(*args)
+        for cm in ("replicated", "sharded"):
+            nll_s, g_s = fn(*args, mesh=mesh, chol_mode=cm)
+            dn = abs(float(nll_s) - float(nll_u)) / abs(float(nll_u))
+            dg = float((g_s - g_u).norm() / g_u.norm())
+            log(f"{tag} {label} NLL(mesh=, chol_mode={cm}) {float(nll_s):.10g}"
+                f" vs unsharded {float(nll_u):.10g}: {dn:.3e} relative, "
+                f"gradient {dg:.3e} relative (limit 1e-6)")
+            if not (dn <= 1e-6 and dg <= 1e-6):
+                raise AssertionError(f"sharded {label} NLL differs from the "
+                                     f"unsharded one in {mode}")
+    # the float32 covariance the factorisations see, and its float64
+    # factor and weights: what a float32 factor is held against where it
+    # sums in another order (K plus noise is ill-conditioned)
+    K = K_ops.k_self(be, bf, params, 2, mesh=mesh)
+    K.diagonal().add_(_noise_diag(be, bf, 0.01, 0.1))
+    L64 = torch.linalg.cholesky(K.double())
+    a64 = torch.cholesky_solve(y.double()[:, None], L64)[:, 0]
+    L_u, a_u = _factorize(be, bf, y, params, 0.01, 0.1, 2, "rbf")
+    e_u = rel_to(a_u.double(), a64)
+    for cm in ("replicated", "sharded"):
+        L_s, a_s = _factorize(be, bf, y, params, 0.01, 0.1, 2, "rbf",
+                              mesh=mesh, chol_mode=cm)
+        da, e_s = rel_to(a_s, a_u), rel_to(a_s.double(), a64)
+        # the replicated factor is the unsharded program on a K that is
+        # equal bit for bit: held to 1e-5 max|alpha|.  The sharded
+        # float32 factor takes its sums in another order: held to the
+        # float64 weights as closely as the library's float32 factor,
+        # within 2x
+        limit = "1e-5 of max|alpha| against the unsharded one" \
+            if cm == "replicated" else \
+            "twice the unsharded float32 distance to float64, or 1e-5"
+        log(f"{tag} _factorize(mesh=, chol_mode={cm}): max|alpha - "
+            f"alpha_unsharded| = {da:.3e} of max|alpha|; against the "
+            f"float64 alpha of the same K {e_s:.3e} (the unsharded float32 "
+            f"alpha: {e_u:.3e}); limit: {limit}")
+        ok = da <= 1e-5 if cm == "replicated" \
+            else e_s <= max(2 * e_u, 1e-5)
+        if not ok:
+            raise AssertionError(f"sharded _factorize alpha ({cm}) outside "
+                                 f"its limit in {mode}")
+    del L_s
+    e_sh = rel_to(par.cholesky_sharded(K, mesh).double(), L64)
+    e_lib = rel_to(torch.linalg.cholesky(K).double(), L64)
+    log(f"{tag} cholesky_sharded of the {tuple(K.shape)} float32 covariance "
+        f"against a float64 factor: {e_sh:.3e} of max|L| (the library's "
+        f"float32 factor: {e_lib:.3e}; limit: twice that, or 5e-5)")
+    if not e_sh <= max(2 * e_lib, 5e-5):
+        raise AssertionError("cholesky_sharded is farther from the float64 "
+                             "factor than twice the library's float32 one")
+    del K, L64
+    Kt_s = K_ops.k_block(pe, pf, be, bf, params, 2, mesh=mesh)
+    Kt_u = K_ops.k_block(pe, pf, be, bf, params, 2)
+    mean_s, std_s = _predict_packed(pe, pf, be, bf, params, a_u, L_u, 2,
+                                    True, "rbf", mesh=mesh)
+    mean_u, std_u = _predict_packed(pe, pf, be, bf, params, a_u, L_u, 2,
+                                    True, "rbf")
+    same = torch.equal(Kt_s, Kt_u)
+    dm, ds = rel_to(mean_s, mean_u), rel_to(std_s, std_u)
+    log(f"{tag} one 13-atom request against the bench training set: "
+        f"k_block(mesh=) {tuple(Kt_s.shape)} equals the unsharded block bit "
+        f"for bit: {same}; mean {dm:.3e}, std {ds:.3e} relative (limit "
+        "1e-6)")
+    if not (same and dm <= 1e-6 and ds <= 1e-6
+            and bool(torch.isfinite(mean_s).all())):
+        raise AssertionError(f"sharded serving differs from the unsharded "
+                             f"one in {mode}")
+    T.config.set_kff_precision("highest")
+
+
+def sharded_times(torch, kff, K_ops, par, mesh, be, bf, pe, pf, bparams, y,
+                  log):
+    """The sharded builds at the bench shape beside the single launches
+    (CUDA events).  Shards that share a card run one after the other, so
+    these show the overhead of sharding, not a speed-up.  Returns
+    (per-shard K1-dual range ms, single ms, reduction ms)."""
+    from gpr_calculator_tpu_torch.models.gp import _nll_rbf_analytic
+    card = card_line()
+    X, re = kff.force_operand(bf, "highest")
+    U, w = kff.energy_operand(be, "highest")
+    A, B = be.x.shape[1], bf.x.shape[1]
+    ranges = par.partition_tri_tiles(kff.n_tri_tiles(bf.m), mesh.size)
+    shards = par.shard_train_data(mesh, X, re)
+    kw = dict(symmetric=True, dual=True)
+    single = cuda_ms(torch, lambda: kff.kff_from_ops(
+        X, re, B, X, re, B, bparams, 2, **kw), 3)
+    per = [cuda_ms(torch, lambda: kff.kff_from_ops(
+        Xs, res, B, Xs, res, B, bparams, 2, tiles=t, **kw), 3)
+        for (Xs, res), t in zip(shards, ranges)]
+    parts = [kff.kff_from_ops(Xs, res, B, Xs, res, B, bparams, 2, tiles=t,
+                              **kw) for (Xs, res), t in zip(shards, ranges)]
+
+    def reduce():
+        for plane in zip(*parts):
+            acc = plane[0].to(mesh.root)
+            for p in plane[1:]:
+                acc.add_(p.to(mesh.root))
+    red = cuda_ms(torch, reduce, 3)
+    red_bytes = 2 * (mesh.size - 1) * 3 * parts[0][0].numel() * 4
+    del parts
+    log(f"(l) times [{card}] bench K1-dual, {mesh.size} tile ranges "
+        f"{ranges}: per shard {[round(t, 3) for t in per]} ms (each with the "
+        f"zero-fill of its two {(3 * bf.m, 3 * bf.m)} planes), sum "
+        f"{sum(per):.3f} ms, "
+        f"single launch {single:.3f} ms: sum over shards / single launch = "
+        f"{sum(per) / single:.4f} (work proportionality; 1 is ideal); "
+        f"largest shard / single = {max(per) / single:.4f} (the build's "
+        "time on distinct cards, before the reduction)")
+    log(f"(l) times [{card}] the reduction on the root ({mesh.size - 1} "
+        f"adds of 2 planes, {red_bytes / 1e9:.3f} GB read and written): "
+        f"{red:.3f} ms, bound {1e3 * red_bytes / PEAK_BYTES:.3f} ms (bytes)")
+    ef_single = cuda_ms(torch, lambda: kff.kef_from_ops(
+        U, w, A, X, re, B, bparams, 2, dual=True), 3)
+    ef_stripes = cuda_ms(torch, lambda: [
+        kff.kef_from_ops(U[p0 * A:p1 * A], w[:, p0 * A:p1 * A].contiguous(),
+                         A, X, re, B, bparams, 2, dual=True)
+        for p0, p1 in par.sharded_kernels.partition_points(be.m, mesh.size)],
+        3)
+    log(f"(l) times [{card}] bench K2-dual: {mesh.size} energy-row stripes "
+        f"{ef_stripes:.3f} ms in all, single launch {ef_single:.3f} ms")
+    kb_single = cuda_ms(torch, lambda: K_ops.k_block(pe, pf, be, bf, bparams,
+                                                     2), 3)
+    kb_mesh = cuda_ms(torch, lambda: K_ops.k_block(pe, pf, be, bf, bparams, 2,
+                                                   mesh=mesh), 3)
+    log(f"(l) times [{card}] one 13-atom request against the bench training "
+        f"set, k_block: column stripes over {mesh.size} shards "
+        f"{kb_mesh:.3f} ms, unsharded {kb_single:.3f} ms")
+    ks_single = cuda_ms(torch, lambda: K_ops.k_self_dual(be, bf, bparams), 3)
+    ks_mesh = cuda_ms(torch, lambda: K_ops.k_self_dual(be, bf, bparams,
+                                                       mesh=mesh), 3)
+    args = ((2.0, 1.0), be, bf, y, (0.01, 0.1), 10.0, 2, False)
+    nll_single = cuda_ms(torch, lambda: _nll_rbf_analytic(*args), 3)
+    nll_mesh = cuda_ms(torch, lambda: _nll_rbf_analytic(*args, mesh=mesh), 3)
+    nll_chol = cuda_ms(torch, lambda: _nll_rbf_analytic(
+        *args, mesh=mesh, chol_mode="sharded"), 3)
+    log(f"(l) times [{card}] bench k_self_dual: sharded {ks_mesh:.3f} ms, "
+        f"unsharded {ks_single:.3f} ms; one RBF NLL + gradient: sharded "
+        f"build {nll_mesh:.3f} ms, sharded build and sharded float64 "
+        f"Cholesky {nll_chol:.3f} ms, unsharded {nll_single:.3f} ms (shards "
+        "on one card run in turn: overhead, not speed-up)")
+    return per, single, red
+
+
+def range_times(torch, kff, par, mesh, f, params, dparams, reps, plain_reps):
+    """{range kernel name: (ms, plain ms, bound ms, bound by, per-shard
+    ms, single-launch ms)} at one shape: shard 0's tile range of every K1
+    variant in every mode, timed beside kff_plain(tiles=) (``plain_reps``
+    calls; 0: not timed) and its bound, then every shard's range and the
+    single launch."""
+    out = {}
+    B = f.x.shape[1]
+    ranges = par.partition_tri_tiles(kff.n_tri_tiles(f.m), mesh.size)
+    for mode in PREC:
+        X, re = kff.force_operand(f, mode)
+        shards = par.shard_train_data(mesh, X, re)
+        for base in K1_BASES:
+            kind = "dot" if base.endswith("_dot") else "rbf"
+            fl = k1_flags(base, kind)
+            prm = dparams if kind == "dot" else params
+            name = kname(base + "_range", mode)
+
+            def call(s, fn=kff.kff_from_ops, **kw):
+                Xs, res = shards[s]
+                return lambda: fn(Xs, res, B, Xs, res, B, prm, 2,
+                                  symmetric=True, tiles=ranges[s], **fl, **kw)
+            per = [cuda_ms(torch, call(s, mm_precision=mode), reps)
+                   for s in range(mesh.size) if ranges[s][1]]
+            single = cuda_ms(torch, lambda: kff.kff_from_ops(
+                X, re, B, X, re, B, prm, 2, symmetric=True,
+                mm_precision=mode, **fl), reps)
+            pms = cuda_ms(torch, call(0, fn=kff.kff_plain), plain_reps) \
+                if plain_reps else None
+            out_numel = (3 * f.m) ** 2 * (1 + fl["dual"])
+            bms, by = bound(*work(
+                name, f.x.shape[2], (X, re, B), (X, re, B), out_numel,
+                pairs=range_pair_count(torch, kff, re, B, ranges[0])))
+            out[name] = (per[0], pms, bms, by, per, single)
+    return out
 
 
 def main() -> int:
@@ -874,9 +1225,120 @@ def main() -> int:
             f"{np.linalg.norm(g32 - g64) / np.linalg.norm(g64):.3e} "
             "(recorded, not a gate)")
 
+    # (l) the mesh-sharded builds: four shards over the cards present
+    import gpr_calculator_tpu_torch.parallel as par
+    from gpr_calculator_tpu_torch.parallel.dryrun import dryrun_multichip
+    devices = [f"cuda:{i % torch.cuda.device_count()}"
+               for i in range(N_SHARDS)]
+    mesh = par.make_mesh(N_SHARDS, devices)
+    log(f"(l) mesh of {mesh.size} shards over {torch.cuda.device_count()} "
+        f"card(s): " + ", ".join(f"shard {i} -> {d}"
+                                 for i, d in enumerate(mesh.devices)))
+
+    # (l1) the range form of every K1 kernel and the K2/K3 stripes, in
+    # every mode, against the plain version and the single launch
+    for tag, (se_, sf_), with_plain in (("slice", (te, tf), True),
+                                        ("mid", (me, mf), True),
+                                        ("bench", (be, bf), False)):
+        rbf_p, dot_p = (params, dparams) if tag == "slice" \
+            else (bparams, bdparams)
+        for mode in PREC:
+            for kind, prm in (("rbf", rbf_p), ("dot", dot_p)):
+                sharded_k1(torch, kff, par, mesh, sf_, prm, kind, mode, tag,
+                           errs, log, with_plain)
+                sharded_stripes(torch, kff, par, mesh, se_, sf_, prm, kind,
+                                mode, tag, log)
+
+    # (l2) the slice at full width, sharded against unsharded
+    for mode in ("highest", "bf16x4"):
+        sharded_bench(T, torch, K_ops, par, mesh, be, bf, pe, pf, bparams,
+                      y, mode, log)
+
+    # (l3) the main path through the entry points with the sharded route
+    # forced: GP(mesh=), set_GPR, the on-the-fly NEB, each counted
+    builds = par.sharded_kernels.builds
+    T.config.set_sharded_gate("off")
+    kff.reset_launches()
+    par.sharded_kernels.reset_builds()
+    t0 = time.time()
+    sgp, simages = run_training(T, dev, f32, mesh=mesh)
+    torch.cuda.synchronize()
+    path_launches["mesh_training"] = dict(kff.launches)
+    theta = sgp.kernel.parameters()
+    log(f"(l3) set_GPR(mesh=): {time.time() - t0:.2f} s, N_energy="
+        f"{sgp.N_energy} N_forces={sgp.N_forces}; theta = ({theta[0]:.8f}, "
+        f"{theta[1]:.8f}), JAX CPU f64 ({SIGMA:.8f}, {L_SCALE:.8f}); "
+        f"sharded builds {json.dumps(builds)}")
+    log(f"(l3) launches in set_GPR(mesh=): {json.dumps(nonzero(kff.launches))}")
+
+    def check_mesh_path(on_path, path):
+        """Only ``on_path`` ran, and every sharded training build took
+        the range form: one launch per shard that owns a tile (3 or 4 of
+        the 4 shards here, the smallest training set having 3 tiles)."""
+        check_launches(kff.launches, on_path, path,
+                       absent=[n for n in NAMES + RANGE_NAMES
+                               if n not in on_path])
+        ranged = sum(kff.launches[n] for n in RANGE_NAMES)
+        if not 3 * builds["self_blocks"] <= ranged \
+                <= N_SHARDS * builds["self_blocks"]:
+            raise AssertionError(f"{ranged} range launches for "
+                                 f"{builds['self_blocks']} sharded builds "
+                                 f"on the {path} path")
+    check_mesh_path(("kff_tri_range", "kff_tri_dual_range", "kef_rect",
+                     "kef_rect_dual", "kff_rect"), "mesh training")
+    kff.reset_launches()
+    par.sharded_kernels.reset_builds()
+    t0 = time.time()
+    sneb, E = run_neb(T, sgp, simages)
+    torch.cuda.synchronize()
+    path_launches["mesh_neb"] = dict(kff.launches)
+    log(f"(l3) NEB with GP(mesh=): {time.time() - t0:.2f} s, band energies "
+        f"{np.array2string(E, precision=6)} eV; sharded builds "
+        f"{json.dumps(builds)}")
+    for key, ref_val in JAX_NEB.items():
+        log(f"(l3) {key}: card {sneb[key]}, JAX CPU f64 {ref_val}")
+    log(f"(l3) launches in the NEB: {json.dumps(nonzero(kff.launches))}")
+    check_mesh_path(("kff_tri_range", "kff_tri_dual_range", "kef_rect",
+                     "kef_rect_dual", "kff_rect"), "mesh NEB")
+    if builds["k_block"] <= 0:
+        raise AssertionError("no served block took the sharded route")
+    if not sneb["converged"] or \
+            abs(sneb["barrier"] - JAX_NEB["barrier"]) > BARRIER_TOL:
+        raise AssertionError(f"the mesh NEB did not converge to the JAX "
+                             f"barrier within {BARRIER_TOL} eV")
+    T.config.set_sharded_gate("auto")
+    dryrun_multichip(N_SHARDS, devices)
+
+    # (l) times: the sharded builds beside the single launches, and the
+    # range form of each K1 kernel at the slice, mid and bench shapes
+    sharded_times(torch, kff, K_ops, par, mesh, be, bf, pe, pf, bparams, y,
+                  log)
+    range_at = {
+        "slice": range_times(torch, kff, par, mesh, tf, params, dparams, 50,
+                             10),
+        "mid": range_times(torch, kff, par, mesh, mf, bparams, bdparams, 3,
+                           1),
+        # the plain range version at the bench shape is the plain K1 (its
+        # plain_ms above) and a mask: not timed again
+        "bench": range_times(torch, kff, par, mesh, bf, bparams, bdparams, 3,
+                             0)}
+    for tag, rt in range_at.items():
+        for name, (ms, pms, bms, by, per, single) in rt.items():
+            log(f"(l) times {tag} {name}: shard 0 of {N_SHARDS} {ms:.4f} ms, "
+                f"plain {'not timed' if pms is None else f'{pms:.4f} ms'}, "
+                f"bound {bms:.3g} ms ({by}); per shard "
+                f"{[round(t, 4) for t in per]} ms, sum / single launch = "
+                f"{sum(per):.4f} / {single:.4f} = {sum(per) / single:.4f}")
+
+    def range_cell(name, tag):
+        ms, pms, bms, by, per, single = range_at[tag][name]
+        return dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                    per_shard_ms=per, single_launch_ms=single)
+
     # ms / plain_ms / bound_ms: the slice's shapes; "mid" and "bench":
     # the 2.5k and 10k bench shapes.  No single PyTorch call computes
-    # these blocks, so there is no library time.
+    # these blocks, so there is no library time.  The range form of a K1
+    # kernel: shard 0's tile range of the four.
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": replaces(name),
                 "launches": sum(c[name] for c in path_launches.values()),
@@ -887,6 +1349,15 @@ def main() -> int:
                 "bound_by": times[name][3], "library_ms": None,
                 "mid": at["mid"][name], "bench": at["bench"][name]}
                for name in NAMES]
+    kernels += [{"name": name, "route": "cuda", "source": SOURCE,
+                 "replaces": RANGE_REPLACES,
+                 "launches": sum(c[name] for c in path_launches.values()),
+                 "launches_by_path": {p: c[name]
+                                      for p, c in path_launches.items()},
+                 "max_abs_err": errs[name], "library_ms": None,
+                 **range_cell(name, "slice"), "mid": range_cell(name, "mid"),
+                 "bench": range_cell(name, "bench")}
+                for name in RANGE_NAMES]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

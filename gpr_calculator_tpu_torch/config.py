@@ -1,5 +1,6 @@
-"""Global configuration for the PyTorch port: working device, dtype and
-the matmul precision of the covariance kernels.
+"""Global configuration for the PyTorch port: working device, dtype, the
+matmul precision of the covariance kernels and the two toggles of the
+mesh-sharded builds.
 
 The working device is the CUDA card.  With no card the port refuses to
 guess: ``device()`` raises until ``set_device("cpu")`` asks for the CPU
@@ -21,6 +22,15 @@ blocks, the counterpart of the JAX package's ``_resolve_precision``
   bf16     the exact Gram of inputs rounded once to bf16
 
 The port's default is "highest"; float64 operands ignore the mode.
+
+With ``GP(mesh=...)`` two more settings apply, both "auto" by default
+(the JAX package reads them from GPR_CALC_TPU_SHARDED_GATE and
+GPR_CALC_TPU_SHARDED_CHOL; the port has no environment variables):
+
+  sharded_gate  "auto": a covariance build is sharded only when every
+                shard gets real work (ops/kernels.py); "off": always
+  sharded_chol  "auto": the sharded blocked Cholesky from 4 shards and
+                4096 rows (models/gp.py); "on" / "off": always / never
 """
 from __future__ import annotations
 
@@ -40,6 +50,8 @@ PRECISIONS = ("highest", "bf16x4", "bf16")
 _DTYPE: torch.dtype | None = None
 _DEVICE: torch.device | None = None
 _PRECISION = "highest"
+_SHARDED_GATE = "auto"
+_SHARDED_CHOL = "auto"
 
 
 def device() -> torch.device:
@@ -88,3 +100,27 @@ def kff_precision(mode: str | None = None) -> str:
 def set_kff_precision(mode: str) -> None:
     global _PRECISION
     _PRECISION = kff_precision(mode)
+
+
+def sharded_gate() -> str:
+    return _SHARDED_GATE
+
+
+def set_sharded_gate(mode: str) -> None:
+    global _SHARDED_GATE
+    if mode not in ("auto", "off"):
+        raise ValueError(f"unknown sharded gate setting: {mode!r} "
+                         "(auto or off)")
+    _SHARDED_GATE = mode
+
+
+def sharded_chol() -> str:
+    return _SHARDED_CHOL
+
+
+def set_sharded_chol(mode: str) -> None:
+    global _SHARDED_CHOL
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown sharded Cholesky setting: {mode!r} "
+                         "(auto, on or off)")
+    _SHARDED_CHOL = mode

@@ -72,6 +72,17 @@
 // the linear block index and writes each tile and its transpose; on
 // diagonal tiles only the upper entries are computed into the output, so
 // the result is exactly symmetric.
+//
+// The tile-range form of K1 (the mesh-sharded training build): the
+// kff_tri* entry points take a first tile k0 and a tile count nk of the
+// linear upper-triangle index k = J (J + 1) / 2 + I and launch nk blocks,
+// block b computing tile k0 + b.  It replaces the cells= / owned= form of
+// _kff_kernel_tri (kff_pallas.py:592-596, :703-711) and its callers in
+// gpr_calculator_tpu/parallel/sharded_kernels.py: each shard launches its
+// contiguous range into an output its wrapper has zeroed, every element is
+// written by exactly one shard, and the sum over shards is the single
+// launch bit for bit (the tile body does not know the range).  The whole
+// range (k0 = 0, nk = all tiles) is the single-card call.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -293,7 +304,8 @@ __device__ __forceinline__ void powers(float c, int zeta, float& d1,
 
 // LC = 4: K_FF (lhs carries [u; Jt]), LC = 1: K_EF (lhs carries u only).
 // MODE 0: rectangular grid (blockIdx.y = lhs tile, blockIdx.x = rhs tile);
-// MODE 1: upper-triangle tiles of a symmetric K_FF from the linear index.
+// MODE 1: upper-triangle tiles of a symmetric K_FF from the linear index
+// k0 + blockIdx.x (k0 is unused by MODE 0).
 // SEL = KONLY: K into out; DUAL: K into out and dK/dgamma into outd;
 // DERIV: dK/dgamma into out.
 // KIND = RBF (gamma = 1 / (2 l^2)) or DOT (gamma unused).
@@ -309,7 +321,7 @@ cov_kernel(const void* __restrict__ X1, const float* __restrict__ re1,
            int m1, int B1, const void* __restrict__ X2,
            const float* __restrict__ re2, int m2, int B2,
            float* __restrict__ out, float* __restrict__ outd, long long ldo,
-           float sigma2, float gamma, int zeta) {
+           float sigma2, float gamma, int zeta, long long k0) {
   static_assert(KIND == RBF || SEL == KONLY,
                 "the Dot kernel has no dK/dgamma pass");
   constexpr int NPL = LC == 4 ? 9 : 3;   // planes per coefficient set
@@ -324,7 +336,7 @@ cov_kernel(const void* __restrict__ X1, const float* __restrict__ re1,
 
   int I, J;
   if (MODE == 1) {
-    const long long k = blockIdx.x;
+    const long long k = k0 + blockIdx.x;
     long long j = (long long)((sqrt(8.0 * (double)k + 1.0) - 1.0) * 0.5);
     while ((j + 1) * (j + 2) / 2 <= k) ++j;
     while (j * (j + 1) / 2 > k) --j;
@@ -504,40 +516,48 @@ cov_kernel(const void* __restrict__ X1, const float* __restrict__ re1,
 
 inline int tiles(int m) { return (m + TP - 1) / TP; }
 
-// MODE 1 (K1): the upper-triangle tiles of one (m1 = m2) point set;
-// MODE 0: every (lhs tile, rhs tile).  Returns the launch status.
+// MODE 1 (K1): tiles [k0, k0 + nk) of the upper triangle of one (m1 = m2)
+// point set, a range that must lie inside the triangle;
+// MODE 0: every (lhs tile, rhs tile), k0 and nk unused.  Returns the
+// launch status.
 template <int LC, int MODE, int SEL, int KIND, int PREC>
 int launch(const void* X1, const float* re1, int m1, int B1, const void* X2,
            const float* re2, int m2, int B2, float* out, float* outd,
-           float sigma2, float gamma, int zeta, void* stream) {
+           float sigma2, float gamma, int zeta, long long k0, long long nk,
+           void* stream) {
   dim3 grid(tiles(m2), tiles(m1));
   if (MODE == 1) {
     const long long nt = tiles(m1);
-    grid = dim3((unsigned)(nt * (nt + 1) / 2));
+    if (k0 < 0 || nk < 1 || nk > 0x7fffffffLL || k0 + nk > nt * (nt + 1) / 2)
+      return (int)cudaErrorInvalidValue;
+    grid = dim3((unsigned)nk);
   }
   cov_kernel<LC, MODE, SEL, KIND, PREC>
       <<<grid, NT, 0, (cudaStream_t)stream>>>(X1, re1, m1, B1, X2, re2, m2,
                                               B2, out, outd, 3LL * m2,
-                                              sigma2, gamma, zeta);
+                                              sigma2, gamma, zeta, k0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd, sigma2,
-// gamma, zeta, stream).  K_FF: out (3 m1, 3 m2); K_EF: out (m1, 3 m2)
-// from energy operands (U1, w1 = [valid/count, element]) against force
-// operands.  outd receives dK/dgamma for _dual and is unused otherwise;
-// gamma is unused by _dot.  K1 (kff_tri*) takes X2 = X1, re2 = re1, m2 =
-// m1, B2 = B1 and writes an exactly symmetric out (and outd).
+// gamma, zeta, k0, nk, stream).  K_FF: out (3 m1, 3 m2); K_EF: out (m1,
+// 3 m2) from energy operands (U1, w1 = [valid/count, element]) against
+// force operands.  outd receives dK/dgamma for _dual and is unused
+// otherwise; gamma is unused by _dot.  K1 (kff_tri*) takes X2 = X1, re2 =
+// re1, m2 = m1, B2 = B1 and writes tiles [k0, k0 + nk) of the upper
+// triangle and their transposes, nothing else: the whole range gives an
+// exactly symmetric out (and outd), a part of it needs out zeroed by the
+// caller.  k0 and nk are unused by the rectangular kernels.
 #define COV_ENTRY(NAME, LC, MODE, SEL, KIND, PREC)                          \
   int NAME(const void* X1, const float* re1, int m1, int B1,                \
            const void* X2, const float* re2, int m2, int B2, float* out,    \
-           float* outd, float sigma2, float gamma, int zeta,                \
-           void* stream) {                                                  \
+           float* outd, float sigma2, float gamma, int zeta, long long k0,  \
+           long long nk, void* stream) {                                    \
     return launch<LC, MODE, SEL, KIND, PREC>(X1, re1, m1, B1, X2, re2, m2,  \
                                              B2, out, outd, sigma2, gamma,  \
-                                             zeta, stream);                 \
+                                             zeta, k0, nk, stream);         \
   }
 
 #define COV_FAMILY(SUFFIX, PREC)                                    \

@@ -13,7 +13,10 @@ the card), the Cholesky factor, the solves and K^-1 from
 
 Each GP works on one device and dtype (default ``config.device()`` /
 ``config.dtype()``), so a card model and a CPU model can live side by
-side.
+side.  ``GP(mesh=...)`` (a ``parallel.Mesh`` whose root is that device)
+shards the covariance builds of fitting, training and serving over the
+mesh's devices, and from 4 shards and 4096 rows the Cholesky too
+(``_resolve_chol_mode``); a mesh of one shard behaves as no mesh.
 """
 from __future__ import annotations
 
@@ -50,17 +53,54 @@ def _noise_diag(e: EnergyData, f: ForceData, noise_e, noise_f):
     return torch.cat([de, df.repeat_interleave(3)])
 
 
-def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
-               noise_f: float, zeta: int, kind: str = "rbf"):
-    """K -> (L, alpha): the training covariance plus noise, its lower
-    Cholesky factor and the weights (gaussianprocess.py:288-310)."""
-    K = K_ops.k_self(e, f, params, zeta, kind)
-    K.diagonal().add_(_noise_diag(e, f, noise_e, noise_f))
+def _resolve_chol_mode(mesh, n: int) -> str:
+    """"replicated" (one ``torch.linalg.cholesky_ex`` on the root) or
+    "sharded" (``parallel.cholesky_sharded``) for an n-row training
+    covariance: the JAX package's rule (its models/gp.py:183-216).
+    Sharded from 4 shards and 4096 rows, where the per-shard trailing
+    update, n^3 / n_shards (1/2 + 1 / (2 n_shards)) over the rows padded
+    to whole panels per shard, undercuts the n^3 / 3 of the one factor.
+    ``config.set_sharded_chol("on" | "off")`` overrides."""
+    mode = config.sharded_chol()
+    if mesh is None or mesh.size < 2 or mode == "off":
+        return "replicated"
+    if mode == "on":
+        return "sharded"
+    if mesh.size < 4 or n < 4096:
+        return "replicated"
+    from ..parallel.cholesky import rows_per_shard
+    n_pad = rows_per_shard(n, mesh.size) * mesh.size
+    if n_pad ** 3 / mesh.size * (0.5 + 0.5 / mesh.size) > n ** 3 / 3:
+        return "replicated"
+    return "sharded"
+
+
+def _chol_mesh(K, mesh, chol_mode: str = "replicated"):
+    """(L, info) of K: info != 0 when K is not positive definite."""
+    if chol_mode == "sharded" and mesh is not None:
+        from ..parallel.cholesky import cholesky_sharded
+        try:
+            return cholesky_sharded(K, mesh), 0
+        except torch.linalg.LinAlgError:
+            return torch.full_like(K, math.nan), 1
     L, info = torch.linalg.cholesky_ex(K)
+    return L, int(info)
+
+
+def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
+               noise_f: float, zeta: int, kind: str = "rbf", mesh=None,
+               chol_mode: str = "replicated"):
+    """K -> (L, alpha): the training covariance plus noise, its lower
+    Cholesky factor and the weights (gaussianprocess.py:288-310).  mesh:
+    the build is sharded (``k_self``), and with chol_mode="sharded" the
+    factorisation too; L and alpha are on the root."""
+    K = K_ops.k_self(e, f, params, zeta, kind, mesh=mesh)
+    K.diagonal().add_(_noise_diag(e, f, noise_e, noise_f))
+    L, info = _chol_mesh(K, mesh, chol_mode)
     alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
-    if int(info) != 0 or not bool(torch.isfinite(alpha).all()):
+    if info != 0 or not bool(torch.isfinite(alpha).all()):
         raise FloatingPointError(
-            f"Cholesky factorisation failed (info={int(info)}): K is not "
+            f"Cholesky factorisation failed (info={info}): K is not "
             f"positive definite at noise_e={noise_e:.2e}, "
             f"sigma={float(params['sigma']):.3g} in {K.dtype}")
     return L, alpha
@@ -77,7 +117,7 @@ def _split_theta(theta, noise_fixed, f_coef, noise_opt: bool):
 
 def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
                   noise_e: float, noise_f: float, f_coef, noise_opt: bool,
-                  second_grad):
+                  second_grad, mesh=None, chol_mode: str = "replicated"):
     """(-LML, grad) from the kernel covariance Kk: the part both kernel
     families share (gp.py:270-436 of the JAX package).
 
@@ -95,17 +135,18 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
     there a float32 Cholesky alone moved the NLL by ~1e-4 of its value,
     and float32 reductions the l-gradient by ~1e-3.  On the card float64
     costs ~2x the memory of those n^2 buffers and little time next to the
-    kernels."""
+    kernels.  With chol_mode="sharded" the float64 factor is the
+    mesh-sharded one."""
     f64 = torch.float64
     nz = _noise_diag(e, f, noise_e, noise_f).to(f64)
     K = Kk.to(f64)
     del Kk
     K.diagonal().add_(nz)
-    L, info = torch.linalg.cholesky_ex(K)
+    L, info = _chol_mesh(K, mesh, chol_mode)
     n = K.shape[0]
     del K
     n_theta = 3 if noise_opt else 2
-    if int(info) != 0:
+    if info != 0:
         return (torch.tensor(math.inf, dtype=f64),
                 torch.zeros(n_theta, dtype=f64))
     y = y.to(f64)
@@ -139,17 +180,19 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
 
 def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
                       f_coef, zeta: int, noise_opt: bool,
-                      plain: bool = False):
+                      plain: bool = False, mesh=None,
+                      chol_mode: str = "replicated"):
     """(-LML, grad) of the RBF kernel with ANALYTIC hyperparameter
     derivatives (gp.py:270-346 of the JAX package), theta = (sigma,
     l[, noise_e]): dK/dl = dK/dgamma * (-1/l^3), where dK/dgamma comes
     from the same fused pass as K (``k_self_dual``), and the trace
     tr(K^-1 dK/dgamma) is exact.  plain=True builds the blocks with the
-    plain versions on any device."""
+    plain versions on any device; mesh shards the dual pass
+    (``k_self_dual``) and, by chol_mode, the factorisation."""
     kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
                                         noise_opt)
     params = _params_from_theta("rbf", kp)
-    Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain)
+    Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain, mesh=mesh)
 
     def g_l(Kinv, alpha):
         Kd64 = Kd.to(torch.float64)
@@ -157,12 +200,13 @@ def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
         g_gamma = 0.5 * (tr_kd - torch.dot(alpha, Kd64 @ alpha))
         return g_gamma * (-1.0 / params["l"] ** 3)
     return _analytic_nll(Kk, e, f, y, params["sigma"], noise_e, noise_f,
-                         f_coef, noise_opt, g_l)
+                         f_coef, noise_opt, g_l, mesh, chol_mode)
 
 
 def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
                       f_coef, zeta: int, noise_opt: bool,
-                      plain: bool = False):
+                      plain: bool = False, mesh=None,
+                      chol_mode: str = "replicated"):
     """(-LML, grad) of the Dot kernel with ANALYTIC hyperparameter
     derivatives (gp.py:353-436 of the JAX package), theta = (sigma,
     sigma0[, noise_e]).  K comes from ONE gradient-free build per
@@ -170,13 +214,14 @@ def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
     s0^2) only through the additive constant, so dK/dsigma0 = 2 s2 s0 W
     on the energy block alone, W = ``count_ee`` (float64), and g_sigma0 =
     0.5 * 2 s2 s0 (tr(K^-1_EE W) - a_E^T W a_E).  plain=True builds the
-    blocks with the plain versions on any device."""
+    blocks with the plain versions on any device; mesh shards the build
+    and, by chol_mode, the factorisation."""
     kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
                                         noise_opt)
     params = _params_from_theta("dot", kp)
     sigma, sigma0 = params["sigma"], params["sigma0"]
     Kk = K_ops.k_self(e, f, params, zeta, "dot", plain=plain,
-                      dtype=torch.float64)
+                      dtype=torch.float64, mesh=mesh)
     W = K_ops.count_ee(e).to(torch.float64)
     m = e.m
 
@@ -185,16 +230,18 @@ def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
         tr_dee = (Kinv[:m, :m] * W).sum()
         return sigma * sigma * sigma0 * (tr_dee - torch.dot(a_e, W @ a_e))
     return _analytic_nll(Kk, e, f, y, sigma, noise_e, noise_f, f_coef,
-                         noise_opt, g_sigma0)
+                         noise_opt, g_sigma0, mesh, chol_mode)
 
 
 def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
                     tf: ForceData, params, alpha, L, zeta: int,
-                    return_std: bool, kind: str = "rbf"):
+                    return_std: bool, kind: str = "rbf", mesh=None):
     """Cross covariance, GEMV with alpha and (optionally) the predictive
     std by a triangular solve against the factor: var = diag - |L^-1 k|^2
-    (gaussianprocess.py:873-911), clamped at zero."""
-    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind)
+    (gaussianprocess.py:873-911), clamped at zero.  mesh: the training
+    force axis of the cross covariance runs in stripes over the shards;
+    the GEMV and the solve stay on the root."""
+    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh)
     mean = Kt @ alpha
     if not return_std:
         return mean, None
@@ -343,7 +390,11 @@ class GP:
 
     def __init__(self, kernel=None, descriptor=None, base_potential=None,
                  noise_e=0.005, noise_f=0.1, f_coef=10,
-                 log_file: str = "gpr.log", device=None, dtype=None):
+                 log_file: str = "gpr.log", device=None, dtype=None,
+                 mesh=None):
+        """mesh: an optional ``parallel.Mesh`` (``parallel.make_mesh``)
+        whose root is the model's device: the covariance builds, and at
+        scale the Cholesky, are sharded over it."""
         self.log_file = log_file
         logger = logging.getLogger(
             f"gpr_calculator_tpu_torch.gp.{log_file or 'default'}")
@@ -369,6 +420,13 @@ class GP:
         self.device = config.device() if device is None \
             else torch.device(device)
         self.dtype = config.dtype(self.device) if dtype is None else dtype
+        if mesh is not None:
+            from ..parallel.mesh import canonical
+            if canonical(self.device) != mesh.root:
+                raise ValueError(
+                    f"the GP works on {self.device}, the mesh's root is "
+                    f"{mesh.root}: they must be one device")
+        self.mesh = mesh
 
         # host-side ragged training store
         self._energy_pts: List[Tuple[np.ndarray, np.ndarray]] = []
@@ -508,6 +566,15 @@ class GP:
         self.N_forces_queue += N_F
         self.N_queue += N_E + N_F
 
+    def _mesh_arg(self):
+        """The mesh the builds get: None for a mesh of one shard."""
+        if self.mesh is not None and self.mesh.size > 1:
+            return self.mesh
+        return None
+
+    def _chol_mode(self, e: EnergyData, f: ForceData) -> str:
+        return _resolve_chol_mode(self._mesh_arg(), e.m + 3 * f.m)
+
     # -- LML / fit -----------------------------------------------------------
     def _nll_fn(self):
         """The analytic-gradient NLL of the kernel's family."""
@@ -519,7 +586,9 @@ class GP:
         zeta = self.kernel.zeta
 
         def call(theta, e, f, y, noise_fixed, f_coef, noise_opt):
-            return nll(theta, e, f, y, noise_fixed, f_coef, zeta, noise_opt)
+            return nll(theta, e, f, y, noise_fixed, f_coef, zeta, noise_opt,
+                       mesh=self._mesh_arg(),
+                       chol_mode=self._chol_mode(e, f))
         return call
 
     def _theta(self):
@@ -611,7 +680,9 @@ class GP:
         try:
             L, alpha = _factorize(e, f, y, self.kernel.params(),
                                   self.noise_e, self.noise_f,
-                                  self.kernel.zeta, self.kernel.kind)
+                                  self.kernel.zeta, self.kernel.kind,
+                                  mesh=self._mesh_arg(),
+                                  chol_mode=self._chol_mode(e, f))
         except FloatingPointError as exc:
             self.logging.error(str(exc))
             raise
@@ -631,7 +702,8 @@ class GP:
     def _serve(self, pe, pf, te, tf, return_std):
         mean, std = _predict_packed(pe, pf, te, tf, self.kernel.params(),
                                     self.alpha_, self.L_, self.kernel.zeta,
-                                    return_std, self.kernel.kind)
+                                    return_std, self.kernel.kind,
+                                    mesh=self._mesh_arg())
         mean = mean.cpu().numpy()
         return mean, None if std is None else std.cpu().numpy()
 
@@ -862,7 +934,7 @@ class GP:
         """A GP trained on ``images`` with the ``base`` calculator, its
         hyperparameters optimised from (sigma, l) = (1.0, 0.1) for RBF or
         (sigma, sigma0) = (2.0, 2.0) for kernel="Dot".  kwargs go to the
-        constructor (device, dtype, log_file)."""
+        constructor (device, dtype, log_file, mesh)."""
         if json_file is not None and os.path.exists(json_file):
             raise NotImplementedError(
                 "GP.load is not ported yet (ROADMAP.md, port queue item 3): "

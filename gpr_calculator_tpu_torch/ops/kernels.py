@@ -14,15 +14,24 @@ sets of coefficients), or "rbf_dgamma" in ``k_self``/``k_block``: the
 RBF covariance's dK/dgamma (the JAX package's ops/kernels.py:97-121).
 The covariance builds take the matmul precision of ``config``
 (``mm_precision`` overrides it); the variance diagonals stay exact.
+
+``mesh`` (a ``parallel.Mesh``) on ``k_self``, ``k_self_dual`` and
+``k_block`` shards the build over the mesh's devices
+(``parallel/sharded_kernels.py``) when every shard gets real work -- the
+two gates below, the JAX package's ``_sharded_train_ok`` and
+``_sharded_serving_ok`` restated in the kernels' TP-point tiles.  Below
+the gate the build runs unsharded on the mesh's root, where the data
+lies (the JAX package then takes its XLA build).
+``config.set_sharded_gate("off")`` takes the sharded route always.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import config
-from .kff import (_coeffs, _mirror, _point_sum, _scalars, dense,
+from .kff import (TP, _coeffs, _mirror, _point_sum, _scalars, dense,
                   energy_operand, force_operand, kee_from_ops, kef_from_ops,
-                  kef_plain, kff_from_ops, kff_plain)
+                  kef_plain, kff_from_ops, kff_plain, n_tri_tiles)
 from .packing import EnergyData, ForceData
 
 
@@ -31,9 +40,44 @@ def _blocks(K_ee, K_ef, K_fe, K_ff):
                       torch.cat([K_fe, K_ff], dim=1)], dim=0)
 
 
+def _sharded_train_ok(m_f: int, n_shards: int) -> bool:
+    """Work-proportionality gate of the mesh-sharded training build over
+    ``m_f`` force points: ``_sharded_train_ok`` of the JAX package (its
+    ops/kernels.py:829-860) in TP-point tiles.  Not when the tile padding
+    dominates (fewer points than half a tile), and only when every shard
+    gets at least one upper-triangle tile.  The ranges are balanced to
+    one tile, so then the largest shard times the shard count stays
+    under twice the tiles, the JAX gate's bound on recomputation (the
+    port recomputes nothing: it has no filler cells)."""
+    if config.sharded_gate() == "off":
+        return True
+    return 2 * m_f >= TP and n_tri_tiles(m_f) >= n_shards
+
+
+def _sharded_serving_ok(m_f2: int, n_shards: int) -> bool:
+    """Serving-side gate (``_sharded_serving_ok`` of the JAX package, its
+    ops/kernels.py:863-871, in tiles): the ``m_f2`` training force points
+    must give every shard a column stripe of at least half a TP-point
+    tile.  The stripes are cut at whole tiles, so that takes more than
+    n_shards - 1 full tiles of points."""
+    if config.sharded_gate() == "off":
+        return True
+    return 2 * m_f2 >= TP * (2 * n_shards - 1)
+
+
+def _sharded(mesh, plain: bool = False) -> bool:
+    """Whether ``mesh`` asks for a sharded build at all (a mesh of one
+    shard behaves as no mesh)."""
+    if mesh is None or mesh.size < 2:
+        return False
+    if plain:
+        raise ValueError("plain=True builds on one device: pass no mesh")
+    return True
+
+
 def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
            kind: str = "rbf", plain: bool = False, dtype=None,
-           mm_precision: str | None = None):
+           mm_precision: str | None = None, mesh=None):
     """Symmetric training covariance (K_FE = K_EF^T, RBF_mb.py:161-165);
     kind="rbf_dgamma" gives dK/dgamma of the RBF one (the deriv builds).
 
@@ -45,8 +89,16 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
     plain versions on any device.  dtype (default: the operands') is the
     result's: K_EE is computed in it from the same rounded operand
     values, the force blocks are cast to it.  Every block is mirrored
-    or transposed from one triangle, so K is exactly symmetric."""
+    or transposed from one triangle, so K is exactly symmetric.  mesh:
+    K1's tile ranges and the energy-row stripes run one per shard
+    (``self_blocks_sharded``); K_FF and K_EF are the unsharded ones bit
+    for bit."""
     mode = config.kff_precision(mm_precision)
+    if _sharded(mesh, plain) and _sharded_train_ok(f.m, mesh.size):
+        from ..parallel.sharded_kernels import self_blocks_sharded
+        (K,) = self_blocks_sharded(e, f, params, kind, zeta, False, mesh,
+                                   mm_precision=mode, dtype=dtype)
+        return K
     A, B = e.x.shape[1], f.x.shape[1]
     U, w = energy_operand(e, mode)
     X, re = force_operand(f, mode)
@@ -65,7 +117,8 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
 
 
 def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
-                plain: bool = False, mm_precision: str | None = None):
+                plain: bool = False, mm_precision: str | None = None,
+                mesh=None):
     """(K, dK/dgamma) of the symmetric RBF training covariance, gamma =
     1 / (2 l^2): one fused pass per block (K1-dual, K2-dual on the card),
     which the analytic NLL gradient runs at every L-BFGS-B evaluation.
@@ -74,8 +127,12 @@ def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
     precision, and all three blocks read the same rounded values (PSD
     contract); both matrices come out exactly symmetric.  plain=True
     takes the plain versions on any device (the float64 reference on the
-    card)."""
+    card).  mesh: the dual pass over K1's tile ranges, one per shard."""
     mode = config.kff_precision(mm_precision)
+    if _sharded(mesh, plain) and _sharded_train_ok(f.m, mesh.size):
+        from ..parallel.sharded_kernels import self_blocks_sharded
+        return self_blocks_sharded(e, f, params, "rbf", zeta, True, mesh,
+                                   mm_precision=mode)
     A, B = e.x.shape[1], f.x.shape[1]
     U, w = energy_operand(e, mode)
     X, re = force_operand(f, mode)
@@ -94,18 +151,11 @@ def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
     return tuple(_blocks(ee[i], ef[i], ef[i].T, ff[i]) for i in range(2))
 
 
-def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
-            params, zeta: int = 2, kind: str = "rbf",
-            mm_precision: str | None = None):
-    """[[K_EE, K_EF], [K_FE, K_FF]] for (rows: data1, cols: data2) -- the
-    serving cross-covariance.  K_FE is kernel K2 in the other orientation,
-    transposed; K_FF is the rectangular kernel K3.  K_EF, K_FE and K_FF
-    take the matmul precision ``mm_precision``; K_EE is computed from the
-    unrounded energy operands, as in the JAX package's serving build
-    (``kee``, its ops/kernels.py:574)."""
-    mode = config.kff_precision(mm_precision)
-    A1, B1 = e1.x.shape[1], f1.x.shape[1]
-    A2, B2 = e2.x.shape[1], f2.x.shape[1]
+def block_operands(e1: EnergyData, f1: ForceData, e2: EnergyData,
+                   f2: ForceData, mode: str):
+    """The operands of one serving block in ``mode``: (U, w, A) and (X,
+    re, B) of both sides, and the two unrounded energy operands K_EE
+    reads."""
     U1, w1 = energy_operand(e1, mode)
     X1, re1 = force_operand(f1, mode)
     U2, w2 = energy_operand(e2, mode)
@@ -115,6 +165,28 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
         U2e, _ = energy_operand(e2, "highest")
     else:
         U1e, U2e = U1, U2
+    return ((U1, w1, e1.x.shape[1]), (X1, re1, f1.x.shape[1]),
+            (U2, w2, e2.x.shape[1]), (X2, re2, f2.x.shape[1]), U1e, U2e)
+
+
+def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
+            params, zeta: int = 2, kind: str = "rbf",
+            mm_precision: str | None = None, mesh=None):
+    """[[K_EE, K_EF], [K_FE, K_FF]] for (rows: data1, cols: data2) -- the
+    serving cross-covariance.  K_FE is kernel K2 in the other orientation,
+    transposed; K_FF is the rectangular kernel K3.  K_EF, K_FE and K_FF
+    take the matmul precision ``mm_precision``; K_EE is computed from the
+    unrounded energy operands, as in the JAX package's serving build
+    (``kee``, its ops/kernels.py:574).  mesh: the training force axis
+    (data2) runs in column stripes, one per shard
+    (``k_block_sharded``)."""
+    mode = config.kff_precision(mm_precision)
+    if _sharded(mesh) and _sharded_serving_ok(f2.m, mesh.size):
+        from ..parallel.sharded_kernels import k_block_sharded
+        return k_block_sharded(e1, f1, e2, f2, params, mesh, kind, zeta,
+                               mm_precision=mode)
+    (U1, w1, A1), (X1, re1, B1), (U2, w2, A2), (X2, re2, B2), U1e, U2e = \
+        block_operands(e1, f1, e2, f2, mode)
     kw = dict(kind=kind, mm_precision=mode)
     K_ee = kee_from_ops(U1e, w1, A1, U2e, w2, A2, params, zeta, kind=kind)
     K_ef = kef_from_ops(U1, w1, A1, X2, re2, B2, params, zeta, **kw)

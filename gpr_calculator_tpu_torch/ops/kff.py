@@ -56,6 +56,18 @@ with the suffixes ``_dual``, ``_deriv`` (K1-K3; K3 also ``_dual``) and
 ``_dot``, each also with ``_bf16x4`` and ``_bf16`` for the modes) are
 built with nvcc at first use into the package's git-ignored ``build/``
 directory and bound with ctypes.  ``launches`` counts each kernel launch.
+
+The tile-range form of K1 (``tiles=(k0, nk)`` on ``kff_from_ops`` and
+``kff_plain``): the symmetric K_FF is cut into TP x TP-point tiles, its
+upper-triangle tiles (I <= J) numbered k = J (J + 1) / 2 + I, and a
+range launch computes tiles [k0, k0 + nk) and their transposes into a
+zeroed output.  Every element belongs to exactly one tile of the upper
+triangle or its transpose, so ranges that partition the tiles sum to the
+whole K_FF exactly (the mesh-sharded build of ``parallel/``, which
+replaces the ``cells=``/``owned=`` form of the Pallas kernel,
+kff_pallas.py:592-596, :703-711).  Range launches are counted under
+names of their own (``kff_tri_range``, ``kff_tri_dual_range_bf16x4``,
+...).
 """
 from __future__ import annotations
 
@@ -75,7 +87,8 @@ from ..native import BUILD_DIR
 DP = 32                  # padded descriptor width of the operand rows
 _PAIR_BUDGET = 2 ** 24   # env pairs per chunk of the plain versions
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "kff.cu"
-_MAX_POINTS = 65535 * 8  # grid.y limit at 8 points per tile (csrc/kff.cu)
+TP = 8                   # points per tile side (csrc/kff.cu)
+_MAX_POINTS = 65535 * TP  # grid.y limit at TP points per tile
 _HI_MASK = -65536        # 0xFFFF0000 as int32: sign, exponent, 7 bits
 
 KINDS = ("rbf", "dot", "rbf_dgamma")
@@ -83,6 +96,8 @@ KINDS = ("rbf", "dot", "rbf_dgamma")
 BASES = ("kff_tri", "kff_tri_dual", "kff_tri_deriv", "kff_tri_dot",
          "kef_rect", "kef_rect_dual", "kef_rect_deriv", "kef_rect_dot",
          "kff_rect", "kff_rect_dual", "kff_rect_deriv", "kff_rect_dot")
+# launch-counter names of the tile-range form of the K1 kernels
+RANGE_BASES = tuple(b + "_range" for b in BASES if b.startswith("kff_tri"))
 
 
 def kernel_name(base: str, mode: str) -> str:
@@ -90,8 +105,11 @@ def kernel_name(base: str, mode: str) -> str:
     return base if mode == "highest" else f"{base}_{mode}"
 
 
-# kernel name -> launches since the last reset_launches()
-launches = {kernel_name(b, m): 0 for m in config.PRECISIONS for b in BASES}
+# the library's entry points, and kernel name -> launches since the last
+# reset_launches() (a range launch counts under its ``_range`` name only)
+_ENTRIES = tuple(kernel_name(b, m) for m in config.PRECISIONS for b in BASES)
+launches = {kernel_name(b, m): 0 for m in config.PRECISIONS
+            for b in BASES + RANGE_BASES}
 
 
 def reset_launches() -> None:
@@ -282,20 +300,53 @@ def _chunk_points(b1: int, n2: int) -> int:
     return max(1, _PAIR_BUDGET // max(b1 * n2, 1))
 
 
+def n_tri_tiles(m: int) -> int:
+    """Upper-triangle tiles of the symmetric K_FF over ``m`` points."""
+    nt = -(-m // TP)
+    return nt * (nt + 1) // 2
+
+
+def _check_tiles(tiles, m: int):
+    k0, nk = (int(t) for t in tiles)
+    if k0 < 0 or nk < 0 or k0 + nk > n_tri_tiles(m):
+        raise ValueError(f"tile range ({k0}, {nk}) outside the "
+                         f"{n_tri_tiles(m)} upper-triangle tiles of {m} "
+                         "points")
+    return k0, nk
+
+
+def tile_mask(m: int, tiles, device=None):
+    """(3 m, 3 m) bool: the elements of the symmetric K_FF that tiles
+    [k0, k0 + nk) of the upper triangle and their transposes cover."""
+    k0, nk = _check_tiles(tiles, m)
+    nt = -(-m // TP)
+    J = torch.arange(nt, device=device)
+    k = J[None, :] * (J[None, :] + 1) // 2 + J[:, None]       # k[I, J]
+    own = (J[:, None] <= J[None, :]) & (k >= k0) & (k < k0 + nk)
+    own = own | own.T
+    rows = torch.arange(3 * m, device=device) // (3 * TP)
+    return own[rows][:, rows]
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (CPU route, and the reference for the kernels)
 # ---------------------------------------------------------------------------
 
 def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
               symmetric: bool = False, dual: bool = False,
-              kind: str = "rbf", deriv: bool = False):
+              kind: str = "rbf", deriv: bool = False, tiles=None):
     """K_FF (3 m1, 3 m2) from operands (in any mode: the rounded values,
     ``dense``); dual=True returns (K, dK/dgamma) from one pass,
     deriv=True dK/dgamma alone.  symmetric=True (X1 is X2) computes the
     row stripes' upper part only and mirrors the strict upper triangle,
-    so the result is exactly symmetric."""
+    so the result is exactly symmetric.  tiles=(k0, nk) (symmetric only)
+    is the plain version of the tile-range launch: the same matrix with
+    everything outside those upper-triangle tiles and their transposes
+    set to zero."""
     kind, deriv = _family(kind, deriv)
     sigma2, p2 = _scalars(params, kind, dual, deriv)
+    if tiles is not None and not symmetric:
+        raise ValueError("a tile range needs symmetric=True")
     X1, X2 = dense(X1), dense(X2)
     m1, m2 = X1.shape[1] // B1, X2.shape[1] // B2
     outs = [X1.new_zeros((m1, 3, m2, 3)) for _ in range(1 + dual)]
@@ -320,6 +371,9 @@ def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
     outs = [o.reshape(3 * m1, 3 * m2) for o in outs]
     if symmetric:
         outs = [_mirror(o) for o in outs]
+    if tiles is not None:
+        own = tile_mask(m1, tiles, X1.device)
+        outs = [torch.where(own, o, torch.zeros_like(o)) for o in outs]
     return tuple(outs) if dual else outs[0]
 
 
@@ -434,11 +488,12 @@ def _lib():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        LL = ctypes.c_longlong
         # every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd,
-        # sigma2, second scalar, zeta, stream)
-        for name in launches:
+        # sigma2, second scalar, zeta, first tile, tile count, stream)
+        for name in _ENTRIES:
             fn = getattr(lib, name)
-            fn.argtypes = [P, P, I, I, P, P, I, I, P, P, F, F, I, P]
+            fn.argtypes = [P, P, I, I, P, P, I, I, P, P, F, F, I, LL, LL, P]
             fn.restype = I
         _LIB = lib
     return _LIB
@@ -490,13 +545,17 @@ def _mode(mm_precision, *ops) -> str:
     return mode
 
 
-def _launch(name, device, *args):
+def _launch(base, mode, device, *args, k0=0, nk=0, ranged=False):
+    """Launch entry point ``base`` in ``mode`` on the device's current
+    stream and count it; (k0, nk) is K1's tile range (unused by K2 and
+    K3), counted under the ``_range`` name when ``ranged``."""
+    name = kernel_name(base, mode)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(_lib(), name)(*args, stream)
+        rc = getattr(_lib(), name)(*args, k0, nk, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches[name] += 1
+    launches[kernel_name(base + "_range", mode) if ranged else name] += 1
 
 
 def _variant(kind: str, dual: bool, deriv: bool) -> str:
@@ -507,36 +566,48 @@ def _variant(kind: str, dual: bool, deriv: bool) -> str:
 def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
                  symmetric: bool = False, dual: bool = False,
                  kind: str = "rbf", deriv: bool = False,
-                 mm_precision: str | None = None):
+                 mm_precision: str | None = None, tiles=None):
     """K_FF (3 m1, 3 m2) from force operands; symmetric=True (X1 is X2)
     runs the triangular kernel K1, else the rectangular K3 (``_dot`` for
     kind="dot").  dual=True (RBF) returns (K, dK/dgamma) from one pass
     (K1-dual, K3-dual), deriv=True dK/dgamma alone (``_deriv``).  The
     mode's kernel (``_bf16x4``, ``_bf16``) runs on operands built in that
-    mode."""
+    mode.  tiles=(k0, nk) (symmetric only) is K1's tile-range form: the
+    output is zeroed and one launch writes tiles [k0, k0 + nk) of the
+    upper triangle and their transposes (counted as ``*_range``); an
+    empty range launches nothing."""
     kind, deriv = _family(kind, deriv)
     sigma2, p2 = _scalars(params, kind, dual, deriv)
     mode = _mode(mm_precision, X1, X2)
+    if tiles is not None and not symmetric:
+        raise ValueError("a tile range needs symmetric=True")
     if X1.device.type == "cpu":
         return kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
                          symmetric=symmetric, dual=dual, kind=kind,
-                         deriv=deriv)
+                         deriv=deriv, tiles=tiles)
     _check_cuda(zeta, X1, re1, X2, re2)
     _check_side(X1, re1, B1, 4, mode)
     _check_side(X2, re2, B2, 4, mode)
     m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
-    out = torch.empty((3 * m1, 3 * m2), dtype=torch.float32,
-                      device=X1.device)
-    outd = torch.empty_like(out) if dual else out
     if symmetric and (X1.data_ptr() != X2.data_ptr() or B1 != B2):
         raise ValueError("symmetric K_FF needs one operand set")
+    # a range launch writes its own tiles only: the rest must be zero
+    alloc = torch.empty if tiles is None else torch.zeros
+    out = alloc((3 * m1, 3 * m2), dtype=torch.float32, device=X1.device)
+    outd = alloc((3 * m1, 3 * m2), dtype=torch.float32,
+                 device=X1.device) if dual else out
     base = ("kff_tri" if symmetric else "kff_rect") + _variant(kind, dual,
                                                                 deriv)
-    # the Dot force blocks need sigma^2 alone (sigma0 enters K_EE only)
-    _launch(kernel_name(base, mode), X1.device, X1.data_ptr(),
-            re1.data_ptr(), m1, B1, X2.data_ptr(), re2.data_ptr(), m2, B2,
-            out.data_ptr(), outd.data_ptr(), sigma2,
-            0.0 if kind == "dot" else p2, zeta)
+    if tiles is not None:
+        k0, nk = _check_tiles(tiles, m1)
+    else:
+        k0, nk = 0, n_tri_tiles(m1) if symmetric else 0
+    if nk or not symmetric:
+        # the Dot force blocks need sigma^2 alone (sigma0 enters K_EE only)
+        _launch(base, mode, X1.device, X1.data_ptr(), re1.data_ptr(), m1,
+                B1, X2.data_ptr(), re2.data_ptr(), m2, B2, out.data_ptr(),
+                outd.data_ptr(), sigma2, 0.0 if kind == "dot" else p2, zeta,
+                k0=k0, nk=nk, ranged=tiles is not None)
     return (out, outd) if dual else out
 
 
@@ -558,8 +629,8 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
     m1, m2 = U1.shape[-2] // A1, X2.shape[-2] // B2
     out = torch.empty((m1, 3 * m2), dtype=torch.float32, device=U1.device)
     outd = torch.empty_like(out) if dual else out
-    _launch(kernel_name("kef_rect" + _variant(kind, dual, deriv), mode),
-            U1.device, U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
+    _launch("kef_rect" + _variant(kind, dual, deriv), mode, U1.device,
+            U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
             re2.data_ptr(), m2, B2, out.data_ptr(), outd.data_ptr(), sigma2,
             0.0 if kind == "dot" else p2, zeta)
     return (out, outd) if dual else out

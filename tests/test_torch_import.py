@@ -17,8 +17,12 @@ def test_port_imports_with_jax_blocked():
         "import gpr_calculator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('neb', 'mep', 'optimize', 'io.ase_db'):\n"
+        "for m in ('neb', 'mep', 'optimize', 'io.ase_db', 'parallel',\n"
+        "          'parallel.mesh', 'parallel.sharded_kernels',\n"
+        "          'parallel.cholesky', 'parallel.dryrun'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
+        "from gpr_calculator_tpu_torch.parallel import make_mesh\n"
+        "assert make_mesh(4, ['cpu'] * 4).size == 4\n"
         "assert callable(p.neb_calc) and callable(p.get_images)\n"
         "assert callable(p.GP.set_GPR)\n"
         "assert not any(k == 'gpr_calculator_tpu'\n"
@@ -48,3 +52,15 @@ def test_no_port_source_names_jax_in_an_import():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "gpr_calculator_tpu"), (
                 f"{path.relative_to(ROOT)} imports {mod}")
+
+
+def test_packaging_finds_the_parallel_package():
+    """pyproject.toml finds packages by the pattern gpr_calculator_tpu*:
+    the port's sub-packages, parallel among them, are inside it."""
+    import tomllib
+    from setuptools import find_packages
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    include = cfg["tool"]["setuptools"]["packages"]["find"]["include"]
+    found = find_packages(str(ROOT), include=include)
+    for pkg in ("parallel", "ops", "models"):
+        assert f"gpr_calculator_tpu_torch.{pkg}" in found

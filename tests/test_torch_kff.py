@@ -348,3 +348,60 @@ def test_card_wrappers_raise_on_unsupported_input(cuda):
     with pytest.raises(ValueError, match="operand built in mode"):
         kff.kff_from_ops(Xb, reb, B1, Xb, reb, B1, PARAMS, 2,
                          symmetric=True, mm_precision="bf16")
+
+
+K1_BASES = [b for b in kff.BASES if b.startswith("kff_tri")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", K1_BASES)
+@pytest.mark.parametrize("mode", ["highest", "bf16x4", "bf16"])
+def test_k1_tile_ranges_sum_to_single_launch_on_card(cuda, mode, base):
+    """The tile-range form of each K1 variant in each mode: the outputs
+    of four range launches that partition the upper-triangle tiles sum to
+    the single launch bit for bit (every plane, exactly symmetric), each
+    range within 2e-5 max|plain| of kff_plain(tiles=), one ``_range``
+    launch counted per non-empty range and no other kernel."""
+    from gpr_calculator_tpu_torch.parallel import partition_tri_tiles
+    rng = np.random.RandomState(70)
+    # 29 points: 4 tiles a side with a ragged edge, 10 upper-triangle
+    # tiles over 4 ranges (3, 3, 2, 2)
+    f = pack_force(make_points(rng, 29, 11, 30), device=cuda,
+                   dtype=torch.float32)
+    X, re = kff.force_operand(f, mode)
+    B = f.x.shape[1]
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    args = (X, re, B, X, re, B, p, 2)
+
+    def planes(x):
+        return x if isinstance(x, tuple) else (x,)
+    single = planes(kff.kff_from_ops(*args, symmetric=True,
+                                     mm_precision=mode, **flags))
+    ranges = partition_tri_tiles(kff.n_tri_tiles(f.m), 4)
+    assert [nk for _, nk in ranges] == [3, 3, 2, 2]
+    kff.reset_launches()
+    total = [torch.zeros_like(s) for s in single]
+    for tiles in ranges + [(10, 0)]:
+        part = planes(kff.kff_from_ops(*args, symmetric=True,
+                                       mm_precision=mode, tiles=tiles,
+                                       **flags))
+        plain = planes(kff.kff_plain(*args, symmetric=True, tiles=tiles,
+                                     **flags))
+        for acc, k, pl in zip(total, part, plain):
+            assert (k - pl).abs().max().item() \
+                <= 2e-5 * max(pl.abs().max().item(), 1e-30)
+            acc.add_(k)
+    torch.cuda.synchronize()
+    for acc, s in zip(total, single):
+        assert torch.equal(acc, s)
+        assert torch.equal(acc, acc.T)
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            kff.kernel_name(base + "_range", mode): 4}
+    with pytest.raises(ValueError, match="tile range"):
+        kff.kff_from_ops(*args, symmetric=True, mm_precision=mode,
+                         tiles=(8, 3), **flags)
+    with pytest.raises(ValueError, match="symmetric"):
+        kff.kff_from_ops(*args, mm_precision=mode, tiles=(0, 1), **flags)
