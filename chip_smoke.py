@@ -3,6 +3,13 @@
 
 Usage (one CUDA card, no arguments):  python3 chip_smoke.py
 
+To compare two revisions on one card in one process tree, instead of the
+run below:  python3 chip_smoke.py --alt-source OTHER_KFF_CU  times the
+rectangular highest kernels of the package's csrc/kff.cu and of another
+revision of that file (with the same entry points) in turns; --alt-root
+OTHER_CHECKOUT  times one slice request's _predict_packed of this checkout
+and of another in turns.
+
 Builds the CUDA kernels from csrc/ and drives the port's main paths,
 each with the launch counts reset just before and read just after, for
 Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
@@ -46,11 +53,21 @@ in each mode and holds alpha from bf16x4 to float32 ((c), (k3));
 re-serves the frozen slice model against a float64 CPU model; times
 kernel and plain versions at the slice, a mid and the bench shape, with
 each one's bound on the card, and one NLL+gradient evaluation, and
-compares that evaluation with float64 on the card (g).  Any failure
-raises (non-zero exit); nothing falls back.  The third-to-last line is a JSON list of the
-kernels, the second-to-last the card's name and power limit, the last a
-JSON status object.
+compares that evaluation with float64 on the card (g).  For the eight
+rectangular highest kernels (K2 kef_rect*, K3 kff_rect*) (b) also runs
+operands sorted by element and left as packed, and (g) prints the wrapper
+call's time, the device time of one raw launch, the launch floor (an empty
+kernel), the share of the bound reached at the mid and bench shapes, what
+a launch skips, what sorting a side by element costs and saves at growing
+sizes, one request's _predict_packed with the training side's
+operands kept or rebuilt, and checks that a model serving twice builds
+them once and that a request against the 10k bench set served from
+_factorize's weights equals a float64 solve of the same covariance.  Any
+failure raises (non-zero exit); nothing falls back.  The third-to-last
+line is a JSON list of the kernels, the second-to-last the card's name and
+power limit, the last a JSON status object.
 """
+import argparse
 import json
 import os
 import re
@@ -109,6 +126,10 @@ K1_BASES = [b for b in BASES if b.startswith("kff_tri")]
 RANGE_REPLACES = ("gpr_calculator_tpu/parallel/sharded_kernels.py:200, "
                   "gpr_calculator_tpu/ops/kff_pallas.py:703")
 N_SHARDS = 4
+# the eight rectangular highest entry points run rect_kernel<LC, SEL, KIND>
+# (template parameters, here without the precision)
+RECT = {b: v[0].replace(",0,", ",", 1) for b, v in BASES.items()
+        if "_rect" in b}
 
 
 def kname(base, mode):
@@ -186,6 +207,18 @@ def run_slice(T, device, dtype, log):
     return gp, images, out
 
 
+def slice_request(gp, image, device, dtype):
+    """One structure packed as a served request: (EnergyData, ForceData)
+    of its free atoms, from the descriptor on the card."""
+    from gpr_calculator_tpu_torch.atoms.atoms import ATOMIC_NUMBERS
+    from gpr_calculator_tpu_torch.models.gp import _pack_from_device_descs
+    dd = gp.descriptor.calculate_device(image, device=device, dtype=dtype)
+    ele = np.asarray([ATOMIC_NUMBERS[s] for s in dd["elements"]])
+    fixed = set(image.fixed_indices())
+    return _pack_from_device_descs(
+        [dd], [ele], [[i for i in range(len(ele)) if i not in fixed]])
+
+
 def run_training(T, device, dtype, kernel="RBF", mesh=None):
     """GP.set_GPR on the five images: EMT labels, add_structure, then
     fit(opt=True) -- L-BFGS-B from set_GPR's starting point over the
@@ -211,16 +244,24 @@ def run_neb(T, gp, images):
 
 def ptxas_lines(compiler_log):
     """(kernel name, ptxas resource line) for each instantiation of
-    cov_kernel<LC, MODE, SEL, KIND, PREC>."""
+    cov_kernel<LC, MODE, SEL, KIND, PREC> and of rect_kernel<LC, SEL,
+    KIND> (the rectangular highest kernels)."""
     instances = {f"{params},{PREC[m]}": kname(b, m)
-                 for b, (params, _) in BASES.items() for m in PREC}
+                 for b, (params, _) in BASES.items() for m in PREC
+                 if not (m == "highest" and b in RECT)}
+    rect = {params: b for b, params in RECT.items()}
     name = None
     for line in compiler_log.splitlines():
         m = re.search(r"cov_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)ELi(\d)E",
                       line)
+        r = re.search(r"rect_kernelILi(\d)ELi(\d)ELi(\d)E", line)
         if m:
             name = instances.get(",".join(m.groups()), "?")
-        elif "registers" in line or "spill" in line:
+        elif r:
+            name = rect.get(",".join(r.groups()), "?")
+        elif "Compiling entry function" in line:
+            name = None
+        elif name and ("registers" in line or "spill" in line):
             yield name, line.strip()
 
 
@@ -322,16 +363,18 @@ def work(name, d, lhs, rhs, out_numel, pairs=None):
     return pairs * mma, pairs * fp32, nbytes
 
 
-def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest"):
+def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest",
+                 sort=None):
     """(name, kernel call, plain call, (mma ops, fp32 ops, bytes)) for
     every kernel of the family in ``mode`` at the shapes of one serving
     request (e1, f1) against a training set (e2, f2), zeta = 2; the
-    operands are built in the mode, and the plain version reads the same
-    rounded values."""
-    U1, w1 = kff.energy_operand(e1, mode)
-    X1, re1 = kff.force_operand(f1, mode)
-    U2, w2 = kff.energy_operand(e2, mode)
-    X2, re2 = kff.force_operand(f2, mode)
+    operands are built in the mode (sort: their envs sorted by element,
+    or not, or by the operand functions' default), and the plain version reads the
+    same rounded values."""
+    U1, w1 = kff.energy_operand(e1, mode, sort)
+    X1, re1 = kff.force_operand(f1, mode, sort)
+    U2, w2 = kff.energy_operand(e2, mode, sort)
+    X2, re2 = kff.force_operand(f2, mode, sort)
     A1, B1, A2, B2 = e1.x.shape[1], f1.x.shape[1], e2.x.shape[1], \
         f2.x.shape[1]
     d = e2.x.shape[2]
@@ -385,12 +428,21 @@ def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest"):
             kff_case("kff_rect_deriv", F1, F2)]
 
 
-def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC)):
+def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC),
+              sort=None):
     """kernel_cases of both families in each of ``modes``."""
     return [c for m in modes
-            for c in (kernel_cases(kff, e1, f1, e2, f2, params, mode=m)
+            for c in (kernel_cases(kff, e1, f1, e2, f2, params, mode=m,
+                                   sort=sort)
                       + kernel_cases(kff, e1, f1, e2, f2, dparams, "dot",
-                                     m))]
+                                     m, sort=sort))]
+
+
+def rect_cases(kff, e1, f1, e2, f2, params, dparams, sort):
+    """The cases of the eight rectangular highest kernels alone, on
+    operands sorted by element (``sort`` True) or left as packed."""
+    return [c for c in all_cases(kff, e1, f1, e2, f2, params, dparams,
+                                 ("highest",), sort) if c[0] in RECT]
 
 
 def compare(torch, cases, tag, errs, log, plain_ms=None):
@@ -525,6 +577,146 @@ def cuda_ms(torch, fn, reps):
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
+def device_us(torch, kff, base, lhs, rhs, params, reps=200, fns=None):
+    """Device time of one launch of the highest kernel ``base``: CUDA
+    events around ``reps`` back-to-back launches through the bound ctypes
+    entry point on preallocated outputs, no Python wrapper between them
+    (uncounted: a measurement, not a path).  fns: the entry points of
+    another library (``kff.load``); the package's own by default.  A K1
+    kernel (lhs is rhs) runs its whole tile range."""
+    (X1, r1, B1), (X2, r2, B2) = lhs, rhs
+    m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
+    rows = m1 if base.startswith("kef") else 3 * m1
+    out = torch.empty((rows, 3 * m2), dtype=torch.float32, device=X1.device)
+    outd = torch.empty_like(out)
+    second = params.get("l")
+    gamma = 0.0 if second is None else 1.0 / (2.0 * float(second) ** 2)
+    fn = (kff._lib() if fns is None else fns)[base]
+    nk = kff.n_tri_tiles(m1) if base.startswith("kff_tri") else 0
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (X1.data_ptr(), r1.data_ptr(), m1, B1, X2.data_ptr(),
+            r2.data_ptr(), m2, B2, out.data_ptr(), outd.data_ptr(),
+            float(params["sigma"]) ** 2, gamma, 2, 0, nk, 3 * m2, 0, stream)
+
+    def call():
+        if fn(*args) != 0:
+            raise RuntimeError(f"{base} launch failed")
+    return 1e3 * cuda_ms(torch, call, reps)
+
+
+def host_ms(torch, fn, reps):
+    """Host clock to a synchronise: (min, median, max) ms of ``reps``
+    calls of ``fn``, each followed by torch.cuda.synchronize()."""
+    ts = []
+    for i in range(reps + 3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= 3:
+            ts.append(1e3 * (time.perf_counter() - t0))
+    return min(ts), float(np.median(ts)), max(ts)
+
+
+def sort_readings(torch, kff, dev, log, card):
+    """What sorting a side's envs by element costs and saves, at growing
+    side sizes (force points x 32 envs, two elements at random, both sides
+    of K3 alike): force_operand as packed and sorted (host clock to a
+    synchronise, median of 10), and the device time of one kff_rect launch
+    on either.  ops/kff.SORT_MIN_ENVS is set from these readings: below it
+    the kernel saves less than the two sorts cost."""
+    params = {"sigma": 2.0, "l": 1.0}
+    for m, reps in ((13, 200), (32, 200), (64, 100), (128, 50), (256, 20),
+                    (750, 5)):
+        _, f = bench_data(torch, dev, m_e=8, m_f=m)
+        build_ms, kernel_us = {}, {}
+        for sort in (False, True):
+            build_ms[sort] = host_ms(
+                torch, lambda: kff.force_operand(f, "highest", sort), 10)[1]
+            side = kff.force_operand(f, "highest", sort) + (32,)
+            kernel_us[sort] = device_us(torch, kff, "kff_rect", side, side,
+                                        params, reps)
+        log(f"(g) [{card}] sorting a side of {m} points x 32 envs = "
+            f"{32 * m} envs: force_operand as packed "
+            f"{build_ms[False]:.3f} ms, sorted {build_ms[True]:.3f} ms "
+            f"(+{1e3 * (build_ms[True] - build_ms[False]):.0f} us a side); "
+            f"kff_rect {m} x {m} points on the card, as packed "
+            f"{kernel_us[False]:.1f} us, sorted {kernel_us[True]:.1f} us "
+            f"(-{kernel_us[False] - kernel_us[True]:.1f} us a launch); "
+            f"the default {'sorts' if kff._sorts(None, m, 32) else 'keeps'}"
+            " this side")
+
+
+def compare_sources(torch, T, kff, alt_source, log):
+    """--alt-source: the device time of one launch of the rectangular
+    highest kernels (and of K1-dual beside them) from the package's
+    csrc/kff.cu and from ``alt_source`` -- another revision of it with the
+    same entry points -- in turns (other, own, own, other) inside this one
+    process, at the slice, mid and bench shapes, on the same operands."""
+    dev, f32 = torch.device("cuda"), torch.float32
+    card = card_line()
+    t0 = time.time()
+    libs = {"other": kff.load(kff.build(alt_source)[0]), "own": kff._lib()}
+    log(f"[{card}] both libraries built in {time.time() - t0:.1f} s; other: "
+        f"{alt_source}")
+    gp, images, _ = run_slice(T, dev, f32, lambda msg: None)
+    pe, pf = slice_request(gp, images[2], dev, f32)
+    te, tf, _, _ = gp._train_view()
+    me, mf = bench_data(torch, dev, m_e=250, m_f=750)
+    be, bf = bench_data(torch, dev)
+    bparams = {"sigma": 2.0, "l": 1.0}
+    for tag, e1, f1, f2, prm, reps in (
+            ("slice", pe, pf, tf, gp.kernel.params(), 200),
+            ("mid", me, mf, mf, bparams, 5), ("bench", be, bf, bf, bparams, 3)):
+        E1 = kff.energy_operand(e1, "highest") + (e1.x.shape[1],)
+        F1, F2 = (kff.force_operand(f, "highest") + (f.x.shape[1],)
+                  for f in (f1, f2))
+        for base in [b for b in RECT if not b.endswith("_dot")] \
+                + ["kff_tri_dual"]:
+            lhs = E1 if base.startswith("kef") else \
+                F2 if base.startswith("kff_tri") else F1
+            us = {"other": [], "own": []}
+            for which in ("other", "own", "own", "other"):
+                us[which].append(device_us(torch, kff, base, lhs, F2, prm,
+                                           reps, libs[which]))
+            log(f"[{card}] {tag} {base} ({lhs[0].shape[-2] // lhs[2]} x "
+                f"{F2[0].shape[-2] // F2[2]} points), device us a launch: "
+                f"other {us['other'][0]:.2f}, own {us['own'][0]:.2f}, own "
+                f"{us['own'][1]:.2f}, other {us['other'][1]:.2f}")
+
+
+def predict_packed_of(torch, T, log):
+    """--predict-packed: one slice request's _predict_packed (with std;
+    host clock to a synchronise, min / median / max of 30) of the package
+    this process imported, printed as one JSON line.  A model that keeps
+    its training-side operands serves from them."""
+    from gpr_calculator_tpu_torch.models.gp import _predict_packed
+    dev, f32 = torch.device("cuda"), torch.float32
+    gp, images, _ = run_slice(T, dev, f32, lambda msg: None)
+    pe, pf = slice_request(gp, images[2], dev, f32)
+    te, tf, _, _ = gp._train_view()
+    kept = getattr(gp, "_train_operands", None)
+    kw = {} if kept is None else {"train_ops": kept()}
+    ms = host_ms(torch, lambda: _predict_packed(
+        pe, pf, te, tf, gp.kernel.params(), gp.alpha_, gp.L_, 2, True, "rbf",
+        **kw), 30)
+    log(json.dumps({"package": os.path.dirname(os.path.dirname(T.__file__)),
+                    "card": card_line(), "predict_packed_ms":
+                    dict(zip(("min", "median", "max"), ms))}))
+
+
+def compare_roots(alt_root, log):
+    """--alt-root: _predict_packed of this checkout's package and of the
+    one under ``alt_root`` (another revision's checkout), each in a process
+    of its own (``--predict-packed``), in turns (other, own, own, other)."""
+    for root in (alt_root, ROOT, ROOT, alt_root):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--predict-packed",
+             "--package-root", root], capture_output=True, text=True,
+            timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"--predict-packed failed for {root}:\n"
+                               f"{res.stderr}")
+        log(res.stdout.strip().splitlines()[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -671,9 +863,9 @@ def sharded_bench(T, torch, K_ops, par, mesh, be, bf, pe, pf, params, y,
             if not (dn <= 1e-6 and dg <= 1e-6):
                 raise AssertionError(f"sharded {label} NLL differs from the "
                                      f"unsharded one in {mode}")
-    # the float32 covariance the factorisations see, and its float64
-    # factor and weights: what a float32 factor is held against where it
-    # sums in another order (K plus noise is ill-conditioned)
+    # the float32 covariance the factorisations see and its float64
+    # weights: _factorize solves in float64 whoever factors, so both
+    # sharded routes are held to the unsharded weights
     K = K_ops.k_self(be, bf, params, 2, mesh=mesh)
     K.diagonal().add_(_noise_diag(be, bf, 0.01, 0.1))
     L64 = torch.linalg.cholesky(K.double())
@@ -684,21 +876,11 @@ def sharded_bench(T, torch, K_ops, par, mesh, be, bf, pe, pf, params, y,
         L_s, a_s = _factorize(be, bf, y, params, 0.01, 0.1, 2, "rbf",
                               mesh=mesh, chol_mode=cm)
         da, e_s = rel_to(a_s, a_u), rel_to(a_s.double(), a64)
-        # the replicated factor is the unsharded program on a K that is
-        # equal bit for bit: held to 1e-5 max|alpha|.  The sharded
-        # float32 factor takes its sums in another order: held to the
-        # float64 weights as closely as the library's float32 factor,
-        # within 2x
-        limit = "1e-5 of max|alpha| against the unsharded one" \
-            if cm == "replicated" else \
-            "twice the unsharded float32 distance to float64, or 1e-5"
         log(f"{tag} _factorize(mesh=, chol_mode={cm}): max|alpha - "
-            f"alpha_unsharded| = {da:.3e} of max|alpha|; against the "
-            f"float64 alpha of the same K {e_s:.3e} (the unsharded float32 "
-            f"alpha: {e_u:.3e}); limit: {limit}")
-        ok = da <= 1e-5 if cm == "replicated" \
-            else e_s <= max(2 * e_u, 1e-5)
-        if not ok:
+            f"alpha_unsharded| = {da:.3e} of max|alpha| (limit 1e-5); "
+            f"against the float64 alpha of the same K {e_s:.3e} (the "
+            f"unsharded alpha: {e_u:.3e})")
+        if not da <= 1e-5:
             raise AssertionError(f"sharded _factorize alpha ({cm}) outside "
                                  f"its limit in {mode}")
     del L_s
@@ -780,13 +962,19 @@ def sharded_times(torch, kff, K_ops, par, mesh, be, bf, pe, pf, bparams, y,
         3)
     log(f"(l) times [{card}] bench K2-dual: {mesh.size} energy-row stripes "
         f"{ef_stripes:.3f} ms in all, single launch {ef_single:.3f} ms")
-    kb_single = cuda_ms(torch, lambda: K_ops.k_block(pe, pf, be, bf, bparams,
-                                                     2), 3)
-    kb_mesh = cuda_ms(torch, lambda: K_ops.k_block(pe, pf, be, bf, bparams, 2,
-                                                   mesh=mesh), 3)
+    # in turns, five times each: one reading of either is noise
+    kb = {"sharded": [], "unsharded": []}
+    for _ in range(5):
+        kb["sharded"].append(cuda_ms(torch, lambda: K_ops.k_block(
+            pe, pf, be, bf, bparams, 2, mesh=mesh), 10))
+        kb["unsharded"].append(cuda_ms(torch, lambda: K_ops.k_block(
+            pe, pf, be, bf, bparams, 2), 10))
     log(f"(l) times [{card}] one 13-atom request against the bench training "
-        f"set, k_block: column stripes over {mesh.size} shards "
-        f"{kb_mesh:.3f} ms, unsharded {kb_single:.3f} ms")
+        f"set, k_block, 5 turns of 10 calls: column stripes over "
+        f"{mesh.size} shards " + " / ".join(f"{t:.3f}" for t in
+                                            sorted(kb["sharded"]))
+        + " ms, unsharded " + " / ".join(f"{t:.3f}" for t in
+                                         sorted(kb["unsharded"])) + " ms")
     ks_single = cuda_ms(torch, lambda: K_ops.k_self_dual(be, bf, bparams), 3)
     ks_mesh = cuda_ms(torch, lambda: K_ops.k_self_dual(be, bf, bparams,
                                                        mesh=mesh), 3)
@@ -840,7 +1028,20 @@ def range_times(torch, kff, par, mesh, f, params, dparams, reps, plain_reps):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--alt-source", help="another revision of csrc/kff.cu "
+                    "(same entry points): time its kernels beside the "
+                    "package's, in turns, and stop")
+    ap.add_argument("--alt-root", help="another revision's checkout: time "
+                    "its _predict_packed beside this one's, in turns, and "
+                    "stop")
+    ap.add_argument("--predict-packed", action="store_true",
+                    help="time one slice request's _predict_packed and stop")
+    ap.add_argument("--package-root", help="import the package from here")
+    args = ap.parse_args(argv)
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -851,6 +1052,16 @@ def main() -> int:
 
     def log(msg):
         print(msg, flush=True)
+
+    if args.predict_packed:
+        predict_packed_of(torch, T, log)
+        return 0
+    if args.alt_source or args.alt_root:
+        if args.alt_source:
+            compare_sources(torch, T, kff, args.alt_source, log)
+        if args.alt_root:
+            compare_roots(args.alt_root, log)
+        return 0
 
     dev, f32 = torch.device("cuda"), torch.float32
     log(f"(a) card: {card_line()}")
@@ -1056,16 +1267,14 @@ def main() -> int:
     params = gp.kernel.params()
     dparams = dgp.kernel.params()
     te, tf, _, _ = gp._train_view()
-    from gpr_calculator_tpu_torch.atoms.atoms import ATOMIC_NUMBERS
-    from gpr_calculator_tpu_torch.models.gp import _pack_from_device_descs
-    dd = gp.descriptor.calculate_device(images[2], device=dev, dtype=f32)
-    ele = np.asarray([ATOMIC_NUMBERS[s] for s in dd["elements"]])
-    pe, pf = _pack_from_device_descs(
-        [dd], [ele], [[i for i in range(len(ele))
-                       if i not in set(images[2].fixed_indices())]])
+    pe, pf = slice_request(gp, images[2], dev, f32)
     errs = {}
     slice_cases = all_cases(kff, pe, pf, te, tf, params, dparams)
     compare(torch, slice_cases, "slice", errs, log)
+    for sort in (True, False):
+        compare(torch, rect_cases(kff, pe, pf, te, tf, params, dparams, sort),
+                f"slice, envs {'sorted by element' if sort else 'as packed'}",
+                errs, log)
     nte, ntf, _, _ = tgp._train_view()
     compare(torch, [c for c in kernel_cases(kff, pe, pf, nte, ntf,
                                             tgp.kernel.params())
@@ -1155,10 +1364,48 @@ def main() -> int:
                            cuda_ms(torch, plain, 10),
                            *bound(mma, ops, nbytes))
     for name, (ms, pms, bms, by) in times.items():
-        log(f"(g) slice {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        log(f"(g) slice {name}: call {ms:.4f} ms, plain {pms:.4f} ms, "
             f"bound {bms:.3g} ms ({by})")
+    # (g) the redesigned kernels at the slice's shapes: the wrapper call
+    # above, the device time of one launch and the launch floor
+    card = card_line()
+    kff.launch_empty(dev)
+    empty, stream = kff._lib()["kff_empty"], \
+        torch.cuda.current_stream().cuda_stream
+    floor_us = 1e3 * cuda_ms(torch, lambda: empty(stream), 2000)
+    log(f"(g) [{card}] launch floor: an empty kernel {floor_us:.3f} us per "
+        "back-to-back launch (CUDA events)")
+    F1, F2 = (kff.force_operand(f, "highest") + (f.x.shape[1],)
+              for f in (pf, tf))
+    E1 = kff.energy_operand(pe, "highest") + (pe.x.shape[1],)
+    slice_device_us = {}
+    for base in RECT:
+        prm = dparams if base.endswith("_dot") else params
+        lhs = E1 if base.startswith("kef") else F1
+        slice_device_us[base] = device_us(torch, kff, base, lhs, F2, prm)
+        log(f"(g) [{card}] slice {base}: device {slice_device_us[base]:.2f} "
+            f"us a launch (raw launches back to back), call "
+            f"{1e3 * times[base][0]:.2f} us (CUDA events around the wrapper)")
     at = {"mid": {}, "bench": {}}
     me, mf = bench_data(torch, dev, m_e=250, m_f=750)
+    for sort in (True, False):
+        compare(torch, rect_cases(kff, me, mf, me, mf, bparams, bdparams,
+                                  sort),
+                f"mid, envs {'sorted by element' if sort else 'as packed'}",
+                errs, log)
+    for tag, (e_, f_) in (("mid", (me, mf)), ("bench", (be, bf))):
+        re_, w_ = kff.force_operand(f_)[1], kff.energy_operand(e_)[1]
+        for what, args in (("K3", (re_, 32, re_, 32)),
+                           ("K2", (w_, 32, re_, 32, True))):
+            some, every = kff.staged_pairs(*args)
+            mine, products = kff.staged_pairs(*args, per_lhs_point=True)
+            log(f"(g) {tag} {what}: {some} of {every} chunk pairs staged "
+                f"({some / every:.3f}; the rest have disjoint element "
+                f"ranges), {mine / products:.3f} of the (lhs point, chunk "
+                "pair) products multiplied; same-element env pairs are "
+                f"{pair_count(args[0], 32, re_, 32, False) / (args[0].shape[1] * re_.shape[1]):.3f}"
+                " of all")
+    sort_readings(torch, kff, dev, log, card)
     for tag, cases in (("mid", all_cases(kff, me, mf, me, mf, bparams,
                                          bdparams)),
                        ("bench", bench_cases)):
@@ -1174,7 +1421,8 @@ def main() -> int:
             log(f"(g) {label}, 32 envs, {name}: kernel {ms:.3f} ms, plain "
                 f"{pms:.3f} ms, bound {bms:.3f} ms ({by}; {mma:.4g} "
                 f"tensor-core and {ops:.4g} fp32 operations, {nbytes:.4g} "
-                "bytes)")
+                "bytes)" + (f"; {bms / ms:.3f} of the bound (target 0.5)"
+                            if name in RECT else ""))
             at[tag][name] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=by)
 
@@ -1224,6 +1472,68 @@ def main() -> int:
             f"{np.array2string(g64, precision=8)}, |dg|/|g| = "
             f"{np.linalg.norm(g32 - g64) / np.linalg.norm(g64):.3e} "
             "(recorded, not a gate)")
+
+    # (g) one slice request's _predict_packed with the training side's
+    # operands kept by the model, and rebuilt at every request
+    from gpr_calculator_tpu_torch.models.gp import (_factorize,
+                                                    _predict_packed)
+    sargs = (pe, pf, te, tf, params, gp.alpha_, gp.L_, 2, True, "rbf")
+    kept = host_ms(torch, lambda: _predict_packed(
+        *sargs, train_ops=gp._train_operands()), 30)
+    rebuilt = host_ms(torch, lambda: _predict_packed(*sargs), 30)
+    log(f"(g) [{card}] _predict_packed, one slice request with std, host "
+        f"clock to a synchronise, min / median / max of 30: training "
+        f"operands kept {kept[0]:.3f} / {kept[1]:.3f} / {kept[2]:.3f} ms, "
+        f"rebuilt {rebuilt[0]:.3f} / {rebuilt[1]:.3f} / {rebuilt[2]:.3f} ms")
+    K_ops.reset_operand_builds()
+    gp._serve_ops = None
+    for img in images[:2]:
+        gp.predict_structure(img, return_std=True)
+    log(f"(g) two requests without a refit: operand builds "
+        f"{json.dumps(K_ops.operand_builds)}")
+    if K_ops.operand_builds != {"query": 2, "train": 1}:
+        raise AssertionError("a model that serves twice must build its "
+                             "training-side operands once")
+
+    # (g) the weights at n = 10 000: the 13-atom request served through
+    # _predict_packed from _factorize's alpha (a float64 solve, float64
+    # weights, a float64 product) against a float64 solve of the same K;
+    # beside it, recorded, the two float32 routes it replaces
+    Kb = K_ops.k_self(be, bf, bparams, 2)
+    Kb.diagonal().add_(_noise_diag(be, bf, 0.01, 0.1))
+    a64 = torch.cholesky_solve(y.double()[:, None],
+                               torch.linalg.cholesky(Kb.double()))[:, 0]
+    L_b, a_b = _factorize(be, bf, y, bparams, 0.01, 0.1, 2, "rbf")
+    Kt = K_ops.k_block(pe, pf, be, bf, bparams, 2)
+    mean64 = Kt.double() @ a64
+    natoms = len(images[2])
+    lim_e, lim_f = 0.1 * 0.01 * natoms, 0.1 * 0.1
+
+    def off(mean):
+        mean = mean.double()
+        return (float((mean[0] - mean64[0]).abs()) * natoms,
+                float((mean[pe.m:] - mean64[pe.m:]).abs().max()))
+    served, _ = _predict_packed(pe, pf, be, bf, bparams, a_b, L_b, 2, False)
+    dE, dF = off(served)
+    log(f"(g) bench weights from _factorize ({a_b.dtype}) against a float64 "
+        f"solve of the same K: max|da| = {rel_to(a_b.double(), a64):.3e} of "
+        f"max|alpha|; the 13-atom request served from both: |dE| = {dE:.3e} "
+        f"eV (limit {lim_e:.3e}), max|dF| = {dF:.3e} eV/A (limit "
+        f"{lim_f:.3e}); max|E| {float(mean64[0].abs()) * natoms:.3e}, "
+        f"max|F| {float(mean64[pe.m:].abs().max()):.3e}")
+    if not (dE <= lim_e and dF <= lim_f):
+        raise AssertionError("the bench request served from _factorize's "
+                             "alpha is outside the limits against a float64 "
+                             "solve of the same K")
+    a32 = torch.cholesky_solve(y[:, None], torch.linalg.cholesky(Kb))[:, 0]
+    for what, a in (("a float32 solve and a float32 product", a32),
+                    ("the float64 solve rounded to float32 and a float32 "
+                     "product", a64.float())):
+        dE, dF = off(Kt @ a)
+        log(f"(g) the same request from {what}: max|da| = "
+            f"{rel_to(a.double(), a64):.3e} of max|alpha|, |dE| = {dE:.3e} "
+            f"eV, max|dF| = {dF:.3e} eV/A (recorded)")
+    del Kb, Kt, a64, a32, L_b, a_b
 
     # (l) the mesh-sharded builds: four shards over the cards present
     import gpr_calculator_tpu_torch.parallel as par
@@ -1347,7 +1657,9 @@ def main() -> int:
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": times[name][2],
                 "bound_by": times[name][3], "library_ms": None,
-                "mid": at["mid"][name], "bench": at["bench"][name]}
+                "mid": at["mid"][name], "bench": at["bench"][name],
+                **({"device_us": slice_device_us[name],
+                    "launch_floor_us": floor_us} if name in RECT else {})}
                for name in NAMES]
     kernels += [{"name": name, "route": "cuda", "source": SOURCE,
                  "replaces": RANGE_REPLACES,

@@ -93,17 +93,32 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
     """K -> (L, alpha): the training covariance plus noise, its lower
     Cholesky factor and the weights (gaussianprocess.py:288-310).  mesh:
     the build is sharded (``k_self``), and with chol_mode="sharded" the
-    factorisation too; L and alpha are on the root."""
+    factorisation too; L and alpha are on the root.
+
+    K comes in the working dtype (float32 on the card, from the kernels);
+    it is factorised and solved in float64, as the NLL does.  L is
+    returned in the working dtype (the variance solve reads it), alpha in
+    float64: the served mean is a float64 product of the float32 cross
+    covariance with it (``_predict_packed``).  At the 10 000-row bench
+    covariance a float32 solve left alpha 12 % of max|alpha| off the
+    float64 solve of the same K and moved a served energy by 0.14-0.16 eV,
+    ten times the limit of a tenth of the noise; the float64 solve with
+    alpha and the product rounded to float32 still moved it by up to
+    0.018 eV, 1.4 times the limit (NVIDIA H100 80GB HBM3, 700.00 W;
+    PERF.md)."""
     K = K_ops.k_self(e, f, params, zeta, kind, mesh=mesh)
     K.diagonal().add_(_noise_diag(e, f, noise_e, noise_f))
+    dtype = K.dtype
+    K = K.to(torch.float64)
     L, info = _chol_mesh(K, mesh, chol_mode)
-    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    del K
+    alpha = torch.cholesky_solve(y.to(torch.float64)[:, None], L)[:, 0]
     if info != 0 or not bool(torch.isfinite(alpha).all()):
         raise FloatingPointError(
             f"Cholesky factorisation failed (info={info}): K is not "
             f"positive definite at noise_e={noise_e:.2e}, "
-            f"sigma={float(params['sigma']):.3g} in {K.dtype}")
-    return L, alpha
+            f"sigma={float(params['sigma']):.3g} in {dtype}")
+    return L.to(dtype), alpha
 
 
 def _split_theta(theta, noise_fixed, f_coef, noise_opt: bool):
@@ -235,14 +250,19 @@ def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
 
 def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
                     tf: ForceData, params, alpha, L, zeta: int,
-                    return_std: bool, kind: str = "rbf", mesh=None):
+                    return_std: bool, kind: str = "rbf", mesh=None,
+                    train_ops=None):
     """Cross covariance, GEMV with alpha and (optionally) the predictive
     std by a triangular solve against the factor: var = diag - |L^-1 k|^2
     (gaussianprocess.py:873-911), clamped at zero.  mesh: the training
     force axis of the cross covariance runs in stripes over the shards;
-    the GEMV and the solve stay on the root."""
-    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh)
-    mean = Kt @ alpha
+    the GEMV and the solve stay on the root.  train_ops: the training
+    side's operands when the caller keeps them (``GP._train_operands``)."""
+    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh,
+                       train_ops=train_ops)
+    # alpha is float64 on every device (``_factorize``): the weights are
+    # large and cancel in this product
+    mean = Kt.to(alpha.dtype) @ alpha
     if not return_std:
         return mean, None
     diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind),
@@ -445,6 +465,7 @@ class GP:
         self.alpha_ = None
         self.L_ = None
         self._fit_snapshot = None   # (EnergyData, ForceData, nE, nF)
+        self._serve_ops = None      # (snapshot, its serving operands)
 
         self.fits = 0
         self.use_base = 0
@@ -688,6 +709,7 @@ class GP:
             raise
         self.L_, self.alpha_ = L, alpha
         self._fit_snapshot = (e, f, self.N_energy, self.N_forces)
+        self._serve_ops = None
         self.logging.info("Cholesky decomposition complete")
         self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
         self.fits += 1
@@ -699,11 +721,29 @@ class GP:
             raise RuntimeError("model is not fitted")
         return self._fit_snapshot
 
+    def _train_operands(self):
+        """The fit snapshot's operands for serving, built once per fit in
+        the matmul precision in force and kept with the snapshot: a refit
+        (a new snapshot), another precision or another device drops
+        them.  None on a mesh: the sharded block builds its own."""
+        if self._mesh_arg() is not None:
+            return None
+        snap = self._train_view()
+        mode = config.kff_precision()
+        kept = self._serve_ops      # (snapshot, its operands)
+        if (kept is None or kept[0] is not snap or kept[1].mode != mode
+                or kept[1].X.device != snap[1].x.device):
+            kept = (snap, K_ops.side_operands(snap[0], snap[1], mode,
+                                              "train"))
+            self._serve_ops = kept
+        return kept[1]
+
     def _serve(self, pe, pf, te, tf, return_std):
         mean, std = _predict_packed(pe, pf, te, tf, self.kernel.params(),
                                     self.alpha_, self.L_, self.kernel.zeta,
                                     return_std, self.kernel.kind,
-                                    mesh=self._mesh_arg())
+                                    mesh=self._mesh_arg(),
+                                    train_ops=self._train_operands())
         mean = mean.cpu().numpy()
         return mean, None if std is None else std.cpu().numpy()
 

@@ -26,6 +26,8 @@ lies (the JAX package then takes its XLA build).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import config
@@ -151,48 +153,93 @@ def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
     return tuple(_blocks(ee[i], ef[i], ef[i].T, ff[i]) for i in range(2))
 
 
+# side_operands() calls since the last reset, by the side's role in a
+# served block ("train": the data2 side, which a fitted model builds once)
+operand_builds = {"query": 0, "train": 0}
+
+
+def reset_operand_builds() -> None:
+    for k in operand_builds:
+        operand_builds[k] = 0
+
+
+class SideOperands(NamedTuple):
+    """The operands of one side of a serving block in matmul precision
+    ``mode``: energy (U, w, A), force (X, re, B), and the unrounded
+    energy rows ``Ue`` that K_EE reads (U itself in "highest")."""
+    mode: str
+    U: torch.Tensor
+    w: torch.Tensor
+    A: int
+    X: torch.Tensor
+    re: torch.Tensor
+    B: int
+    Ue: torch.Tensor
+
+
+def side_operands(e: EnergyData, f: ForceData, mode: str,
+                  role: str = "query") -> SideOperands:
+    """Build one side's operands (counted in ``operand_builds[role]``)."""
+    U, w = energy_operand(e, mode)
+    X, re = force_operand(f, mode)
+    Ue = U if mode == "highest" else energy_operand(e, "highest")[0]
+    operand_builds[role] += 1
+    return SideOperands(mode, U, w, e.x.shape[1], X, re, f.x.shape[1], Ue)
+
+
 def block_operands(e1: EnergyData, f1: ForceData, e2: EnergyData,
                    f2: ForceData, mode: str):
     """The operands of one serving block in ``mode``: (U, w, A) and (X,
     re, B) of both sides, and the two unrounded energy operands K_EE
     reads."""
-    U1, w1 = energy_operand(e1, mode)
-    X1, re1 = force_operand(f1, mode)
-    U2, w2 = energy_operand(e2, mode)
-    X2, re2 = force_operand(f2, mode)
-    if mode != "highest":
-        U1e, _ = energy_operand(e1, "highest")
-        U2e, _ = energy_operand(e2, "highest")
-    else:
-        U1e, U2e = U1, U2
-    return ((U1, w1, e1.x.shape[1]), (X1, re1, f1.x.shape[1]),
-            (U2, w2, e2.x.shape[1]), (X2, re2, f2.x.shape[1]), U1e, U2e)
+    s1 = side_operands(e1, f1, mode)
+    s2 = side_operands(e2, f2, mode, "train")
+    return ((s1.U, s1.w, s1.A), (s1.X, s1.re, s1.B),
+            (s2.U, s2.w, s2.A), (s2.X, s2.re, s2.B), s1.Ue, s2.Ue)
 
 
 def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
             params, zeta: int = 2, kind: str = "rbf",
-            mm_precision: str | None = None, mesh=None):
+            mm_precision: str | None = None, mesh=None,
+            train_ops: SideOperands | None = None):
     """[[K_EE, K_EF], [K_FE, K_FF]] for (rows: data1, cols: data2) -- the
-    serving cross-covariance.  K_FE is kernel K2 in the other orientation,
-    transposed; K_FF is the rectangular kernel K3.  K_EF, K_FE and K_FF
-    take the matmul precision ``mm_precision``; K_EE is computed from the
-    unrounded energy operands, as in the JAX package's serving build
-    (``kee``, its ops/kernels.py:574).  mesh: the training force axis
-    (data2) runs in column stripes, one per shard
-    (``k_block_sharded``)."""
+    serving cross-covariance, built in ONE buffer: the block is allocated
+    once, kernel K2 writes K_EF into its slice and, in the other
+    orientation with a transposed store, K_FE into its own; the
+    rectangular kernel K3 writes K_FF; K_EE is copied into its corner.
+    K_EF, K_FE and K_FF take the matmul precision ``mm_precision``; K_EE
+    is computed from the unrounded energy operands, as in the JAX
+    package's serving build (``kee``, its ops/kernels.py:574).
+    train_ops: the data2 side's operands (``side_operands(e2, f2, mode,
+    "train")``) when the caller keeps them, as a fitted GP does; they must
+    have been built in this mode.  mesh: the training force axis (data2)
+    runs in column stripes, one per shard (``k_block_sharded``, which
+    builds its own operands)."""
     mode = config.kff_precision(mm_precision)
     if _sharded(mesh) and _sharded_serving_ok(f2.m, mesh.size):
         from ..parallel.sharded_kernels import k_block_sharded
         return k_block_sharded(e1, f1, e2, f2, params, mesh, kind, zeta,
                                mm_precision=mode)
-    (U1, w1, A1), (X1, re1, B1), (U2, w2, A2), (X2, re2, B2), U1e, U2e = \
-        block_operands(e1, f1, e2, f2, mode)
+    s1 = side_operands(e1, f1, mode)
+    s2 = train_ops if train_ops is not None \
+        else side_operands(e2, f2, mode, "train")
+    if s2.mode != mode:
+        raise ValueError(f"train_ops were built in mode {s2.mode!r}, the "
+                         f"block asks for {mode!r}")
     kw = dict(kind=kind, mm_precision=mode)
-    K_ee = kee_from_ops(U1e, w1, A1, U2e, w2, A2, params, zeta, kind=kind)
-    K_ef = kef_from_ops(U1, w1, A1, X2, re2, B2, params, zeta, **kw)
-    K_fe = kef_from_ops(U2, w2, A2, X1, re1, B1, params, zeta, **kw).T
-    K_ff = kff_from_ops(X1, re1, B1, X2, re2, B2, params, zeta, **kw)
-    return _blocks(K_ee, K_ef, K_fe, K_ff)
+    K_ee = kee_from_ops(s1.Ue, s1.w, s1.A, s2.Ue, s2.w, s2.A, params, zeta,
+                        kind=kind)
+    m1, m2 = K_ee.shape
+    K = torch.empty((m1 + 3 * f1.m, m2 + 3 * f2.m), dtype=K_ee.dtype,
+                    device=K_ee.device)
+    K[:m1, :m2] = K_ee
+    kef_from_ops(s1.U, s1.w, s1.A, s2.X, s2.re, s2.B, params, zeta,
+                 out=K[:m1, m2:], **kw)
+    kef_from_ops(s2.U, s2.w, s2.A, s1.X, s1.re, s1.B, params, zeta,
+                 out=K[m1:, :m2], transpose=True, **kw)
+    kff_from_ops(s1.X, s1.re, s1.B, s2.X, s2.re, s2.B, params, zeta,
+                 out=K[m1:, m2:], **kw)
+    return K
 
 
 def count_ee(e: EnergyData):

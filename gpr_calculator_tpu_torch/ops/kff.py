@@ -48,6 +48,15 @@ exactly, or bf16(X).  Every block is then the exact Gram of the same
 rounded rows, and the covariance stays PSD by construction.  Float64
 data ignores the mode.
 
+Env order.  ``force_operand`` and ``energy_operand`` sort each point's
+envs by element (a stable ``torch.argsort``), the envs without weight
+(padding, |x| < EPS) last (``sort=True``; ``sort=False`` keeps the packed
+order; the default sorts sides of ``SORT_MIN_ENVS`` envs or more).  A
+block is a sum over a point's envs, so the order moves only the order of
+that sum; the rectangular ``highest`` kernels skip the env
+chunks whose element ranges cannot meet, which a sorted side makes
+frequent.  Every kernel and plain version stays correct for any order.
+
 Routes.  ``kff_from_ops`` and ``kef_from_ops`` take the plain version for
 tensors on the CPU (any float dtype) and launch the CUDA kernels for
 float32 or bf16-parts operands on a CUDA device; anything else on CUDA
@@ -56,6 +65,10 @@ with the suffixes ``_dual``, ``_deriv`` (K1-K3; K3 also ``_dual``) and
 ``_dot``, each also with ``_bf16x4`` and ``_bf16`` for the modes) are
 built with nvcc at first use into the package's git-ignored ``build/``
 directory and bound with ctypes.  ``launches`` counts each kernel launch.
+``out=`` (K2, K3) writes the block into a caller's 2-D float32 view with
+unit column stride -- a slice of a larger buffer -- and ``transpose=True``
+(K2) stores K_EF transposed there: the served block of
+``ops/kernels.k_block`` is built in one buffer this way.
 
 The tile-range form of K1 (``tiles=(k0, nk)`` on ``kff_from_ops`` and
 ``kff_plain``): the symmetric K_FF is cut into TP x TP-point tiles, its
@@ -90,6 +103,11 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc" / "kff.cu"
 TP = 8                   # points per tile side (csrc/kff.cu)
 _MAX_POINTS = 65535 * TP  # grid.y limit at TP points per tile
 _HI_MASK = -65536        # 0xFFFF0000 as int32: sign, exponent, 7 bits
+# sides of this many envs are sorted by element.  On an NVIDIA H100 80GB
+# HBM3 (700.00 W) sorting a side adds up to 0.6 ms to its build (host
+# clock); one kff_rect launch between two sorted sides of 8192 envs saves
+# 0.44 ms, of 4096 envs 0.09 ms, of 24000 envs 3.5 ms (chip_smoke.py (g))
+SORT_MIN_ENVS = 8192
 
 KINDS = ("rbf", "dot", "rbf_dgamma")
 # kernel base names: K1 kff_tri, K2 kef_rect, K3 kff_rect and variants
@@ -161,20 +179,43 @@ def _rounded(X: torch.Tensor, mode: str) -> torch.Tensor:
     return split(X.contiguous(), mode)
 
 
-def force_operand(f, mm_precision: str | None = None):
+def _env_order(ele, valid):
+    """Per-point env order (m, B): by element, envs without weight last,
+    equal keys in their packed order."""
+    last = torch.iinfo(ele.dtype).max
+    key = torch.where(valid, ele, torch.full_like(ele, last))
+    return torch.argsort(key, dim=1, stable=True)
+
+
+def _sorts(sort, m: int, B: int) -> bool:
+    """sort=None: sides of at least SORT_MIN_ENVS envs are sorted -- where
+    one launch saves what a side's sort costs; a served request's few
+    points are not (its block is one short chain of chunk pairs)."""
+    return m * B >= SORT_MIN_ENVS if sort is None else bool(sort)
+
+
+def force_operand(f, mm_precision: str | None = None,
+                  sort: bool | None = None):
     """(X, re (2, N)) for a ForceData side, N = m * B: X (4, N, DP) in
     the data's dtype, or its bf16 parts (P, 4, N, DP) for float32 data
-    in a bf16 mode."""
+    in a bf16 mode.  sort: each point's envs ordered by element, padding
+    last (see the module docstring); None sorts sides of SORT_MIN_ENVS
+    envs or more."""
     mode = config.kff_precision(mm_precision)
     m, B, d = f.x.shape
-    x = f.x.reshape(m * B, d)
-    ele = f.ele.reshape(-1)
-    n = torch.sqrt(torch.sum(x * x, dim=1))
+    x, J, ele = f.x, f.dxdr, f.ele
+    n = torch.sqrt(torch.sum(x * x, dim=2))
     valid = (n > config.EPS) & (ele > 0)
+    if _sorts(sort, m, B):
+        order = _env_order(ele, valid)
+        x = torch.take_along_dim(x, order[:, :, None], 1)
+        J = torch.take_along_dim(J, order[:, :, None, None], 1)
+        ele, n, valid = (torch.gather(t, 1, order) for t in (ele, n, valid))
+    x, J = x.reshape(m * B, d), J.reshape(m * B, d, 3)
+    ele, n, valid = ele.reshape(-1), n.reshape(-1), valid.reshape(-1)
     nsafe = torch.where(valid, n, torch.ones_like(n))
     u = x / nsafe[:, None]
     rinv = torch.where(valid, 1.0 / nsafe, torch.zeros_like(n))
-    J = f.dxdr.reshape(m * B, d, 3)
     q = torch.einsum("ndu,nd->nu", J, u)
     Jt = J - u[:, :, None] * q[:, None, :]
     X = torch.cat([u[None], Jt.permute(2, 0, 1)], dim=0)     # (4, N, d)
@@ -182,21 +223,75 @@ def force_operand(f, mm_precision: str | None = None):
     return _pad_lanes(_rounded(X, mode)), re.contiguous()
 
 
-def energy_operand(e, mm_precision: str | None = None):
+def energy_operand(e, mm_precision: str | None = None,
+                   sort: bool | None = None):
     """(U (N, DP), w (2, N)) for an EnergyData side: unit descriptors (or
     their bf16 parts (P, N, DP), as in ``force_operand``) and [valid /
-    count, element id], N = m * A."""
+    count, element id], N = m * A; envs sorted as in ``force_operand``."""
     mode = config.kff_precision(mm_precision)
     m, A, d = e.x.shape
-    x = e.x.reshape(m * A, d)
-    ele = e.ele.reshape(-1)
-    n = torch.sqrt(torch.sum(x * x, dim=1))
+    x, ele = e.x, e.ele
+    n = torch.sqrt(torch.sum(x * x, dim=2))
     valid = (n > config.EPS) & (ele > 0)
+    if _sorts(sort, m, A):
+        order = _env_order(ele, valid)
+        x = torch.take_along_dim(x, order[:, :, None], 1)
+        ele, n, valid = (torch.gather(t, 1, order) for t in (ele, n, valid))
+    x = x.reshape(m * A, d)
+    ele, n, valid = ele.reshape(-1), n.reshape(-1), valid.reshape(-1)
     u = x / torch.where(valid, n, torch.ones_like(n))[:, None]
     inv_count = torch.repeat_interleave(1.0 / e.counts, A)
     w = torch.stack([torch.where(valid, inv_count, torch.zeros_like(n)),
                      ele.to(x.dtype)])
     return _pad_lanes(_rounded(u, mode)), w.contiguous()
+
+
+def chunk_ranges(re, B: int, points: int, envs: int):
+    """The element range [lo, hi] of the envs with a weight in every env
+    chunk the rectangular ``highest`` kernels stage: (tiles, chunks, 2)
+    for tiles of ``points`` points and chunks of ``envs`` envs per point
+    (K3 and the rhs of K2: 8 and 4; the lhs of K2: 8 and 8); (+inf,
+    -inf) for a chunk of padding alone.  The kernels compute the same
+    per block; this is their arithmetic in PyTorch, for tests and for
+    counting what a launch skips."""
+    m = re.shape[1] // B
+    nt, nc = -(-m // points), -(-B // envs)
+    w = re.new_zeros((nt * points, nc * envs))
+    el = re.new_zeros((nt * points, nc * envs))
+    w[:m, :B], el[:m, :B] = re[0].reshape(m, B), re[1].reshape(m, B)
+    w = w.reshape(nt, points, nc, envs).permute(0, 2, 1, 3).reshape(nt, nc,
+                                                                    -1)
+    el = el.reshape(nt, points, nc, envs).permute(0, 2, 1, 3).reshape(nt, nc,
+                                                                      -1)
+    inf = torch.full_like(el, float("inf"))
+    lo = torch.where(w != 0, el, inf).amin(dim=2)
+    hi = torch.where(w != 0, el, -inf).amax(dim=2)
+    return torch.stack([lo, hi], dim=2)
+
+
+def staged_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False,
+                 per_lhs_point: bool = False):
+    """(chunk pairs a launch of the rectangular ``highest`` kernel stages,
+    all chunk pairs of its grid): a pair is staged when the element ranges
+    of its two chunks intersect.  per_lhs_point counts instead the (lhs
+    point, chunk pair) products a warp multiplies: inside a staged pair a
+    warp skips when its own lhs point's envs cannot meet the rhs chunk."""
+    envs1 = 8 if energy_lhs else 4
+    r1 = chunk_ranges(re1, B1, TP, envs1).reshape(-1, 2)[:, None, :]
+    r2 = chunk_ranges(re2, B2, TP, 4).reshape(-1, 2)[None, :, :]
+    meet = ~((r1[..., 1] < r2[..., 0]) | (r2[..., 1] < r1[..., 0]))
+    if not per_lhs_point:
+        return int(meet.sum()), meet.numel()
+    m1 = re1.shape[1] // B1
+    p1 = chunk_ranges(re1, B1, 1, envs1)                 # (m1, chunks, 2)
+    pad = p1.new_empty((-(-m1 // TP) * TP - m1, p1.shape[1], 2))
+    pad[..., 0], pad[..., 1] = float("inf"), -float("inf")
+    p1 = torch.cat([p1, pad]).reshape(-1, TP, p1.shape[1], 2)
+    p1 = p1.permute(0, 2, 1, 3).reshape(-1, TP, 2)       # (tile*chunk, TP, 2)
+    r2 = r2[0]
+    mine = ~((p1[:, :, None, 1] < r2[None, None, :, 0])
+             | (r2[None, None, :, 1] < p1[:, :, None, 0]))
+    return int((mine & meet[:, None, :]).sum()), mine.numel()
 
 
 def _family(kind: str, deriv: bool):
@@ -442,9 +537,6 @@ def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-_LIB = None
-
-
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
@@ -454,13 +546,13 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/kff.cu`` for sm_90a into ``build/`` (skipped when the
-    library for this source already exists).  Returns (library path,
-    compiler output).  The library is written under a temporary name and
-    renamed into place, so concurrent processes never load a partial
-    file."""
-    src = _SRC.read_bytes()
+def build(source: Path = _SRC) -> tuple[Path, str]:
+    """Compile ``source`` (``csrc/kff.cu``) for sm_90a into ``build/``
+    (skipped when the library for this source already exists).  Returns
+    (library path, compiler output).  The library is written under a
+    temporary name and renamed into place, so concurrent processes never
+    load a partial file."""
+    src = Path(source).read_bytes()
     out = BUILD_DIR / f"libkff-{hashlib.sha256(src).hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
@@ -471,7 +563,7 @@ def build() -> tuple[Path, str]:
         res = subprocess.run(
             [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-o", tmp, str(_SRC)],
+             "-Xptxas", "-v", "-o", tmp, str(source)],
             capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{res.stderr}")
@@ -482,21 +574,64 @@ def build() -> tuple[Path, str]:
     return out, res.stdout + res.stderr
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        LL = ctypes.c_longlong
-        # every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd,
-        # sigma2, second scalar, zeta, first tile, tile count, stream)
-        for name in _ENTRIES:
+_FN = {}        # entry-point name -> bound ctypes function
+_READY = set()  # device indices whose shared-memory limits are set
+
+
+def load(path) -> dict:
+    """Load a library built from ``csrc/kff.cu`` (or from a source with
+    its entry points): {entry-point name: bound ctypes function}, with
+    ``kff_empty`` and ``kff_rect_init`` where the library has them."""
+    lib = ctypes.CDLL(str(path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    LL = ctypes.c_longlong
+    fns = {}
+    # every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd,
+    # sigma2, second scalar, zeta, first tile, tile count, leading
+    # dimension of out, transposed store, stream)
+    for name in _ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, I, I, P, P, I, I, P, P, F, F, I, LL, LL, LL, I,
+                       P]
+        fn.restype = I
+        fns[name] = fn
+    for name, argtypes in (("kff_empty", [P]), ("kff_rect_init", [])):
+        if hasattr(lib, name):
             fn = getattr(lib, name)
-            fn.argtypes = [P, P, I, I, P, P, I, I, P, P, F, F, I, LL, LL, P]
-            fn.restype = I
-        _LIB = lib
-    return _LIB
+            fn.argtypes, fn.restype = argtypes, I
+            fns[name] = fn
+    return fns
+
+
+def _lib() -> dict:
+    """The package's library, built and loaded at first use; the current
+    device's shared-memory limits are set (and checked) here."""
+    if not _FN:
+        path, _ = build()
+        _FN.update(load(path))
+        _init_device(torch.cuda.current_device())
+    return _FN
+
+
+def _init_device(index: int) -> None:
+    """The rectangular highest kernels' shared-memory limits on card
+    ``index``: once per card, before its first launch."""
+    with torch.cuda.device(index):
+        rc = _FN["kff_rect_init"]()
+    if rc != 0:
+        raise RuntimeError(f"kff_rect_init failed on cuda:{index}: CUDA "
+                           f"error {rc}")
+    _READY.add(index)
+
+
+def launch_empty(device) -> None:
+    """One launch of the library's empty kernel on ``device``'s current
+    stream: the floor of a launch (``chip_smoke.py`` times it)."""
+    with torch.cuda.device(device):
+        rc = _lib()["kff_empty"](
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kff_empty launch failed: CUDA error {rc}")
 
 
 def _check_cuda(zeta: int, *tensors):
@@ -545,17 +680,41 @@ def _mode(mm_precision, *ops) -> str:
     return mode
 
 
-def _launch(base, mode, device, *args, k0=0, nk=0, ranged=False):
+def _launch(base, mode, device, *args, k0=0, nk=0, ldo=0, trans=False,
+            ranged=False):
     """Launch entry point ``base`` in ``mode`` on the device's current
     stream and count it; (k0, nk) is K1's tile range (unused by K2 and
-    K3), counted under the ``_range`` name when ``ranged``."""
+    K3), counted under the ``_range`` name when ``ranged``; ldo is the
+    leading dimension of the output, trans the transposed store of K2."""
     name = kernel_name(base, mode)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(_lib(), name)(*args, k0, nk, stream)
+    fn = _FN.get(name) or _lib()[name]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index not in _READY:
+        _init_device(index)
+    if index == current:
+        rc = fn(*args, k0, nk, ldo, int(trans),
+                torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, k0, nk, ldo, int(trans),
+                    torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[kernel_name(base + "_range", mode) if ranged else name] += 1
+
+
+def _check_out(out, rows: int, cols: int, like):
+    """``out=``: a (rows, cols) float32 view on the operands' device whose
+    columns are contiguous (a slice of a larger row-major buffer)."""
+    if (out.dim() != 2 or tuple(out.shape) != (rows, cols)
+            or out.dtype != torch.float32 or out.device != like.device):
+        raise ValueError(f"out must be a ({rows}, {cols}) float32 tensor on "
+                         f"{like.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+    if out.stride(1) != 1 or out.stride(0) < cols or out.data_ptr() % 4:
+        raise ValueError("out must have contiguous columns (a slice of a "
+                         "row-major buffer)")
 
 
 def _variant(kind: str, dual: bool, deriv: bool) -> str:
@@ -566,7 +725,7 @@ def _variant(kind: str, dual: bool, deriv: bool) -> str:
 def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
                  symmetric: bool = False, dual: bool = False,
                  kind: str = "rbf", deriv: bool = False,
-                 mm_precision: str | None = None, tiles=None):
+                 mm_precision: str | None = None, tiles=None, out=None):
     """K_FF (3 m1, 3 m2) from force operands; symmetric=True (X1 is X2)
     runs the triangular kernel K1, else the rectangular K3 (``_dot`` for
     kind="dot").  dual=True (RBF) returns (K, dK/dgamma) from one pass
@@ -575,16 +734,23 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
     mode.  tiles=(k0, nk) (symmetric only) is K1's tile-range form: the
     output is zeroed and one launch writes tiles [k0, k0 + nk) of the
     upper triangle and their transposes (counted as ``*_range``); an
-    empty range launches nothing."""
+    empty range launches nothing.  out (K3 alone, not dual): the block
+    is written into this (3 m1, 3 m2) view and returned."""
     kind, deriv = _family(kind, deriv)
     sigma2, p2 = _scalars(params, kind, dual, deriv)
     mode = _mode(mm_precision, X1, X2)
     if tiles is not None and not symmetric:
         raise ValueError("a tile range needs symmetric=True")
+    if out is not None and (symmetric or dual):
+        raise ValueError("out= is for the rectangular single-plane kernels")
     if X1.device.type == "cpu":
-        return kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
-                         symmetric=symmetric, dual=dual, kind=kind,
-                         deriv=deriv, tiles=tiles)
+        K = kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
+                      symmetric=symmetric, dual=dual, kind=kind,
+                      deriv=deriv, tiles=tiles)
+        if out is None:
+            return K
+        out.copy_(K)
+        return out
     _check_cuda(zeta, X1, re1, X2, re2)
     _check_side(X1, re1, B1, 4, mode)
     _check_side(X2, re2, B2, 4, mode)
@@ -593,7 +759,10 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
         raise ValueError("symmetric K_FF needs one operand set")
     # a range launch writes its own tiles only: the rest must be zero
     alloc = torch.empty if tiles is None else torch.zeros
-    out = alloc((3 * m1, 3 * m2), dtype=torch.float32, device=X1.device)
+    if out is None:
+        out = alloc((3 * m1, 3 * m2), dtype=torch.float32, device=X1.device)
+    else:
+        _check_out(out, 3 * m1, 3 * m2, X1)
     outd = alloc((3 * m1, 3 * m2), dtype=torch.float32,
                  device=X1.device) if dual else out
     base = ("kff_tri" if symmetric else "kff_rect") + _variant(kind, dual,
@@ -607,30 +776,59 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
         _launch(base, mode, X1.device, X1.data_ptr(), re1.data_ptr(), m1,
                 B1, X2.data_ptr(), re2.data_ptr(), m2, B2, out.data_ptr(),
                 outd.data_ptr(), sigma2, 0.0 if kind == "dot" else p2, zeta,
-                k0=k0, nk=nk, ranged=tiles is not None)
+                k0=k0, nk=nk, ldo=out.stride(0), ranged=tiles is not None)
     return (out, outd) if dual else out
 
 
 def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
                  dual: bool = False, kind: str = "rbf", deriv: bool = False,
-                 mm_precision: str | None = None):
+                 mm_precision: str | None = None, out=None,
+                 transpose: bool = False):
     """K_EF (m1, 3 m2) from energy and force operands (kernel K2, or
     K2-dot); dual=True (RBF) returns (K, dK/dgamma) from one pass,
-    K2-dual; deriv=True dK/dgamma alone, K2-deriv."""
+    K2-dual; deriv=True dK/dgamma alone, K2-deriv.  transpose=True (not
+    dual) gives K_EF^T (3 m2, m1): the ``highest`` kernel stores it so,
+    a mode's kernel result is transposed by a copy.  out (not dual): the
+    block is written into this view, (m1, 3 m2) or (3 m2, m1), and
+    returned."""
     kind, deriv = _family(kind, deriv)
     sigma2, p2 = _scalars(params, kind, dual, deriv)
     mode = _mode(mm_precision, U1, X2)
+    if dual and (out is not None or transpose):
+        raise ValueError("out= and transpose= are for the single-plane "
+                         "kernels")
     if U1.device.type == "cpu":
-        return kef_plain(U1, w1, A1, X2, re2, B2, params, zeta, dual=dual,
-                         kind=kind, deriv=deriv)
+        K = kef_plain(U1, w1, A1, X2, re2, B2, params, zeta, dual=dual,
+                      kind=kind, deriv=deriv)
+        if transpose:
+            K = K.T
+        if out is None:
+            return K.contiguous() if transpose else K
+        out.copy_(K)
+        return out
     _check_cuda(zeta, U1, w1, X2, re2)
     _check_side(U1, w1, A1, 1, mode)
     _check_side(X2, re2, B2, 4, mode)
     m1, m2 = U1.shape[-2] // A1, X2.shape[-2] // B2
-    out = torch.empty((m1, 3 * m2), dtype=torch.float32, device=U1.device)
+    shape = (3 * m2, m1) if transpose else (m1, 3 * m2)
+    if out is not None:
+        _check_out(out, *shape, U1)
+    base = "kef_rect" + _variant(kind, dual, deriv)
+    args = (U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
+            re2.data_ptr(), m2, B2)
+    scalars = (sigma2, 0.0 if kind == "dot" else p2, zeta)
+    if transpose and mode != "highest":
+        # the tensor-core kernels store row-major alone
+        K = torch.empty((m1, 3 * m2), dtype=torch.float32, device=U1.device)
+        _launch(base, mode, U1.device, *args, K.data_ptr(), K.data_ptr(),
+                *scalars, ldo=3 * m2)
+        if out is None:
+            return K.T.contiguous()
+        out.copy_(K.T)
+        return out
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=U1.device)
     outd = torch.empty_like(out) if dual else out
-    _launch("kef_rect" + _variant(kind, dual, deriv), mode, U1.device,
-            U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
-            re2.data_ptr(), m2, B2, out.data_ptr(), outd.data_ptr(), sigma2,
-            0.0 if kind == "dot" else p2, zeta)
+    _launch(base, mode, U1.device, *args, out.data_ptr(), outd.data_ptr(),
+            *scalars, ldo=out.stride(0), trans=transpose)
     return (out, outd) if dual else out

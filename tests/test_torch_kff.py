@@ -405,3 +405,128 @@ def test_k1_tile_ranges_sum_to_single_launch_on_card(cuda, mode, base):
                          tiles=(8, 3), **flags)
     with pytest.raises(ValueError, match="symmetric"):
         kff.kff_from_ops(*args, mm_precision=mode, tiles=(0, 1), **flags)
+
+
+# ---------------------------------------------------------------------------
+# the rectangular highest kernels (K3 kff_rect*, K2 kef_rect*)
+# ---------------------------------------------------------------------------
+
+RECT_BASES = [b for b in kff.BASES if "_rect" in b]
+# (lhs points, lhs envs, rhs points, rhs envs, elements): point counts 1,
+# 7, 8, 9, 13, 100 and env counts 1, 3, 4, 13, 32, 33 on either side
+RECT_CASES = [(1, 1, 7, 3, (13,)), (7, 3, 8, 4, (13, 79)),
+              (8, 4, 9, 13, (13, 29, 79)), (9, 13, 13, 32, (13, 79)),
+              (13, 32, 100, 33, (13, 29, 79)), (100, 33, 1, 1, (13, 79))]
+
+
+def _ragged(rng, n_pts, n_env, elements, d=30):
+    """Points with 1..n_env envs each (the first has n_env), elements at
+    random, in no order."""
+    pts = []
+    for i in range(n_pts):
+        ne = n_env if i == 0 else rng.randint(max(1, n_env - 3), n_env + 1)
+        pts.append((rng.uniform(0.2, 1.0, (ne, d)),
+                    rng.uniform(-1.0, 1.0, (ne, d, 3)),
+                    rng.choice(elements, ne)))
+    return pts
+
+
+def _untouched(buf, rows, cols):
+    """Everything of the NaN-filled ``buf`` outside the slice is NaN."""
+    mask = torch.ones_like(buf, dtype=torch.bool)
+    mask[rows, cols] = False
+    return bool(torch.isnan(buf[mask]).all()) and \
+        not bool(torch.isnan(buf[rows, cols]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("case", range(len(RECT_CASES)))
+@pytest.mark.parametrize("base", RECT_BASES)
+def test_rect_kernels_match_plain_on_card(cuda, base, case, sort):
+    """Each redesigned rectangular kernel within 2e-5 max|plain| of its
+    plain version on the same operands, sorted by element or not, at
+    ragged point and env counts; two runs bit-equal; out= writes a slice
+    of a NaN-filled buffer (K2 also transposed) and nothing else."""
+    m1, B1, m2, B2, elements = RECT_CASES[case]
+    zeta = 1 + case % 3
+    rng = np.random.RandomState(100 + case)
+    kw = dict(device=cuda, dtype=torch.float32)
+    f2 = pack_force(_ragged(rng, m2, B2, elements), **kw)
+    X2, re2 = kff.force_operand(f2, sort=sort)
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    if base.startswith("kef"):
+        e1 = pack_energy([(x, el) for x, _, el in
+                          _ragged(rng, m1, B1, elements)], **kw)
+        lhs = kff.energy_operand(e1, sort=sort) + (e1.x.shape[1],)
+        fn, plain, rows = kff.kef_from_ops, kff.kef_plain, e1.m
+    else:
+        f1 = pack_force(_ragged(rng, m1, B1, elements), **kw)
+        lhs = kff.force_operand(f1, sort=sort) + (f1.x.shape[1],)
+        fn, plain, rows = kff.kff_from_ops, kff.kff_plain, 3 * f1.m
+    args = lhs + (X2, re2, f2.x.shape[1], p, zeta)
+    kff.reset_launches()
+    K, again, P = fn(*args, **flags), fn(*args, **flags), plain(*args, **flags)
+    torch.cuda.synchronize()
+    planes = (K, again, P) if flags["dual"] else ((K,), (again,), (P,))
+    for k, k2, pl in zip(*planes):
+        assert k.shape == (rows, 3 * f2.m)
+        _close(k, pl)
+        assert torch.equal(k, k2)
+    n = 2
+    if not flags["dual"]:
+        buf = torch.full((rows + 5, 3 * f2.m + 7), float("nan"), **kw)
+        sl = (slice(2, 2 + rows), slice(3, 3 + 3 * f2.m))
+        fn(*args, out=buf[sl], **flags)
+        assert torch.equal(buf[sl], K) and _untouched(buf, *sl)
+        n += 1
+        if base.startswith("kef"):
+            buf = torch.full((3 * f2.m + 5, rows + 7), float("nan"), **kw)
+            sl = (slice(1, 1 + 3 * f2.m), slice(4, 4 + rows))
+            fn(*args, out=buf[sl], transpose=True, **flags)
+            assert torch.equal(buf[sl], K.T) and _untouched(buf, *sl)
+            assert torch.equal(fn(*args, transpose=True, **flags), K.T)
+            n += 2
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0), base: n}
+
+
+@pytest.mark.gpu
+def test_rect_kernels_sorted_and_unsorted_agree_on_card(cuda):
+    """Sorting a side's envs moves only the order of each point's sum:
+    the blocks from sorted and unsorted operands agree to 2e-5."""
+    rng = np.random.RandomState(7)
+    kw = dict(device=cuda, dtype=torch.float32)
+    f1 = pack_force(_ragged(rng, 13, 32, (13, 29, 79)), **kw)
+    f2 = pack_force(_ragged(rng, 20, 33, (13, 29, 79)), **kw)
+    out = []
+    for sort in (True, False):
+        X1, re1 = kff.force_operand(f1, sort=sort)
+        X2, re2 = kff.force_operand(f2, sort=sort)
+        out.append(kff.kff_from_ops(X1, re1, 32, X2, re2, 33, PARAMS, 2))
+    _close(out[0], out[1])
+    re1, re2 = (kff.force_operand(f, sort=True)[1] for f in (f1, f2))
+    some, every = kff.staged_pairs(re1, 32, re2, 33)
+    assert 0 < some < every
+
+
+@pytest.mark.gpu
+def test_rect_out_rejects_bad_views_on_card(cuda):
+    rng = np.random.RandomState(8)
+    kw = dict(device=cuda, dtype=torch.float32)
+    f = pack_force(_ragged(rng, 5, 6, (13, 79)), **kw)
+    X, re = kff.force_operand(f)
+    args = (X, re, 6, X, re, 6, PARAMS, 2)
+    good = torch.empty((15, 15), **kw)
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=good.T)
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=torch.empty((15, 14), **kw))
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=good.double())
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=good, symmetric=True)
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=good.cpu())

@@ -4,7 +4,9 @@ calculator at its defaults (opt_freq=1: every refit optimises the
 hyperparameters).  The port must reproduce the JAX package's run --
 convergence, steps, base/surrogate/fit counts, training-set size, theta
 (1e-6 relative) and the band energies (1e-5 eV) -- and the numbers that
-run gives.  Also the NEB pieces alone (find_mic, interpolation,
+run gives, with the operands' envs in their packed order on these small
+sides (the default) and with every side sorted by element; the Dot
+kernel's run likewise.  Also the NEB pieces alone (find_mic, interpolation,
 optimizers, reaction coordinate) against the JAX package."""
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from gpr_calculator_tpu import mep as jax_mep
 from gpr_calculator_tpu import neb as jax_neb
 from gpr_calculator_tpu import optimize as jax_opt
 from gpr_calculator_tpu_torch import mep, neb as port_neb, optimize
+from gpr_calculator_tpu_torch.ops import kff
 
 from test_torch_kff import _on_cpu  # noqa: F401 (fixture)
 
@@ -24,6 +27,10 @@ NOISE_E, NOISE_F = 0.05 / 13, 0.05
 THETA = (0.9000824419630231, 1.291296129835527)
 NSTEPS, BARRIER = 19, 0.3555160
 COUNTS = (8, 51, 4, 13, 40)   # use_base, use_surrogate, fits, N_E, N_F
+# the same with kernel="Dot"
+DOT_THETA = (0.5980691048753912, 1.6996223564233595)
+DOT_NSTEPS, DOT_BARRIER = 24, 0.3560402
+DOT_COUNTS = (10, 64, 5, 15, 40)
 
 
 def _images(pkg):
@@ -33,10 +40,10 @@ def _images(pkg):
             for a in T.au_on_al100_images()]
 
 
-def run_neb(pkg):
+def run_neb(pkg, kernel="RBF"):
     images = _images(pkg)
-    gp = pkg.GP.set_GPR(images, pkg.EMT(), noise_e=NOISE_E, noise_f=NOISE_F,
-                        log_file=None)
+    gp = pkg.GP.set_GPR(images, pkg.EMT(), kernel=kernel, noise_e=NOISE_E,
+                        noise_f=NOISE_F, log_file=None)
     theta = list(gp.kernel.parameters())
     band = pkg.neb_calc(images, pkg.GPR(base=pkg.EMT(), ff=gp, save=False),
                         fmax=0.05, steps=150)
@@ -47,14 +54,42 @@ def run_neb(pkg):
                 energies=np.asarray(band.energies, float))
 
 
+_JAX_RUNS = {}
+
+
+def _jax_run(kernel):
+    if kernel not in _JAX_RUNS:
+        _JAX_RUNS[kernel] = run_neb(J, kernel)
+    return _JAX_RUNS[kernel]
+
+
 def test_onthefly_neb_matches_jax():
-    ours, ref = run_neb(T), run_neb(J)
+    ours, ref = run_neb(T), _jax_run("RBF")
     for run in (ours, ref):
         assert run["converged"] and run["nsteps"] == NSTEPS
         assert run["counts"] == COUNTS
         np.testing.assert_allclose(run["theta"], THETA, rtol=1e-6)
         e = run["energies"]
         assert abs(e.max() - e[0] - BARRIER) < 1e-6
+    np.testing.assert_allclose(ours["energies"], ref["energies"], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel,theta,nsteps,barrier,counts", [
+    ("RBF", THETA, NSTEPS, BARRIER, COUNTS),
+    ("Dot", DOT_THETA, DOT_NSTEPS, DOT_BARRIER, DOT_COUNTS)])
+def test_onthefly_neb_with_sorted_operands(kernel, theta, nsteps, barrier,
+                                           counts, monkeypatch):
+    """Every side's envs sorted by element (SORT_MIN_ENVS = 0; these sides
+    are below the default): the port's run is still the JAX package's."""
+    monkeypatch.setattr(kff, "SORT_MIN_ENVS", 0)
+    ours, ref = run_neb(T, kernel), _jax_run(kernel)
+    for run in (ours, ref):
+        assert run["converged"] and run["nsteps"] == nsteps
+        assert run["counts"] == counts
+        np.testing.assert_allclose(run["theta"], theta, rtol=1e-6)
+        e = run["energies"]
+        assert abs(e.max() - e[0] - barrier) < 1e-6
     np.testing.assert_allclose(ours["energies"], ref["energies"], rtol=0,
                                atol=1e-5)
 
