@@ -5,8 +5,8 @@ Usage (one CUDA card, no arguments):  python3 chip_smoke.py
 
 To compare two revisions on one card in one process tree, instead of the
 run below:  python3 chip_smoke.py --alt-source OTHER_KFF_CU  times the
-rectangular highest kernels of the package's csrc/kff.cu and of another
-revision of that file (with the same entry points) in turns; --alt-root
+highest kernels of the package's csrc/kff.cu and of another revision of
+that file (with the same entry points) in turns; --alt-root
 OTHER_CHECKOUT  times one slice request's _predict_packed of this checkout
 and of another in turns.
 
@@ -53,16 +53,18 @@ in each mode and holds alpha from bf16x4 to float32 ((c), (k3));
 re-serves the frozen slice model against a float64 CPU model; times
 kernel and plain versions at the slice, a mid and the bench shape, with
 each one's bound on the card, and one NLL+gradient evaluation, and
-compares that evaluation with float64 on the card (g).  For the eight
-rectangular highest kernels (K2 kef_rect*, K3 kff_rect*) (b) also runs
+compares that evaluation with float64 on the card (g).  For the twelve
+highest kernels (K1 kff_tri*, K2 kef_rect*, K3 kff_rect*) (b) also runs
 operands sorted by element and left as packed, and (g) prints the wrapper
 call's time, the device time of one raw launch, the launch floor (an empty
 kernel), the share of the bound reached at the mid and bench shapes, what
-a launch skips, what sorting a side by element costs and saves at growing
+a launch skips (K1: on sorted and packed operands at the slice, mid and
+bench shapes), what sorting a side by element costs and saves at growing
 sizes, one request's _predict_packed with the training side's
 operands kept or rebuilt, and checks that a model serving twice builds
 them once and that a request against the 10k bench set served from
-_factorize's weights equals a float64 solve of the same covariance.  Any
+_factorize's weights and factor (mean and sigma) equals a float64 solve
+of the same covariance within a tenth of the noise.  Any
 failure raises (non-zero exit); nothing falls back.  The third-to-last
 line is a JSON list of the kernels, the second-to-last the card's name and
 power limit, the last a JSON status object.
@@ -126,10 +128,14 @@ K1_BASES = [b for b in BASES if b.startswith("kff_tri")]
 RANGE_REPLACES = ("gpr_calculator_tpu/parallel/sharded_kernels.py:200, "
                   "gpr_calculator_tpu/ops/kff_pallas.py:703")
 N_SHARDS = 4
-# the eight rectangular highest entry points run rect_kernel<LC, SEL, KIND>
+# the twelve highest entry points: the eight rectangular ones run
+# rect_kernel<LC, SEL, KIND>, the four K1 ones tri_kernel<SEL, KIND>
 # (template parameters, here without the precision)
+HIGHEST = list(BASES)
 RECT = {b: v[0].replace(",0,", ",", 1) for b, v in BASES.items()
         if "_rect" in b}
+TRI = {b: v[0][len("4,1,"):] for b, v in BASES.items()
+       if b.startswith("kff_tri")}
 
 
 def kname(base, mode):
@@ -243,26 +249,30 @@ def run_neb(T, gp, images):
 
 
 def ptxas_lines(compiler_log):
-    """(kernel name, ptxas resource line) for each instantiation of
-    cov_kernel<LC, MODE, SEL, KIND, PREC> and of rect_kernel<LC, SEL,
-    KIND> (the rectangular highest kernels)."""
-    instances = {f"{params},{PREC[m]}": kname(b, m)
-                 for b, (params, _) in BASES.items() for m in PREC
-                 if not (m == "highest" and b in RECT)}
-    rect = {params: b for b, params in RECT.items()}
+    """(kernel name, body, ptxas resource line) for each instantiation of
+    cov_kernel<LC, MODE, SEL, KIND, PREC> (the bf16 modes), of
+    rect_kernel<LC, SEL, KIND> (K2, K3 in highest) and of tri_kernel<SEL,
+    KIND> (K1 in highest)."""
+    bodies = {
+        "cov": (r"cov_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)ELi(\d)E",
+                {f"{params},{PREC[m]}": kname(b, m)
+                 for b, (params, _) in BASES.items() for m in MODES}),
+        "rect": (r"rect_kernelILi(\d)ELi(\d)ELi(\d)E",
+                 {params: b for b, params in RECT.items()}),
+        "tri": (r"tri_kernelILi(\d)ELi(\d)E",
+                {params: b for b, params in TRI.items()})}
     name = None
     for line in compiler_log.splitlines():
-        m = re.search(r"cov_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)ELi(\d)E",
-                      line)
-        r = re.search(r"rect_kernelILi(\d)ELi(\d)ELi(\d)E", line)
-        if m:
-            name = instances.get(",".join(m.groups()), "?")
-        elif r:
-            name = rect.get(",".join(r.groups()), "?")
+        found = [(body, re.search(pattern, line), names)
+                 for body, (pattern, names) in bodies.items()]
+        found = [(body, m, names) for body, m, names in found if m]
+        if found:
+            body, m, names = found[0]
+            name = names.get(",".join(m.groups()), "?")
         elif "Compiling entry function" in line:
             name = None
         elif name and ("registers" in line or "spill" in line):
-            yield name, line.strip()
+            yield name, body, line.strip()
 
 
 def bench_data(torch, device, m_e=1000, m_f=3000, envs=32, d=30):
@@ -439,10 +449,11 @@ def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC),
 
 
 def rect_cases(kff, e1, f1, e2, f2, params, dparams, sort):
-    """The cases of the eight rectangular highest kernels alone, on
-    operands sorted by element (``sort`` True) or left as packed."""
+    """The cases of the twelve highest kernels on rect_kernel alone (K1,
+    K2, K3), on operands sorted by element (``sort`` True) or left as
+    packed."""
     return [c for c in all_cases(kff, e1, f1, e2, f2, params, dparams,
-                                 ("highest",), sort) if c[0] in RECT]
+                                 ("highest",), sort) if c[0] in HIGHEST]
 
 
 def compare(torch, cases, tag, errs, log, plain_ms=None):
@@ -583,7 +594,9 @@ def device_us(torch, kff, base, lhs, rhs, params, reps=200, fns=None):
     entry point on preallocated outputs, no Python wrapper between them
     (uncounted: a measurement, not a path).  fns: the entry points of
     another library (``kff.load``); the package's own by default.  A K1
-    kernel (lhs is rhs) runs its whole tile range."""
+    kernel (lhs is rhs) runs its whole tile range; where the library takes
+    the k-major copy for it (``kff_tri_rows``), that copy is built once,
+    before the launches."""
     (X1, r1, B1), (X2, r2, B2) = lhs, rhs
     m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
     rows = m1 if base.startswith("kef") else 3 * m1
@@ -591,8 +604,11 @@ def device_us(torch, kff, base, lhs, rhs, params, reps=200, fns=None):
     outd = torch.empty_like(out)
     second = params.get("l")
     gamma = 0.0 if second is None else 1.0 / (2.0 * float(second) ** 2)
-    fn = (kff._lib() if fns is None else fns)[base]
+    lib = kff._lib() if fns is None else fns
+    fn = lib[base]
     nk = kff.n_tri_tiles(m1) if base.startswith("kff_tri") else 0
+    if nk and "kff_tri_rows" in lib and X2.dtype == torch.float32:
+        X2 = kff.tri_operand(X2, r2, B2).contiguous()
     stream = torch.cuda.current_stream().cuda_stream
     args = (X1.data_ptr(), r1.data_ptr(), m1, B1, X2.data_ptr(),
             r2.data_ptr(), m2, B2, out.data_ptr(), outd.data_ptr(),
@@ -646,9 +662,86 @@ def sort_readings(torch, kff, dev, log, card):
             " this side")
 
 
+def sigma_vs_f64(torch, K_ops, pe, pf, be, bf, params, K, Kt, L, alpha,
+                 natoms, log):
+    """(g) the served sigma at n = 10 000: the 13-atom request through
+    _predict_packed with _factorize's factor L, against sigma from a
+    float64 factor and solve of the same K (noise on its diagonal) --
+    sigma_E and every sigma_F within a tenth of the noise, the limits of
+    the mean (bench noise 0.01 / 0.1).  Some force components of this
+    symmetric request have no prior variance, so the variance is also
+    read against the request's largest one.  Beside it, recorded: the
+    same solve against the float64 factor rounded to float32.  Fails
+    when _factorize's sigma is outside the limits."""
+    from gpr_calculator_tpu_torch.models.gp import _predict_packed
+    f64 = torch.float64
+    diag = torch.cat([K_ops.diag_energy(pe, params, 2),
+                      K_ops.diag_force(pf, params, 2).reshape(-1)]).to(f64)
+    L64 = torch.linalg.cholesky(K.to(f64))
+
+    def std_from(L_):
+        V = torch.linalg.solve_triangular(L_, Kt.T.to(L_.dtype), upper=False)
+        return torch.clamp(diag - (V.to(f64) ** 2).sum(0), min=0.0).sqrt()
+    ref = std_from(L64)
+    lim_e, lim_f = 0.1 * 0.01 * natoms, 0.1 * 0.1
+    readings = {}
+    for what, std in (("_factorize's factor", _predict_packed(
+            pe, pf, be, bf, params, alpha, L, 2, True)[1].to(f64)),
+            ("the float64 factor rounded to float32",
+             std_from(L64.float()))):
+        d = (std - ref).abs()
+        dE, dF = float(d[0]) * natoms, float(d[pe.m:].max())
+        dvar = float((std ** 2 - ref ** 2).abs().max() / (ref ** 2).max())
+        readings[what] = (dE, dF)
+        log(f"(g) bench sigma of the 13-atom request from {what} "
+            f"({L.dtype if what.startswith('_f') else torch.float32}) "
+            f"against a float64 factor and solve of the same K: "
+            f"|dsigma_E| = {dE:.3e} eV (limit {lim_e:.3e}), max|dsigma_F| "
+            f"= {dF:.3e} eV/A (limit {lim_f:.3e}); max|dsigma^2| = {dvar:.3e} "
+            f"of the largest variance; sigma_E {float(ref[0]) * natoms:.3e}, "
+            f"max sigma_F {float(ref[pe.m:].max()):.3e}")
+    dE, dF = readings["_factorize's factor"]
+    if not (dE <= lim_e and dF <= lim_f):
+        raise AssertionError("the bench request's sigma from _factorize's "
+                             "factor is outside the limits against a "
+                             "float64 factor and solve of the same K")
+    return readings
+
+
+def k1_readings(torch, kff, shapes, log, card):
+    """(g) the four highest K1 kernels on operands sorted by element and
+    left as packed: the device time of one raw launch, its share of the
+    bound, and what a launch stages and multiplies (``staged_pairs`` in
+    its triangle form).  Returns {(shape, base, sorted): device us}."""
+    out = {}
+    for tag, f, prm, dprm, reps in shapes:
+        B, d = f.x.shape[1], f.x.shape[2]
+        for sort in (True, False):
+            X, re_ = kff.force_operand(f, "highest", sort)
+            side = (X, re_, B)
+            some, every = kff.staged_pairs(re_, B, re_, B, triangle=True)
+            mine, prods = kff.staged_pairs(re_, B, re_, B, triangle=True,
+                                           per_lhs_point=True)
+            for base in [b for b in HIGHEST if b.startswith("kff_tri")]:
+                p_ = dprm if base.endswith("_dot") else prm
+                us = device_us(torch, kff, base, side, side, p_, reps)
+                out[(tag, base, sort)] = us
+                numel = (3 * f.m) ** 2 * (1 + base.endswith("_dual"))
+                bms, by = bound(*work(base, d, side, side, numel))
+                log(f"(g) [{card}] {tag} {base} ({f.m} points, envs "
+                    f"{'sorted by element' if sort else 'as packed'}): "
+                    f"device {us:.2f} us a launch, bound {1e3 * bms:.2f} us "
+                    f"({by}), {1e3 * bms / us:.3f} of the bound; staged "
+                    f"{some / every:.3f} of the chunk pairs, multiplied "
+                    f"{mine / prods:.3f} of the (lhs point, chunk pair) "
+                    "products")
+    return out
+
+
 def compare_sources(torch, T, kff, alt_source, log):
-    """--alt-source: the device time of one launch of the rectangular
-    highest kernels (and of K1-dual beside them) from the package's
+    """--alt-source: the device time of one launch of the twelve highest
+    kernels but the three rectangular Dot ones (K1, K1-dual, K1-deriv,
+    K1-dot, K2 and K3 with their dual and deriv forms) from the package's
     csrc/kff.cu and from ``alt_source`` -- another revision of it with the
     same entry points -- in turns (other, own, own, other) inside this one
     process, at the slice, mid and bench shapes, on the same operands."""
@@ -656,6 +749,9 @@ def compare_sources(torch, T, kff, alt_source, log):
     card = card_line()
     t0 = time.time()
     libs = {"other": kff.load(kff.build(alt_source)[0]), "own": kff._lib()}
+    # the other library's rect kernels need their shared-memory limit too
+    if "kff_rect_init" in libs["other"] and libs["other"]["kff_rect_init"]():
+        raise RuntimeError(f"kff_rect_init of {alt_source} failed")
     log(f"[{card}] both libraries built in {time.time() - t0:.1f} s; other: "
         f"{alt_source}")
     gp, images, _ = run_slice(T, dev, f32, lambda msg: None)
@@ -670,13 +766,15 @@ def compare_sources(torch, T, kff, alt_source, log):
         E1 = kff.energy_operand(e1, "highest") + (e1.x.shape[1],)
         F1, F2 = (kff.force_operand(f, "highest") + (f.x.shape[1],)
                   for f in (f1, f2))
-        for base in [b for b in RECT if not b.endswith("_dot")] \
-                + ["kff_tri_dual"]:
+        for base in [b for b in HIGHEST if b.startswith("kff_tri")
+                     or not b.endswith("_dot")]:
             lhs = E1 if base.startswith("kef") else \
                 F2 if base.startswith("kff_tri") else F1
             us = {"other": [], "own": []}
+            prm_b = {"sigma": prm["sigma"], "sigma0": 2.0} \
+                if base.endswith("_dot") else prm
             for which in ("other", "own", "own", "other"):
-                us[which].append(device_us(torch, kff, base, lhs, F2, prm,
+                us[which].append(device_us(torch, kff, base, lhs, F2, prm_b,
                                            reps, libs[which]))
             log(f"[{card}] {tag} {base} ({lhs[0].shape[-2] // lhs[2]} x "
                 f"{F2[0].shape[-2] // F2[2]} points), device us a launch: "
@@ -1070,8 +1168,21 @@ def main(argv=None) -> int:
     log(f"(a) kernel build: {time.time() - t0:.1f} s")
     if not compiler_log:
         log("(a) the library was built before this run: no ptxas lines")
-    for name, line in ptxas_lines(compiler_log):
-        log(f"(a) ptxas {name}: {line}")
+    bodies = {}
+    for name, body, line in ptxas_lines(compiler_log):
+        log(f"(a) ptxas {name} ({body}_kernel): {line}")
+        bodies.setdefault(body, set()).add(name)
+    if compiler_log:
+        log(f"(a) instantiations: cov_kernel "
+            f"{len(bodies.get('cov', ()))}, rect_kernel "
+            f"{len(bodies.get('rect', ()))}, tri_kernel "
+            f"{len(bodies.get('tri', ()))}")
+        if len(bodies.get("cov", ())) != 24 or \
+                bodies.get("rect", set()) != set(RECT) or \
+                bodies.get("tri", set()) != set(TRI):
+            raise AssertionError("the library does not hold 24 cov_kernel, "
+                                 "8 rect_kernel and 4 tri_kernel "
+                                 "instantiations")
 
     # (d) the main path, counted
     kff.reset_launches()
@@ -1379,9 +1490,10 @@ def main(argv=None) -> int:
               for f in (pf, tf))
     E1 = kff.energy_operand(pe, "highest") + (pe.x.shape[1],)
     slice_device_us = {}
-    for base in RECT:
+    for base in HIGHEST:
         prm = dparams if base.endswith("_dot") else params
-        lhs = E1 if base.startswith("kef") else F1
+        lhs = E1 if base.startswith("kef") else \
+            F2 if base.startswith("kff_tri") else F1
         slice_device_us[base] = device_us(torch, kff, base, lhs, F2, prm)
         log(f"(g) [{card}] slice {base}: device {slice_device_us[base]:.2f} "
             f"us a launch (raw launches back to back), call "
@@ -1395,10 +1507,12 @@ def main(argv=None) -> int:
                 errs, log)
     for tag, (e_, f_) in (("mid", (me, mf)), ("bench", (be, bf))):
         re_, w_ = kff.force_operand(f_)[1], kff.energy_operand(e_)[1]
-        for what, args in (("K3", (re_, 32, re_, 32)),
-                           ("K2", (w_, 32, re_, 32, True))):
-            some, every = kff.staged_pairs(*args)
-            mine, products = kff.staged_pairs(*args, per_lhs_point=True)
+        for what, args, kw in (("K1", (re_, 32, re_, 32), {"triangle": True}),
+                               ("K3", (re_, 32, re_, 32), {}),
+                               ("K2", (w_, 32, re_, 32, True), {})):
+            some, every = kff.staged_pairs(*args, **kw)
+            mine, products = kff.staged_pairs(*args, per_lhs_point=True,
+                                              **kw)
             log(f"(g) {tag} {what}: {some} of {every} chunk pairs staged "
                 f"({some / every:.3f}; the rest have disjoint element "
                 f"ranges), {mine / products:.3f} of the (lhs point, chunk "
@@ -1406,6 +1520,10 @@ def main(argv=None) -> int:
                 f"{pair_count(args[0], 32, re_, 32, False) / (args[0].shape[1] * re_.shape[1]):.3f}"
                 " of all")
     sort_readings(torch, kff, dev, log, card)
+    k1_us = k1_readings(torch, kff, (("slice", tf, params, dparams, 200),
+                                     ("mid", mf, bparams, bdparams, 10),
+                                     ("bench", bf, bparams, bdparams, 3)),
+                        log, card)
     for tag, cases in (("mid", all_cases(kff, me, mf, me, mf, bparams,
                                          bdparams)),
                        ("bench", bench_cases)):
@@ -1422,7 +1540,7 @@ def main(argv=None) -> int:
                 f"{pms:.3f} ms, bound {bms:.3f} ms ({by}; {mma:.4g} "
                 f"tensor-core and {ops:.4g} fp32 operations, {nbytes:.4g} "
                 "bytes)" + (f"; {bms / ms:.3f} of the bound (target 0.5)"
-                            if name in RECT else ""))
+                            if name in HIGHEST else ""))
             at[tag][name] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=by)
 
@@ -1525,6 +1643,8 @@ def main(argv=None) -> int:
         raise AssertionError("the bench request served from _factorize's "
                              "alpha is outside the limits against a float64 "
                              "solve of the same K")
+    sigma_vs_f64(torch, K_ops, pe, pf, be, bf, bparams, Kb, Kt, L_b, a_b,
+                 natoms, log)
     a32 = torch.cholesky_solve(y[:, None], torch.linalg.cholesky(Kb))[:, 0]
     for what, a in (("a float32 solve and a float32 product", a32),
                     ("the float64 solve rounded to float32 and a float32 "
@@ -1659,7 +1779,13 @@ def main(argv=None) -> int:
                 "bound_by": times[name][3], "library_ms": None,
                 "mid": at["mid"][name], "bench": at["bench"][name],
                 **({"device_us": slice_device_us[name],
-                    "launch_floor_us": floor_us} if name in RECT else {})}
+                    "launch_floor_us": floor_us} if name in HIGHEST
+                   else {}),
+                **({"device_us_by_shape": {
+                    f"{tag}_{'sorted' if srt else 'packed'}": us
+                    for (tag, b, srt), us in k1_us.items() if b == name}}
+                   if name in HIGHEST and name.startswith("kff_tri")
+                   else {})}
                for name in NAMES]
     kernels += [{"name": name, "route": "cuda", "source": SOURCE,
                  "replaces": RANGE_REPLACES,

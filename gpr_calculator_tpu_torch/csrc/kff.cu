@@ -18,12 +18,14 @@
 // precisions of kff_pallas.py:38-63 (_pair_blocks :151, _lhs_rhs :394):
 // no further suffix for highest, then _bf16x4 and _bf16.
 //
-// Two kernel bodies.  cov_kernel (this note) serves K1 in every precision
-// and K2 / K3 in the bf16 modes.  rect_kernel (its own note further down)
-// serves K2 and K3 in highest, the two kernels of every served block: it
-// skips the env chunks whose elements cannot meet, overlaps staging with
-// the arithmetic, gives K2 a larger micro-tile, and writes into a
-// caller's buffer, K2 transposed where asked.
+// Three kernels.  cov_kernel (this note) serves K1, K2 and K3 in the bf16
+// modes (24 instantiations).  The twelve highest kernels (their own note
+// further down) share the per-chunk-pair arithmetic of one point pair's
+// env micro-tile: K2 and K3 on rect_kernel (8), which stages with a
+// cp.async ring, K1 on tri_kernel (4), which stages with the Tensor Memory
+// Accelerator and an mbarrier ring.  They skip the env chunks whose elements cannot meet, overlap
+// staging with the arithmetic and write into a caller's buffer (K2
+// transposed where asked, K1 as its tile and the tile's transpose).
 //
 // Operands (built once per block side by ops/kff.py, so every block of one
 // training covariance reads the same rounded values):
@@ -63,10 +65,9 @@
 // both sides staged in shared memory; each thread owns a 2 x 2 env
 // micro-tile of one point pair and its 16 (K_EF: 4) dot products, reduces
 // env -> point in registers across the chunks, then over the 4 threads of
-// its point pair with warp shuffles.  highest stages the chunk k-major and
-// takes the dot products by FMA (4 per shared load).  The bf16 modes stage
-// the parts env-major (k contiguous, the layout mma.row.col reads) and
-// take them with mma.sync m16n8k16: warp (wa, wb) multiplies 16 lhs envs
+// its point pair with warp shuffles.  It stages the bf16 parts env-major
+// (k contiguous, the layout mma.row.col reads) and takes the dot products
+// with mma.sync m16n8k16: warp (wa, wb) multiplies 16 lhs envs
 // x 4 components (4 m-tiles) by 8 rhs envs x 4 components (4 n-tiles),
 // and the lhs envs are staged so that fragment row g holds env 2g and row
 // g + 8 env 2g + 1: then each thread's accumulators hold all (c1, c2)
@@ -91,11 +92,12 @@
 // launch bit for bit (the tile body does not know the range).  The whole
 // range (k0 = 0, nk = all tiles) is the single-card call.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <mutex>
 
 namespace {
 
@@ -111,36 +113,8 @@ constexpr int DOT = 1;
 constexpr int KONLY = 0;      // coefficient sets (template SEL): K,
 constexpr int DUAL = 1;       // K and dK/dgamma,
 constexpr int DERIV = 2;      // dK/dgamma alone
-constexpr int HIGHEST = 0;    // matmul precision (template PREC)
-constexpr int BF16X4 = 1;
-constexpr int BF16 = 2;
-
-// Stage envs [e0, e0+CB) of points [p0, p0+TP) of one side into shared
-// memory, k-major: s[c][k][env], env = point_local * CB + e.  Envs past
-// the point count or the env count load as zeros with zero weight.
-template <int NC>
-__device__ __forceinline__ void stage(const float* __restrict__ X,
-                                      int m, int B, int p0, int e0,
-                                      float (*s)[DP][NE]) {
-  const long long N = (long long)m * B;
-  for (int idx = threadIdx.x; idx < NC * (DP / 4) * NE; idx += NT) {
-    const int env = idx % NE;
-    const int rest = idx / NE;
-    const int k4 = rest % (DP / 4);
-    const int c = rest / (DP / 4);
-    const int p = p0 + env / CB;
-    const int e = e0 + env % CB;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p < m && e < B) {
-      const long long n = (long long)p * B + e;
-      v = *reinterpret_cast<const float4*>(X + (c * N + n) * DP + k4 * 4);
-    }
-    s[c][k4 * 4 + 0][env] = v.x;
-    s[c][k4 * 4 + 1][env] = v.y;
-    s[c][k4 * 4 + 2][env] = v.z;
-    s[c][k4 * 4 + 3][env] = v.w;
-  }
-}
+constexpr int BF16X4 = 1;     // matmul precision of cov_kernel (template
+constexpr int BF16 = 2;       // PREC; highest, 0, runs on rect_kernel)
 
 // The bf16 modes: stage the NP parts of the same envs env-major with k
 // contiguous, s[(part * NC + c) * NE + slot][k] with row stride RS.  On
@@ -181,39 +155,6 @@ __device__ __forceinline__ void stage_re(const float* __restrict__ re,
     float v = 0.f;
     if (p < m && e < B) v = re[row * N + (long long)p * B + e];
     sre[row][env] = v;
-  }
-}
-
-// G[c1 * 4 + c2][ia * 2 + ib] = X1[c1]_(a0+ia) . X2[c2]_(b0+ib) in fp32
-// FMA from the k-major chunk.
-template <int LC>
-__device__ __forceinline__ void pair_blocks_fma(const float (*s1)[DP][NE],
-                                                const float (*s2)[DP][NE],
-                                                int a0, int b0,
-                                                float (&G)[LC * 4][4]) {
-#pragma unroll
-  for (int c = 0; c < LC * 4; ++c)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) G[c][i] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < DP; ++k) {
-    float2 l[LC], r[4];
-#pragma unroll
-    for (int c = 0; c < LC; ++c)
-      l[c] = *reinterpret_cast<const float2*>(&s1[c][k][a0]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      r[c] = *reinterpret_cast<const float2*>(&s2[c][k][b0]);
-#pragma unroll
-    for (int c1 = 0; c1 < LC; ++c1)
-#pragma unroll
-      for (int c2 = 0; c2 < 4; ++c2) {
-        float* gc = G[c1 * 4 + c2];
-        gc[0] = fmaf(l[c1].x, r[c2].x, gc[0]);
-        gc[1] = fmaf(l[c1].x, r[c2].y, gc[1]);
-        gc[2] = fmaf(l[c1].y, r[c2].x, gc[2]);
-        gc[3] = fmaf(l[c1].y, r[c2].y, gc[3]);
-      }
   }
 }
 
@@ -284,14 +225,21 @@ __device__ __forceinline__ void pair_blocks_mma(const uint16_t* __restrict__ sA,
   }
 }
 
-// One side's staged chunk with NC components: k-major fp32 rows
-// (highest), or the bf16 parts env-major with row stride RS (the bf16
-// modes).  The two sides are two __shared__ arrays: one object holding
-// both made ptxas spill 40-96 bytes in the fp32 K_FF kernels (PERF.md).
+// One side's staged chunk with NC components: the bf16 parts env-major
+// with row stride RS.  The two sides are two __shared__ arrays: one object
+// holding both made ptxas spill 40-96 bytes in the fp32 K_FF kernels
+// (PERF.md).
 template <int NC, int PREC>
-using Staged = std::conditional_t<
-    PREC == HIGHEST, float[NC][DP][NE],
-    uint16_t[(PREC == BF16X4 ? 2 : 1) * NC * NE * RS]>;
+using Staged = uint16_t[(PREC == BF16X4 ? 2 : 1) * NC * NE * RS];
+
+// The upper-triangle tile (I <= J) of linear index k = J (J + 1) / 2 + I.
+__device__ __forceinline__ void tri_tile(long long k, int& I, int& J) {
+  long long j = (long long)((sqrt(8.0 * (double)k + 1.0) - 1.0) * 0.5);
+  while ((j + 1) * (j + 2) / 2 <= k) ++j;
+  while (j * (j + 1) / 2 > k) --j;
+  J = (int)j;
+  I = (int)(k - j * (j + 1) / 2);
+}
 
 // c^(z-1) and z(z-1) c^(z-2) for an integer exponent z >= 1.
 __device__ __forceinline__ void powers(float c, int zeta, float& d1,
@@ -316,7 +264,7 @@ __device__ __forceinline__ void powers(float c, int zeta, float& d1,
 // SEL = KONLY: K into out; DUAL: K into out and dK/dgamma into outd;
 // DERIV: dK/dgamma into out.
 // KIND = RBF (gamma = 1 / (2 l^2)) or DOT (gamma unused).
-// PREC = HIGHEST (fp32 FMA), BF16X4 or BF16 (tensor cores).
+// PREC = BF16X4 or BF16 (tensor cores).
 // The K_FF instantiations ask for two resident blocks per SM, which caps
 // them at 128 registers, and the K_EF ones for four (64 registers): left
 // free, ptxas gave some K_FF ones 129-139 registers, the card then held
@@ -343,64 +291,42 @@ cov_kernel(const void* __restrict__ X1, const float* __restrict__ re1,
 
   int I, J;
   if (MODE == 1) {
-    const long long k = k0 + blockIdx.x;
-    long long j = (long long)((sqrt(8.0 * (double)k + 1.0) - 1.0) * 0.5);
-    while ((j + 1) * (j + 2) / 2 <= k) ++j;
-    while (j * (j + 1) / 2 > k) --j;
-    J = (int)j;
-    I = (int)(k - j * (j + 1) / 2);
+    tri_tile(k0 + blockIdx.x, I, J);
   } else {
     I = blockIdx.y;
     J = blockIdx.x;
   }
 
   // this thread's point pair (pl, ql) in the tile, its two lhs envs a0,
-  // a0 + 1 and two rhs envs b0, b0 + 1 of each chunk, and the lanes of
-  // the other three threads of the pair (xor 1, xor SH)
+  // a0 + 1 and two rhs envs b0, b0 + 1 of each chunk (the fragment rows
+  // and columns of its accumulators), and the lanes of the other three
+  // threads of the pair (xor 1, xor 4)
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  int pl, ql, a0, b0;
-  if constexpr (PREC == HIGHEST) {
-    ql = (t >> 2) & (TP - 1);
-    pl = warp;
-    a0 = pl * CB + ((t >> 1) & 1) * 2;
-    b0 = ql * CB + (t & 1) * 2;
-  } else {
-    const int g = lane >> 2, q = lane & 3;
-    pl = 4 * (warp >> 2) + (g >> 1);
-    ql = 2 * (warp & 3) + (q >> 1);
-    a0 = 16 * (warp >> 2) + 2 * g;
-    b0 = 8 * (warp & 3) + 2 * q;
-  }
-  constexpr int SH = PREC == HIGHEST ? 2 : 4;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int pl = 4 * (warp >> 2) + (g >> 1);
+  const int ql = 2 * (warp & 3) + (q4 >> 1);
+  const int a0 = 16 * (warp >> 2) + 2 * g;
+  const int b0 = 8 * (warp & 3) + 2 * q4;
 
   float acc[NOUT];
 #pragma unroll
   for (int i = 0; i < NOUT; ++i) acc[i] = 0.f;
 
   for (int ea = 0; ea < B1; ea += CB) {
-    if constexpr (PREC == HIGHEST)
-      stage<LC>(static_cast<const float*>(X1), m1, B1, I * TP, ea, s1);
-    else
-      stage_bf16<LC, NP, true>(static_cast<const uint16_t*>(X1), m1, B1,
-                               I * TP, ea, s1);
+    stage_bf16<LC, NP, true>(static_cast<const uint16_t*>(X1), m1, B1,
+                             I * TP, ea, s1);
     stage_re(re1, m1, B1, I * TP, ea, sre1);
     for (int eb = 0; eb < B2; eb += CB) {
-      if constexpr (PREC == HIGHEST)
-        stage<4>(static_cast<const float*>(X2), m2, B2, J * TP, eb, s2);
-      else
-        stage_bf16<4, NP, false>(static_cast<const uint16_t*>(X2), m2, B2,
-                                 J * TP, eb, s2);
+      stage_bf16<4, NP, false>(static_cast<const uint16_t*>(X2), m2, B2,
+                               J * TP, eb, s2);
       stage_re(re2, m2, B2, J * TP, eb, sre2);
       __syncthreads();
 
       // G[c1 * 4 + c2][ia * 2 + ib] = X1[c1]_(a0+ia) . X2[c2]_(b0+ib)
       float G[LC * 4][4];
-      if constexpr (PREC == HIGHEST)
-        pair_blocks_fma<LC>(s1, s2, a0, b0, G);
-      else
-        pair_blocks_mma<LC, NP>(s1, s2, warp >> 2, warp & 3, lane, G);
+      pair_blocks_mma<LC, NP>(s1, s2, warp >> 2, warp & 3, lane, G);
 
 #pragma unroll
       for (int ia = 0; ia < 2; ++ia)
@@ -473,13 +399,13 @@ cov_kernel(const void* __restrict__ X1, const float* __restrict__ re1,
     }
   }
 
-  // reduce the 2 x 2 micro-tiles of one point pair (lanes xor 1, xor SH)
+  // reduce the 2 x 2 micro-tiles of one point pair (lanes xor 1, xor 4)
 #pragma unroll
   for (int i = 0; i < NOUT; ++i) {
     acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
-    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], SH);
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 4);
   }
-  if ((lane & (1 | SH)) != 0) return;
+  if ((lane & 5) != 0) return;
   const int p = I * TP + pl;
   const int q = J * TP + ql;
   if (p >= m1 || q >= m2) return;
@@ -523,15 +449,20 @@ cov_kernel(const void* __restrict__ X1, const float* __restrict__ re1,
 
 
 // ---------------------------------------------------------------------------
-// The rectangular kernels in highest: K3 (kff_rect*, LC = 4) and K2
-// (kef_rect*, LC = 1), the two kernels of every served block.
+// The kernels in highest: K3 (kff_rect*, LC = 4) and K2 (kef_rect*, LC =
+// 1), the two kernels of every served block, on rect_kernel; K1
+// (kff_tri*), the symmetric K_FF of every training covariance, on
+// tri_kernel.  Both run the same arithmetic per staged chunk pair, each
+// with its own copy of it: shared as one function, it made the compiler
+// emit slower code for K1 (111.8 against 88.8 ms at the 10k bench shape,
+// NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
 //
-// rect_kernel replaces _kff_kernel (kff_pallas.py:269, K3) and _kef_kernel
-// (kff_pallas.py:748, K2) in the exact mode.  What bounds them on this
-// card: the fp32 FMA rate of the env-pair dot products (operations; the
-// operands stay in L2), and at the few-point shapes of one served request
-// the length of one block's serial chain of chunk pairs.  What the design
-// does about it:
+// They replace _kff_kernel (kff_pallas.py:269, K3), _kef_kernel
+// (kff_pallas.py:748, K2) and _kff_kernel_tri (kff_pallas.py:282, K1) in
+// the exact mode.  What bounds them on this card: the fp32 FMA rate of the
+// env-pair dot products (operations; the operands stay in L2), and at the
+// few-point shapes of one served request the length of one block's serial
+// chain of chunk pairs.  What the design does about it:
 //  * Chunk pairs that cannot meet are never staged or multiplied.  Every
 //    block first reads the element range [lo, hi] of the valid envs of
 //    each of its env chunks from re; a chunk pair whose ranges do not
@@ -543,25 +474,45 @@ cov_kernel(const void* __restrict__ X1, const float* __restrict__ re1,
 //    mask stays, and a skipped pair is one whose every weight is zero,
 //    which the assembly never adds, so the sums are the same bit for bit
 //    whatever is skipped.
-//  * Staging overlaps the arithmetic: cp.async copies the next chunk pair
-//    into the second stage of a ring in dynamic shared memory while the
-//    block multiplies the current one.  The copies are 4 bytes wide and
-//    transpose on the way (8 consecutive k of 4 consecutive envs per
-//    warp instruction: whole 32-byte sectors from global, conflict-free
-//    k-major rows of stride NE + 4 in shared memory), so the inner loop
-//    reads the k-major layout it needs, one k a step; a lhs chunk already
-//    held by a stage is not copied again.  (16-byte copies of env-major
-//    rows with a float4 k-vector inner loop were measured slower, 14.2
-//    against 12.2 ms for K3 at 750 x 750 points of 32 envs on an NVIDIA
-//    H100 80GB HBM3, 700.00 W, and spilled.)
+//  * rect_kernel: staging overlaps the arithmetic: cp.async copies the
+//    next chunk pair into the second stage of a ring in dynamic shared
+//    memory while the block multiplies the current one.  The copies are 4
+//    bytes wide and transpose on the way (8 consecutive k of 4 consecutive
+//    envs per warp instruction: whole 32-byte sectors from global,
+//    conflict-free k-major rows of stride NE + 4 in shared memory), so the
+//    inner loop reads the k-major layout it needs, one k a step; a lhs
+//    chunk already held by a stage is not copied again.  (16-byte copies
+//    of env-major rows with a float4 k-vector inner loop were measured
+//    slower, 14.2 against 12.2 ms for K3 at 750 x 750 points of 32 envs
+//    on an NVIDIA H100 80GB HBM3, 700.00 W, and spilled.)
 //  * K2 is no longer bound by shared-memory loads: a thread owns 4 lhs
 //    envs x 2 rhs envs x 4 components (32 accumulators, 1 float4 + 4
 //    float2 loads for 32 FMAs per k, against 5 float2 loads for 16
-//    before), with 8-env lhs chunks of 8 energy points.  K3 keeps the
-//    2 x 2 env micro-tile of 16 dot products and 4-env chunks.  Both
+//    before), with 8-env lhs chunks of 8 energy points.  K1 and K3 keep
+//    the 2 x 2 env micro-tile of 16 dot products and 4-env chunks.  All
 //    tiles are 8 points x 8 points, one warp a lhs point.
 //  * The output goes to out + row * ldo (the caller's buffer, any leading
 //    dimension), and K2 can store transposed (K_FE of a served block).
+//  * tri_kernel (K1) stages with the Tensor Memory Accelerator: the
+//    operand's k-major copy (ops/kff.py tri_operand: rows [c][k], weight,
+//    element; m points; env count rounded up to CB) is read through a
+//    3-D tensor map, one box (CB envs x TP points x all TROWS rows) a side
+//    and chunk, which lands as the k-major rows the inner loop reads
+//    (stride NE: a warp's rhs loads cover 128 consecutive bytes, no bank
+//    conflict) with the weights and elements behind them; points past m
+//    arrive as zeros.  A ring of TSTAGES stages, each with a full and an
+//    empty mbarrier: thread 0 issues the next copies as soon as the
+//    stage's consumers have released it, every warp waits on the full
+//    barrier of the stage it reads and releases it with one arrive, and
+//    no block barrier stands in the chunk loop.  This took K1 at the
+//    10k bench shape from 96.0 ms (the cp.async ring of rect_kernel) to
+//    88.2 ms, K1-dual from 100.7 to 95.3 (NVIDIA H100 80GB HBM3,
+//    700.00 W; PERF.md).  K1 walks the upper-triangle tiles of its range,
+//    one a block; a diagonal tile reads its chunk ranges once for both
+//    sides.  It writes the tile and its transpose, on a diagonal tile the
+//    upper entries mirrored, so K is exactly symmetric; the tile body does
+//    not know the range, so tile ranges sum to the single launch bit for
+//    bit (the mesh-sharded build).
 // Every output element is written once by one thread; a point pair's sum
 // is taken in an order that depends on its own envs alone (chunk pairs in
 // nested order, then the lanes of the pair by shuffles), never on the
@@ -933,28 +884,325 @@ rect_kernel(const float* __restrict__ X1, const float* __restrict__ re1,
   }
 }
 
+// The TMA staging of tri_kernel: TROWS rows of the k-major copy a chunk
+// (4 DP rows [c][k], then the weight and the element), TSIDE floats a
+// side (16 640 bytes), TSTAGES stages of both sides.
+constexpr int TROWS = 4 * DP + 2;
+constexpr int TSIDE = TROWS * NE;
+constexpr int TSTAGES = 3;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// The producer's arrive, announcing the bytes its copies will deliver.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of the k-major copy (envs c0.., points c1.., rows c2..) into
+// shared memory; its bytes complete the transaction count of ``bar``.
+__device__ __forceinline__ void tma_load3(float* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// K1 in highest: tiles [k0, k0 + gridDim.x) of the upper triangle of one
+// operand, re its [weight, element] rows (the chunk ranges), map the
+// tensor map of its k-major copy (tri_map).  SEL and KIND as in
+// cov_kernel; out (and outd for DUAL) with leading dimension ldo.
+template <int SEL, int KIND>
+__global__ void __launch_bounds__(NT, 2)
+tri_kernel(const __grid_constant__ CUtensorMap map,
+           const float* __restrict__ re, int m, int B,
+           float* __restrict__ out, float* __restrict__ outd, long long ldo,
+           float sigma2, float gamma, int zeta, long long k0) {
+  constexpr int NPL = 9, NS = SEL == DUAL ? 2 : 1, NOUT = NPL * NS;
+  constexpr int DSET = SEL == DUAL ? NPL : 0;
+  extern __shared__ __align__(16) float smem_raw[];
+  // the ring first, at a 128-byte boundary (a TMA destination), then the
+  // barriers and the chunk ranges
+  float* const ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~(uintptr_t)127);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(
+      ring + TSTAGES * 2 * TSIDE);
+  uint64_t* const empty = full + TSTAGES;
+  float* const rngs = reinterpret_cast<float*>(empty + TSTAGES);
+
+  int I, J;
+  tri_tile(k0 + blockIdx.x, I, J);
+  const int nc = (B + CB - 1) / CB;
+  // a diagonal tile: both sides are one tile, whose chunk ranges are read
+  // once for both roles
+  const bool one_tile = I == J;
+  float* const rng1 = rngs;
+  float* const rng2 = one_tile ? rng1 : rng1 + 2 * nc;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int pl = warp, ql = lane >> 2;
+  const int a0 = pl * CB + ((lane >> 1) & 1) * 2;
+  const int b0 = ql * CB + (lane & 1) * 2;
+
+  for (int ch = warp; ch < (one_tile ? nc : 2 * nc); ch += NT / 32) {
+    if (ch < nc)
+      chunk_range<NE, CB>(re, m, B, I * TP, ch, rng1);
+    else
+      chunk_range<NE, CB>(re, m, B, J * TP, ch - nc, rng2);
+  }
+  if (t == 0) {
+    for (int s = 0; s < TSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto next = [&](int& a, int& b) -> bool {
+    for (;;) {
+      if (++b >= nc) {
+        b = 0;
+        ++a;
+      }
+      if (a >= nc) return false;
+      if (!(rng1[2 * a + 1] < rng2[2 * b] || rng2[2 * b + 1] < rng1[2 * a]))
+        return true;
+    }
+  };
+  // the producer (thread 0): its own cursor over the same chunk pairs,
+  // the next copy's index, and the lhs chunk each stage holds
+  int pa = 0, pb = -1, jn = 0;
+  int held[TSTAGES];
+  bool phave = false;
+  auto issue = [&]() {
+    const int s = jn % TSTAGES;
+    if (jn >= TSTAGES) mbar_wait(&empty[s], ((jn / TSTAGES) - 1) & 1);
+    float* const st = ring + s * 2 * TSIDE;
+    const bool lhs = held[s] != pa;
+    mbar_expect_tx(&full[s], (lhs ? 2 : 1) * TSIDE * (uint32_t)sizeof(float));
+    if (lhs) {
+      tma_load3(st, &map, &full[s], pa * CB, I * TP, 0);
+      held[s] = pa;
+    }
+    tma_load3(st + TSIDE, &map, &full[s], pb * CB, J * TP, 0);
+    ++jn;
+    phave = next(pa, pb);
+  };
+  if (t == 0) {
+    for (int s = 0; s < TSTAGES; ++s) held[s] = -1;
+    phave = next(pa, pb);
+    for (int s = 0; s < TSTAGES - 1 && phave; ++s) issue();
+  }
+
+  float acc[NOUT];
+#pragma unroll
+  for (int i = 0; i < NOUT; ++i) acc[i] = 0.f;
+
+  int a = 0, b = -1, it = 0;
+  bool have = next(a, b);
+  while (have) {
+    // keep TSTAGES - 1 chunk pairs in flight ahead of this one
+    if (t == 0 && phave) issue();
+    const int s = it % TSTAGES;
+    mbar_wait(&full[s], (it / TSTAGES) & 1);
+    const float* const s1 = ring + s * 2 * TSIDE;
+    const float* const s2 = s1 + TSIDE;
+    const float* const sw1 = s1 + 4 * DP * NE;
+    const float* const se1 = sw1 + NE;
+    const float* const sw2 = s2 + 4 * DP * NE;
+    const float* const se2 = sw2 + NE;
+    float wlo = INFINITY, whi = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < CB; ++i) {
+      const float el = se1[pl * CB + i];
+      if (sw1[pl * CB + i] != 0.f) {
+        wlo = fminf(wlo, el);
+        whi = fmaxf(whi, el);
+      }
+    }
+    if (!(whi < rng2[2 * b] || rng2[2 * b + 1] < wlo)) {
+      float G[16][4];
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) G[c][i] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < DP; ++k) {
+        float2 l[4], r[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          l[c] = *reinterpret_cast<const float2*>(s1 + (c * DP + k) * NE + a0);
+          r[c] = *reinterpret_cast<const float2*>(s2 + (c * DP + k) * NE + b0);
+        }
+#pragma unroll
+        for (int c1 = 0; c1 < 4; ++c1)
+#pragma unroll
+          for (int c2 = 0; c2 < 4; ++c2) {
+            float* gc = G[c1 * 4 + c2];
+            gc[0] = fmaf(l[c1].x, r[c2].x, gc[0]);
+            gc[1] = fmaf(l[c1].x, r[c2].y, gc[1]);
+            gc[2] = fmaf(l[c1].y, r[c2].x, gc[2]);
+            gc[3] = fmaf(l[c1].y, r[c2].y, gc[3]);
+          }
+      }
+#pragma unroll
+      for (int ia = 0; ia < 2; ++ia)
+#pragma unroll
+        for (int ib = 0; ib < 2; ++ib) {
+          const int e = ia * 2 + ib;
+          const float same = se1[a0 + ia] == se2[b0 + ib] ? 1.f : 0.f;
+          const float w = sw1[a0 + ia] * sw2[b0 + ib] * same;
+          if (w == 0.f) continue;
+          const float c = G[0][e];
+          float d1, dm2;
+          powers(c, zeta, d1, dm2);
+          const float D = d1 * c;
+          const float zd1 = (float)zeta * d1;
+          const float b0c = (float)(zeta * (zeta - 1)) * dm2;
+          float k = 0.f, A, Bc;
+          if constexpr (KIND == DOT) {
+            A = sigma2 * zd1 * w;
+            Bc = sigma2 * b0c * w;
+          } else {
+            k = sigma2 * expf((D - 1.f) * gamma);
+            const float kg = k * gamma;
+            A = kg * zd1 * w;
+            Bc = kg * (b0c + zd1 * zd1 * gamma) * w;
+          }
+          if constexpr (SEL != DERIV) {
+#pragma unroll
+            for (int u = 0; u < 3; ++u) {
+              const float Bp1 = Bc * G[(1 + u) * 4][e];
+#pragma unroll
+              for (int v = 0; v < 3; ++v)
+                acc[u * 3 + v] += A * G[(1 + u) * 4 + 1 + v][e] +
+                                  Bp1 * G[1 + v][e];
+            }
+          }
+          if constexpr (SEL != KONLY) {
+            const float Dm1 = D - 1.f;
+            const float kw = k * w;
+            const float dA = A * Dm1 + kw * zd1;
+            const float dB = Bc * Dm1 + kw * (b0c + 2.f * zd1 * zd1 * gamma);
+#pragma unroll
+            for (int u = 0; u < 3; ++u) {
+              const float dBp1 = dB * G[(1 + u) * 4][e];
+#pragma unroll
+              for (int v = 0; v < 3; ++v)
+                acc[DSET + u * 3 + v] +=
+                    dA * G[(1 + u) * 4 + 1 + v][e] + dBp1 * G[1 + v][e];
+            }
+          }
+        }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    have = next(a, b);
+    ++it;
+  }
+
+#pragma unroll
+  for (int i = 0; i < NOUT; ++i) {
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 2);
+  }
+  if ((lane & 3) != 0) return;
+  const int p = I * TP + pl;
+  const int q = J * TP + ql;
+  if (p >= m || q >= m) return;
+#pragma unroll
+  for (int sset = 0; sset < NS; ++sset) {
+    float* __restrict__ o = sset == 0 ? out : outd;
+    const int s0 = sset * NPL;
+    if (I < J || pl < ql) {
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          o[(long long)(3 * p + u) * ldo + 3 * q + v] = acc[s0 + u * 3 + v];
+          o[(long long)(3 * q + v) * ldo + 3 * p + u] = acc[s0 + u * 3 + v];
+        }
+    } else if (pl == ql) {
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int v = u; v < 3; ++v) {
+          const float x = acc[s0 + u * 3 + v];
+          o[(long long)(3 * p + u) * ldo + 3 * p + v] = x;
+          o[(long long)(3 * p + v) * ldo + 3 * p + u] = x;
+        }
+    }
+  }
+}
+
 // An empty kernel: the floor of one launch on this card.
 __global__ void empty_kernel() {}
 
 inline int tiles(int m) { return (m + TP - 1) / TP; }
 
-// MODE 1 (K1): tiles [k0, k0 + nk) of the upper triangle of one (m1 = m2)
-// point set, a range that must lie inside the triangle;
-// MODE 0: every (lhs tile, rhs tile), k0 and nk unused.  Returns the
-// launch status.
+// The grid of one launch.  MODE 1 (K1): tiles [k0, k0 + nk) of the upper
+// triangle of one (m1 = m2) point set, a range that must lie inside the
+// triangle; MODE 0: every (lhs tile, rhs tile), k0 and nk unused.  False
+// for a range outside the triangle.
+template <int MODE>
+bool grid_of(int m1, int m2, long long k0, long long nk, dim3& grid) {
+  grid = dim3(tiles(m2), tiles(m1));
+  if (MODE == 1) {
+    const long long nt = tiles(m1);
+    if (k0 < 0 || nk < 1 || nk > 0x7fffffffLL || k0 + nk > nt * (nt + 1) / 2)
+      return false;
+    grid = dim3((unsigned)nk);
+  }
+  return true;
+}
+
+// cov_kernel (K1 and K2 / K3 in the bf16 modes).  Returns the launch
+// status.
 template <int LC, int MODE, int SEL, int KIND, int PREC>
 int launch(const void* X1, const float* re1, int m1, int B1, const void* X2,
            const float* re2, int m2, int B2, float* out, float* outd,
            float sigma2, float gamma, int zeta, long long k0, long long nk,
            long long ldo, int trans, void* stream) {
-  if (trans || ldo < 3LL * m2) return (int)cudaErrorInvalidValue;
-  dim3 grid(tiles(m2), tiles(m1));
-  if (MODE == 1) {
-    const long long nt = tiles(m1);
-    if (k0 < 0 || nk < 1 || nk > 0x7fffffffLL || k0 + nk > nt * (nt + 1) / 2)
-      return (int)cudaErrorInvalidValue;
-    grid = dim3((unsigned)nk);
-  }
+  dim3 grid;
+  if (trans || ldo < 3LL * m2 || !grid_of<MODE>(m1, m2, k0, nk, grid))
+    return (int)cudaErrorInvalidValue;
   cov_kernel<LC, MODE, SEL, KIND, PREC>
       <<<grid, NT, 0, (cudaStream_t)stream>>>(X1, re1, m1, B1, X2, re2, m2,
                                               B2, out, outd, ldo, sigma2,
@@ -962,12 +1210,13 @@ int launch(const void* X1, const float* re1, int m1, int B1, const void* X2,
   return (int)cudaGetLastError();
 }
 
-// The rectangular highest kernels: every (lhs tile, rhs tile) of
-// rect_kernel, with the two-stage ring and the chunk ranges in dynamic
-// shared memory.  The ring alone is above the 48 KB a kernel gets unasked,
-// so rect_init raises the limit of every instantiation, once per device
-// (kff_rect_init below), to what a block needs: the ring and kRangeBytes
-// of chunk ranges (8 bytes a chunk: up to 2048 chunks on the two sides).
+// The highest kernels' launches.  rect_kernel (K2, K3): every (lhs tile,
+// rhs tile), with the two-stage ring and the chunk ranges in dynamic shared
+// memory; tri_kernel (K1): the tile range, with the TMA ring, its barriers
+// and the chunk ranges.  Both rings are above the 48 KB a kernel gets
+// unasked, so kff_rect_init raises the limit of every instantiation, once
+// per device, to what a block needs: its ring and kRangeBytes of chunk
+// ranges (8 bytes a chunk: up to 2048 chunks on the two sides).
 constexpr size_t kRangeBytes = 16384;
 
 template <int LC>
@@ -975,16 +1224,34 @@ constexpr size_t rect_ring_bytes() {
   return sizeof(float) * 2 * (size_t)Rect<LC>::STAGE;
 }
 
-template <int LC, int SEL, int KIND>
-cudaError_t rect_init() {
+// 128 bytes to align the ring, the ring, 2 TSTAGES barriers, the ranges
+constexpr size_t tri_ring_bytes() {
+  return 128 + sizeof(float) * TSTAGES * 2 * (size_t)TSIDE +
+         2 * TSTAGES * sizeof(uint64_t);
+}
+
+// Raise a kernel's dynamic shared-memory limit to ``bytes`` and ask for
+// the largest carveout: two blocks of 75 KB (K3), three of 56 KB (K2) or
+// two of 98 KB (K1) must fit an SM.
+template <typename Kernel>
+cudaError_t smem_init(Kernel kernel, size_t bytes) {
   cudaError_t rc = cudaFuncSetAttribute(
-      rect_kernel<LC, SEL, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(rect_ring_bytes<LC>() + kRangeBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return rc;
-  // two blocks of 75 KB (K3) or three of 56 KB (K2) must fit an SM
-  return cudaFuncSetAttribute(rect_kernel<LC, SEL, KIND>,
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int LC, int SEL, int KIND>
+cudaError_t rect_init() {
+  return smem_init(rect_kernel<LC, SEL, KIND>,
+                   rect_ring_bytes<LC>() + kRangeBytes);
+}
+
+template <int SEL, int KIND>
+cudaError_t tri_init() {
+  return smem_init(tri_kernel<SEL, KIND>, tri_ring_bytes() + kRangeBytes);
 }
 
 template <int LC, int SEL, int KIND>
@@ -1007,6 +1274,92 @@ int launch_rect(const float* X1, const float* re1, int m1, int B1,
   return (int)cudaGetLastError();
 }
 
+// The tensor map of one k-major copy: a 3-D float32 tensor (env, point,
+// row) of extents (Bp, m, TROWS), boxes of (CB, TP, TROWS), no swizzle,
+// zeros past the extents.  cuTensorMapEncodeTiled is looked up with
+// cudaGetDriverEntryPoint, so the library links nothing but the CUDA
+// runtime.  A map depends on the copy's address and extents alone,
+// so it is encoded once per (device, address, extents) and kept: a launch
+// on a copy seen before, e.g. every launch of a timing loop, reuses it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+struct TriMap {
+  int device;
+  const void* ptr;
+  int m, Bp;
+  CUtensorMap map;
+};
+
+int tri_map(const void* Xt, int m, int Bp, CUtensorMap* map) {
+  static std::mutex lock;
+  static EncodeTiled encode = nullptr;
+  static TriMap kept[16];
+  static int n_kept = 0, next_slot = 0;
+  int device;
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < n_kept; ++i) {
+    const TriMap& e = kept[i];
+    if (e.device == device && e.ptr == Xt && e.m == m && e.Bp == Bp) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  if (!encode) {
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", (void**)&encode,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || !encode) {
+      encode = nullptr;
+      return -1;
+    }
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)Bp, (cuuint64_t)m, TROWS};
+  const cuuint64_t strides[2] = {sizeof(float) * (cuuint64_t)Bp,
+                                 sizeof(float) * (cuuint64_t)Bp * m};
+  const cuuint32_t box[3] = {CB, TP, TROWS};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             const_cast<void*>(Xt), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -1;
+  kept[next_slot] = TriMap{device, Xt, m, Bp, *map};
+  next_slot = (next_slot + 1) % 16;
+  if (n_kept < 16) ++n_kept;
+  return 0;
+}
+
+// K1 in highest: X1 is unused, re1 gives the chunk ranges, X2 is the
+// k-major copy of (X1, re1) (ops/kff.py tri_operand, 16-byte aligned);
+// re2, m2, B2 must repeat re1, m1, B1.
+template <int SEL, int KIND>
+int launch_tri(const float* re1, int m1, int B1, const float* X2,
+               const float* re2, int m2, int B2, float* out, float* outd,
+               float sigma2, float gamma, int zeta, long long k0,
+               long long nk, long long ldo, int trans, void* stream) {
+  const int nc = (B1 + CB - 1) / CB;
+  const size_t ranges = sizeof(float) * 4 * (size_t)nc;
+  dim3 grid;
+  if (trans || ldo < 3LL * m1 || re2 != re1 || m2 != m1 || B2 != B1 ||
+      ranges > kRangeBytes || ((uintptr_t)X2 & 15) ||
+      !grid_of<1>(m1, m1, k0, nk, grid))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (tri_map(X2, m1, nc * CB, &map) != 0)
+    return (int)cudaErrorInvalidValue;
+  tri_kernel<SEL, KIND>
+      <<<grid, NT, tri_ring_bytes() + ranges, (cudaStream_t)stream>>>(
+          map, re1, m1, B1, out, outd, ldo, sigma2, gamma, zeta, k0);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd, sigma2,
@@ -1014,13 +1367,15 @@ int launch_rect(const float* X1, const float* re1, int m1, int B1,
 // out (m1, 3 m2) from energy operands (U1, w1 = [valid/count, element])
 // against force operands; ldo is the leading dimension of out and outd
 // (at least 3 m2).  outd receives dK/dgamma for _dual and is unused
-// otherwise; gamma is unused by _dot.  K1 (kff_tri*) takes X2 = X1, re2 =
-// re1, m2 = m1, B2 = B1 and writes tiles [k0, k0 + nk) of the upper
-// triangle and their transposes, nothing else: the whole range gives an
-// exactly symmetric out (and outd), a part of it needs out zeroed by the
-// caller.  k0 and nk are unused by the rectangular kernels.  trans != 0
-// (the highest kef_rect* alone; any other kernel refuses it) stores K_EF
-// transposed, out (3 m2, m1) with ldo at least m1.
+// otherwise; gamma is unused by _dot.  K1 (kff_tri*) takes re2 = re1, m2
+// = m1, B2 = B1, and X2 = X1 in the bf16 modes, but in highest X2 = the
+// k-major copy of (X1, re1) (ops/kff.py tri_operand: kff_tri_rows() rows
+// of m1 points of B1 envs rounded up to 4); it writes tiles [k0, k0 + nk)
+// of the upper triangle and their transposes, nothing else: the whole
+// range gives an exactly symmetric out (and outd), a part of it needs out
+// zeroed by the caller.  k0 and nk are unused by the rectangular kernels.
+// trans != 0 (the highest kef_rect* alone; any other kernel refuses it)
+// stores K_EF transposed, out (3 m2, m1) with ldo at least m1.
 #define COV_ENTRY(NAME, LC, MODE, SEL, KIND, PREC)                          \
   int NAME(const void* X1, const float* re1, int m1, int B1,                \
            const void* X2, const float* re2, int m2, int B2, float* out,    \
@@ -1043,6 +1398,17 @@ int launch_rect(const float* X1, const float* re1, int m1, int B1,
         gamma, zeta, ldo, trans, stream);                                   \
   }
 
+#define TRI_ENTRY(NAME, SEL, KIND)                                          \
+  int NAME(const void*, const float* re1, int m1, int B1, const void* X2,   \
+           const float* re2, int m2, int B2, float* out, float* outd,       \
+           float sigma2, float gamma, int zeta, long long k0, long long nk, \
+           long long ldo, int trans, void* stream) {                        \
+    return launch_tri<SEL, KIND>(re1, m1, B1,                               \
+                                 static_cast<const float*>(X2), re2, m2,    \
+                                 B2, out, outd, sigma2, gamma, zeta, k0,    \
+                                 nk, ldo, trans, stream);                   \
+  }
+
 #define TRI_FAMILY(SUFFIX, PREC)                                    \
   COV_ENTRY(kff_tri##SUFFIX, 4, 1, KONLY, RBF, PREC)                \
   COV_ENTRY(kff_tri_dual##SUFFIX, 4, 1, DUAL, RBF, PREC)            \
@@ -1060,7 +1426,10 @@ int launch_rect(const float* X1, const float* re1, int m1, int B1,
   COV_ENTRY(kff_rect_dot##SUFFIX, 4, 0, KONLY, DOT, PREC)
 
 extern "C" {
-TRI_FAMILY(, HIGHEST)
+TRI_ENTRY(kff_tri, KONLY, RBF)
+TRI_ENTRY(kff_tri_dual, DUAL, RBF)
+TRI_ENTRY(kff_tri_deriv, DERIV, RBF)
+TRI_ENTRY(kff_tri_dot, KONLY, DOT)
 RECT_ENTRY(kef_rect, 1, KONLY, RBF)
 RECT_ENTRY(kef_rect_dual, 1, DUAL, RBF)
 RECT_ENTRY(kef_rect_deriv, 1, DERIV, RBF)
@@ -1074,19 +1443,24 @@ RECT_FAMILY(_bf16x4, BF16X4)
 TRI_FAMILY(_bf16, BF16)
 RECT_FAMILY(_bf16, BF16)
 
-// The shared-memory limits of the eight rectangular highest kernels on the
-// current device: the library's loader calls it once for each device before
-// the first launch there.  Returns the first CUDA error.
+// The shared-memory limits of the twelve highest kernels on the current
+// device: the library's loader calls it once for each device before the
+// first launch there.  Returns the first CUDA error.
 int kff_rect_init() {
   const cudaError_t rcs[] = {
       rect_init<1, KONLY, RBF>(), rect_init<1, DUAL, RBF>(),
       rect_init<1, DERIV, RBF>(), rect_init<1, KONLY, DOT>(),
       rect_init<4, KONLY, RBF>(), rect_init<4, DUAL, RBF>(),
-      rect_init<4, DERIV, RBF>(), rect_init<4, KONLY, DOT>()};
+      rect_init<4, DERIV, RBF>(), rect_init<4, KONLY, DOT>(),
+      tri_init<KONLY, RBF>(),     tri_init<DUAL, RBF>(),
+      tri_init<DERIV, RBF>(),     tri_init<KONLY, DOT>()};
   for (cudaError_t rc : rcs)
     if (rc != cudaSuccess) return (int)rc;
   return 0;
 }
+
+// The rows of the k-major copy the highest K1 kernels read (X2).
+int kff_tri_rows() { return TROWS; }
 
 // One launch of an empty kernel (the launch floor chip_smoke.py reports).
 int kff_empty(void* stream) {

@@ -37,9 +37,27 @@ from .kff import (TP, _coeffs, _mirror, _point_sum, _scalars, dense,
 from .packing import EnergyData, ForceData
 
 
-def _blocks(K_ee, K_ef, K_fe, K_ff):
-    return torch.cat([torch.cat([K_ee, K_ef], dim=1),
-                      torch.cat([K_fe, K_ff], dim=1)], dim=0)
+def _self_buffers(e: EnergyData, f: ForceData, n_planes: int, dtype,
+                  device):
+    """The (m_e + 3 m_f) square buffers of a training covariance, and
+    whether the force blocks are written straight into them: the
+    kernels (or, on the CPU, the plain versions) write float32 on the
+    card, so a buffer of another dtype there takes them by a copy."""
+    n = e.m + 3 * f.m
+    bufs = [torch.empty((n, n), dtype=dtype, device=device)
+            for _ in range(n_planes)]
+    return bufs, device.type == "cpu" or dtype == torch.float32
+
+
+def _fill_self(K, m: int, K_ee, ef, ff, direct: bool):
+    """K_EE (mirrored from its upper triangle) into K's corner, K_EF and
+    K_FF into their slices unless the kernels wrote them there
+    (``direct``), and K_FE = K_EF^T by a copy."""
+    K[:m, :m] = _mirror(K_ee)
+    if not direct:
+        K[:m, m:] = ef
+        K[m:, m:] = ff
+    K[m:, :m] = K[:m, m:].T
 
 
 def _sharded_train_ok(m_f: int, n_shards: int) -> bool:
@@ -87,11 +105,15 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
     (default ``config.kff_precision()``), and every block reads the same
     rounded values, so K_EE, K_EF and K_FF are one consistent Gram (PSD
     contract, kernels.py:708-737 of the JAX package); K_FF runs the
-    triangular kernel K1 (K1-dot for kind="dot").  plain=True takes the
-    plain versions on any device.  dtype (default: the operands') is the
-    result's: K_EE is computed in it from the same rounded operand
-    values, the force blocks are cast to it.  Every block is mirrored
-    or transposed from one triangle, so K is exactly symmetric.  mesh:
+    triangular kernel K1 (K1-dot for kind="dot").  K is built in ONE
+    buffer: K1 and K2 write their blocks into its slices (``out=``), K_EE
+    goes into its corner and K_FE = K_EF^T is copied, so no block is held
+    twice.  plain=True takes the plain versions on any device.  dtype
+    (default: the operands') is the result's: K_EE is computed in it from
+    the same rounded operand values, the force blocks are cast to it (on
+    the card a buffer that is not float32 takes them by a copy).  Every
+    block is mirrored or transposed from one triangle, so K is exactly
+    symmetric.  mesh:
     K1's tile ranges and the energy-row stripes run one per shard
     (``self_blocks_sharded``); K_FF and K_EF are the unsharded ones bit
     for bit."""
@@ -101,21 +123,29 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
         (K,) = self_blocks_sharded(e, f, params, kind, zeta, False, mesh,
                                    mm_precision=mode, dtype=dtype)
         return K
-    A, B = e.x.shape[1], f.x.shape[1]
+    A, B, m = e.x.shape[1], f.x.shape[1], e.m
     U, w = energy_operand(e, mode)
     X, re = force_operand(f, mode)
-    kef = kef_plain if plain else kef_from_ops
-    kff = kff_plain if plain else kff_from_ops
-    kw = dict(kind=kind) if plain else dict(kind=kind, mm_precision=mode)
     Ud = dense(U)
     dt = Ud.dtype if dtype is None else dtype
+    (K,), direct = _self_buffers(e, f, 1, dt, Ud.device)
+    direct = direct and not plain
     Ud, wd = Ud.to(dt), w.to(dt)
-    K_ee = _mirror(kee_from_ops(Ud, wd, A, Ud, wd, A, params, zeta,
-                                kind=kind))
-    K_ef = kef(U, w, A, X, re, B, params, zeta, **kw).to(dt)
-    K_ff = kff(X, re, B, X, re, B, params, zeta, symmetric=True,
-               **kw).to(dt)
-    return _blocks(K_ee, K_ef, K_ef.T, K_ff)
+    K_ee = kee_from_ops(Ud, wd, A, Ud, wd, A, params, zeta, kind=kind)
+    if direct:
+        kw = dict(kind=kind, mm_precision=mode)
+        ef = kef_from_ops(U, w, A, X, re, B, params, zeta, out=K[:m, m:],
+                          **kw)
+        ff = kff_from_ops(X, re, B, X, re, B, params, zeta, symmetric=True,
+                          out=K[m:, m:], **kw)
+    else:
+        kef = kef_plain if plain else kef_from_ops
+        kff = kff_plain if plain else kff_from_ops
+        kw = dict(kind=kind) if plain else dict(kind=kind, mm_precision=mode)
+        ef = kef(U, w, A, X, re, B, params, zeta, **kw)
+        ff = kff(X, re, B, X, re, B, params, zeta, symmetric=True, **kw)
+    _fill_self(K, m, K_ee, ef, ff, direct)
+    return K
 
 
 def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
@@ -127,7 +157,9 @@ def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
 
     As in ``k_self`` the operands are built once, in one matmul
     precision, and all three blocks read the same rounded values (PSD
-    contract); both matrices come out exactly symmetric.  plain=True
+    contract); each matrix is one buffer that K1-dual and K2-dual write
+    their two planes into (``out=``, ``outd=``), and both come out exactly
+    symmetric.  plain=True
     takes the plain versions on any device (the float64 reference on the
     card).  mesh: the dual pass over K1's tile ranges, one per shard."""
     mode = config.kff_precision(mm_precision)
@@ -135,22 +167,31 @@ def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
         from ..parallel.sharded_kernels import self_blocks_sharded
         return self_blocks_sharded(e, f, params, "rbf", zeta, True, mesh,
                                    mm_precision=mode)
-    A, B = e.x.shape[1], f.x.shape[1]
+    A, B, m = e.x.shape[1], f.x.shape[1], e.m
     U, w = energy_operand(e, mode)
     X, re = force_operand(f, mode)
     Ud = dense(U)
-    ee = [_mirror(b) for b in kee_from_ops(Ud, w, A, Ud, w, A, params, zeta,
-                                           dual=True)]
+    Ks, direct = _self_buffers(e, f, 2, Ud.dtype, Ud.device)
+    direct = direct and not plain
+    ee = kee_from_ops(Ud, w, A, Ud, w, A, params, zeta, dual=True)
     if plain:
         ef = kef_plain(U, w, A, X, re, B, params, zeta, dual=True)
         ff = kff_plain(X, re, B, X, re, B, params, zeta, symmetric=True,
                        dual=True)
     else:
+        sl = ((slice(None, m), slice(m, None)),
+              (slice(m, None), slice(m, None)))
         ef = kef_from_ops(U, w, A, X, re, B, params, zeta, dual=True,
-                          mm_precision=mode)
+                          mm_precision=mode,
+                          **(dict(out=Ks[0][sl[0]], outd=Ks[1][sl[0]])
+                             if direct else {}))
         ff = kff_from_ops(X, re, B, X, re, B, params, zeta, symmetric=True,
-                          dual=True, mm_precision=mode)
-    return tuple(_blocks(ee[i], ef[i], ef[i].T, ff[i]) for i in range(2))
+                          dual=True, mm_precision=mode,
+                          **(dict(out=Ks[0][sl[1]], outd=Ks[1][sl[1]])
+                             if direct else {}))
+    for i, K in enumerate(Ks):
+        _fill_self(K, m, ee[i], ef[i], ff[i], direct)
+    return tuple(Ks)
 
 
 # side_operands() calls since the last reset, by the side's role in a

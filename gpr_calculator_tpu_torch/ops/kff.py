@@ -53,7 +53,7 @@ envs by element (a stable ``torch.argsort``), the envs without weight
 (padding, |x| < EPS) last (``sort=True``; ``sort=False`` keeps the packed
 order; the default sorts sides of ``SORT_MIN_ENVS`` envs or more).  A
 block is a sum over a point's envs, so the order moves only the order of
-that sum; the rectangular ``highest`` kernels skip the env
+that sum; the ``highest`` kernels (K1, K2, K3) skip the env
 chunks whose element ranges cannot meet, which a sorted side makes
 frequent.  Every kernel and plain version stays correct for any order.
 
@@ -65,10 +65,15 @@ with the suffixes ``_dual``, ``_deriv`` (K1-K3; K3 also ``_dual``) and
 ``_dot``, each also with ``_bf16x4`` and ``_bf16`` for the modes) are
 built with nvcc at first use into the package's git-ignored ``build/``
 directory and bound with ctypes.  ``launches`` counts each kernel launch.
-``out=`` (K2, K3) writes the block into a caller's 2-D float32 view with
-unit column stride -- a slice of a larger buffer -- and ``transpose=True``
-(K2) stores K_EF transposed there: the served block of
-``ops/kernels.k_block`` is built in one buffer this way.
+The ``highest`` K1 kernels read their operand through a tensor map of its
+k-major copy (``tri_operand``, ~49 MB at 3000 points of 32 envs), which
+the wrapper builds once per operand tensor and keeps on it.
+``out=`` (and ``outd=``, the dK/dgamma plane of a dual pass) writes the
+block into a caller's 2-D float32 view with unit column stride -- a slice
+of a larger buffer -- and ``transpose=True`` (K2) stores K_EF transposed
+there: the served block of ``ops/kernels.k_block`` and the training
+covariance of ``k_self`` / ``k_self_dual`` are built in one buffer this
+way.
 
 The tile-range form of K1 (``tiles=(k0, nk)`` on ``kff_from_ops`` and
 ``kff_plain``): the symmetric K_FF is cut into TP x TP-point tiles, its
@@ -101,6 +106,8 @@ DP = 32                  # padded descriptor width of the operand rows
 _PAIR_BUDGET = 2 ** 24   # env pairs per chunk of the plain versions
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "kff.cu"
 TP = 8                   # points per tile side (csrc/kff.cu)
+CB = 4                   # envs per point in a K_FF chunk (csrc/kff.cu)
+TROWS = 4 * DP + 2       # rows of the k-major copy K1 reads (tri_operand)
 _MAX_POINTS = 65535 * TP  # grid.y limit at TP points per tile
 _HI_MASK = -65536        # 0xFFFF0000 as int32: sign, exponent, 7 bits
 # sides of this many envs are sorted by element.  On an NVIDIA H100 80GB
@@ -246,11 +253,36 @@ def energy_operand(e, mm_precision: str | None = None,
     return _pad_lanes(_rounded(u, mode)), w.contiguous()
 
 
+def tri_operand(X, re, B: int):
+    """The k-major copy of a force operand that the ``highest`` K1 kernels
+    read through a tensor map: (TROWS, m, Bp) float32 -- rows c DP + k hold
+    X[c, p B + e, k] of point p, env e; the last two rows the weight and
+    the element -- with Bp = B rounded up to the CB envs of a chunk and
+    the envs past B zero.  One box of it (CB envs x TP points x TROWS rows)
+    is one side's chunk in the kernel's shared-memory layout."""
+    m = X.shape[1] // B
+    rows = torch.cat([
+        X.reshape(4, m, B, DP).permute(0, 3, 1, 2).reshape(4 * DP, m, B),
+        re.reshape(2, m, B).to(X.dtype)])
+    return torch.nn.functional.pad(rows, (0, -(-B // CB) * CB - B))
+
+
+def _tri_copy(X, re, B: int):
+    """``tri_operand`` of (X, re), built once per operand: kept on X while
+    X, re and B stay the ones it was built from."""
+    key = (X._version, re.data_ptr(), re._version, B)
+    kept = getattr(X, "_kff_tri", None)
+    if kept is None or kept[0] != key:
+        kept = (key, tri_operand(X, re, B).contiguous())
+        X._kff_tri = kept
+    return kept[1]
+
+
 def chunk_ranges(re, B: int, points: int, envs: int):
     """The element range [lo, hi] of the envs with a weight in every env
-    chunk the rectangular ``highest`` kernels stage: (tiles, chunks, 2)
+    chunk the ``highest`` kernels stage: (tiles, chunks, 2)
     for tiles of ``points`` points and chunks of ``envs`` envs per point
-    (K3 and the rhs of K2: 8 and 4; the lhs of K2: 8 and 8); (+inf,
+    (K1, K3 and the rhs of K2: 8 and 4; the lhs of K2: 8 and 8); (+inf,
     -inf) for a chunk of padding alone.  The kernels compute the same
     per block; this is their arithmetic in PyTorch, for tests and for
     counting what a launch skips."""
@@ -270,18 +302,27 @@ def chunk_ranges(re, B: int, points: int, envs: int):
 
 
 def staged_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False,
-                 per_lhs_point: bool = False):
-    """(chunk pairs a launch of the rectangular ``highest`` kernel stages,
+                 per_lhs_point: bool = False, triangle: bool = False):
+    """(chunk pairs a launch of a ``highest`` kernel on rect_kernel stages,
     all chunk pairs of its grid): a pair is staged when the element ranges
     of its two chunks intersect.  per_lhs_point counts instead the (lhs
     point, chunk pair) products a warp multiplies: inside a staged pair a
-    warp skips when its own lhs point's envs cannot meet the rhs chunk."""
+    warp skips when its own lhs point's envs cannot meet the rhs chunk.
+    triangle: a K1 launch over one operand (re2 is re1), whose grid holds
+    the upper-triangle tile pairs I <= J alone."""
     envs1 = 8 if energy_lhs else 4
-    r1 = chunk_ranges(re1, B1, TP, envs1).reshape(-1, 2)[:, None, :]
-    r2 = chunk_ranges(re2, B2, TP, 4).reshape(-1, 2)[None, :, :]
+    c1 = chunk_ranges(re1, B1, TP, envs1)                # (tiles, chunks, 2)
+    c2 = chunk_ranges(re2, B2, TP, 4)
+    r1, r2 = c1.reshape(-1, 2)[:, None, :], c2.reshape(-1, 2)[None, :, :]
     meet = ~((r1[..., 1] < r2[..., 0]) | (r2[..., 1] < r1[..., 0]))
+    grid = torch.ones_like(meet)
+    if triangle:
+        t1, t2 = (torch.arange(c.shape[0], device=re1.device)
+                  .repeat_interleave(c.shape[1]) for c in (c1, c2))
+        grid = t1[:, None] <= t2[None, :]
+        meet = meet & grid
     if not per_lhs_point:
-        return int(meet.sum()), meet.numel()
+        return int(meet.sum()), int(grid.sum())
     m1 = re1.shape[1] // B1
     p1 = chunk_ranges(re1, B1, 1, envs1)                 # (m1, chunks, 2)
     pad = p1.new_empty((-(-m1 // TP) * TP - m1, p1.shape[1], 2))
@@ -291,7 +332,7 @@ def staged_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False,
     r2 = r2[0]
     mine = ~((p1[:, :, None, 1] < r2[None, None, :, 0])
              | (r2[None, None, :, 1] < p1[:, :, None, 0]))
-    return int((mine & meet[:, None, :]).sum()), mine.numel()
+    return int((mine & meet[:, None, :]).sum()), TP * int(grid.sum())
 
 
 def _family(kind: str, deriv: bool):
@@ -581,7 +622,9 @@ _READY = set()  # device indices whose shared-memory limits are set
 def load(path) -> dict:
     """Load a library built from ``csrc/kff.cu`` (or from a source with
     its entry points): {entry-point name: bound ctypes function}, with
-    ``kff_empty`` and ``kff_rect_init`` where the library has them."""
+    ``kff_empty``, ``kff_rect_init`` and ``kff_tri_rows`` where the library
+    has them (a library with ``kff_tri_rows`` takes the k-major copy,
+    ``tri_operand``, as X2 of its highest K1 entry points)."""
     lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     LL = ctypes.c_longlong
@@ -595,7 +638,8 @@ def load(path) -> dict:
                        P]
         fn.restype = I
         fns[name] = fn
-    for name, argtypes in (("kff_empty", [P]), ("kff_rect_init", [])):
+    for name, argtypes in (("kff_empty", [P]), ("kff_rect_init", []),
+                           ("kff_tri_rows", [])):
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, I
@@ -608,13 +652,17 @@ def _lib() -> dict:
     device's shared-memory limits are set (and checked) here."""
     if not _FN:
         path, _ = build()
-        _FN.update(load(path))
+        fns = load(path)
+        if fns["kff_tri_rows"]() != TROWS:
+            raise RuntimeError(f"{path}: K1 reads {fns['kff_tri_rows']()} "
+                               f"rows of its k-major copy, not {TROWS}")
+        _FN.update(fns)
         _init_device(torch.cuda.current_device())
     return _FN
 
 
 def _init_device(index: int) -> None:
-    """The rectangular highest kernels' shared-memory limits on card
+    """The highest kernels' shared-memory limits on card
     ``index``: once per card, before its first launch."""
     with torch.cuda.device(index):
         rc = _FN["kff_rect_init"]()
@@ -705,13 +753,19 @@ def _launch(base, mode, device, *args, k0=0, nk=0, ldo=0, trans=False,
 
 
 def _check_out(out, rows: int, cols: int, like):
-    """``out=``: a (rows, cols) float32 view on the operands' device whose
-    columns are contiguous (a slice of a larger row-major buffer)."""
+    """``out=``: a (rows, cols) view on the operands' device.  On the card
+    it must be float32 with contiguous columns (a slice of a larger
+    row-major buffer); on the CPU the plain version's block is copied into
+    it (cast to its dtype)."""
+    cpu = like.device.type == "cpu"
     if (out.dim() != 2 or tuple(out.shape) != (rows, cols)
-            or out.dtype != torch.float32 or out.device != like.device):
+            or (out.dtype != torch.float32 and not cpu)
+            or out.device != like.device):
         raise ValueError(f"out must be a ({rows}, {cols}) float32 tensor on "
                          f"{like.device}, got {tuple(out.shape)} "
                          f"{out.dtype} on {out.device}")
+    if cpu:
+        return
     if out.stride(1) != 1 or out.stride(0) < cols or out.data_ptr() % 4:
         raise ValueError("out must have contiguous columns (a slice of a "
                          "row-major buffer)")
@@ -722,10 +776,31 @@ def _variant(kind: str, dual: bool, deriv: bool) -> str:
             else "_deriv" if deriv else "")
 
 
+def _outputs(out, outd, rows: int, cols: int, dual: bool, zero: bool,
+             like):
+    """The output views of one launch: ``out`` (and ``outd`` for a dual
+    pass), checked, or new (rows, cols) float32 tensors; zeroed when
+    ``zero`` (a tile-range launch writes its own tiles alone)."""
+    if not dual and outd is not None:
+        raise ValueError("outd= is the dK/dgamma plane of a dual pass")
+    planes = []
+    for o in (out, outd)[:1 + dual]:
+        if o is None:
+            o = (torch.zeros if zero else torch.empty)(
+                (rows, cols), dtype=torch.float32, device=like.device)
+        else:
+            _check_out(o, rows, cols, like)
+            if zero:
+                o.zero_()
+        planes.append(o)
+    return planes
+
+
 def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
                  symmetric: bool = False, dual: bool = False,
                  kind: str = "rbf", deriv: bool = False,
-                 mm_precision: str | None = None, tiles=None, out=None):
+                 mm_precision: str | None = None, tiles=None, out=None,
+                 outd=None):
     """K_FF (3 m1, 3 m2) from force operands; symmetric=True (X1 is X2)
     runs the triangular kernel K1, else the rectangular K3 (``_dot`` for
     kind="dot").  dual=True (RBF) returns (K, dK/dgamma) from one pass
@@ -734,85 +809,97 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
     mode.  tiles=(k0, nk) (symmetric only) is K1's tile-range form: the
     output is zeroed and one launch writes tiles [k0, k0 + nk) of the
     upper triangle and their transposes (counted as ``*_range``); an
-    empty range launches nothing.  out (K3 alone, not dual): the block
-    is written into this (3 m1, 3 m2) view and returned."""
+    empty range launches nothing.  out (and outd, the dK/dgamma plane of
+    a dual pass): the block is written into these (3 m1, 3 m2) views --
+    slices of a caller's buffer, zeroed first for a tile range -- and
+    returned."""
     kind, deriv = _family(kind, deriv)
     sigma2, p2 = _scalars(params, kind, dual, deriv)
     mode = _mode(mm_precision, X1, X2)
     if tiles is not None and not symmetric:
         raise ValueError("a tile range needs symmetric=True")
-    if out is not None and (symmetric or dual):
-        raise ValueError("out= is for the rectangular single-plane kernels")
     if X1.device.type == "cpu":
+        m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
+        given = out is not None or outd is not None
+        planes = _outputs(out, outd, 3 * m1, 3 * m2, dual, False,
+                          X1) if given else None
         K = kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
                       symmetric=symmetric, dual=dual, kind=kind,
                       deriv=deriv, tiles=tiles)
-        if out is None:
+        if not given:
             return K
-        out.copy_(K)
-        return out
+        for o, k in zip(planes, K if dual else (K,)):
+            o.copy_(k)
+        return tuple(planes) if dual else planes[0]
     _check_cuda(zeta, X1, re1, X2, re2)
     _check_side(X1, re1, B1, 4, mode)
     _check_side(X2, re2, B2, 4, mode)
     m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
     if symmetric and (X1.data_ptr() != X2.data_ptr() or B1 != B2):
         raise ValueError("symmetric K_FF needs one operand set")
-    # a range launch writes its own tiles only: the rest must be zero
-    alloc = torch.empty if tiles is None else torch.zeros
-    if out is None:
-        out = alloc((3 * m1, 3 * m2), dtype=torch.float32, device=X1.device)
-    else:
-        _check_out(out, 3 * m1, 3 * m2, X1)
-    outd = alloc((3 * m1, 3 * m2), dtype=torch.float32,
-                 device=X1.device) if dual else out
-    base = ("kff_tri" if symmetric else "kff_rect") + _variant(kind, dual,
-                                                                deriv)
     if tiles is not None:
         k0, nk = _check_tiles(tiles, m1)
     else:
         k0, nk = 0, n_tri_tiles(m1) if symmetric else 0
+    planes = _outputs(out, outd, 3 * m1, 3 * m2, dual, tiles is not None,
+                      X1)
+    out, outd = planes[0], planes[-1]
+    if outd.stride(0) != out.stride(0):
+        raise ValueError("out and outd must have one leading dimension")
+    base = ("kff_tri" if symmetric else "kff_rect") + _variant(kind, dual,
+                                                                deriv)
     if nk or not symmetric:
+        # the highest K1 kernels read the k-major copy of the operand as X2
+        rhs, re_rhs = (_tri_copy(X1, re1, B1), re1) \
+            if symmetric and mode == "highest" else (X2, re2)
         # the Dot force blocks need sigma^2 alone (sigma0 enters K_EE only)
         _launch(base, mode, X1.device, X1.data_ptr(), re1.data_ptr(), m1,
-                B1, X2.data_ptr(), re2.data_ptr(), m2, B2, out.data_ptr(),
-                outd.data_ptr(), sigma2, 0.0 if kind == "dot" else p2, zeta,
-                k0=k0, nk=nk, ldo=out.stride(0), ranged=tiles is not None)
+                B1, rhs.data_ptr(), re_rhs.data_ptr(), m2, B2,
+                out.data_ptr(), outd.data_ptr(), sigma2,
+                0.0 if kind == "dot" else p2, zeta, k0=k0, nk=nk,
+                ldo=out.stride(0), ranged=tiles is not None)
     return (out, outd) if dual else out
 
 
 def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
                  dual: bool = False, kind: str = "rbf", deriv: bool = False,
                  mm_precision: str | None = None, out=None,
-                 transpose: bool = False):
+                 transpose: bool = False, outd=None):
     """K_EF (m1, 3 m2) from energy and force operands (kernel K2, or
     K2-dot); dual=True (RBF) returns (K, dK/dgamma) from one pass,
     K2-dual; deriv=True dK/dgamma alone, K2-deriv.  transpose=True (not
     dual) gives K_EF^T (3 m2, m1): the ``highest`` kernel stores it so,
-    a mode's kernel result is transposed by a copy.  out (not dual): the
-    block is written into this view, (m1, 3 m2) or (3 m2, m1), and
-    returned."""
+    a mode's kernel result is transposed by a copy.  out (and outd, the
+    dK/dgamma plane of a dual pass): the block is written into these
+    views, (m1, 3 m2) or (3 m2, m1), and returned."""
     kind, deriv = _family(kind, deriv)
     sigma2, p2 = _scalars(params, kind, dual, deriv)
     mode = _mode(mm_precision, U1, X2)
-    if dual and (out is not None or transpose):
-        raise ValueError("out= and transpose= are for the single-plane "
-                         "kernels")
+    if dual and transpose:
+        raise ValueError("transpose= is for the single-plane kernels")
+    m1, m2 = U1.shape[-2] // A1, X2.shape[-2] // B2
+    shape = (3 * m2, m1) if transpose else (m1, 3 * m2)
+    given = out is not None or outd is not None
     if U1.device.type == "cpu":
+        planes = _outputs(out, outd, *shape, dual, False, U1) \
+            if given else None
         K = kef_plain(U1, w1, A1, X2, re2, B2, params, zeta, dual=dual,
                       kind=kind, deriv=deriv)
         if transpose:
             K = K.T
-        if out is None:
+        if not given:
             return K.contiguous() if transpose else K
-        out.copy_(K)
-        return out
+        for o, k in zip(planes, K if dual else (K,)):
+            o.copy_(k)
+        return tuple(planes) if dual else planes[0]
     _check_cuda(zeta, U1, w1, X2, re2)
     _check_side(U1, w1, A1, 1, mode)
     _check_side(X2, re2, B2, 4, mode)
-    m1, m2 = U1.shape[-2] // A1, X2.shape[-2] // B2
-    shape = (3 * m2, m1) if transpose else (m1, 3 * m2)
-    if out is not None:
-        _check_out(out, *shape, U1)
+    if given:
+        planes = _outputs(out, outd, *shape, dual, False, U1)
+        out, outd = planes[0], planes[-1]
+        if outd.stride(0) != out.stride(0):
+            raise ValueError("out and outd must have one leading dimension")
     base = "kef_rect" + _variant(kind, dual, deriv)
     args = (U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
             re2.data_ptr(), m2, B2)
@@ -826,9 +913,9 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
             return K.T.contiguous()
         out.copy_(K.T)
         return out
-    if out is None:
+    if not given:
         out = torch.empty(shape, dtype=torch.float32, device=U1.device)
-    outd = torch.empty_like(out) if dual else out
+        outd = torch.empty_like(out) if dual else out
     _launch(base, mode, U1.device, *args, out.data_ptr(), outd.data_ptr(),
             *scalars, ldo=out.stride(0), trans=transpose)
     return (out, outd) if dual else out

@@ -527,6 +527,184 @@ def test_rect_out_rejects_bad_views_on_card(cuda):
     with pytest.raises(ValueError):
         kff.kff_from_ops(*args, out=good.double())
     with pytest.raises(ValueError):
-        kff.kff_from_ops(*args, out=good, symmetric=True)
-    with pytest.raises(ValueError):
         kff.kff_from_ops(*args, out=good.cpu())
+    # K1 (symmetric) takes out= and, for its dual pass, outd= too
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=good.T, symmetric=True)
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=torch.empty((15, 14), **kw),
+                         symmetric=True)
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=good, outd=torch.empty_like(good),
+                         symmetric=True)
+    wide = torch.empty((15, 20), **kw)
+    with pytest.raises(ValueError, match="leading dimension"):
+        kff.kff_from_ops(*args, out=good, outd=wide[:, :15], symmetric=True,
+                         dual=True)
+    with pytest.raises(ValueError):
+        kff.kff_from_ops(*args, out=good, outd=good.T, symmetric=True,
+                         dual=True)
+    assert kff.kff_from_ops(*args, out=good, symmetric=True) is good
+
+
+# ---------------------------------------------------------------------------
+# K1 in highest on rect_kernel (kff_tri, _dual, _deriv, _dot)
+# ---------------------------------------------------------------------------
+
+# (points, envs, elements): the slice's training side (ragged, a tile and
+# a half) and the mid shape of chip_smoke.py (750 points of 32 envs, two
+# elements at random)
+K1_SHAPES = {"slice": (15, 13, (13, 79)), "mid": (750, 32, (13, 79))}
+
+
+def _k1_side(cuda, shape, seed):
+    n, envs, elements = K1_SHAPES[shape]
+    rng = np.random.RandomState(seed)
+    if shape == "slice":
+        return pack_force(_ragged(rng, n, envs, elements), device=cuda,
+                          dtype=torch.float32)
+    from gpr_calculator_tpu_torch.ops.packing import ForceData
+    f32 = torch.float32
+    return ForceData(
+        x=torch.as_tensor(rng.uniform(0.2, 1.0, (n, envs, 30)), dtype=f32,
+                          device=cuda),
+        dxdr=torch.as_tensor(rng.uniform(-1, 1, (n, envs, 30, 3)),
+                             dtype=f32, device=cuda),
+        ele=torch.as_tensor(rng.choice(elements, (n, envs)),
+                            dtype=torch.int32, device=cuda), nreal=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("shape", list(K1_SHAPES))
+@pytest.mark.parametrize("base", K1_BASES)
+def test_k1_highest_matches_plain_on_card(cuda, base, shape, sort):
+    """Each highest K1 kernel within 2e-5 max|plain| of its plain version
+    on every plane, on operands sorted by element or not, at the slice
+    and mid shapes; exactly symmetric; two runs bit-equal; out= (and outd=)
+    write slices of NaN-filled buffers and nothing else."""
+    f = _k1_side(cuda, shape, 80 + K1_BASES.index(base))
+    X, re = kff.force_operand(f, sort=sort)
+    B = f.x.shape[1]
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    args = (X, re, B, X, re, B, p, 2)
+    kff.reset_launches()
+    K = kff.kff_from_ops(*args, symmetric=True, **flags)
+    again = kff.kff_from_ops(*args, symmetric=True, **flags)
+    P = kff.kff_plain(*args, symmetric=True, **flags)
+    planes = (K, again, P) if flags["dual"] else ((K,), (again,), (P,))
+    n = 3 * f.m
+    bufs = [torch.full((n + 4, n + 9), float("nan"), device=cuda)
+            for _ in planes[0]]
+    sl = (slice(3, 3 + n), slice(5, 5 + n))
+    views = [b[sl] for b in bufs]
+    kff.kff_from_ops(*args, symmetric=True, out=views[0],
+                     outd=views[-1] if flags["dual"] else None, **flags)
+    torch.cuda.synchronize()
+    for k, k2, pl, buf in zip(*planes, bufs):
+        _close(k, pl)
+        assert torch.equal(k, k.T) and torch.equal(k, k2)
+        assert torch.equal(buf[sl], k) and _untouched(buf, *sl)
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0), base: 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", K1_BASES)
+def test_k1_highest_sorted_and_unsorted_agree_on_card(cuda, base):
+    """Sorting a side's envs by element moves only the order of each
+    point pair's sum: K1 from sorted and from unsorted operands agree to
+    2e-5 on every plane, and the sorted launch skips chunk pairs."""
+    f = _k1_side(cuda, "mid", 90)
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    out = []
+    for sort in (True, False):
+        X, re = kff.force_operand(f, sort=sort)
+        K = kff.kff_from_ops(X, re, 32, X, re, 32, p, 2, symmetric=True,
+                             **flags)
+        out.append(K if flags["dual"] else (K,))
+    for a, b in zip(*out):
+        _close(a, b)
+    re = kff.force_operand(f, sort=True)[1]
+    some, every = kff.staged_pairs(re, 32, re, 32, triangle=True)
+    assert 0 < some < every
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", K1_BASES)
+def test_k1_highest_tile_ranges_sum_to_single_launch_on_card(cuda, base):
+    """At the mid shape on sorted operands (the skip engaged), four
+    tile-range launches sum to the single launch bit for bit; a range
+    written into a caller's view (out=, outd=) zeroes the rest of it."""
+    from gpr_calculator_tpu_torch.parallel import partition_tri_tiles
+    f = _k1_side(cuda, "mid", 91)
+    X, re = kff.force_operand(f, sort=True)
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    args = (X, re, 32, X, re, 32, p, 2)
+
+    def planes(x):
+        return x if isinstance(x, tuple) else (x,)
+    single = planes(kff.kff_from_ops(*args, symmetric=True, **flags))
+    total = [torch.zeros_like(s) for s in single]
+    ranges = partition_tri_tiles(kff.n_tri_tiles(f.m), 4)
+    for tiles in ranges:
+        views = [torch.full_like(s, float("nan")) for s in single]
+        part = planes(kff.kff_from_ops(
+            *args, symmetric=True, tiles=tiles, out=views[0],
+            outd=views[-1] if flags["dual"] else None, **flags))
+        for acc, k, v in zip(total, part, views):
+            assert k is v and not bool(torch.isnan(k).any())
+            acc.add_(k)
+    torch.cuda.synchronize()
+    for acc, s in zip(total, single):
+        assert torch.equal(acc, s)
+
+
+@pytest.mark.gpu
+def test_k1_tensor_map_is_never_reused_for_another_operand_on_card(cuda):
+    """The highest K1 entry points read their operand through a tensor map
+    of its k-major copy (X2), encoded once per (address, extents): a copy
+    of another shape written at the same address gets a map of its own
+    (the block is the new operand's), a misaligned copy or a re2 other
+    than re1 is refused with an error code."""
+    rng = np.random.RandomState(92)
+    kw = dict(device=cuda, dtype=torch.float32)
+    fA = pack_force(_ragged(rng, 29, 11, (13, 79)), **kw)
+    fB = pack_force(_ragged(rng, 17, 14, (13, 29, 79)), **kw)
+    fn = kff._lib()["kff_tri"]
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = torch.zeros(kff.TROWS * 29 * 16 + 4, **kw)
+
+    def launch(f, X2ptr, re2=None):
+        X, re = kff.force_operand(f)
+        m, B = f.m, f.x.shape[1]
+        out = torch.full((3 * m, 3 * m), float("nan"), **kw)
+        rc = fn(X.data_ptr(), re.data_ptr(), m, B, X2ptr(X, re, B),
+                (re if re2 is None else re2).data_ptr(), m, B,
+                out.data_ptr(), out.data_ptr(), PARAMS["sigma"] ** 2,
+                1.0 / (2.0 * PARAMS["l"] ** 2), 2, 0,
+                kff.n_tri_tiles(m), 3 * m, 0, stream)
+        torch.cuda.synchronize()
+        return rc, out, kff.kff_plain(X, re, B, X, re, B, PARAMS, 2,
+                                      symmetric=True)
+
+    def at_buf(X, re, B):
+        Xt = kff.tri_operand(X, re, B).reshape(-1)
+        buf[:Xt.numel()] = Xt
+        return buf.data_ptr()
+    for f in (fA, fB, fA):
+        rc, out, plain = launch(f, at_buf)
+        assert rc == 0
+        _close(out, plain)
+    rc, _, _ = launch(fA, lambda X, re, B: at_buf(X, re, B) + 4)
+    assert rc != 0
+    rc, _, _ = launch(fA, at_buf, re2=kff.force_operand(fA)[1].clone())
+    assert rc != 0
