@@ -4,11 +4,12 @@
 Usage (one CUDA card, no arguments):  python3 chip_smoke.py
 
 To compare two revisions on one card in one process tree, instead of the
-run below:  python3 chip_smoke.py --alt-source OTHER_KFF_CU  times the
-highest kernels of the package's csrc/kff.cu and of another revision of
-that file (with the same entry points) in turns; --alt-root
-OTHER_CHECKOUT  times one slice request's _predict_packed of this checkout
-and of another in turns.
+run below:  python3 chip_smoke.py --alt-source OTHER  times the highest
+kernels and the mode K2/K3 kernels of the package's csrc/ and of another
+revision's sources with the same entry points (OTHER: a directory of
+.cu/.cuh files, or one .cu file such as an older csrc/kff.cu) in turns;
+--alt-root OTHER_CHECKOUT  times one slice request's _predict_packed of
+this checkout and of another in turns.
 
 Builds the CUDA kernels from csrc/ and drives the port's main paths,
 each with the launch counts reset just before and read just after, for
@@ -54,14 +55,16 @@ re-serves the frozen slice model against a float64 CPU model; times
 kernel and plain versions at the slice, a mid and the bench shape, with
 each one's bound on the card, and one NLL+gradient evaluation, and
 compares that evaluation with float64 on the card (g).  For the twelve
-highest kernels (K1 kff_tri*, K2 kef_rect*, K3 kff_rect*) (b) also runs
-operands sorted by element and left as packed, and (g) prints the wrapper
-call's time, the device time of one raw launch, the launch floor (an empty
-kernel), the share of the bound reached at the mid and bench shapes, what
-a launch skips (K1: on sorted and packed operands at the slice, mid and
-bench shapes), what sorting a side by element costs and saves at growing
-sizes, one request's _predict_packed with the training side's
-operands kept or rebuilt, and checks that a model serving twice builds
+highest kernels (K1 kff_tri*, K2 kef_rect*, K3 kff_rect*) and the sixteen
+mode K2/K3 kernels (kef_rect*_bf16x4, ..., kff_rect*_bf16) (b)/(k2) also
+run operands sorted by element and left as packed, and (g) prints the
+wrapper call's time, the device time of one raw launch, the launch floor
+(an empty kernel), the share of the bound reached at the mid and bench
+shapes, what a launch skips (K1: on sorted and packed operands at the
+slice, mid and bench shapes), the host cost of a mode kernel's tensor map
+encoded anew, what sorting a side by element costs and saves at growing
+sizes, one request's _predict_packed with the training side's operands
+kept or rebuilt, and checks that a model serving twice builds
 them once and that a request against the 10k bench set served from
 _factorize's weights and factor (mean and sigma) equals a float64 solve
 of the same covariance within a tenth of the noise.  Any
@@ -109,8 +112,9 @@ BARRIER_TOL = 0.01     # eV
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 MODES = ("bf16x4", "bf16")
 PREC = {"highest": 0, "bf16x4": 1, "bf16": 2}   # template PREC
-# kernel base name -> (cov_kernel<LC, MODE, SEL, KIND> parameters, the
-# Pallas kernel it replaces); each base runs in every precision mode
+# kernel base name -> (template parameters <LC, MODE, SEL, KIND> -- MODE
+# 1: the triangular K1, 0: the rectangular K2/K3 --, the Pallas kernel it
+# replaces); each base runs in every precision mode
 BASES = {
     "kff_tri": ("4,1,0,0", 282), "kff_tri_dual": ("4,1,1,0", 282),
     "kff_tri_deriv": ("4,1,2,0", 282), "kff_tri_dot": ("4,1,0,1", 282),
@@ -122,7 +126,7 @@ BASES = {
 # are on no path of the JAX package or of the port)
 RBF = ("kff_tri", "kff_tri_dual", "kef_rect", "kef_rect_dual", "kff_rect")
 DOT = ("kff_tri_dot", "kef_rect_dot", "kff_rect_dot")
-SOURCE = "gpr_calculator_tpu_torch/csrc/kff.cu"
+CSRC = "gpr_calculator_tpu_torch/csrc/"
 # the tile-range form of the K1 kernels (the mesh-sharded training build)
 K1_BASES = [b for b in BASES if b.startswith("kff_tri")]
 RANGE_REPLACES = ("gpr_calculator_tpu/parallel/sharded_kernels.py:200, "
@@ -136,6 +140,21 @@ RECT = {b: v[0].replace(",0,", ",", 1) for b, v in BASES.items()
         if "_rect" in b}
 TRI = {b: v[0][len("4,1,"):] for b, v in BASES.items()
        if b.startswith("kff_tri")}
+# the sixteen mode K2/K3 entry points: rect_mma_kernel<LC, SEL, KIND,
+# PREC>; the eight mode K1 ones: cov_kernel<SEL, KIND, PREC>
+MMA = {f"{b}_{m}": f"{params},{PREC[m]}" for m in MODES
+       for b, params in RECT.items()}
+COV = {f"{b}_{m}": f"{params},{PREC[m]}" for m in MODES
+       for b, params in TRI.items()}
+
+
+def source_of(name):
+    """The source file of kernel (or range launch) ``name``."""
+    base, mode = split_name(name)
+    if base.startswith("kff_tri"):
+        return CSRC + ("kff_tri.cu" if mode == "highest" else "kff_cov.cu")
+    return CSRC + ("kff_rect.cu" if mode == "highest"
+                   else "kff_rect_mma.cu")
 
 
 def kname(base, mode):
@@ -250,13 +269,15 @@ def run_neb(T, gp, images):
 
 def ptxas_lines(compiler_log):
     """(kernel name, body, ptxas resource line) for each instantiation of
-    cov_kernel<LC, MODE, SEL, KIND, PREC> (the bf16 modes), of
+    cov_kernel<SEL, KIND, PREC> (K1 in the bf16 modes), of
+    rect_mma_kernel<LC, SEL, KIND, PREC> (K2, K3 in the bf16 modes), of
     rect_kernel<LC, SEL, KIND> (K2, K3 in highest) and of tri_kernel<SEL,
     KIND> (K1 in highest)."""
     bodies = {
-        "cov": (r"cov_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)ELi(\d)E",
-                {f"{params},{PREC[m]}": kname(b, m)
-                 for b, (params, _) in BASES.items() for m in MODES}),
+        "cov": (r"cov_kernelILi(\d)ELi(\d)ELi(\d)E",
+                {params: name for name, params in COV.items()}),
+        "rect_mma": (r"rect_mma_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E",
+                     {params: name for name, params in MMA.items()}),
         "rect": (r"rect_kernelILi(\d)ELi(\d)ELi(\d)E",
                  {params: b for b, params in RECT.items()}),
         "tri": (r"tri_kernelILi(\d)ELi(\d)E",
@@ -448,12 +469,14 @@ def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC),
                                      m, sort=sort))]
 
 
-def rect_cases(kff, e1, f1, e2, f2, params, dparams, sort):
-    """The cases of the twelve highest kernels on rect_kernel alone (K1,
-    K2, K3), on operands sorted by element (``sort`` True) or left as
-    packed."""
+def rect_cases(kff, e1, f1, e2, f2, params, dparams, sort,
+               modes=tuple(PREC)):
+    """The cases of the kernels with the element skip -- the twelve highest
+    ones (K1, K2, K3) and the sixteen mode K2/K3 ones -- in ``modes``, on
+    operands sorted by element (``sort`` True) or left as packed."""
     return [c for c in all_cases(kff, e1, f1, e2, f2, params, dparams,
-                                 ("highest",), sort) if c[0] in HIGHEST]
+                                 modes, sort) if c[0] in HIGHEST
+            or c[0] in MMA]
 
 
 def compare(torch, cases, tag, errs, log, plain_ms=None):
@@ -588,15 +611,17 @@ def cuda_ms(torch, fn, reps):
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
-def device_us(torch, kff, base, lhs, rhs, params, reps=200, fns=None):
-    """Device time of one launch of the highest kernel ``base``: CUDA
-    events around ``reps`` back-to-back launches through the bound ctypes
-    entry point on preallocated outputs, no Python wrapper between them
-    (uncounted: a measurement, not a path).  fns: the entry points of
-    another library (``kff.load``); the package's own by default.  A K1
-    kernel (lhs is rhs) runs its whole tile range; where the library takes
-    the k-major copy for it (``kff_tri_rows``), that copy is built once,
-    before the launches."""
+def device_us(torch, kff, base, lhs, rhs, params, reps=200, fns=None,
+              outs=None):
+    """Device time of one launch of entry point ``base`` (a highest or a
+    mode kernel; its operands in that mode): CUDA events around ``reps``
+    back-to-back launches through the bound ctypes entry point on
+    preallocated outputs, no Python wrapper between them (uncounted: a
+    measurement, not a path).  fns: the entry points of another library
+    (``kff.load``); the package's own by default.  A K1 kernel (lhs is
+    rhs) runs its whole tile range; where the library takes the k-major
+    copy for it (``kff_tri_rows``), that copy is built once, before the
+    launches.  outs: a list that receives the output planes."""
     (X1, r1, B1), (X2, r2, B2) = lhs, rhs
     m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
     rows = m1 if base.startswith("kef") else 3 * m1
@@ -617,7 +642,45 @@ def device_us(torch, kff, base, lhs, rhs, params, reps=200, fns=None):
     def call():
         if fn(*args) != 0:
             raise RuntimeError(f"{base} launch failed")
-    return 1e3 * cuda_ms(torch, call, reps)
+    us = 1e3 * cuda_ms(torch, call, reps)
+    if outs is not None:
+        outs.extend((out, outd))
+    return us
+
+
+def map_host_us(torch, kff, name, lhs, rhs, params, n=200):
+    """Host time of one raw launch of the mode kernel ``name``, which in
+    bf16x4 reads its sides through tensor maps: (us a launch with the lhs
+    map found in the library's cache, us with it encoded anew).  The lhs
+    sits at one address, or at 40 in turn -- more than the 32 maps a source
+    keeps -- as a served request's new query side does; time.perf_counter
+    around each of n asynchronous launches (uncounted; fewer than the
+    launch queue holds, so none waits for the card), summed."""
+    (X1, r1, B1), (X2, r2, B2) = lhs, rhs
+    m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
+    rows = m1 if name.startswith("kef") else 3 * m1
+    out = torch.empty((rows, 3 * m2), dtype=torch.float32, device=X1.device)
+    copies = [X1.clone() for _ in range(40)]
+    fn = kff._lib()[name]
+    stream = torch.cuda.current_stream().cuda_stream
+    gamma = 1.0 / (2.0 * float(params["l"]) ** 2)
+
+    def run(ptrs):
+        torch.cuda.synchronize()
+        total = 0.0
+        for i in range(n):
+            t0 = time.perf_counter()
+            rc = fn(ptrs[i % len(ptrs)], r1.data_ptr(), m1, B1,
+                    X2.data_ptr(), r2.data_ptr(), m2, B2, out.data_ptr(),
+                    out.data_ptr(), float(params["sigma"]) ** 2, gamma, 2, 0,
+                    0, 3 * m2, 0, stream)
+            total += time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"{name} launch failed")
+        torch.cuda.synchronize()
+        return 1e6 * total / n
+    run([X1.data_ptr()])
+    return (run([X1.data_ptr()]), run([c.data_ptr() for c in copies]))
 
 
 def host_ms(torch, fn, reps):
@@ -741,15 +804,17 @@ def k1_readings(torch, kff, shapes, log, card):
 def compare_sources(torch, T, kff, alt_source, log):
     """--alt-source: the device time of one launch of the twelve highest
     kernels but the three rectangular Dot ones (K1, K1-dual, K1-deriv,
-    K1-dot, K2 and K3 with their dual and deriv forms) from the package's
-    csrc/kff.cu and from ``alt_source`` -- another revision of it with the
-    same entry points -- in turns (other, own, own, other) inside this one
-    process, at the slice, mid and bench shapes, on the same operands."""
+    K1-dot, K2 and K3 with their dual and deriv forms) and of the sixteen
+    mode K2/K3 kernels, from the package's csrc/ and from ``alt_source`` --
+    another revision's sources with the same entry points, a directory or
+    one .cu file -- in turns (other, own, own, other) inside this one
+    process, at the slice, mid and bench shapes, on the same operands; and
+    whether the two libraries' outputs are equal bit for bit."""
     dev, f32 = torch.device("cuda"), torch.float32
     card = card_line()
     t0 = time.time()
     libs = {"other": kff.load(kff.build(alt_source)[0]), "own": kff._lib()}
-    # the other library's rect kernels need their shared-memory limit too
+    # the other library's ring kernels need their shared-memory limit too
     if "kff_rect_init" in libs["other"] and libs["other"]["kff_rect_init"]():
         raise RuntimeError(f"kff_rect_init of {alt_source} failed")
     log(f"[{card}] both libraries built in {time.time() - t0:.1f} s; other: "
@@ -760,26 +825,36 @@ def compare_sources(torch, T, kff, alt_source, log):
     me, mf = bench_data(torch, dev, m_e=250, m_f=750)
     be, bf = bench_data(torch, dev)
     bparams = {"sigma": 2.0, "l": 1.0}
+    names = [b for b in HIGHEST if b.startswith("kff_tri")
+             or not b.endswith("_dot")] + list(MMA)
     for tag, e1, f1, f2, prm, reps in (
             ("slice", pe, pf, tf, gp.kernel.params(), 200),
             ("mid", me, mf, mf, bparams, 5), ("bench", be, bf, bf, bparams, 3)):
-        E1 = kff.energy_operand(e1, "highest") + (e1.x.shape[1],)
-        F1, F2 = (kff.force_operand(f, "highest") + (f.x.shape[1],)
-                  for f in (f1, f2))
-        for base in [b for b in HIGHEST if b.startswith("kff_tri")
-                     or not b.endswith("_dot")]:
-            lhs = E1 if base.startswith("kef") else \
-                F2 if base.startswith("kff_tri") else F1
-            us = {"other": [], "own": []}
-            prm_b = {"sigma": prm["sigma"], "sigma0": 2.0} \
-                if base.endswith("_dot") else prm
-            for which in ("other", "own", "own", "other"):
-                us[which].append(device_us(torch, kff, base, lhs, F2, prm_b,
-                                           reps, libs[which]))
-            log(f"[{card}] {tag} {base} ({lhs[0].shape[-2] // lhs[2]} x "
-                f"{F2[0].shape[-2] // F2[2]} points), device us a launch: "
-                f"other {us['other'][0]:.2f}, own {us['own'][0]:.2f}, own "
-                f"{us['own'][1]:.2f}, other {us['other'][1]:.2f}")
+        for mode in PREC:
+            E1 = kff.energy_operand(e1, mode) + (e1.x.shape[1],)
+            F1, F2 = (kff.force_operand(f, mode) + (f.x.shape[1],)
+                      for f in (f1, f2))
+            for name in [n for n in names if split_name(n)[1] == mode]:
+                base = split_name(name)[0]
+                lhs = E1 if base.startswith("kef") else \
+                    F2 if base.startswith("kff_tri") else F1
+                us = {"other": [], "own": []}
+                outs = {"other": [], "own": []}
+                prm_b = {"sigma": prm["sigma"], "sigma0": 2.0} \
+                    if base.endswith("_dot") else prm
+                for which in ("other", "own", "own", "other"):
+                    us[which].append(device_us(
+                        torch, kff, name, lhs, F2, prm_b, reps, libs[which],
+                        outs[which] if not outs[which] else None))
+                planes = 2 if base.endswith("_dual") else 1
+                same = all(torch.equal(a, b) for a, b in
+                           zip(outs["other"][:planes], outs["own"][:planes]))
+                log(f"[{card}] {tag} {name} ({lhs[0].shape[-2] // lhs[2]} x "
+                    f"{F2[0].shape[-2] // F2[2]} points), device us a launch: "
+                    f"other {us['other'][0]:.2f}, own {us['own'][0]:.2f}, own "
+                    f"{us['own'][1]:.2f}, other {us['other'][1]:.2f}; outputs "
+                    f"equal bit for bit: {same}")
+                del outs
 
 
 def predict_packed_of(torch, T, log):
@@ -1128,9 +1203,10 @@ def range_times(torch, kff, par, mesh, f, params, dparams, reps, plain_reps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--alt-source", help="another revision of csrc/kff.cu "
-                    "(same entry points): time its kernels beside the "
-                    "package's, in turns, and stop")
+    ap.add_argument("--alt-source", help="another revision's kernel "
+                    "sources, a directory like csrc/ or one .cu file (same "
+                    "entry points): time its kernels beside the package's, "
+                    "in turns, and stop")
     ap.add_argument("--alt-root", help="another revision's checkout: time "
                     "its _predict_packed beside this one's, in turns, and "
                     "stop")
@@ -1176,13 +1252,20 @@ def main(argv=None) -> int:
         log(f"(a) instantiations: cov_kernel "
             f"{len(bodies.get('cov', ()))}, rect_kernel "
             f"{len(bodies.get('rect', ()))}, tri_kernel "
-            f"{len(bodies.get('tri', ()))}")
-        if len(bodies.get("cov", ())) != 24 or \
+            f"{len(bodies.get('tri', ()))}, rect_mma_kernel "
+            f"{len(bodies.get('rect_mma', ()))}")
+        if bodies.get("cov", set()) != set(COV) or \
                 bodies.get("rect", set()) != set(RECT) or \
-                bodies.get("tri", set()) != set(TRI):
-            raise AssertionError("the library does not hold 24 cov_kernel, "
-                                 "8 rect_kernel and 4 tri_kernel "
-                                 "instantiations")
+                bodies.get("tri", set()) != set(TRI) or \
+                bodies.get("rect_mma", set()) != set(MMA):
+            raise AssertionError("the library does not hold 8 cov_kernel, "
+                                 "8 rect_kernel, 4 tri_kernel and 16 "
+                                 "rect_mma_kernel instantiations")
+        spills = {name: int(m.group(1)) for name, body, line in
+                  ptxas_lines(compiler_log) if body == "rect_mma"
+                  for m in [re.search(r"(\d+) bytes spill stores", line)]
+                  if m}
+        log(f"(a) rect_mma_kernel spill stores (bytes): {json.dumps(spills)}")
 
     # (d) the main path, counted
     kff.reset_launches()
@@ -1407,6 +1490,14 @@ def main(argv=None) -> int:
     bench_plain_ms = {}
     bench_cases = all_cases(kff, be, bf, be, bf, bparams, bdparams)
     compare(torch, bench_cases, "bench", errs, log, bench_plain_ms)
+    # the sixteen mode K2/K3 kernels also on packed operands at the bench
+    # shape (bench_cases sorts both sides, as the operand builders do by
+    # default at this size), one case a kernel
+    seen = set()
+    compare(torch, [c for c in rect_cases(kff, be, bf, be, bf, bparams,
+                                          bdparams, False, MODES)
+                    if c[0] in MMA and not (c[0] in seen or seen.add(c[0]))],
+            "bench, envs as packed", errs, log)
     for name, f in (("slice request", pf), ("bench", bf)):
         Xh, _ = kff.force_operand(f, "highest")
         for mode in MODES:
@@ -1486,18 +1577,29 @@ def main(argv=None) -> int:
     floor_us = 1e3 * cuda_ms(torch, lambda: empty(stream), 2000)
     log(f"(g) [{card}] launch floor: an empty kernel {floor_us:.3f} us per "
         "back-to-back launch (CUDA events)")
-    F1, F2 = (kff.force_operand(f, "highest") + (f.x.shape[1],)
-              for f in (pf, tf))
-    E1 = kff.energy_operand(pe, "highest") + (pe.x.shape[1],)
+    slice_ops = {mode: ((kff.energy_operand(pe, mode) + (pe.x.shape[1],)),
+                        *(kff.force_operand(f, mode) + (f.x.shape[1],)
+                          for f in (pf, tf))) for mode in PREC}
     slice_device_us = {}
-    for base in HIGHEST:
+    for name in HIGHEST + list(MMA):
+        base, mode = split_name(name)
+        E1, F1, F2 = slice_ops[mode]
         prm = dparams if base.endswith("_dot") else params
         lhs = E1 if base.startswith("kef") else \
             F2 if base.startswith("kff_tri") else F1
-        slice_device_us[base] = device_us(torch, kff, base, lhs, F2, prm)
-        log(f"(g) [{card}] slice {base}: device {slice_device_us[base]:.2f} "
+        slice_device_us[name] = device_us(torch, kff, name, lhs, F2, prm)
+        log(f"(g) [{card}] slice {name}: device {slice_device_us[name]:.2f} "
             f"us a launch (raw launches back to back), call "
-            f"{1e3 * times[base][0]:.2f} us (CUDA events around the wrapper)")
+            f"{1e3 * times[name][0]:.2f} us (CUDA events around the wrapper)")
+    for name in ("kff_rect_bf16x4", "kef_rect_bf16x4", "kff_rect_bf16"):
+        E1, F1, F2 = slice_ops[split_name(name)[1]]
+        kept, anew = map_host_us(torch, kff, name,
+                                 E1 if name.startswith("kef") else F1, F2,
+                                 params)
+        log(f"(g) [{card}] slice {name}: host us a raw launch, the lhs at "
+            f"one address {kept:.2f}, at a new one each launch {anew:.2f} "
+            f"(in bf16x4 its tensor map encoded anew: +{anew - kept:.2f} "
+            "us)")
     at = {"mid": {}, "bench": {}}
     me, mf = bench_data(torch, dev, m_e=250, m_f=750)
     for sort in (True, False):
@@ -1519,6 +1621,13 @@ def main(argv=None) -> int:
                 "pair) products multiplied; same-element env pairs are "
                 f"{pair_count(args[0], 32, re_, 32, False) / (args[0].shape[1] * re_.shape[1]):.3f}"
                 " of all")
+        for what, args in (("K3", (re_, 32, re_, 32)),
+                           ("K2", (w_, 32, re_, 32, True))):
+            some, every, mine, products = kff.mma_pairs(*args)
+            log(f"(g) {tag} {what} in the modes (rect_mma_kernel): {some} of "
+                f"{every} chunk pairs staged ({some / every:.3f}), "
+                f"{mine / products:.3f} of the warp products (16 x 8 env "
+                "sub-tiles) multiplied")
     sort_readings(torch, kff, dev, log, card)
     k1_us = k1_readings(torch, kff, (("slice", tf, params, dparams, 200),
                                      ("mid", mf, bparams, bdparams, 10),
@@ -1540,7 +1649,7 @@ def main(argv=None) -> int:
                 f"{pms:.3f} ms, bound {bms:.3f} ms ({by}; {mma:.4g} "
                 f"tensor-core and {ops:.4g} fp32 operations, {nbytes:.4g} "
                 "bytes)" + (f"; {bms / ms:.3f} of the bound (target 0.5)"
-                            if name in HIGHEST else ""))
+                            if name in HIGHEST or name in MMA else ""))
             at[tag][name] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=by)
 
@@ -1769,7 +1878,7 @@ def main(argv=None) -> int:
     # the 2.5k and 10k bench shapes.  No single PyTorch call computes
     # these blocks, so there is no library time.  The range form of a K1
     # kernel: shard 0's tile range of the four.
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+    kernels = [{"name": name, "route": "cuda", "source": source_of(name),
                 "replaces": replaces(name),
                 "launches": sum(c[name] for c in path_launches.values()),
                 "launches_by_path": {p: c[name]
@@ -1779,7 +1888,7 @@ def main(argv=None) -> int:
                 "bound_by": times[name][3], "library_ms": None,
                 "mid": at["mid"][name], "bench": at["bench"][name],
                 **({"device_us": slice_device_us[name],
-                    "launch_floor_us": floor_us} if name in HIGHEST
+                    "launch_floor_us": floor_us} if name in slice_device_us
                    else {}),
                 **({"device_us_by_shape": {
                     f"{tag}_{'sorted' if srt else 'packed'}": us
@@ -1787,7 +1896,7 @@ def main(argv=None) -> int:
                    if name in HIGHEST and name.startswith("kff_tri")
                    else {})}
                for name in NAMES]
-    kernels += [{"name": name, "route": "cuda", "source": SOURCE,
+    kernels += [{"name": name, "route": "cuda", "source": source_of(name),
                  "replaces": RANGE_REPLACES,
                  "launches": sum(c[name] for c in path_launches.values()),
                  "launches_by_path": {p: c[name]

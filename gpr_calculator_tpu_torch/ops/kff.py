@@ -1,5 +1,5 @@
 r"""K_FF / K_EF covariance blocks: operand builders, hand-written CUDA
-kernels (``csrc/kff.cu``) and their plain PyTorch versions.
+kernels (the sources of ``csrc/``) and their plain PyTorch versions.
 
 Port of the JAX package's ``ops/kff_pallas.py``.  Each block side is
 first turned into matmul operands (``force_operand``/``energy_operand``):
@@ -53,9 +53,10 @@ envs by element (a stable ``torch.argsort``), the envs without weight
 (padding, |x| < EPS) last (``sort=True``; ``sort=False`` keeps the packed
 order; the default sorts sides of ``SORT_MIN_ENVS`` envs or more).  A
 block is a sum over a point's envs, so the order moves only the order of
-that sum; the ``highest`` kernels (K1, K2, K3) skip the env
-chunks whose element ranges cannot meet, which a sorted side makes
-frequent.  Every kernel and plain version stays correct for any order.
+that sum; the ``highest`` kernels (K1, K2, K3) and the mode kernels of K2
+and K3 skip the env chunks whose element ranges cannot meet, which a
+sorted side makes frequent.  Every kernel and plain version stays correct
+for any order.
 
 Routes.  ``kff_from_ops`` and ``kef_from_ops`` take the plain version for
 tensors on the CPU (any float dtype) and launch the CUDA kernels for
@@ -63,17 +64,19 @@ float32 or bf16-parts operands on a CUDA device; anything else on CUDA
 raises.  The kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect``
 with the suffixes ``_dual``, ``_deriv`` (K1-K3; K3 also ``_dual``) and
 ``_dot``, each also with ``_bf16x4`` and ``_bf16`` for the modes) are
-built with nvcc at first use into the package's git-ignored ``build/``
-directory and bound with ctypes.  ``launches`` counts each kernel launch.
+built with nvcc at first use -- every ``csrc/*.cu`` compiled on its own,
+all at once, and linked into one library -- into the package's
+git-ignored ``build/`` directory and bound with ctypes.  ``launches``
+counts each kernel launch.
 The ``highest`` K1 kernels read their operand through a tensor map of its
 k-major copy (``tri_operand``, ~49 MB at 3000 points of 32 envs), which
 the wrapper builds once per operand tensor and keeps on it.
 ``out=`` (and ``outd=``, the dK/dgamma plane of a dual pass) writes the
 block into a caller's 2-D float32 view with unit column stride -- a slice
-of a larger buffer -- and ``transpose=True`` (K2) stores K_EF transposed
-there: the served block of ``ops/kernels.k_block`` and the training
-covariance of ``k_self`` / ``k_self_dual`` are built in one buffer this
-way.
+of a larger buffer -- and ``transpose=True`` (K2, in every mode) stores
+K_EF transposed there: the served block of ``ops/kernels.k_block`` and
+the training covariance of ``k_self`` / ``k_self_dual`` are built in one
+buffer this way.
 
 The tile-range form of K1 (``tiles=(k0, nk)`` on ``kff_from_ops`` and
 ``kff_plain``): the symmetric K_FF is cut into TP x TP-point tiles, its
@@ -104,9 +107,12 @@ from ..native import BUILD_DIR
 
 DP = 32                  # padded descriptor width of the operand rows
 _PAIR_BUDGET = 2 ** 24   # env pairs per chunk of the plain versions
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "kff.cu"
-TP = 8                   # points per tile side (csrc/kff.cu)
-CB = 4                   # envs per point in a K_FF chunk (csrc/kff.cu)
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+TP = 8                   # points per tile side (csrc/kff_common.cuh)
+CB = 4                   # envs per point in a K_FF chunk (csrc/kff_common.cuh)
+# lhs points per tile of the mode K2 kernels (csrc/kff_rect_mma.cu: 8
+# groups of 4 energy points); the mode K3 kernels take TP
+TP_EF_MMA = 32
 TROWS = 4 * DP + 2       # rows of the k-major copy K1 reads (tri_operand)
 _MAX_POINTS = 65535 * TP  # grid.y limit at TP points per tile
 _HI_MASK = -65536        # 0xFFFF0000 as int32: sign, exponent, 7 bits
@@ -333,6 +339,47 @@ def staged_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False,
     mine = ~((p1[:, :, None, 1] < r2[None, None, :, 0])
              | (r2[None, None, :, 1] < p1[:, :, None, 0]))
     return int((mine & meet[:, None, :]).sum()), TP * int(grid.sum())
+
+
+def _held(re, B: int, group: int, tile: int, elements):
+    """(tiles, chunks, tile / group, len(elements)) bool: the elements that
+    the envs with a weight hold in each group of ``group`` points x CB envs
+    of every chunk, for tiles of ``tile`` points."""
+    m = re.shape[1] // B
+    nt, nc = -(-m // tile), -(-B // CB)
+    w = re.new_zeros((nt * tile, nc * CB))
+    el = re.new_zeros((nt * tile, nc * CB))
+    w[:m, :B], el[:m, :B] = re[0].reshape(m, B), re[1].reshape(m, B)
+    has = (w != 0)[..., None] & (el[..., None] == elements)
+    has = has.reshape(nt, tile // group, group, nc, CB, -1).any(4).any(2)
+    return has.permute(0, 2, 1, 3)
+
+
+def mma_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False):
+    """What a launch of a mode K3 (or, ``energy_lhs``, K2) kernel on
+    rect_mma_kernel stages and multiplies: (chunk pairs staged, all chunk
+    pairs of its grid, warp products multiplied, all warp products).  Its
+    chunks are CB envs of TP lhs points (K2: TP_EF_MMA energy points) and
+    of TP rhs points; a chunk pair is staged when its element ranges
+    intersect.  Inside it a warp multiplies one lhs group (4 points x CB
+    envs) by each of its n-tiles (2 rhs points x CB envs), and skips a
+    product in which no env pair carries a weight and shares an element
+    (the lanes' vote)."""
+    tile1 = TP_EF_MMA if energy_lhs else TP
+    c1 = chunk_ranges(re1, B1, tile1, CB)
+    c2 = chunk_ranges(re2, B2, TP, CB)
+    r1, r2 = c1.reshape(-1, 2)[:, None, :], c2.reshape(-1, 2)[None, :, :]
+    meet = ~((r1[..., 1] < r2[..., 0]) | (r2[..., 1] < r1[..., 0]))
+    elements = torch.unique(torch.cat([re1[1][re1[0] != 0],
+                                       re2[1][re2[0] != 0]]))
+    h1 = _held(re1, B1, 4, tile1, elements)
+    h2 = _held(re2, B2, 2, TP, elements)
+    g1, g2, n = h1.shape[2], h2.shape[2], len(elements)
+    hit = (h1.reshape(-1, n).float() @ h2.reshape(-1, n).float().T) > 0
+    hit = hit.reshape(meet.shape[0], g1, meet.shape[1], g2) \
+        & meet[:, None, :, None]
+    return (int(meet.sum()), meet.numel(), int(hit.sum()),
+            meet.numel() * g1 * g2)
 
 
 def _family(kind: str, deriv: bool):
@@ -587,32 +634,71 @@ def _nvcc() -> str:
     return path
 
 
-def build(source: Path = _SRC) -> tuple[Path, str]:
-    """Compile ``source`` (``csrc/kff.cu``) for sm_90a into ``build/``
-    (skipped when the library for this source already exists).  Returns
-    (library path, compiler output).  The library is written under a
-    temporary name and renamed into place, so concurrent processes never
+def sources(source: Path = CSRC) -> list[Path]:
+    """The files a library is built from: every ``*.cu`` and ``*.cuh`` of
+    the directory ``source`` (by name), or the one file ``source``."""
+    source = Path(source)
+    if source.is_dir():
+        return sorted(p for p in source.iterdir()
+                      if p.suffix in (".cu", ".cuh"))
+    return [source]
+
+
+def library_name(source: Path = CSRC) -> str:
+    """``libkff-<hash>.so``: the hash over the name and the bytes of every
+    file of ``sources(source)``, so a change to any source or header names
+    a new library."""
+    h = hashlib.sha256()
+    for path in sources(source):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return f"libkff-{h.hexdigest()[:16]}.so"
+
+
+def build(source: Path = CSRC) -> tuple[Path, str]:
+    """Compile the kernels of ``source`` (the ``csrc/`` directory, or one
+    ``.cu`` file of another revision) for sm_90a and link them into one
+    library in ``build/`` (skipped when the library for these sources
+    already exists).  Every ``.cu`` is compiled by an nvcc of its own, all
+    started together, then one nvcc links the objects.  Returns (library
+    path, compiler output in source order).  The library is written under
+    a temporary name and renamed into place, so concurrent processes never
     load a partial file."""
-    src = Path(source).read_bytes()
-    out = BUILD_DIR / f"libkff-{hashlib.sha256(src).hexdigest()[:16]}.so"
+    files = sources(source)
+    out = BUILD_DIR / library_name(source)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xcompiler", "-fPIC"]
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    procs = []
     try:
-        res = subprocess.run(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-o", tmp, str(source)],
-            capture_output=True, text=True, timeout=600)
+        for src in (f for f in files if f.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, *arch, "-Xptxas", "-v", "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [proc.communicate(timeout=900)[0] for _, proc in procs]
+        failed = [log for (_, proc), log in zip(procs, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        res = subprocess.run([nvcc, *arch, "-shared", "-o", tmp,
+                              *(obj for obj, _ in procs)],
+                             capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{res.stderr}")
+            raise RuntimeError(f"nvcc failed to link:\n{res.stderr}")
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, res.stdout + res.stderr
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return out, "".join(logs) + res.stdout + res.stderr
 
 
 _FN = {}        # entry-point name -> bound ctypes function
@@ -620,11 +706,12 @@ _READY = set()  # device indices whose shared-memory limits are set
 
 
 def load(path) -> dict:
-    """Load a library built from ``csrc/kff.cu`` (or from a source with
-    its entry points): {entry-point name: bound ctypes function}, with
-    ``kff_empty``, ``kff_rect_init`` and ``kff_tri_rows`` where the library
-    has them (a library with ``kff_tri_rows`` takes the k-major copy,
-    ``tri_operand``, as X2 of its highest K1 entry points)."""
+    """Load a library built from ``csrc/`` (or from another revision's
+    sources with its entry points): {entry-point name: bound ctypes
+    function}, with ``kff_empty``, ``kff_rect_init`` and ``kff_tri_rows``
+    where the library has them (a library with ``kff_tri_rows`` takes the
+    k-major copy, ``tri_operand``, as X2 of its highest K1 entry
+    points)."""
     lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     LL = ctypes.c_longlong
@@ -868,8 +955,8 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
     """K_EF (m1, 3 m2) from energy and force operands (kernel K2, or
     K2-dot); dual=True (RBF) returns (K, dK/dgamma) from one pass,
     K2-dual; deriv=True dK/dgamma alone, K2-deriv.  transpose=True (not
-    dual) gives K_EF^T (3 m2, m1): the ``highest`` kernel stores it so,
-    a mode's kernel result is transposed by a copy.  out (and outd, the
+    dual) gives K_EF^T (3 m2, m1), which the kernel of every mode stores
+    so.  out (and outd, the
     dK/dgamma plane of a dual pass): the block is written into these
     views, (m1, 3 m2) or (3 m2, m1), and returned."""
     kind, deriv = _family(kind, deriv)
@@ -904,15 +991,6 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
     args = (U1.data_ptr(), w1.data_ptr(), m1, A1, X2.data_ptr(),
             re2.data_ptr(), m2, B2)
     scalars = (sigma2, 0.0 if kind == "dot" else p2, zeta)
-    if transpose and mode != "highest":
-        # the tensor-core kernels store row-major alone
-        K = torch.empty((m1, 3 * m2), dtype=torch.float32, device=U1.device)
-        _launch(base, mode, U1.device, *args, K.data_ptr(), K.data_ptr(),
-                *scalars, ldo=3 * m2)
-        if out is None:
-            return K.T.contiguous()
-        out.copy_(K.T)
-        return out
     if not given:
         out = torch.empty(shape, dtype=torch.float32, device=U1.device)
         outd = torch.empty_like(out) if dual else out

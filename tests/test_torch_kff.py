@@ -708,3 +708,145 @@ def test_k1_tensor_map_is_never_reused_for_another_operand_on_card(cuda):
     assert rc != 0
     rc, _, _ = launch(fA, at_buf, re2=kff.force_operand(fA)[1].clone())
     assert rc != 0
+
+
+# ---------------------------------------------------------------------------
+# K3 kff_rect* and K2 kef_rect* in the bf16 modes (rect_mma_kernel)
+# ---------------------------------------------------------------------------
+
+MODE_RECT = [(b, m) for m in ("bf16x4", "bf16") for b in RECT_BASES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "packed"])
+@pytest.mark.parametrize("case", range(len(RECT_CASES)))
+@pytest.mark.parametrize("base,mode", MODE_RECT)
+def test_mode_rect_kernels_match_plain_on_card(cuda, base, mode, case, sort):
+    """Each mode K2/K3 kernel within 2e-5 max|plain| of its plain version
+    on the same rounded operands, sorted by element or packed, at ragged
+    point and env counts (K2's 32-point lhs tiles cut at 1, 7, 8, 9, 13 and
+    100 points); two runs bit-equal; out= writes a slice of a NaN-filled
+    buffer (K2 also transposed) and nothing else."""
+    m1, B1, m2, B2, elements = RECT_CASES[case]
+    zeta = 1 + case % 3
+    rng = np.random.RandomState(200 + case)
+    kw = dict(device=cuda, dtype=torch.float32)
+    f2 = pack_force(_ragged(rng, m2, B2, elements), **kw)
+    X2, re2 = kff.force_operand(f2, mode, sort=sort)
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf", mm_precision=mode)
+    if base.startswith("kef"):
+        e1 = pack_energy([(x, el) for x, _, el in
+                          _ragged(rng, m1, B1, elements)], **kw)
+        lhs = kff.energy_operand(e1, mode, sort=sort) + (e1.x.shape[1],)
+        fn, plain, rows = kff.kef_from_ops, kff.kef_plain, e1.m
+    else:
+        f1 = pack_force(_ragged(rng, m1, B1, elements), **kw)
+        lhs = kff.force_operand(f1, mode, sort=sort) + (f1.x.shape[1],)
+        fn, plain, rows = kff.kff_from_ops, kff.kff_plain, 3 * f1.m
+    args = lhs + (X2, re2, f2.x.shape[1], p, zeta)
+    pflags = {k: v for k, v in flags.items() if k != "mm_precision"}
+    kff.reset_launches()
+    K, again = fn(*args, **flags), fn(*args, **flags)
+    P = plain(*args, **pflags)
+    torch.cuda.synchronize()
+    planes = (K, again, P) if flags["dual"] else ((K,), (again,), (P,))
+    for k, k2, pl in zip(*planes):
+        assert k.shape == (rows, 3 * f2.m)
+        _close(k, pl)
+        assert torch.equal(k, k2)
+    n = 2
+    if not flags["dual"]:
+        buf = torch.full((rows + 5, 3 * f2.m + 7), float("nan"), **kw)
+        sl = (slice(2, 2 + rows), slice(3, 3 + 3 * f2.m))
+        fn(*args, out=buf[sl], **flags)
+        assert torch.equal(buf[sl], K) and _untouched(buf, *sl)
+        n += 1
+        if base.startswith("kef"):
+            buf = torch.full((3 * f2.m + 5, rows + 7), float("nan"), **kw)
+            sl = (slice(1, 1 + 3 * f2.m), slice(4, 4 + rows))
+            fn(*args, out=buf[sl], transpose=True, **flags)
+            assert torch.equal(buf[sl], K.T) and _untouched(buf, *sl)
+            assert torch.equal(fn(*args, transpose=True, **flags), K.T)
+            n += 2
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            kff.kernel_name(base, mode): n}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16x4", "bf16"])
+def test_mode_rect_stripes_equal_single_launch_on_card(cuda, mode):
+    """The K3 row stripes and the K2 energy-row stripes of the sharded
+    builds (cut at 8-point tiles, across K2's 32-point lhs tiles) on four
+    virtual shards of one card, concatenated, equal the single launch bit
+    for bit, on sorted and packed operands."""
+    from gpr_calculator_tpu_torch.parallel import make_mesh, sharded_kernels
+    rng = np.random.RandomState(210)
+    kw = dict(device=cuda, dtype=torch.float32)
+    e = pack_energy([(x, el) for x, _, el in
+                     _ragged(rng, 70, 13, (13, 29, 79))], **kw)
+    f = pack_force(_ragged(rng, 29, 11, (13, 29, 79)), **kw)
+    kw2 = dict(mm_precision=mode)
+    mesh = make_mesh(4, ["cuda:0"] * 4)
+    U, w = kff.energy_operand(e, mode)
+    X, re = kff.force_operand(f, mode)
+    for single, parts in (
+            (kff.kff_from_ops(X, re, 11, X, re, 11, PARAMS, 2, **kw2),
+             sharded_kernels.kff_sharded(f, PARAMS, mesh, 2, **kw2)),
+            (kff.kef_from_ops(U, w, 13, X, re, 11, PARAMS, 2, **kw2),
+             sharded_kernels.kef_sharded(e, f, PARAMS, mesh, 2, **kw2))):
+        assert torch.equal(torch.cat([t.to(cuda) for t in parts]), single)
+    for sort in (True, False):
+        U, w = kff.energy_operand(e, mode, sort=sort)
+        X, re = kff.force_operand(f, mode, sort=sort)
+        ef = kff.kef_from_ops(U, w, 13, X, re, 11, PARAMS, 2, **kw2)
+        ff = kff.kff_from_ops(X, re, 11, X, re, 11, PARAMS, 2, **kw2)
+        for p0, p1 in sharded_kernels.partition_points(e.m, 4):
+            part = kff.kef_from_ops(U[..., p0 * 13:p1 * 13, :].contiguous(),
+                                    w[:, p0 * 13:p1 * 13].contiguous(), 13,
+                                    X, re, 11, PARAMS, 2, **kw2)
+            assert torch.equal(part, ef[p0:p1])
+        for p0, p1 in sharded_kernels.partition_points(f.m, 4):
+            part = kff.kff_from_ops(X[..., p0 * 11:p1 * 11, :].contiguous(),
+                                    re[:, p0 * 11:p1 * 11].contiguous(), 11,
+                                    X, re, 11, PARAMS, 2, **kw2)
+            assert torch.equal(part, ff[3 * p0:3 * p1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16x4", "bf16"])
+def test_mode_rect_out_rejects_bad_views_on_card(cuda, mode):
+    """The mode K2/K3 wrappers refuse an out= view that is transposed, of
+    another shape, dtype or device, and a transposed K2 store into a view
+    of the untransposed shape; a good view is filled and returned."""
+    rng = np.random.RandomState(9)
+    kw = dict(device=cuda, dtype=torch.float32)
+    f = pack_force(_ragged(rng, 5, 6, (13, 79)), **kw)
+    e = pack_energy([(x, el) for x, _, el in _ragged(rng, 3, 6, (13, 79))],
+                    **kw)
+    X, re = kff.force_operand(f, mode)
+    U, w = kff.energy_operand(e, mode)
+    args = (X, re, 6, X, re, 6, PARAMS, 2)
+    eargs = (U, w, 6, X, re, 6, PARAMS, 2)
+    good = torch.empty((15, 15), **kw)
+    for bad in (good.T, torch.empty((15, 14), **kw), good.double(),
+                good.cpu()):
+        with pytest.raises(ValueError):
+            kff.kff_from_ops(*args, out=bad, mm_precision=mode)
+    ef = torch.empty((3, 15), **kw)
+    for bad, tr in ((ef, True), (ef.T.contiguous(), False),
+                    (torch.empty((15, 3), **kw).T, False)):
+        with pytest.raises(ValueError):
+            kff.kef_from_ops(*eargs, out=bad, transpose=tr,
+                             mm_precision=mode)
+    with pytest.raises(ValueError, match="transpose"):
+        kff.kef_from_ops(*eargs, dual=True, transpose=True,
+                         mm_precision=mode)
+    assert kff.kff_from_ops(*args, out=good, mm_precision=mode) is good
+    fe = torch.empty((15, 3), **kw)
+    assert kff.kef_from_ops(*eargs, out=fe, transpose=True,
+                            mm_precision=mode) is fe
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(good).any() or torch.isnan(fe).any())
