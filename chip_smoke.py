@@ -5,7 +5,7 @@ Usage (one CUDA card, no arguments):  python3 chip_smoke.py
 
 To compare two revisions on one card in one process tree, instead of the
 run below:  python3 chip_smoke.py --alt-source OTHER  times the highest
-kernels and the mode K2/K3 kernels of the package's csrc/ and of another
+kernels and the mode K1-K3 kernels of the package's csrc/ and of another
 revision's sources with the same entry points (OTHER: a directory of
 .cu/.cuh files, or one .cu file such as an older csrc/kff.cu) in turns;
 --alt-root OTHER_CHECKOUT  times one slice request's _predict_packed of
@@ -54,14 +54,14 @@ in each mode and holds alpha from bf16x4 to float32 ((c), (k3));
 re-serves the frozen slice model against a float64 CPU model; times
 kernel and plain versions at the slice, a mid and the bench shape, with
 each one's bound on the card, and one NLL+gradient evaluation, and
-compares that evaluation with float64 on the card (g).  For the twelve
-highest kernels (K1 kff_tri*, K2 kef_rect*, K3 kff_rect*) and the sixteen
-mode K2/K3 kernels (kef_rect*_bf16x4, ..., kff_rect*_bf16) (b)/(k2) also
-run operands sorted by element and left as packed, and (g) prints the
-wrapper call's time, the device time of one raw launch, the launch floor
-(an empty kernel), the share of the bound reached at the mid and bench
-shapes, what a launch skips (K1: on sorted and packed operands at the
-slice, mid and bench shapes), the host cost of a mode kernel's tensor map
+compares that evaluation with float64 on the card (g).  For every kernel
+(K1 kff_tri*, K2 kef_rect*, K3 kff_rect*, in highest and in the modes)
+(b)/(k2) also run operands sorted by element and left as packed, and (g)
+prints the wrapper call's time, the device time of one raw launch, the
+launch floor (an empty kernel), the share of the bound reached at the mid
+and bench shapes, what a launch skips (K1 in every mode: on sorted and
+packed operands at the slice, mid and bench shapes), the host cost of a
+mode kernel's tensor map
 encoded anew, what sorting a side by element costs and saves at growing
 sizes, one request's _predict_packed with the training side's operands
 kept or rebuilt, and checks that a model serving twice builds
@@ -141,18 +141,19 @@ RECT = {b: v[0].replace(",0,", ",", 1) for b, v in BASES.items()
 TRI = {b: v[0][len("4,1,"):] for b, v in BASES.items()
        if b.startswith("kff_tri")}
 # the sixteen mode K2/K3 entry points: rect_mma_kernel<LC, SEL, KIND,
-# PREC>; the eight mode K1 ones: cov_kernel<SEL, KIND, PREC>
+# PREC>; the eight mode K1 ones: tri_mma_kernel<SEL, KIND, PREC>
 MMA = {f"{b}_{m}": f"{params},{PREC[m]}" for m in MODES
        for b, params in RECT.items()}
-COV = {f"{b}_{m}": f"{params},{PREC[m]}" for m in MODES
-       for b, params in TRI.items()}
+TRI_MMA = {f"{b}_{m}": f"{params},{PREC[m]}" for m in MODES
+           for b, params in TRI.items()}
 
 
 def source_of(name):
     """The source file of kernel (or range launch) ``name``."""
     base, mode = split_name(name)
     if base.startswith("kff_tri"):
-        return CSRC + ("kff_tri.cu" if mode == "highest" else "kff_cov.cu")
+        return CSRC + ("kff_tri.cu" if mode == "highest"
+                       else "kff_tri_mma.cu")
     return CSRC + ("kff_rect.cu" if mode == "highest"
                    else "kff_rect_mma.cu")
 
@@ -269,13 +270,13 @@ def run_neb(T, gp, images):
 
 def ptxas_lines(compiler_log):
     """(kernel name, body, ptxas resource line) for each instantiation of
-    cov_kernel<SEL, KIND, PREC> (K1 in the bf16 modes), of
+    tri_mma_kernel<SEL, KIND, PREC> (K1 in the bf16 modes), of
     rect_mma_kernel<LC, SEL, KIND, PREC> (K2, K3 in the bf16 modes), of
     rect_kernel<LC, SEL, KIND> (K2, K3 in highest) and of tri_kernel<SEL,
     KIND> (K1 in highest)."""
     bodies = {
-        "cov": (r"cov_kernelILi(\d)ELi(\d)ELi(\d)E",
-                {params: name for name, params in COV.items()}),
+        "tri_mma": (r"tri_mma_kernelILi(\d)ELi(\d)ELi(\d)E",
+                    {params: name for name, params in TRI_MMA.items()}),
         "rect_mma": (r"rect_mma_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E",
                      {params: name for name, params in MMA.items()}),
         "rect": (r"rect_kernelILi(\d)ELi(\d)ELi(\d)E",
@@ -467,16 +468,6 @@ def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC),
                                    sort=sort)
                       + kernel_cases(kff, e1, f1, e2, f2, dparams, "dot",
                                      m, sort=sort))]
-
-
-def rect_cases(kff, e1, f1, e2, f2, params, dparams, sort,
-               modes=tuple(PREC)):
-    """The cases of the kernels with the element skip -- the twelve highest
-    ones (K1, K2, K3) and the sixteen mode K2/K3 ones -- in ``modes``, on
-    operands sorted by element (``sort`` True) or left as packed."""
-    return [c for c in all_cases(kff, e1, f1, e2, f2, params, dparams,
-                                 modes, sort) if c[0] in HIGHEST
-            or c[0] in MMA]
 
 
 def compare(torch, cases, tag, errs, log, plain_ms=None):
@@ -772,40 +763,52 @@ def sigma_vs_f64(torch, K_ops, pe, pf, be, bf, params, K, Kt, L, alpha,
 
 
 def k1_readings(torch, kff, shapes, log, card):
-    """(g) the four highest K1 kernels on operands sorted by element and
-    left as packed: the device time of one raw launch, its share of the
-    bound, and what a launch stages and multiplies (``staged_pairs`` in
-    its triangle form).  Returns {(shape, base, sorted): device us}."""
+    """(g) the twelve K1 kernels (four in each mode) on operands sorted by
+    element and left as packed: the device time of one raw launch, its
+    share of the bound, and what a launch stages and multiplies (highest:
+    ``staged_pairs`` in its triangle form, (lhs point, chunk pair)
+    products; the modes: ``mma_pairs`` in its triangle form, warp
+    products).  Returns {(shape, kernel name, sorted): device us}."""
     out = {}
     for tag, f, prm, dprm, reps in shapes:
         B, d = f.x.shape[1], f.x.shape[2]
         for sort in (True, False):
-            X, re_ = kff.force_operand(f, "highest", sort)
-            side = (X, re_, B)
-            some, every = kff.staged_pairs(re_, B, re_, B, triangle=True)
-            mine, prods = kff.staged_pairs(re_, B, re_, B, triangle=True,
-                                           per_lhs_point=True)
-            for base in [b for b in HIGHEST if b.startswith("kff_tri")]:
-                p_ = dprm if base.endswith("_dot") else prm
-                us = device_us(torch, kff, base, side, side, p_, reps)
-                out[(tag, base, sort)] = us
-                numel = (3 * f.m) ** 2 * (1 + base.endswith("_dual"))
-                bms, by = bound(*work(base, d, side, side, numel))
-                log(f"(g) [{card}] {tag} {base} ({f.m} points, envs "
-                    f"{'sorted by element' if sort else 'as packed'}): "
-                    f"device {us:.2f} us a launch, bound {1e3 * bms:.2f} us "
-                    f"({by}), {1e3 * bms / us:.3f} of the bound; staged "
-                    f"{some / every:.3f} of the chunk pairs, multiplied "
-                    f"{mine / prods:.3f} of the (lhs point, chunk pair) "
-                    "products")
+            for mode in PREC:
+                X, re_ = kff.force_operand(f, mode, sort)
+                side = (X, re_, B)
+                if mode == "highest":
+                    some, every = kff.staged_pairs(re_, B, re_, B,
+                                                   triangle=True)
+                    mine, prods = kff.staged_pairs(
+                        re_, B, re_, B, triangle=True, per_lhs_point=True)
+                    what = "(lhs point, chunk pair) products"
+                else:
+                    some, every, mine, prods = kff.mma_pairs(
+                        re_, B, re_, B, triangle=True)
+                    what = "warp products (16 x 8 env sub-tiles)"
+                for base in K1_BASES:
+                    name = kname(base, mode)
+                    p_ = dprm if base.endswith("_dot") else prm
+                    us = device_us(torch, kff, name, side, side, p_, reps)
+                    out[(tag, name, sort)] = us
+                    numel = (3 * f.m) ** 2 * (1 + base.endswith("_dual"))
+                    bms, by = bound(*work(name, d, side, side, numel))
+                    log(f"(g) [{card}] {tag} {name} ({f.m} points, envs "
+                        f"{'sorted by element' if sort else 'as packed'}): "
+                        f"device {us:.2f} us a launch, bound "
+                        f"{1e3 * bms:.2f} us ({by}), {1e3 * bms / us:.3f} "
+                        f"of the bound; staged {some / every:.3f} of the "
+                        f"chunk pairs, multiplied {mine / prods:.3f} of the "
+                        f"{what}")
     return out
 
 
 def compare_sources(torch, T, kff, alt_source, log):
     """--alt-source: the device time of one launch of the twelve highest
     kernels but the three rectangular Dot ones (K1, K1-dual, K1-deriv,
-    K1-dot, K2 and K3 with their dual and deriv forms) and of the sixteen
-    mode K2/K3 kernels, from the package's csrc/ and from ``alt_source`` --
+    K1-dot, K2 and K3 with their dual and deriv forms), of the sixteen
+    mode K2/K3 kernels and of the eight mode K1 kernels, from the
+    package's csrc/ and from ``alt_source`` --
     another revision's sources with the same entry points, a directory or
     one .cu file -- in turns (other, own, own, other) inside this one
     process, at the slice, mid and bench shapes, on the same operands; and
@@ -826,7 +829,7 @@ def compare_sources(torch, T, kff, alt_source, log):
     be, bf = bench_data(torch, dev)
     bparams = {"sigma": 2.0, "l": 1.0}
     names = [b for b in HIGHEST if b.startswith("kff_tri")
-             or not b.endswith("_dot")] + list(MMA)
+             or not b.endswith("_dot")] + list(MMA) + list(TRI_MMA)
     for tag, e1, f1, f2, prm, reps in (
             ("slice", pe, pf, tf, gp.kernel.params(), 200),
             ("mid", me, mf, mf, bparams, 5), ("bench", be, bf, bf, bparams, 3)):
@@ -846,14 +849,16 @@ def compare_sources(torch, T, kff, alt_source, log):
                     us[which].append(device_us(
                         torch, kff, name, lhs, F2, prm_b, reps, libs[which],
                         outs[which] if not outs[which] else None))
-                planes = 2 if base.endswith("_dual") else 1
-                same = all(torch.equal(a, b) for a, b in
-                           zip(outs["other"][:planes], outs["own"][:planes]))
+                planes = list(zip(outs["other"], outs["own"]))[
+                    :2 if base.endswith("_dual") else 1]
+                same = all(torch.equal(a, b) for a, b in planes)
+                diff = "" if same else " (max|own - other| = " + ", ".join(
+                    f"{rel_to(b, a):.3e}" for a, b in planes) + " of max|other|)"
                 log(f"[{card}] {tag} {name} ({lhs[0].shape[-2] // lhs[2]} x "
                     f"{F2[0].shape[-2] // F2[2]} points), device us a launch: "
                     f"other {us['other'][0]:.2f}, own {us['own'][0]:.2f}, own "
                     f"{us['own'][1]:.2f}, other {us['other'][1]:.2f}; outputs "
-                    f"equal bit for bit: {same}")
+                    f"equal bit for bit: {same}{diff}")
                 del outs
 
 
@@ -1249,23 +1254,28 @@ def main(argv=None) -> int:
         log(f"(a) ptxas {name} ({body}_kernel): {line}")
         bodies.setdefault(body, set()).add(name)
     if compiler_log:
-        log(f"(a) instantiations: cov_kernel "
-            f"{len(bodies.get('cov', ()))}, rect_kernel "
+        log(f"(a) instantiations: rect_kernel "
             f"{len(bodies.get('rect', ()))}, tri_kernel "
             f"{len(bodies.get('tri', ()))}, rect_mma_kernel "
-            f"{len(bodies.get('rect_mma', ()))}")
-        if bodies.get("cov", set()) != set(COV) or \
-                bodies.get("rect", set()) != set(RECT) or \
-                bodies.get("tri", set()) != set(TRI) or \
-                bodies.get("rect_mma", set()) != set(MMA):
-            raise AssertionError("the library does not hold 8 cov_kernel, "
-                                 "8 rect_kernel, 4 tri_kernel and 16 "
-                                 "rect_mma_kernel instantiations")
-        spills = {name: int(m.group(1)) for name, body, line in
-                  ptxas_lines(compiler_log) if body == "rect_mma"
-                  for m in [re.search(r"(\d+) bytes spill stores", line)]
-                  if m}
-        log(f"(a) rect_mma_kernel spill stores (bytes): {json.dumps(spills)}")
+            f"{len(bodies.get('rect_mma', ()))}, tri_mma_kernel "
+            f"{len(bodies.get('tri_mma', ()))}")
+        if set(bodies) != {"rect", "tri", "rect_mma", "tri_mma"} or \
+                bodies["rect"] != set(RECT) or \
+                bodies["tri"] != set(TRI) or \
+                bodies["rect_mma"] != set(MMA) or \
+                bodies["tri_mma"] != set(TRI_MMA) or \
+                "cov_kernel" in compiler_log:
+            raise AssertionError("the library does not hold 8 rect_kernel, "
+                                 "4 tri_kernel, 16 rect_mma_kernel and 8 "
+                                 "tri_mma_kernel instantiations and no "
+                                 "cov_kernel")
+        for body in ("rect_mma", "tri_mma"):
+            spills = {name: int(m.group(1)) for name, b, line in
+                      ptxas_lines(compiler_log) if b == body
+                      for m in [re.search(r"(\d+) bytes spill stores",
+                                          line)] if m}
+            log(f"(a) {body}_kernel spill stores (bytes): "
+                f"{json.dumps(spills)}")
 
     # (d) the main path, counted
     kff.reset_launches()
@@ -1466,7 +1476,8 @@ def main(argv=None) -> int:
     slice_cases = all_cases(kff, pe, pf, te, tf, params, dparams)
     compare(torch, slice_cases, "slice", errs, log)
     for sort in (True, False):
-        compare(torch, rect_cases(kff, pe, pf, te, tf, params, dparams, sort),
+        compare(torch, all_cases(kff, pe, pf, te, tf, params, dparams,
+                                 sort=sort),
                 f"slice, envs {'sorted by element' if sort else 'as packed'}",
                 errs, log)
     nte, ntf, _, _ = tgp._train_view()
@@ -1494,8 +1505,8 @@ def main(argv=None) -> int:
     # shape (bench_cases sorts both sides, as the operand builders do by
     # default at this size), one case a kernel
     seen = set()
-    compare(torch, [c for c in rect_cases(kff, be, bf, be, bf, bparams,
-                                          bdparams, False, MODES)
+    compare(torch, [c for c in all_cases(kff, be, bf, be, bf, bparams,
+                                         bdparams, MODES, False)
                     if c[0] in MMA and not (c[0] in seen or seen.add(c[0]))],
             "bench, envs as packed", errs, log)
     for name, f in (("slice request", pf), ("bench", bf)):
@@ -1581,7 +1592,7 @@ def main(argv=None) -> int:
                         *(kff.force_operand(f, mode) + (f.x.shape[1],)
                           for f in (pf, tf))) for mode in PREC}
     slice_device_us = {}
-    for name in HIGHEST + list(MMA):
+    for name in HIGHEST + list(MMA) + list(TRI_MMA):
         base, mode = split_name(name)
         E1, F1, F2 = slice_ops[mode]
         prm = dparams if base.endswith("_dot") else params
@@ -1603,8 +1614,8 @@ def main(argv=None) -> int:
     at = {"mid": {}, "bench": {}}
     me, mf = bench_data(torch, dev, m_e=250, m_f=750)
     for sort in (True, False):
-        compare(torch, rect_cases(kff, me, mf, me, mf, bparams, bdparams,
-                                  sort),
+        compare(torch, all_cases(kff, me, mf, me, mf, bparams, bdparams,
+                                 sort=sort),
                 f"mid, envs {'sorted by element' if sort else 'as packed'}",
                 errs, log)
     for tag, (e_, f_) in (("mid", (me, mf)), ("bench", (be, bf))):
@@ -1621,10 +1632,12 @@ def main(argv=None) -> int:
                 "pair) products multiplied; same-element env pairs are "
                 f"{pair_count(args[0], 32, re_, 32, False) / (args[0].shape[1] * re_.shape[1]):.3f}"
                 " of all")
-        for what, args in (("K3", (re_, 32, re_, 32)),
-                           ("K2", (w_, 32, re_, 32, True))):
-            some, every, mine, products = kff.mma_pairs(*args)
-            log(f"(g) {tag} {what} in the modes (rect_mma_kernel): {some} of "
+        for what, body, args, kw in (
+                ("K1", "tri_mma", (re_, 32, re_, 32), {"triangle": True}),
+                ("K3", "rect_mma", (re_, 32, re_, 32), {}),
+                ("K2", "rect_mma", (w_, 32, re_, 32, True), {})):
+            some, every, mine, products = kff.mma_pairs(*args, **kw)
+            log(f"(g) {tag} {what} in the modes ({body}_kernel): {some} of "
                 f"{every} chunk pairs staged ({some / every:.3f}), "
                 f"{mine / products:.3f} of the warp products (16 x 8 env "
                 "sub-tiles) multiplied")
@@ -1648,8 +1661,7 @@ def main(argv=None) -> int:
             log(f"(g) {label}, 32 envs, {name}: kernel {ms:.3f} ms, plain "
                 f"{pms:.3f} ms, bound {bms:.3f} ms ({by}; {mma:.4g} "
                 f"tensor-core and {ops:.4g} fp32 operations, {nbytes:.4g} "
-                "bytes)" + (f"; {bms / ms:.3f} of the bound (target 0.5)"
-                            if name in HIGHEST or name in MMA else ""))
+                "bytes)" + f"; {bms / ms:.3f} of the bound (target 0.5)")
             at[tag][name] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=by)
 
@@ -1893,8 +1905,7 @@ def main(argv=None) -> int:
                 **({"device_us_by_shape": {
                     f"{tag}_{'sorted' if srt else 'packed'}": us
                     for (tag, b, srt), us in k1_us.items() if b == name}}
-                   if name in HIGHEST and name.startswith("kff_tri")
-                   else {})}
+                   if name.startswith("kff_tri") else {})}
                for name in NAMES]
     kernels += [{"name": name, "route": "cuda", "source": source_of(name),
                  "replaces": RANGE_REPLACES,

@@ -2,7 +2,7 @@
 // rectangular fp32 covariance blocks of every served request on
 // rect_kernel<LC, SEL, KIND>.  Plain C interface, loaded with ctypes by
 // ops/kff.py, which builds every source of this directory into one library;
-// kff_cov.cu has the operands and the per-env-pair arithmetic.
+// kff_common.cuh has the operands and the per-env-pair arithmetic.
 //
 // They replace _kff_kernel (kff_pallas.py:269, K3) and _kef_kernel
 // (kff_pallas.py:748, K2) in the exact mode.  What bounds them on this
@@ -97,7 +97,7 @@ __device__ __forceinline__ void stage_async(const float* __restrict__ X,
 }
 
 // LC = 4: K_FF (kff_rect*), LC = 1: K_EF (kef_rect*); SEL and KIND as in
-// cov_kernel (kff_cov.cu).  blockIdx.y = lhs tile, blockIdx.x = rhs
+// every kernel (kff_common.cuh).  blockIdx.y = lhs tile, blockIdx.x = rhs
 // tile.  out (and outd for DUAL) have leading dimension ldo; trans (K_EF
 // only) stores
 // out[(3 q + v) * ldo + p] instead of out[p * ldo + 3 q + v].
@@ -401,7 +401,7 @@ cudaError_t kff::rect_highest_init() {
 
 // Entry points: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd, sigma2,
 // gamma, zeta, k0, nk, ldo, trans, stream), as every entry point of the
-// library (kff_cov.cu); k0 and nk are unused.  K_FF: out (3 m1, 3 m2);
+// library (kff_common.cuh); k0 and nk are unused.  K_FF: out (3 m1, 3 m2);
 // K_EF: out (m1, 3 m2) from energy operands, or with trans != 0 K_EF
 // transposed, out (3 m2, m1) with ldo at least m1.
 #define RECT_ENTRY(NAME, LC, SEL, KIND)                                     \
@@ -425,13 +425,14 @@ RECT_ENTRY(kff_rect_dual, 4, DUAL, RBF)
 RECT_ENTRY(kff_rect_deriv, 4, DERIV, RBF)
 RECT_ENTRY(kff_rect_dot, 4, KONLY, DOT)
 
-// The shared-memory limits of the ring kernels of every source (the
-// highest K1-K3 and the mode K2/K3) on the current device: the library's
-// loader calls it once for each device before the first launch there.
-// Returns the first CUDA error.
+// The shared-memory limits of the ring kernels of every source (K1-K3 in
+// highest and in the modes) on the current device: the library's loader
+// calls it once for each device before the first launch there.  Returns
+// the first CUDA error.
 int kff_rect_init() {
   const cudaError_t rcs[] = {kff::rect_highest_init(),
-                             kff::tri_highest_init(), kff::rect_mma_init()};
+                             kff::tri_highest_init(), kff::rect_mma_init(),
+                             kff::tri_mma_init()};
   for (cudaError_t rc : rcs)
     if (rc != cudaSuccess) return (int)rc;
   return 0;

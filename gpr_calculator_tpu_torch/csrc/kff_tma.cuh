@@ -1,8 +1,8 @@
-// The Tensor Memory Accelerator path shared by kff_tri.cu and
-// kff_rect_mma.cu: mbarriers, and the tensor maps the TMA reads through,
-// encoded on the host and kept.  Only those two sources include it (with
-// <cuda.h>): kff_rect.cu's kernels read 2.5-8 % slower in a translation
-// unit that holds the tensor-map path (PERF.md).
+// The Tensor Memory Accelerator path shared by kff_tri.cu and the mode
+// kernels (kff_mma.cuh): mbarriers, and the tensor maps the TMA reads
+// through, encoded on the host and kept.  Only those sources include it
+// (with <cuda.h>): kff_rect.cu's kernels read 2.5-8 % slower in a
+// translation unit that holds the tensor-map path (PERF.md).
 #pragma once
 
 #include <cuda.h>

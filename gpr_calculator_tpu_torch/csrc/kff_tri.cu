@@ -1,8 +1,8 @@
 // K1 (kff_tri*) in highest: the symmetric fp32 K_FF of every training
 // covariance on tri_kernel<SEL, KIND>, staged by the Tensor Memory
 // Accelerator.  Plain C interface, loaded with ctypes by ops/kff.py, which
-// builds every source of this directory into one library; kff_cov.cu has
-// the operands and the per-env-pair arithmetic.  It stays apart from the
+// builds every source of this directory into one library; kff_common.cuh
+// has the operands and the per-env-pair arithmetic.  It stays apart from the
 // highest rectangular kernels (kff_rect.cu): in one translation unit with
 // this one, K2 and K3 read 2.5-8 % slower with their text unchanged
 // (PERF.md).
@@ -62,7 +62,8 @@ __device__ __forceinline__ void tma_load3(float* dst, const CUtensorMap* map,
 // K1 in highest: tiles [k0, k0 + gridDim.x) of the upper triangle of one
 // operand, re its [weight, element] rows (the chunk ranges), map the
 // tensor map of its k-major copy (tri_map).  SEL and KIND as in
-// cov_kernel (kff_cov.cu); out (and outd for DUAL) with leading dimension ldo.
+// every kernel (kff_common.cuh); out (and outd for DUAL) with leading
+// dimension ldo.
 template <int SEL, int KIND>
 __global__ void __launch_bounds__(NT, 2)
 tri_kernel(const __grid_constant__ CUtensorMap map,
@@ -346,7 +347,7 @@ cudaError_t kff::tri_highest_init() {
   return cudaSuccess;
 }
 
-// Entry points as every entry point of the library (kff_cov.cu): X2 the
+// Entry points as every entry point of the library (kff_common.cuh): X2 the
 // k-major copy of (X1, re1) (kff_tri_rows() rows of m1 points of B1 envs
 // rounded up to 4), tiles [k0, k0 + nk) of the upper triangle and their
 // transposes written, nothing else.

@@ -53,10 +53,9 @@ envs by element (a stable ``torch.argsort``), the envs without weight
 (padding, |x| < EPS) last (``sort=True``; ``sort=False`` keeps the packed
 order; the default sorts sides of ``SORT_MIN_ENVS`` envs or more).  A
 block is a sum over a point's envs, so the order moves only the order of
-that sum; the ``highest`` kernels (K1, K2, K3) and the mode kernels of K2
-and K3 skip the env chunks whose element ranges cannot meet, which a
-sorted side makes frequent.  Every kernel and plain version stays correct
-for any order.
+that sum; every kernel (K1, K2, K3, in each mode) skips the env chunks
+whose element ranges cannot meet, which a sorted side makes frequent.
+Every kernel and plain version stays correct for any order.
 
 Routes.  ``kff_from_ops`` and ``kef_from_ops`` take the plain version for
 tensors on the CPU (any float dtype) and launch the CUDA kernels for
@@ -286,9 +285,9 @@ def _tri_copy(X, re, B: int):
 
 def chunk_ranges(re, B: int, points: int, envs: int):
     """The element range [lo, hi] of the envs with a weight in every env
-    chunk the ``highest`` kernels stage: (tiles, chunks, 2)
-    for tiles of ``points`` points and chunks of ``envs`` envs per point
-    (K1, K3 and the rhs of K2: 8 and 4; the lhs of K2: 8 and 8); (+inf,
+    chunk the kernels stage: (tiles, chunks, 2) for tiles of ``points``
+    points and chunks of ``envs`` envs per point (K1, K3 and the rhs of
+    K2: 8 and 4; the lhs of K2: 8 and 8, in the modes 32 and 4); (+inf,
     -inf) for a chunk of padding alone.  The kernels compute the same
     per block; this is their arithmetic in PyTorch, for tests and for
     counting what a launch skips."""
@@ -307,6 +306,15 @@ def chunk_ranges(re, B: int, points: int, envs: int):
     return torch.stack([lo, hi], dim=2)
 
 
+def _grid(c1, c2, triangle: bool):
+    """(lhs tile x chunk, rhs tile x chunk) bool: the chunk pairs of a
+    launch's grid, from the chunk ranges of its two sides -- every one,
+    or (``triangle``, K1) those of the upper-triangle tile pairs I <= J."""
+    t1, t2 = (torch.arange(c.shape[0], device=c.device)
+              .repeat_interleave(c.shape[1]) for c in (c1, c2))
+    return (t1[:, None] <= t2[None, :]) | (not triangle)
+
+
 def staged_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False,
                  per_lhs_point: bool = False, triangle: bool = False):
     """(chunk pairs a launch of a ``highest`` kernel on rect_kernel stages,
@@ -321,12 +329,8 @@ def staged_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False,
     c2 = chunk_ranges(re2, B2, TP, 4)
     r1, r2 = c1.reshape(-1, 2)[:, None, :], c2.reshape(-1, 2)[None, :, :]
     meet = ~((r1[..., 1] < r2[..., 0]) | (r2[..., 1] < r1[..., 0]))
-    grid = torch.ones_like(meet)
-    if triangle:
-        t1, t2 = (torch.arange(c.shape[0], device=re1.device)
-                  .repeat_interleave(c.shape[1]) for c in (c1, c2))
-        grid = t1[:, None] <= t2[None, :]
-        meet = meet & grid
+    grid = _grid(c1, c2, triangle)
+    meet = meet & grid
     if not per_lhs_point:
         return int(meet.sum()), int(grid.sum())
     m1 = re1.shape[1] // B1
@@ -355,7 +359,8 @@ def _held(re, B: int, group: int, tile: int, elements):
     return has.permute(0, 2, 1, 3)
 
 
-def mma_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False):
+def mma_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False,
+              triangle: bool = False):
     """What a launch of a mode K3 (or, ``energy_lhs``, K2) kernel on
     rect_mma_kernel stages and multiplies: (chunk pairs staged, all chunk
     pairs of its grid, warp products multiplied, all warp products).  Its
@@ -364,12 +369,16 @@ def mma_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False):
     intersect.  Inside it a warp multiplies one lhs group (4 points x CB
     envs) by each of its n-tiles (2 rhs points x CB envs), and skips a
     product in which no env pair carries a weight and shares an element
-    (the lanes' vote)."""
+    (the lanes' vote).  triangle: a mode K1 launch on tri_mma_kernel over
+    one operand (re2 is re1), whose grid holds the upper-triangle tile
+    pairs I <= J alone."""
     tile1 = TP_EF_MMA if energy_lhs else TP
     c1 = chunk_ranges(re1, B1, tile1, CB)
     c2 = chunk_ranges(re2, B2, TP, CB)
     r1, r2 = c1.reshape(-1, 2)[:, None, :], c2.reshape(-1, 2)[None, :, :]
     meet = ~((r1[..., 1] < r2[..., 0]) | (r2[..., 1] < r1[..., 0]))
+    grid = _grid(c1, c2, triangle)
+    meet = meet & grid
     elements = torch.unique(torch.cat([re1[1][re1[0] != 0],
                                        re2[1][re2[0] != 0]]))
     h1 = _held(re1, B1, 4, tile1, elements)
@@ -378,8 +387,8 @@ def mma_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False):
     hit = (h1.reshape(-1, n).float() @ h2.reshape(-1, n).float().T) > 0
     hit = hit.reshape(meet.shape[0], g1, meet.shape[1], g2) \
         & meet[:, None, :, None]
-    return (int(meet.sum()), meet.numel(), int(hit.sum()),
-            meet.numel() * g1 * g2)
+    pairs = int(grid.sum())
+    return int(meet.sum()), pairs, int(hit.sum()), pairs * g1 * g2
 
 
 def _family(kind: str, deriv: bool):

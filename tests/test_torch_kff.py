@@ -711,6 +711,131 @@ def test_k1_tensor_map_is_never_reused_for_another_operand_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K1 kff_tri* in the bf16 modes (tri_mma_kernel)
+# ---------------------------------------------------------------------------
+
+MODE_K1 = [(b, m) for m in ("bf16x4", "bf16") for b in K1_BASES]
+
+
+def _k1_flags(base):
+    dot = base.endswith("_dot")
+    return ({"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS,
+            dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "packed"])
+@pytest.mark.parametrize("shape", list(K1_SHAPES))
+@pytest.mark.parametrize("base,mode", MODE_K1)
+def test_k1_mode_matches_plain_on_card(cuda, base, mode, shape, sort):
+    """Each mode K1 kernel within 2e-5 max|plain| of its plain version on
+    every plane, on the same rounded operands sorted by element or packed,
+    at the slice and mid shapes; exactly symmetric; two runs bit-equal;
+    out= (and outd=) write slices of NaN-filled buffers and nothing
+    else."""
+    f = _k1_side(cuda, shape, 100 + K1_BASES.index(base))
+    X, re = kff.force_operand(f, mode, sort=sort)
+    B = f.x.shape[1]
+    p, flags = _k1_flags(base)
+    args = (X, re, B, X, re, B, p, 2)
+    kff.reset_launches()
+    K = kff.kff_from_ops(*args, symmetric=True, mm_precision=mode, **flags)
+    again = kff.kff_from_ops(*args, symmetric=True, mm_precision=mode,
+                             **flags)
+    P = kff.kff_plain(*args, symmetric=True, **flags)
+    planes = (K, again, P) if flags["dual"] else ((K,), (again,), (P,))
+    n = 3 * f.m
+    bufs = [torch.full((n + 4, n + 9), float("nan"), device=cuda)
+            for _ in planes[0]]
+    sl = (slice(3, 3 + n), slice(5, 5 + n))
+    views = [b[sl] for b in bufs]
+    kff.kff_from_ops(*args, symmetric=True, mm_precision=mode, out=views[0],
+                     outd=views[-1] if flags["dual"] else None, **flags)
+    torch.cuda.synchronize()
+    for k, k2, pl, buf in zip(*planes, bufs):
+        _close(k, pl)
+        assert torch.equal(k, k.T) and torch.equal(k, k2)
+        assert torch.equal(buf[sl], k) and _untouched(buf, *sl)
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            kff.kernel_name(base, mode): 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base,mode", MODE_K1)
+def test_k1_mode_tile_ranges_sum_to_single_launch_on_card(cuda, base,
+                                                          mode):
+    """At the mid shape on sorted operands (the skip engaged), four
+    tile-range launches of each mode K1 kernel, written into caller views,
+    each within 2e-5 max|plain| of kff_plain(tiles=), sum to the single
+    launch bit for bit; the sorted launch skips chunk pairs and warp
+    products."""
+    from gpr_calculator_tpu_torch.parallel import partition_tri_tiles
+    f = _k1_side(cuda, "mid", 110 + K1_BASES.index(base))
+    X, re = kff.force_operand(f, mode, sort=True)
+    p, flags = _k1_flags(base)
+    args = (X, re, 32, X, re, 32, p, 2)
+
+    def planes(x):
+        return x if isinstance(x, tuple) else (x,)
+    single = planes(kff.kff_from_ops(*args, symmetric=True,
+                                     mm_precision=mode, **flags))
+    total = [torch.zeros_like(s) for s in single]
+    for tiles in partition_tri_tiles(kff.n_tri_tiles(f.m), 4):
+        views = [torch.full_like(s, float("nan")) for s in single]
+        part = planes(kff.kff_from_ops(
+            *args, symmetric=True, mm_precision=mode, tiles=tiles,
+            out=views[0], outd=views[-1] if flags["dual"] else None,
+            **flags))
+        plain = planes(kff.kff_plain(*args, symmetric=True, tiles=tiles,
+                                     **flags))
+        for acc, k, v, pl in zip(total, part, views, plain):
+            assert k is v and not bool(torch.isnan(k).any())
+            _close(k, pl)
+            acc.add_(k)
+    torch.cuda.synchronize()
+    for acc, s in zip(total, single):
+        assert torch.equal(acc, s) and torch.equal(acc, acc.T)
+    staged, pairs, mult, prods = kff.mma_pairs(re, 32, re, 32,
+                                               triangle=True)
+    assert 0 < staged < pairs and 0 < mult < prods
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16x4", "bf16"])
+def test_k1_mode_entry_refuses_bad_arguments_on_card(cuda, mode):
+    """The mode K1 entry points take one operand: an X2 or re2 other than
+    X1 and re1, a transposed store, a misaligned operand or a tile range
+    outside the triangle is refused with an error code, and nothing is
+    launched."""
+    rng = np.random.RandomState(120)
+    f = pack_force(_ragged(rng, 17, 9, (13, 79)), device=cuda,
+                   dtype=torch.float32)
+    X, re = kff.force_operand(f, mode)
+    m, B = f.m, f.x.shape[1]
+    fn = kff._lib()[kff.kernel_name("kff_tri", mode)]
+    out = torch.full((3 * m, 3 * m), float("nan"), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    nk = kff.n_tri_tiles(m)
+
+    def launch(X1=X, X2=X, re2=re, k0=0, n=nk, trans=0, offset=0):
+        return fn(X1.data_ptr() + offset, re.data_ptr(), m, B,
+                  X2.data_ptr() + offset, re2.data_ptr(), m, B,
+                  out.data_ptr(), out.data_ptr(), PARAMS["sigma"] ** 2,
+                  1.0 / (2.0 * PARAMS["l"] ** 2), 2, k0, n, 3 * m, trans,
+                  stream)
+    for bad in (dict(X2=X.clone()), dict(re2=re.clone()), dict(trans=1),
+                dict(offset=8), dict(k0=1), dict(n=0)):
+        assert launch(**bad) != 0, bad
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out).all())
+    assert launch() == 0
+    torch.cuda.synchronize()
+    _close(out, kff.kff_plain(X, re, B, X, re, B, PARAMS, 2,
+                              symmetric=True))
+
+
+# ---------------------------------------------------------------------------
 # K3 kff_rect* and K2 kef_rect* in the bf16 modes (rect_mma_kernel)
 # ---------------------------------------------------------------------------
 
