@@ -32,6 +32,24 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       re-serve against float64 recorded, then the RBF path once in
       "bf16" (its outcome recorded: it may end on another band, or at
       the dispatcher's training-error gate);
+  (m) the batched paths: (m1) the 3 interior images of the slice band
+      and the 7 of a 9-image band served by GP.predict_structures (one
+      batched descriptor call, one served block) against the same images
+      served one at a time, from the same descriptors and end to end, and
+      against a CPU float64 model, with the host times of each form and
+      of the descriptor step alone; (m2) the batched on-the-fly NEB
+      (neb_calc(batched=True)), RBF then Dot, from set_GPR as in (i) /
+      (j), its barrier held against the JAX package's batched run and set
+      beside the serial NEB of this run; (m3) 100 perturbed 65-atom Al(100)
+      slabs with an Au adatom, labelled by EMT, saved by a model built one
+      structure at a time and read back by GP.load on the card (one
+      batched float64 ingest, SO3.calculate_many), its descriptors against
+      calculate in one group and in several, extract_db against the
+      per-structure loop, the measured bytes per pair, the loaded
+      model's served band against the saving model's and, end to end,
+      against a float64 model of its training set on the card (the plain
+      versions throughout), and where its float32 sigma_E moves between
+      two identical calls (bands of 5 slabs from three seeds);
   (l) the mesh-sharded builds on a mesh of four shards over the cards
       present (shard i on card i % count, so on one card four virtual
       shards): (l1) the tile-range form of every K1 kernel in every mode
@@ -45,10 +63,15 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       launches alone, then parallel.dryrun.dryrun_multichip(4); and the
       times of the sharded builds beside the single launches (on one
       card: overhead, not speed-up).
-(a)-(j) run in the default precision, "highest".  Around those runs it
+(a)-(j) and (m) run in the default precision, "highest"; (m) runs after
+(j).  Around those runs it
 checks every kernel (every mode, and the deriv and K3-dual kernels no
-path reaches) against its plain PyTorch version at the paths' shapes
-and at the 10k-covariance bench shape, and the card's bf16 split of the
+path reaches) against its plain PyTorch version at the paths' shapes --
+the batched ones too: the bands of 3 and 7 structures as the query side
+against the slice model's and the batched NEBs' training sets, and the
+ingest's training set (K1 at its 6100 rows, K2 with 65 envs an energy
+point) against its band of 5 slabs -- and at the 10k-covariance bench
+shape, and the card's bf16 split of the
 operand rows against the CPU's ((b), (k2)); factorises that covariance
 in each mode and holds alpha from bf16x4 to float32 ((c), (k3));
 re-serves the frozen slice model against a float64 CPU model; times
@@ -74,6 +97,7 @@ power limit, the last a JSON status object.
 """
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -107,6 +131,23 @@ JAX_DOT_NEB = dict(converged=True, nsteps=24, barrier=0.3560402,
                    use_base=10, use_surrogate=64, fits=5, N_energy=15,
                    N_forces=40)
 BARRIER_TOL = 0.01     # eV
+# the JAX package's batched on-the-fly NEB (CPU float64): the same
+# set_GPR, then neb_calc(..., batched=True)
+JAX_BATCHED_NEB = dict(converged=True, nsteps=18, barrier=0.3569161,
+                       use_base=9, use_surrogate=45, fits=4, N_energy=14,
+                       N_forces=38)
+JAX_BATCHED_DOT_NEB = dict(converged=True, nsteps=24, barrier=0.3539455,
+                           use_base=9, use_surrogate=63, fits=5,
+                           N_energy=14, N_forces=36)
+# a batched band against the same images served one at a time, and a
+# loaded model against the saving one, from the same descriptors and end
+# to end: |dE|, |dsigma_E| <= BAND_TOL noise_e natoms,
+# max|dF|, max|dsigma_F| <= BAND_TOL noise_f, a hundredth of the
+# card-vs-float64 limits
+BAND_TOL = 1e-3
+# the batched ingest: N_INGEST perturbed 65-atom slabs, each with its
+# energy and the forces of INGEST_FORCES atoms
+N_INGEST, INGEST_FORCES = 100, 20
 # one NVIDIA H100 SXM (data sheet, dense): fp32 outside the tensor cores,
 # bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
@@ -256,11 +297,12 @@ def run_training(T, device, dtype, kernel="RBF", mesh=None):
     return gp, images
 
 
-def run_neb(T, gp, images):
+def run_neb(T, gp, images, batched=False):
     """The on-the-fly NEB through a GPR calculator at its defaults
-    (opt_freq=1: every refit re-optimises the hyperparameters)."""
+    (opt_freq=1: every refit re-optimises the hyperparameters); batched:
+    every interior image served by one batched prediction a step."""
     band = T.neb_calc(images, T.GPR(base=T.EMT(), ff=gp, save=False),
-                      fmax=0.05, steps=150)
+                      fmax=0.05, steps=150, batched=batched)
     E = np.asarray(band.energies, float)
     return dict(converged=bool(band.converged), nsteps=band.nsteps,
                 barrier=float(E.max() - E[0]), use_base=gp.use_base,
@@ -898,6 +940,458 @@ def compare_roots(alt_root, log):
 
 
 # ---------------------------------------------------------------------------
+# (m) the batched band, the batched NEB and the batched ingest
+# ---------------------------------------------------------------------------
+
+def band_diffs(a, b, natoms):
+    """Between two lists of (E, F, E_std, F_std): the largest |dE| and
+    max|dF|, and |dsigma_E| (of the structure's energy) and max|dsigma_F|
+    as variances, each d sigma^2 over twice the largest sigma of ``b``
+    (the sigma difference at the largest sigma that would move the
+    variance as much).  Components with zero prior variance (this
+    fixture's symmetry) keep a float32 variance at the rounding floor,
+    whose square root is not reproducible from one call to the next."""
+    def top(f):
+        return max(f(x, y) for x, y in zip(a, b))
+    se = max(float(y[2]) for y in b)
+    sf = max(float(y[3].max()) for y in b)
+    return (top(lambda x, y: abs(x[0] - y[0])),
+            top(lambda x, y: abs(x[2] ** 2 - y[2] ** 2)) / (2 * se) * natoms,
+            top(lambda x, y: float(np.abs(x[1] - y[1]).max())),
+            top(lambda x, y: float(np.abs(x[3] ** 2 - y[3] ** 2).max()))
+            / (2 * sf))
+
+
+def from_descs(so3, band, descs, fn):
+    """``fn()`` with ``so3``'s descriptor calls answered from ``descs``,
+    one calculate_device dict a structure of ``band``."""
+    by_id = {id(a): d for a, d in zip(band, descs)}
+    so3.calculate_device = lambda atoms, atom_ids=None, device=None, \
+        dtype=None: by_id[id(atoms)]
+    so3.calculate_many_device = lambda atoms_list, dtype=None, \
+        pair_budget=None, device=None: [by_id[id(a)] for a in atoms_list]
+    try:
+        return fn()
+    finally:
+        del so3.calculate_device, so3.calculate_many_device
+
+
+def band_gate(d, natoms, tol, what, log, tag):
+    """Hold band_diffs ``d`` to |dE|, |dsigma_E| <= tol noise_e natoms and
+    max|dF|, max|dsigma_F| <= tol noise_f."""
+    lim_e = tol * NOISE_E * natoms
+    lim_f = tol * NOISE_F
+    log(f"{tag}, {what}: |dE| {d[0]:.3e}, |dsigma_E| {d[1]:.3e} eV (limit "
+        f"{lim_e:.3e}), max|dF| {d[2]:.3e}, max|dsigma_F| {d[3]:.3e} eV/A "
+        f"(limit {lim_f:.3e})")
+    if not (d[0] <= lim_e and d[1] <= lim_e and d[2] <= lim_f
+            and d[3] <= lim_f):
+        raise AssertionError(f"{tag}: {what} outside the limits")
+
+
+def band_vs_serial(torch, T, kff, K_ops, gp, band, tag, log, card):
+    """One band served by ``predict_structures`` against the same images
+    served one at a time by ``predict_structure``: from the same
+    descriptors and end to end, each call computing its own descriptors
+    (both gated at BAND_TOL of the noise; each form against a repeat of
+    itself recorded; each gated against a CPU float64 model of the same
+    training set at a tenth of the noise).  The end-to-end forms also
+    include the band served batched from one ``calculate_device`` an
+    image.  Then the host times, the launches and operand builds.
+    Returns the batched call's launches (the counts set to 0 just before
+    it)."""
+    natoms = len(band[0])
+    so3 = gp.descriptor
+    kff.reset_launches()
+    batch = gp.predict_structures(band, return_std=True)
+    torch.cuda.synchronize()
+    launches = dict(kff.launches)
+
+    def batched():
+        return gp.predict_structures(band, return_std=True)
+
+    def batched_per_image():
+        so3.calculate_many_device = lambda atoms_list, dtype=None, \
+            pair_budget=None, device=None: [
+                so3.calculate_device(a, device=device, dtype=dtype)
+                for a in atoms_list]
+        try:
+            return gp.predict_structures(band, return_std=True)
+        finally:
+            del so3.calculate_many_device
+
+    def serial():
+        return [(E, F, sE, sF) for E, F, _, sE, sF in
+                (gp.predict_structure(a, return_std=True) for a in band)]
+    descs = so3.calculate_many_device(band, device=gp.device,
+                                      dtype=gp.dtype, pair_budget=math.inf)
+    band_gate(band_diffs(from_descs(so3, band, descs, batched),
+                         from_descs(so3, band, descs, serial), natoms),
+              natoms, BAND_TOL, "batched vs one at a time, same "
+              "descriptors", log, f"(m1) {tag}")
+    forms = {"batched": batched,
+             "batched, one calculate_device an image": batched_per_image,
+             "one at a time": serial}
+    one = serial()
+    band_gate(band_diffs(batch, one, natoms), natoms, BAND_TOL,
+              "batched vs one at a time, end to end", log, f"(m1) {tag}")
+    f64 = cpu_f64_copy(T, gp, fit=True).predict_structures(band, True)
+    for form, fn in forms.items():
+        first = batch if form == "batched" else fn()
+        for what, other in (("one at a time", one), ("itself", fn())):
+            d = band_diffs(first, other, natoms)
+            log(f"(m1) {tag}, {form} vs {what}, end to end: |dE| "
+                f"{d[0]:.3e}, |dsigma_E| {d[1]:.3e} eV, max|dF| {d[2]:.3e}, "
+                f"max|dsigma_F| {d[3]:.3e} eV/A (recorded)")
+        band_gate(band_diffs(first, f64, natoms), natoms, 0.1,
+                  f"{form} vs CPU float64, end to end", log, f"(m1) {tag}")
+    for form, fn in forms.items():
+        kff.reset_launches()
+        K_ops.reset_operand_builds()
+        fn()
+        torch.cuda.synchronize()
+        builds = dict(K_ops.operand_builds)
+        log(f"(m1) {tag} {form}: launches {json.dumps(nonzero(kff.launches))}"
+            f", operand builds {json.dumps(builds)}")
+        if form == "batched" and builds != {"query": 1, "train": 0}:
+            raise AssertionError("a batched band must build one query side "
+                                 "and reuse the kept training operands")
+    dev, dt = gp.device, torch.float64
+    times = {form: host_ms(torch, fn, 20) for form, fn in forms.items()}
+    times["descriptor, calculate_many_device"] = host_ms(
+        torch, lambda: so3.calculate_many_device(band, device=dev, dtype=dt,
+                                                 pair_budget=math.inf), 20)
+    times["descriptor, calculate_device an image"] = host_ms(
+        torch, lambda: [so3.calculate_device(a, device=dev, dtype=dt)
+                        for a in band], 20)
+    for form, (lo, med, hi) in times.items():
+        log(f"(m1) [{card}] {tag} {form}: {med:.3f} ms median of 20 "
+            f"(min {lo:.3f}, max {hi:.3f}), host clock to a synchronise")
+    return launches
+
+
+def band_request(gp, band):
+    """A band packed as ``predict_structures`` serves it: (EnergyData,
+    ForceData) of every structure's energy and free atoms, from one
+    descriptor call on the card."""
+    from gpr_calculator_tpu_torch.models.gp import _pack_structures
+    descs = gp.descriptor.calculate_many_device(
+        band, device=gp.device, dtype=gp.dtype, pair_budget=math.inf)
+    return _pack_structures(band, descs)[:2]
+
+
+def plain_block(torch, kff, pe, pf, te, tf, params, zeta, kind):
+    """The served block [[K_EE, K_EF], [K_FE, K_FF]] of (pe, pf) against
+    (te, tf) from the plain versions, in the data's dtype."""
+    (U1, w1), (X1, re1) = (kff.energy_operand(pe, "highest"),
+                           kff.force_operand(pf, "highest"))
+    (U2, w2), (X2, re2) = (kff.energy_operand(te, "highest"),
+                           kff.force_operand(tf, "highest"))
+    A1, B1, A2, B2 = (pe.x.shape[1], pf.x.shape[1], te.x.shape[1],
+                      tf.x.shape[1])
+    return torch.cat([
+        torch.cat([kff.kee_from_ops(U1, w1, A1, U2, w2, A2, params, zeta,
+                                    kind=kind),
+                   kff.kef_plain(U1, w1, A1, X2, re2, B2, params, zeta,
+                                 kind=kind)], 1),
+        torch.cat([kff.kef_plain(U2, w2, A2, X1, re1, B1, params, zeta,
+                                 kind=kind).T,
+                   kff.kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
+                                 kind=kind)], 1)])
+
+
+def card_f64_copy(T, torch, kff, K_ops, gp):
+    """A float64 model of ``gp``'s training set on the card, fitted at its
+    hyperparameters, through the plain versions (the kernels are float32
+    alone): the plain K, a float64 Cholesky factor and weights, and the
+    served block of float64 descriptors, with _predict_packed's mean and
+    variance.  The CPU float64 copy of (m1) would take minutes at the
+    ingest's 6100 rows."""
+    from gpr_calculator_tpu_torch import convert
+    from gpr_calculator_tpu_torch.models.gp import _noise_diag
+    f64 = torch.float64
+    state = convert.state_of(gp)
+    for key in ("alpha", "L", "n_fit"):
+        state.pop(key, None)
+    ref = convert.gp_from_state(state, device=gp.device, dtype=f64,
+                                log_file=None)
+    e, f = ref._pack(ref.N_energy, ref.N_forces)
+    y = ref._y_vector(e, f, ref.N_energy, ref.N_forces)
+    params, zeta, kind = (ref.kernel.params(), ref.kernel.zeta,
+                          ref.kernel.kind)
+    K = K_ops.k_self(e, f, params, zeta, kind, plain=True)
+    K.diagonal().add_(_noise_diag(e, f, ref.noise_e, ref.noise_f))
+    L = torch.linalg.cholesky(K)
+    del K
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+
+    def serve(pe, pf, te, tf, return_std):
+        Kt = plain_block(torch, kff, pe, pf, te, tf, params, zeta, kind)
+        mean = (Kt @ alpha).cpu().numpy()
+        if not return_std:
+            return mean, None
+        diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind),
+                          K_ops.diag_force(pf, params, zeta,
+                                           kind).reshape(-1)])
+        V = torch.linalg.solve_triangular(L, Kt.T, upper=False)
+        return mean, torch.clamp(diag - (V * V).sum(0), min=0.0) \
+            .sqrt().cpu().numpy()
+    ref._fit_snapshot = (e, f, ref.N_energy, ref.N_forces)
+    ref._serve = serve
+    return ref
+
+
+def sigma_jitter(torch, K_ops, gp, ref, bands, log, card):
+    """(m3) sigma_E of ``gp`` from two identical calls on each band, by
+    the port (float64 descriptors rounded once, the energy diagonal, the
+    solve against _factorize's float64 factor and the subtraction in
+    float64) and by the float32 algebra it replaced (float32 descriptors,
+    whose segment sums add in no fixed order on the card, a float32 solve
+    against the factor rounded to float32 and a float32 subtraction).
+    Recorded per band, sigma_E in eV of the structure: each one's move
+    between the two calls and distance from ``ref`` (float64
+    throughout), the prior over the posterior variance, and one float32
+    step of the prior variance as a sigma_E difference."""
+    from gpr_calculator_tpu_torch.models.gp import _pack_structures
+    te, tf, _, _ = gp._train_view()
+    params, zeta, kind = gp.kernel.params(), gp.kernel.zeta, gp.kernel.kind
+    L32 = gp.L_.float()
+    ops = gp._train_operands()
+    for tag, band in bands.items():
+        n, natoms = len(band), len(band[0])
+        old, port, xs, prior = [], [], [], None
+        for _ in range(2):
+            descs = gp.descriptor.calculate_many_device(
+                band, device=gp.device, dtype=torch.float32,
+                pair_budget=math.inf)
+            xs.append(torch.cat([d["x"] for d in descs]))
+            pe, pf, _ = _pack_structures(band, descs)
+            Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind,
+                               train_ops=ops)
+            diag = K_ops.diag_energy(pe, params, zeta, kind)
+            V = torch.linalg.solve_triangular(L32, Kt.T[:, :n], upper=False)
+            var = (diag - (V * V).sum(0)).clamp(min=0)
+            old.append(var.sqrt().double().cpu().numpy() * natoms)
+            port.append(np.asarray([r[2] for r in gp.predict_structures(
+                band, True)]) * natoms)
+            prior = diag.double().cpu().numpy()
+        truth = np.asarray([r[2] for r in ref.predict_structures(
+            band, True)]) * natoms
+        dx = float((xs[0] - xs[1]).abs().max() / xs[0].abs().max())
+        ratio = prior / (truth / natoms) ** 2
+        step = np.spacing(prior.astype(np.float32)).astype(float) \
+            / (2 * truth / natoms) * natoms
+        log(f"(m3) [{card}] sigma_E, {tag}: float32 descriptors of two "
+            f"identical calls differ by {dx:.3e} of max|x|; sigma_E (float64"
+            f" model) {truth.min():.4e}-{truth.max():.4e} eV, prior / "
+            f"posterior variance {ratio.min():.3e}-{ratio.max():.3e}; one "
+            f"float32 step of the prior variance moves sigma_E by "
+            f"{step.min():.3e}-{step.max():.3e} eV")
+        for what, (a, b) in (("float32 algebra (before)", old),
+                             ("the port", port)):
+            log(f"(m3) [{card}] sigma_E, {tag}, {what}: max move between "
+                f"the two calls {np.abs(a - b).max():.3e} eV, max |d| from "
+                f"the float64 model {np.abs(a - truth).max():.3e}, "
+                f"{np.abs(b - truth).max():.3e} eV (recorded)")
+
+
+def per_k(launches, nsteps):
+    """K1 / K2 / K3 launches per NEB step."""
+    fam = {"K1": "kff_tri", "K2": "kef_rect", "K3": "kff_rect"}
+    return {k: round(sum(v for n, v in launches.items()
+                         if n.startswith(p)) / nsteps, 3)
+            for k, p in fam.items()}
+
+
+def ingest_set(T, rng):
+    """N_INGEST perturbed copies of a 4x4x4 Al(100) slab with an Au
+    adatom in a four-fold hollow (65 atoms; bottom two layers fixed), and
+    INGEST_FORCES free atoms of each."""
+    from gpr_calculator_tpu_torch.atoms.build import fcc100_positions
+    a = 4.05
+    pos, cell, layer = fcc100_positions(a, (4, 4, 4), vacuum=4.0)
+    s = a / np.sqrt(2.0)
+    pos = np.vstack([pos, [[s, s, pos[:, 2].max() + 1.7]]])
+    fixed = np.flatnonzero(layer < 2)
+    free = np.setdiff1d(np.arange(len(pos)), fixed)
+    strucs, f_ids = [], []
+    for _ in range(N_INGEST):
+        p = pos.copy()
+        p[free] += rng.normal(0.0, 0.08, (len(free), 3))
+        strucs.append(T.Atoms(symbols=["Al"] * (len(pos) - 1) + ["Au"],
+                              positions=p, cell=cell,
+                              pbc=[True, True, False],
+                              constraints=[T.FixAtoms(indices=fixed)]))
+        f_ids.append(sorted(int(i) for i in rng.choice(
+            free, INGEST_FORCES, replace=False)))
+    return strucs, f_ids
+
+
+def per_structure_pts(gp, rows):
+    """The training points of (atoms, energy, forces, force ids) rows as
+    ``extract_db`` makes them, from one ``SO3.calculate`` a structure."""
+    import torch
+    from gpr_calculator_tpu_torch.atoms.atoms import ATOMIC_NUMBERS
+    from gpr_calculator_tpu_torch.models.gp import _group_force_points
+    pts = {"energy": [], "force": [], "db": []}
+    for atoms, energy, force, fids in rows:
+        d = gp.descriptor.calculate(atoms, device=gp.device,
+                                    dtype=torch.float64)
+        ele = np.asarray([ATOMIC_NUMBERS[e] for e in d["elements"]])
+        pts["energy"].append((d["x"], energy / len(atoms), ele))
+        for fid, (x, dx, el) in zip(fids, _group_force_points(d, ele,
+                                                               fids)):
+            pts["force"].append((x, dx, force[fid], el))
+        pts["db"].append((atoms, energy, force, True, fids))
+    return pts
+
+
+def many_vs_one(torch, so3, strucs, one, dev, pair_budget, log):
+    """calculate_many against one calculate a structure, float64: x and
+    dxdr within 1e-12 of their largest magnitude."""
+    many = so3.calculate_many(strucs, device=dev, dtype=torch.float64,
+                              pair_budget=pair_budget)
+    for key in ("x", "dxdr"):
+        err = max(float(np.abs(m[key] - o[key]).max())
+                  for m, o in zip(many, one))
+        scale = max(float(np.abs(o[key]).max()) for o in one)
+        log(f"(m3) calculate_many (pair budget {pair_budget}) vs calculate, "
+            f"{key}: max|diff| {err:.3e} = {err / scale:.3e} of "
+            f"max|{key}| (limit 1e-12)")
+        if err > 1e-12 * scale:
+            raise AssertionError(f"calculate_many's {key} is not "
+                                 "calculate's")
+
+
+def run_ingest(T, torch, kff, K_ops, dev, log, card):
+    """(m3): N_INGEST labelled slabs saved by a model built one structure
+    at a time, GP.load on the card (one batched float64 ingest), the
+    descriptors against calculate, extract_db in both forms, the loaded
+    model's served band against the saving model's, and end to end
+    against a float64 model of its training set on the card, on bands of
+    5 slabs from three seeds, with where its sigma_E moves.  Returns the
+    launches of GP.load and its fit, the loaded model and its first
+    band."""
+    import tempfile
+    from gpr_calculator_tpu_torch.atoms.neighborlist import neighbor_pairs
+    from gpr_calculator_tpu_torch.ops import so3 as so3_mod
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.RandomState(10)
+    strucs, f_ids = ingest_set(T, rng)
+    rows = []
+    for atoms, fids in zip(strucs, f_ids):
+        a = atoms.copy()
+        a.calc = T.EMT()
+        e, f = a.get_potential_energy(), a.get_forces(apply_constraint=False)
+        rows.append((atoms, float(e), np.asarray(f, float), fids))
+    pairs = [len(neighbor_pairs(a, 5.0)[0]) for a in strucs]
+    so3 = T.SO3(nmax=3, lmax=4, rcut=5.0)
+    budget = so3.default_pair_budget(dev)
+    log(f"(m3) [{card}] {N_INGEST} slabs of {len(strucs[0])} atoms, "
+        f"{sum(pairs)} pairs ({min(pairs)}-{max(pairs)} a structure); "
+        f"_so3_core float64 with derivatives: {so3.bytes_per_pair(dev):.0f} "
+        f"bytes a pair (peak above the allocation, probe of "
+        f"{so3_mod.PROBE_PAIRS} pairs); default pair budget {budget} "
+        f"({so3_mod.MEMORY_SHARE} of the free memory)")
+    one = [so3.calculate(a, device=dev, dtype=f64) for a in strucs]
+    small = sum(pairs) // 5
+    groups, cur = 1, 0
+    for p in pairs:
+        if cur and cur + p > small:
+            groups, cur = groups + 1, 0
+        cur += p
+    for pb in (None, small):
+        many_vs_one(torch, so3, strucs, one, dev, pb, log)
+    log(f"(m3) groups: 1 at the default budget, {groups} at {small} pairs")
+    if budget < sum(pairs) or groups < 4:
+        raise AssertionError("the ingest is not one group at the default "
+                             "budget and at least 4 at the small one")
+
+    def model():
+        return T.GP(kernel=T.RBF(para=[SIGMA, L_SCALE], zeta=2),
+                    descriptor=T.SO3(nmax=3, lmax=4, rcut=5.0),
+                    noise_e=NOISE_E, noise_f=NOISE_F, log_file=None,
+                    device=dev, dtype=f32)
+    sgp = model()
+    sgp.set_train_pts(per_structure_pts(sgp, rows), "w")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        jf, db = os.path.join(tmp, "ingest.json"), os.path.join(tmp,
+                                                              "ingest.db")
+        sgp.save(jf, db, verbose=False)
+        kff.reset_launches()
+        t0 = time.time()
+        lgp = T.GP.load(jf, device=dev, dtype=f32, log_file=None)
+        lgp.fit(opt=False, show=False)
+        torch.cuda.synchronize()
+        launches = dict(kff.launches)
+        log(f"(m3) GP.load + fit(opt=False): {time.time() - t0:.2f} s, "
+            f"N_energy={lgp.N_energy} N_forces={lgp.N_forces}; launches "
+            f"{json.dumps(nonzero(launches))}")
+        if (lgp.N_energy, lgp.N_forces) != (N_INGEST,
+                                            N_INGEST * INGEST_FORCES):
+            raise AssertionError("GP.load did not load the training set")
+        with open(jf) as fp:
+            loop = T.GP.load_from_dict(json.load(fp), device=dev,
+                                       dtype=f32, log_file=None)
+        d = loop.descriptor
+        d.calculate_many = lambda atoms_list, dtype=None, pair_budget=None, \
+            device=None: [d.calculate(a, device=device, dtype=dtype)
+                          for a in atoms_list]
+        ms = {"per-structure loop": [], "calculate_many": []}
+        for form in ("per-structure loop", "calculate_many",
+                     "calculate_many", "per-structure loop"):
+            g = loop if form == "per-structure loop" else lgp
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            g.extract_db(db)
+            torch.cuda.synchronize()
+            ms[form].append(1e3 * (time.perf_counter() - t0))
+            peak = torch.cuda.max_memory_allocated(dev) - before
+            log(f"(m3) [{card}] extract_db, {form}: {ms[form][-1]:.1f} ms, "
+                f"peak {peak / 1e9:.3f} GB above the allocation")
+        loop_ms, many_ms = (min(ms["per-structure loop"]),
+                            min(ms["calculate_many"]))
+        log(f"(m3) [{card}] extract_db of {N_INGEST} structures: "
+            f"per-structure loop {loop_ms:.1f} ms, calculate_many "
+            f"{many_ms:.1f} ms (min of two turns): {loop_ms / many_ms:.2f}x")
+    sgp.fit(opt=False, show=False)
+    bands = {f"band of 5 slabs, seed {seed}": ingest_set(
+        T, np.random.RandomState(seed))[0][:5] for seed in (11, 12, 13)}
+    band = bands["band of 5 slabs, seed 11"]
+    natoms = len(band[0])
+    descs = lgp.descriptor.calculate_many_device(band, device=dev, dtype=f32)
+    band_gate(band_diffs(
+        from_descs(lgp.descriptor, band, descs,
+                   lambda: lgp.predict_structures(band, True)),
+        from_descs(sgp.descriptor, band, descs,
+                   lambda: sgp.predict_structures(band, True)), natoms),
+        natoms, BAND_TOL, "loaded vs saving model, same descriptors", log,
+        "(m3) served band of 5 slabs")
+    band_gate(band_diffs(lgp.predict_structures(band, True),
+                         sgp.predict_structures(band, True), natoms),
+              natoms, BAND_TOL, "loaded vs saving model, end to end", log,
+              "(m3) served band of 5 slabs")
+    d = band_diffs(lgp.predict_structures(band, True),
+                   lgp.predict_structures(band, True), natoms)
+    log(f"(m3) served band of 5 slabs, loaded model vs itself, end to end: "
+        f"|dE| {d[0]:.3e}, |dsigma_E| {d[1]:.3e} eV, max|dF| {d[2]:.3e}, "
+        f"max|dsigma_F| {d[3]:.3e} eV/A (recorded)")
+    t0 = time.time()
+    ref = card_f64_copy(T, torch, kff, K_ops, lgp)
+    log(f"(m3) float64 model of the loaded training set on the card, "
+        f"plain versions: {time.time() - t0:.2f} s")
+    for tag, b in bands.items():
+        band_gate(band_diffs(lgp.predict_structures(b, True),
+                             ref.predict_structures(b, True), natoms),
+                  natoms, 0.1, "loaded model vs float64, end to end", log,
+                  f"(m3) served {tag}")
+    sigma_jitter(torch, K_ops, lgp, ref, bands, log, card)
+    return launches, lgp, band
+
+
+# ---------------------------------------------------------------------------
 # (l) the mesh-sharded builds
 # ---------------------------------------------------------------------------
 
@@ -1328,6 +1822,7 @@ def main(argv=None) -> int:
     neb, E = run_neb(T, tgp, timages)
     torch.cuda.synchronize()
     neb_launches = dict(kff.launches)
+    neb["wall_s"] = time.time() - t0
     log(f"(i) NEB: {time.time() - t0:.2f} s, band energies "
         f"{np.array2string(E, precision=6)} eV")
     for key, ref_val in JAX_NEB.items():
@@ -1372,6 +1867,7 @@ def main(argv=None) -> int:
     dneb, E = run_neb(T, dgp, dimages)
     torch.cuda.synchronize()
     dot_neb_launches = dict(kff.launches)
+    dneb["wall_s"] = time.time() - t0
     log(f"(j) Dot NEB: {time.time() - t0:.2f} s, band energies "
         f"{np.array2string(E, precision=6)} eV")
     for key, ref_val in JAX_DOT_NEB.items():
@@ -1387,6 +1883,59 @@ def main(argv=None) -> int:
     path_launches = {"slice": main_launches, "training": train_launches,
                      "neb": neb_launches, "dot_training": dot_train_launches,
                      "dot_neb": dot_neb_launches}
+
+    # (m1) batched bands against the images served one at a time, from
+    # the slice model: the 3 interior images of the slice band and the 7
+    # of a 9-image band; the batched calls counted
+    card = card_line()
+    band_launches = {}
+    bands = {"band of 3": images[1:4],
+             "band of 7": T.au_on_al100_images(9)[1:8]}
+    for tag, band in bands.items():
+        for name, v in band_vs_serial(torch, T, kff, K_ops, gp, band, tag,
+                                      log, card).items():
+            band_launches[name] = band_launches.get(name, 0) + v
+    path_launches["batched_band"] = band_launches
+    # (m2) the batched on-the-fly NEB, RBF then Dot, from set_GPR as in
+    # (i) / (j), beside the serial NEB of this run
+    batched_models = {}
+    for kernel, jref, serial, fam in (
+            ("RBF", JAX_BATCHED_NEB, (neb, neb_launches), RBF),
+            ("Dot", JAX_BATCHED_DOT_NEB, (dneb, dot_neb_launches), DOT)):
+        bgp, bimages = run_training(T, dev, f32, kernel=kernel)
+        kff.reset_launches()
+        t0 = time.time()
+        bneb, E = run_neb(T, bgp, bimages, batched=True)
+        torch.cuda.synchronize()
+        bneb["wall_s"] = time.time() - t0
+        batched_models[kernel] = (bgp, bimages)
+        blaunches = dict(kff.launches)
+        path_launches["batched_neb" if kernel == "RBF"
+                      else "batched_dot_neb"] = blaunches
+        log(f"(m2) [{card}] batched {kernel} NEB: band energies "
+            f"{np.array2string(E, precision=6)} eV")
+        for key in ("converged", "nsteps", "barrier", "use_base",
+                    "use_surrogate", "fits", "N_energy", "N_forces",
+                    "wall_s"):
+            log(f"(m2) batched {kernel} {key}: card {bneb[key]}, serial "
+                f"(card, this run) {serial[0][key]}, JAX CPU f64 batched "
+                f"{jref.get(key, 'not run')}")
+        per_step = per_k(blaunches, bneb["nsteps"])
+        log(f"(m2) batched {kernel} launches a step {per_step}, serial "
+            f"{per_k(serial[1], serial[0]['nsteps'])}; launches "
+            f"{json.dumps(nonzero(blaunches))}")
+        check_launches(blaunches, fam, f"batched {kernel} NEB",
+                       absent=DOT if kernel == "RBF" else RBF)
+        if not bneb["converged"] or bneb["nsteps"] > 150 or \
+                abs(bneb["barrier"] - jref["barrier"]) > BARRIER_TOL:
+            raise AssertionError(f"the batched {kernel} NEB did not "
+                                 f"converge to the JAX batched barrier "
+                                 f"within {BARRIER_TOL} eV")
+    # (m3) the batched ingest at 100 structures, GP.load on the card
+    path_launches["ingest"], lgp, ingest_band = run_ingest(
+        T, torch, kff, K_ops, dev, log, card)
+    check_launches(path_launches["ingest"], ("kff_tri", "kef_rect"),
+                   "ingest", absent=DOT)
 
     # (k1) the precision modes on the path: set_GPR and the NEB in bf16x4
     # (RBF, then Dot), then the RBF path in bf16, each counted
@@ -1488,6 +2037,30 @@ def main(argv=None) -> int:
     dte, dtf, _, _ = dgp._train_view()
     compare(torch, kernel_cases(kff, pe, pf, dte, dtf, dparams, "dot"),
             "Dot NEB training set", errs, log)
+    # the batched paths' shapes, in every mode: the bands of 3 and 7
+    # structures as the query side against the slice model's training
+    # set; the batched NEBs' final bands and the band of 7 against their
+    # training sets; the ingest's training set (K1 at its rows, K2 with 65
+    # envs an energy point, both ways) against its band of 5 slabs
+    for tag, band in bands.items():
+        qe, qf = band_request(gp, band)
+        compare(torch, all_cases(kff, qe, qf, te, tf, params, dparams),
+                f"slice training set, {tag}", errs, log)
+    for kernel, (bgp, bimages) in batched_models.items():
+        bte, btf, _, _ = bgp._train_view()
+        for tag, band in (("its final band", bimages[1:-1]),
+                          ("band of 7", bands["band of 7"])):
+            qe, qf = band_request(bgp, band)
+            compare(torch, [c for mode in PREC for c in kernel_cases(
+                kff, qe, qf, bte, btf, bgp.kernel.params(), kernel.lower(),
+                mode)], f"batched {kernel} NEB training set, {tag}", errs,
+                log)
+    ite, itf, _, _ = lgp._train_view()
+    qe, qf = band_request(lgp, ingest_band)
+    compare(torch, all_cases(kff, qe, qf, ite, itf, lgp.kernel.params(),
+                             dparams),
+            "ingest training set, band of 5 slabs", errs, log)
+    del lgp, ite, itf
     for tag, mgp in mode_models.items():
         mode = tag.split("_")[0]
         kind = "dot" if tag.endswith("_dot") else "rbf"

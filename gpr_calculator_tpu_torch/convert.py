@@ -90,12 +90,14 @@ def gp_from_state(state: dict, device=None, dtype=None,
         e, f = gp._pack(n_e, n_f)
         rows = torch.as_tensor(_real_rows(e.m, n_e, n_f), device=gp.device)
         n = e.m + 3 * f.m
-        alpha = torch.zeros(n, dtype=gp.dtype, device=gp.device)
-        alpha[rows] = torch.as_tensor(state["alpha"], dtype=gp.dtype,
+        # float64 whatever the working dtype, as ``_factorize`` keeps them
+        f64 = torch.float64
+        alpha = torch.zeros(n, dtype=f64, device=gp.device)
+        alpha[rows] = torch.as_tensor(state["alpha"], dtype=f64,
                                       device=gp.device)
-        L = torch.eye(n, dtype=gp.dtype, device=gp.device)
+        L = torch.eye(n, dtype=f64, device=gp.device)
         L[rows[:, None], rows[None, :]] = torch.as_tensor(
-            state["L"], dtype=gp.dtype, device=gp.device)
+            state["L"], dtype=f64, device=gp.device)
         gp.alpha_, gp.L_ = alpha, L
         gp._fit_snapshot = (e, f, n_e, n_f)
     return gp

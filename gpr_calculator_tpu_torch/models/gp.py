@@ -35,7 +35,7 @@ from ..atoms.atoms import ATOMIC_NUMBERS
 from ..ops import kernels as K_ops
 from ..ops.packing import EnergyData, ForceData, pack_energy, pack_force
 from ..ops.so3 import SO3
-from .kernels import RBF, Dot
+from .kernels import RBF, Dot, kernel_from_dict
 
 
 def _params_from_theta(kind: str, kp):
@@ -96,16 +96,17 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
     factorisation too; L and alpha are on the root.
 
     K comes in the working dtype (float32 on the card, from the kernels);
-    it is factorised and solved in float64, as the NLL does.  L is
-    returned in the working dtype (the variance solve reads it), alpha in
-    float64: the served mean is a float64 product of the float32 cross
-    covariance with it (``_predict_packed``).  At the 10 000-row bench
+    it is factorised and solved in float64, as the NLL does.  L and alpha
+    are returned in float64: the served mean is a float64 product of the
+    float32 cross covariance with alpha, the variance a float64 solve
+    against L (``_predict_packed``).  At the 10 000-row bench
     covariance a float32 solve left alpha 12 % of max|alpha| off the
     float64 solve of the same K and moved a served energy by 0.14-0.16 eV,
     ten times the limit of a tenth of the noise; the float64 solve with
     alpha and the product rounded to float32 still moved it by up to
     0.018 eV, 1.4 times the limit (NVIDIA H100 80GB HBM3, 700.00 W;
-    PERF.md)."""
+    PERF.md).  The factor in float32 left the served energy variance of a
+    6100-row model, ~2e-7 of its prior, all rounding (``_predict_packed``)."""
     K = K_ops.k_self(e, f, params, zeta, kind, mesh=mesh)
     K.diagonal().add_(_noise_diag(e, f, noise_e, noise_f))
     dtype = K.dtype
@@ -118,7 +119,7 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
             f"Cholesky factorisation failed (info={info}): K is not "
             f"positive definite at noise_e={noise_e:.2e}, "
             f"sigma={float(params['sigma']):.3g} in {dtype}")
-    return L.to(dtype), alpha
+    return L, alpha
 
 
 def _split_theta(theta, noise_fixed, f_coef, noise_opt: bool):
@@ -254,7 +255,13 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
                     train_ops=None):
     """Cross covariance, GEMV with alpha and (optionally) the predictive
     std by a triangular solve against the factor: var = diag - |L^-1 k|^2
-    (gaussianprocess.py:873-911), clamped at zero.  mesh: the training
+    (gaussianprocess.py:873-911), clamped at zero, in the factor's dtype
+    (float64 from ``_factorize``), the energy diagonal computed in it too.
+    A served energy's posterior variance can be ~2e-7 of its prior (a
+    65-atom slab against 6100 training rows), below one float32 step of
+    the prior: in float32 that sigma_E was all rounding, 100 % off a
+    float64 model and moving by 60-90 % of itself from one call to the
+    next (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).  mesh: the training
     force axis of the cross covariance runs in stripes over the shards;
     the GEMV and the solve stay on the root.  train_ops: the training
     side's operands when the caller keeps them (``GP._train_operands``)."""
@@ -265,9 +272,12 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
     mean = Kt.to(alpha.dtype) @ alpha
     if not return_std:
         return mean, None
+    dt = L.dtype
+    pe = pe._replace(x=pe.x.to(dt), counts=pe.counts.to(dt))
     diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind),
-                      K_ops.diag_force(pf, params, zeta, kind).reshape(-1)])
-    V = torch.linalg.solve_triangular(L, Kt.T, upper=False)
+                      K_ops.diag_force(pf, params, zeta, kind).reshape(-1)
+                      .to(dt)])
+    V = torch.linalg.solve_triangular(L, Kt.T.to(dt), upper=False)
     var = torch.clamp(diag - (V * V).sum(dim=0), min=0.0)
     return mean, torch.sqrt(var)
 
@@ -368,6 +378,21 @@ def _pack_from_device_descs(descs, numbers_list, sel_lists):
         t(meta["e_idx"]), t(meta["ele_e"]), t(meta["counts"], x0.dtype),
         len(descs), t(meta["centers"]), t(meta["rows"]), t(meta["ele_f"]),
         meta["m_f"])
+
+
+def _pack_structures(strucs, descs):
+    """Structures and their ``calculate_device`` dicts -> (pe, pf, free
+    atom ids per structure): one energy point a structure and one force
+    point a free atom, the served request's pack."""
+    eles, sels = [], []
+    for struc, dd in zip(strucs, descs):
+        eles.append(np.asarray([ATOMIC_NUMBERS[s] for s in dd["elements"]],
+                               int))
+        fix_ids = set(int(i) for i in struc.fixed_indices()) \
+            if hasattr(struc, "fixed_indices") else set()
+        sels.append([i for i in range(len(struc)) if i not in fix_ids])
+    pe, pf = _pack_from_device_descs(descs, eles, sels)
+    return pe, pf, sels
 
 
 # ---------------------------------------------------------------------------
@@ -792,35 +817,60 @@ class GP:
         if stress:
             raise NotImplementedError(
                 "stress prediction is not ported yet (ROADMAP: stress)")
-        n_atoms = len(struc)
-        fix_ids = set(int(i) for i in struc.fixed_indices()) \
-            if hasattr(struc, "fixed_indices") else set()
-        free_ids = [i for i in range(n_atoms) if i not in fix_ids]
+        E, F, *std = self._serve_structures([struc], return_std)[0]
+        return (E, F, None, *std)
+
+    def predict_structures(self, strucs, return_std: bool = False):
+        """Batched per-structure prediction (gp.py:1989-2069 of the JAX
+        package): the descriptors of every structure from one
+        ``_so3_core`` call, one pack and one served block, GEMV and
+        variance for the whole batch -- e.g. every interior NEB image of
+        an optimizer step.  Returns a list of (E, F) or (E, F, E_std,
+        F_std) per structure, with the base potential added and fixed-atom
+        rows as ``predict_structure`` gives them."""
+        return self._serve_structures(strucs, return_std)
+
+    def _serve_structures(self, strucs, return_std):
+        """Serve structures in one descriptor call, one pack and one
+        served block: per structure (E, F) or (E, F, E_std, F_std), E and
+        F with the base potential added and the fixed atoms' forces and
+        stds zero.  The descriptors (``SO3.calculate_many_device``, one
+        ``_so3_core`` call) are computed in float64 and rounded once to
+        the working dtype: in float32 the core's segment sums
+        (``index_add_``) add in no fixed order on the card, so a structure
+        served twice got descriptors ~4e-7 apart and energies up to
+        1.6e-4 eV apart (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)."""
+        descs = self.descriptor.calculate_many_device(
+            strucs, device=self.device, dtype=torch.float64,
+            pair_budget=math.inf)
+        for d in descs:
+            d["x"] = d["x"].to(self.dtype)
+            if d["dxdr"] is not None:
+                d["dxdr"] = d["dxdr"].to(self.dtype)
         te, tf, _, _ = self._train_view()
-
-        dd = self.descriptor.calculate_device(struc, device=self.device,
-                                              dtype=self.dtype)
-        ele = np.asarray([ATOMIC_NUMBERS[s] for s in dd["elements"]], int)
-        pe, pf = _pack_from_device_descs([dd], [ele], [free_ids])
+        pe, pf, sels = _pack_structures(strucs, descs)
         mean, std = self._serve(pe, pf, te, tf, return_std)
-        E = mean[0] * n_atoms
-        rows = mean[pe.m:pe.m + 3 * len(free_ids)].reshape(-1, 3)
-        F = np.zeros((n_atoms, 3))
-        F[free_ids] = rows
-
-        if self.base_potential is not None:
-            e_off, f_off, _ = self.compute_base_potential(struc)
-            E += e_off
-            F += f_off
-            if fix_ids:
-                F[sorted(fix_ids)] = 0.0
-
-        if not return_std:
-            return E, F, None
-        E_std = std[0]
-        F_std = np.zeros((n_atoms, 3))
-        F_std[free_ids] = std[pe.m:pe.m + 3 * len(free_ids)].reshape(-1, 3)
-        return E, F, None, E_std, F_std
+        out = []
+        f_off = pe.m
+        for k, (struc, free_ids) in enumerate(zip(strucs, sels)):
+            natoms = len(struc)
+            rows = slice(f_off, f_off + 3 * len(free_ids))
+            f_off = rows.stop
+            E = mean[k] * natoms
+            F = np.zeros((natoms, 3))
+            F[free_ids] = mean[rows].reshape(-1, 3)
+            if self.base_potential is not None:
+                e_off, f_base, _ = self.compute_base_potential(struc)
+                E += e_off
+                F += f_base
+                F[np.setdiff1d(np.arange(natoms), free_ids)] = 0.0
+            if not return_std:
+                out.append((E, F))
+                continue
+            F_std = np.zeros((natoms, 3))
+            F_std[free_ids] = std[rows].reshape(-1, 3)
+            out.append((E, F, std[k], F_std))
+        return out
 
     # -- validation (gaussianprocess.py:490-551) -----------------------------
     def validate_data(self, test_data=None, total_E=False,
@@ -871,11 +921,15 @@ class GP:
         and structures that are equal up to a symmetry must give equal
         training points (their float32 descriptors differ by rounding,
         which the RBF's gamma = 1 / (2 l^2) amplifies at small l into a
-        spurious split of duplicate rows of K)."""
+        spurious split of duplicate rows of K).  Many structures go
+        through one batched descriptor ingest (``SO3.calculate_many``)."""
+        strucs = [s for (s, _, _) in data]
+        kw = dict(device=self.device, dtype=torch.float64)
+        descs = (self.descriptor.calculate_many(strucs, **kw)
+                 if len(strucs) > 1
+                 else [self.descriptor.calculate(s, **kw) for s in strucs])
         energy_data, force_data, db_data = [], [], []
-        for struc, energy, forces in data:
-            d = self.descriptor.calculate(struc, device=self.device,
-                                          dtype=torch.float64)
+        for d, (struc, energy, forces) in zip(descs, data):
             ele = np.asarray([ATOMIC_NUMBERS[s] for s in d["elements"]], int)
             f_ids = list(range(len(struc)))[
                 :max(0, N_force - len(force_data))]
@@ -974,11 +1028,21 @@ class GP:
         """A GP trained on ``images`` with the ``base`` calculator, its
         hyperparameters optimised from (sigma, l) = (1.0, 0.1) for RBF or
         (sigma, sigma0) = (2.0, 2.0) for kernel="Dot".  kwargs go to the
-        constructor (device, dtype, log_file, mesh)."""
+        constructor (device, dtype, log_file, mesh).  With an existing
+        ``json_file``: the saved model (``load``), with ``overwrite`` the
+        noise and kernel given here, then fitted."""
         if json_file is not None and os.path.exists(json_file):
-            raise NotImplementedError(
-                "GP.load is not ported yet (ROADMAP.md, port queue item 3): "
-                f"{json_file} exists")
+            instance = cls.load(json_file, **kwargs)
+            if overwrite:
+                instance.noise_e = noise_e
+                instance.noise_f = noise_f
+                if instance.kernel.name != kernel:
+                    instance.kernel = (
+                        RBF(para=[1.0, 0.1], zeta=int(zeta))
+                        if kernel == "RBF"
+                        else Dot(para=[2, 2.0], zeta=int(zeta)))
+            instance.fit()
+            return instance
         instance = cls(kernel=None, descriptor=None, base_potential=None,
                        **kwargs)
         instance.kernel = (Dot(para=[2, 2.0], zeta=int(zeta))
@@ -989,6 +1053,80 @@ class GP:
         instance.noise_f = float(noise_f)
         instance.train_images(images, base)
         return instance
+
+    # -- loading (gp.py:2220-2300 of the JAX package) -------------------------
+    @classmethod
+    def load(cls, filename, N_max=None, device=None, **kwargs):
+        """A model from its JSON metadata and its training database (the
+        JSON's ``db_filename``, looked up beside the JSON when the path
+        as written does not exist).  ``device``: the model's device,
+        default ``config.device()``; kwargs go to the constructor.  The
+        model is not fitted: call ``fit``."""
+        with open(filename, "r") as fp:
+            dict0 = json.load(fp)
+        instance = cls.load_from_dict(dict0, device=device, **kwargs)
+        db_file = dict0["db_filename"]
+        if not os.path.isabs(db_file):
+            cand = os.path.join(os.path.dirname(os.path.abspath(filename)),
+                                os.path.basename(db_file))
+            if os.path.exists(cand) and not os.path.exists(db_file):
+                db_file = cand
+        instance.extract_db(db_file, N_max)
+        print(f"load GP model from {filename}")
+        print(instance)
+        instance.logging.info(f"load GP model from {filename}")
+        return instance
+
+    @classmethod
+    def load_from_dict(cls, dict0, device=None, **kwargs):
+        """A model with the kernel, descriptor, noise and base potential
+        of ``save_dict``'s dict, and no training data."""
+        instance = cls(kernel=None, descriptor=None, base_potential=None,
+                       device=device, **kwargs)
+        instance.kernel = kernel_from_dict(dict0["kernel"])
+        if dict0["descriptor"]["_type"] != "SO3":
+            raise NotImplementedError(
+                "unknown descriptor {}".format(dict0["descriptor"]))
+        instance.descriptor = SO3.from_dict(dict0["descriptor"])
+        if "base_potential" in dict0:
+            if dict0["base_potential"]["name"] != "LJ":
+                raise NotImplementedError("unknown base potential")
+            from ..calculators.lj import LJ
+            instance.base_potential = LJ(dict0["base_potential"])
+        instance.noise_e = dict0["noise"]["energy"]
+        instance.noise_f = dict0["noise"]["force"]
+        instance.f_coef = dict0["noise"]["f_coef"]
+        instance.noise_bounds = dict0["noise"]["bounds"]
+        return instance
+
+    def extract_db(self, db_filename, N_max=None):
+        """The training set of an (ASE-compatible) database: its first
+        ``N_max`` rows, each row's energy point if ``energy_in`` and the
+        force points of ``force_in``, their descriptors from one batched
+        float64 ingest on the model's device (``SO3.calculate_many``)."""
+        from ..io.ase_db import read_db
+        rows = read_db(db_filename)
+        if N_max is not None:
+            rows = rows[:N_max]
+        descs = self.descriptor.calculate_many(
+            [row["atoms"] for row in rows], device=self.device,
+            dtype=torch.float64)
+        pts = {"energy": [], "force": [], "db": []}
+        for d, row in zip(descs, rows):
+            atoms = row["atoms"]
+            energy = row["data"]["energy"]
+            force = np.asarray(row["data"]["force"], float)
+            energy_in = bool(row["data"]["energy_in"])
+            force_in = list(row["data"]["force_in"])
+            ele = np.asarray([ATOMIC_NUMBERS[s] for s in d["elements"]], int)
+            if energy_in:
+                pts["energy"].append((d["x"], energy / len(atoms), ele))
+            for fid, (x, dx, el) in zip(
+                    force_in, _group_force_points(d, ele, force_in)):
+                pts["force"].append((x, dx, force[fid], el))
+            pts["db"].append((atoms, energy, force, energy_in, force_in))
+        self.set_train_pts(pts, "w")
+        print(f"Loaded {len(rows)} structures from {db_filename}")
 
     def train_images(self, images, base):
         for i, image in enumerate(images):

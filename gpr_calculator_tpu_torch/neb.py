@@ -1,15 +1,18 @@
-"""The on-the-fly NEB workload (parity with gpr_calc/NEB.py), serial path.
+"""The on-the-fly NEB workload (parity with gpr_calc/NEB.py).
 
 Port of the JAX package's ``neb.py``: ``neb_calc`` with per-image
 calculator copies, only image 1 updating the GP (NEB.py:40-47), endpoint
 energies pinned to the stored training energies (NEB.py:64-74) and the
-optional base-calculator re-evaluation of the converged path;
-``get_images`` and ``reaction_coordinate``.  Not ported yet: the batched
-band (``batched=True``, ROADMAP.md port queue item 5), trajectory files
-(item 3) and the plots (item 9).
+optional base-calculator re-evaluation of the converged path; the batched
+band (``batched=True``: ``OnTheFlyBatchedNEB``, every interior image
+served by one ``GP.predict_structures`` a step); ``get_images`` (from
+Atoms, structure files or a trajectory's tail) and
+``reaction_coordinate``.  Not ported yet: the plots (``plot_path``,
+``plot_progress``; ROADMAP.md, port queue item 8).
 """
 from __future__ import annotations
 
+import os
 from copy import copy
 from typing import Optional
 
@@ -40,22 +43,83 @@ def _endpoint_energy(gp, image, idx):
     return e
 
 
+class OnTheFlyBatchedNEB(NEB):
+    """NEB whose interior images are evaluated by ONE batched GPR
+    prediction per optimizer step (``GP.predict_structures``), with the
+    reference's per-image dispatch semantics (calculator.py:63-104):
+    uncertain images fall back to the base calculator, feed the training
+    set, and trigger the refit cadence (``dispatch.DispatchPolicy``)."""
+
+    def __init__(self, images, gp, base, k=0.1, climb=False, freq=10,
+                 verbose=True, opt_freq=1, save=True, tag="GPR",
+                 ignore_E_std=True):
+        super().__init__(images, k=k, climb=climb)
+        from .dispatch import DispatchPolicy
+        self.gp = gp
+        self.base = base
+        self.policy = DispatchPolicy(gp, base, freq=freq,
+                                     opt_freq=opt_freq, save=save, tag=tag,
+                                     verbose=verbose,
+                                     ignore_E_std=ignore_E_std)
+        # pin endpoint energies to the stored training labels (the first
+        # and last images are the first/last entries of train_images)
+        self.energies[0] = _endpoint_energy(gp, images[0], 0)
+        self.energies[-1] = _endpoint_energy(gp, images[-1],
+                                             len(images) - 1)
+
+    def _interior_results(self):
+        interior = self.images[1:-1]
+        preds = self.gp.predict_structures(interior, return_std=True)
+        policy = self.policy
+        energies, forces = [], []
+        for image, (E, F, E_std, F_std) in zip(interior, preds):
+            natoms = len(image)
+            e_tol, f_tol = policy.tolerances(natoms)
+            E_std_total = float(E_std) * natoms
+            Fmax = float(np.abs(F).max())
+            if policy.needs_base(natoms, F, E_std_total, F_std):
+                eng, frc = policy.evaluate_base(image)
+                policy.log_base(E_std_total, E, eng, float(F_std.max()),
+                                Fmax, np.abs(frc).max())
+                energies.append(eng)
+                forces.append(frc)
+            else:
+                self.gp.use_surrogate += 1
+                policy.log_surrogate(E_std_total, e_tol, E,
+                                     float(F_std.max()), f_tol, Fmax)
+                energies.append(E)
+                forces.append(F)
+        policy.refit_if_due()
+        return energies, forces
+
+
 def neb_calc(images, calculator=None, algo: str = "BFGS",
              fmax: float = 0.05, steps: int = 100, k: float = 0.1,
              climb: bool = False, traj: Optional[str] = None,
              use_ref: bool = False, batched: bool = False):
     """Run an NEB relaxation; returns the NEB object (and reference
-    energies when use_ref), with ``converged`` and ``nsteps`` set."""
+    energies when use_ref), with ``converged`` and ``nsteps`` set.
+    batched=True with a GPR calculator serves every interior image in one
+    batched prediction per step (``OnTheFlyBatchedNEB``).  traj: the
+    band of every step is appended to this ULM trajectory."""
+    batched = batched and getattr(calculator, "name", "") == "gpr"
     if batched:
-        raise NotImplementedError(
-            "the batched NEB is not ported yet (ROADMAP.md, port queue "
-            "item 5); use batched=False")
-    neb = NEB(images, k=k, climb=climb)
-    if calculator is not None:
-        for i, image in enumerate(images):
-            image.calc = copy(calculator)
-            if getattr(calculator, "name", "") == "gpr":
-                image.calc.update_gpr = (i == 1)
+        neb = OnTheFlyBatchedNEB(
+            images, gp=calculator.parameters.ff,
+            base=calculator.parameters.base, k=k, climb=climb,
+            freq=getattr(calculator, "freq", 10),
+            verbose=getattr(calculator, "verbose", True),
+            opt_freq=getattr(calculator, "opt_freq", 1),
+            save=getattr(calculator, "save", True),
+            tag=getattr(calculator, "tag", "GPR"),
+            ignore_E_std=getattr(calculator, "ignore_E_std", True))
+    else:
+        neb = NEB(images, k=k, climb=climb)
+        if calculator is not None:
+            for i, image in enumerate(images):
+                image.calc = copy(calculator)
+                if getattr(calculator, "name", "") == "gpr":
+                    image.calc.update_gpr = (i == 1)
 
     if algo == "BFGS":
         opt = BFGS(neb, trajectory=traj, append_trajectory=True)
@@ -63,8 +127,24 @@ def neb_calc(images, calculator=None, algo: str = "BFGS",
         opt = FIRE(neb, trajectory=traj)
     else:
         raise ValueError("Invalid algorithm for NEB calculation")
+    # run() returns convergence; calling opt.converged() again would
+    # re-evaluate the whole band (and, batched, possibly call the base
+    # calculator and refit after the optimization ended)
     neb.converged = opt.run(fmax=fmax, steps=steps)
     neb.nsteps = opt.nsteps + 1
+
+    if batched:
+        if not use_ref:
+            return neb
+        ref_engs = list(neb.energies[:1])
+        base = calculator.parameters.base
+        for image in images[1:-1]:
+            prev = getattr(image, "calc", None)
+            image.calc = base
+            ref_engs.append(image.get_potential_energy())
+            image.calc = prev
+        ref_engs.append(neb.energies[-1])
+        return neb, ref_engs
 
     for i, image in enumerate(images):
         if getattr(image.calc, "name", "") == "gpr":
@@ -95,12 +175,16 @@ def neb_calc(images, calculator=None, algo: str = "BFGS",
 def get_images(init, final, num_images: int = 5, vaccum: float = 0.0,
                traj: Optional[str] = None, IDPP: bool = False,
                mic: bool = False, apply_constraint: bool = False):
-    """Build the initial image chain (NEB.py:92-138) from two Atoms."""
-    if traj is not None or isinstance(init, str) or isinstance(final, str):
-        raise NotImplementedError(
-            "reading structures from files is not ported yet (ROADMAP.md, "
-            "port queue item 3); pass Atoms")
-    initial, final = init.copy(), final.copy()
+    """Build the initial image chain (NEB.py:92-138) from two Atoms or
+    structure files (``io.read``), or restart from the last
+    ``num_images`` frames of an existing trajectory ``traj``."""
+    from .io import read
+
+    if traj is not None and os.path.exists(traj):
+        return read(traj, index=":")[-num_images:]
+
+    initial = read(init) if isinstance(init, str) else init.copy()
+    final = read(final) if isinstance(final, str) else final.copy()
 
     if initial.pbc[-1] and vaccum > 0:
         for atoms in (initial, final):

@@ -32,8 +32,9 @@ import torch
 
 from .. import config
 from .kff import (TP, _coeffs, _mirror, _point_sum, _scalars, dense,
-                  energy_operand, force_operand, kee_from_ops, kef_from_ops,
-                  kef_plain, kff_from_ops, kff_plain, n_tri_tiles)
+                  energy_operand, force_operand, kee_from_ops, kee_served,
+                  kef_from_ops, kef_plain, kff_from_ops, kff_plain,
+                  n_tri_tiles)
 from .packing import EnergyData, ForceData
 
 
@@ -250,7 +251,8 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
     rectangular kernel K3 writes K_FF; K_EE is copied into its corner.
     K_EF, K_FE and K_FF take the matmul precision ``mm_precision``; K_EE
     is computed from the unrounded energy operands, as in the JAX
-    package's serving build (``kee``, its ops/kernels.py:574).
+    package's serving build (``kee``, its ops/kernels.py:574), in float64
+    and rounded once (``kee_served``).
     train_ops: the data2 side's operands (``side_operands(e2, f2, mode,
     "train")``) when the caller keeps them, as a fitted GP does; they must
     have been built in this mode.  mesh: the training force axis (data2)
@@ -268,8 +270,8 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
         raise ValueError(f"train_ops were built in mode {s2.mode!r}, the "
                          f"block asks for {mode!r}")
     kw = dict(kind=kind, mm_precision=mode)
-    K_ee = kee_from_ops(s1.Ue, s1.w, s1.A, s2.Ue, s2.w, s2.A, params, zeta,
-                        kind=kind)
+    K_ee = kee_served(s1.Ue, s1.w, s1.A, s2.Ue, s2.w, s2.A, params, zeta,
+                      kind=kind)
     m1, m2 = K_ee.shape
     K = torch.empty((m1 + 3 * f1.m, m2 + 3 * f2.m), dtype=K_ee.dtype,
                     device=K_ee.device)

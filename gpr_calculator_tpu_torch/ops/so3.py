@@ -78,6 +78,17 @@ def cosine_cutoff(r, rcut, derivative=False):
 
 CUTOFFS = {"cosine": cosine_cutoff}
 
+# the batched ingest's pairs per core call: the JAX package's flat budget
+# on the CPU; on a card MEMORY_SHARE of the free memory over the measured
+# float64 bytes per pair (SO3.bytes_per_pair, from a probe of PROBE_PAIRS
+# pairs).  nmax 3, lmax 4: 32 986 bytes a pair measured (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md), ~25 KB by the shapes of the (P, nmax, lmax+1,
+# 2 lmax+1, 3) dc planes and their temporaries; half of that card's free
+# memory holds ~1.27 million pairs, the ingest of 100 65-atom slabs 0.18.
+CPU_PAIR_BUDGET = 262144
+PROBE_PAIRS = 4096
+MEMORY_SHARE = 0.5
+
 
 def _segment_sum(vals, seg, nseg):
     out = torch.zeros((nseg,) + vals.shape[1:], dtype=vals.dtype,
@@ -215,6 +226,7 @@ class SO3:
         # quadrature constants stay float64 and are cast per call
         self._q, self._G0 = radial_quadrature(nmax, lmax, self.rcut,
                                               self.alpha)
+        self._pair_bytes = {}       # card -> bytes_per_pair
 
     def save_dict(self):
         return {"nmax": self.nmax, "lmax": self.lmax, "rcut": self.rcut,
@@ -293,6 +305,43 @@ class SO3:
                 "self_seq": self_seq, "self_ids": ids_arr, "seq": seq,
                 "nseq": len(seq), "natoms": natoms, "elements": elements}
 
+    def _core(self, preps, dev, dt):
+        """One ``_so3_core`` call over the concatenated pairs of the
+        prepared structures ``preps``: the batch axis is the pair and seq
+        lists with per-structure atom and seq-row offsets, which the
+        core's segment sums handle as they are.  Returns (x (natoms_tot,
+        ncoef), dxdr (nseq_tot, ncoef, 3) or None, atom offsets, seq
+        offsets)."""
+        ao = np.cumsum([0] + [p["natoms"] for p in preps])
+        so = np.cumsum([0] + [p["nseq"] for p in preps])
+        natoms, nseq = int(ao[-1]), int(so[-1])
+        # pairs outside an atom_ids selection (-1) go to the spare row nseq
+        pair_seq = np.concatenate([
+            np.where(p["pair_seq"] < 0, nseq, p["pair_seq"] + so[k])
+            for k, p in enumerate(preps)])
+
+        def cat(key, offsets=None):
+            parts = [p[key] if offsets is None else p[key] + offsets[k]
+                     for k, p in enumerate(preps)]
+            return np.concatenate(parts)
+
+        def idx(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        x, dxdr = _so3_core(
+            torch.as_tensor(cat("rij"), dtype=dt, device=dev),
+            torch.as_tensor(cat("w"), dtype=dt, device=dev),
+            idx(cat("pair_center", ao)), idx(pair_seq),
+            idx(cat("self_seq", so)), idx(cat("self_ids", ao)),
+            idx(np.concatenate([p["seq"][:, 0] + ao[k]
+                                for k, p in enumerate(preps)])),
+            torch.as_tensor(self._q, dtype=dt, device=dev),
+            torch.as_tensor(self._G0, dtype=dt, device=dev),
+            nmax=self.nmax, lmax=self.lmax, natoms=natoms, nseq=nseq,
+            rcut=self.rcut, alpha=self.alpha, derivative=self.derivative,
+            cutoff=self.cutoff_function)
+        return x, dxdr, ao, so
+
     def calculate_device(self, atoms, atom_ids=None, device=None,
                          dtype=None):
         """Descriptor tensors on ``device`` (default ``config.device()``):
@@ -305,23 +354,119 @@ class SO3:
         dev = config.device() if device is None else torch.device(device)
         dt = config.dtype(dev) if dtype is None else dtype
         prep = self._prep_structure(atoms, atom_ids)
-        natoms, nseq, seq = prep["natoms"], prep["nseq"], prep["seq"]
+        x, dxdr, _, _ = self._core([prep], dev, dt)
+        return self._device_dict(prep, x, dxdr)
 
-        def idx(a):
-            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
-
-        pair_seq = np.where(prep["pair_seq"] < 0, nseq, prep["pair_seq"])
-        x, dxdr = _so3_core(
-            torch.as_tensor(prep["rij"], dtype=dt, device=dev),
-            torch.as_tensor(prep["w"], dtype=dt, device=dev),
-            idx(prep["pair_center"]), idx(pair_seq), idx(prep["self_seq"]),
-            idx(prep["self_ids"]), idx(seq[:, 0]),
-            torch.as_tensor(self._q, dtype=dt, device=dev),
-            torch.as_tensor(self._G0, dtype=dt, device=dev),
-            nmax=self.nmax, lmax=self.lmax, natoms=natoms, nseq=nseq,
-            rcut=self.rcut, alpha=self.alpha, derivative=self.derivative,
-            cutoff=self.cutoff_function)
+    def _device_dict(self, prep, x, dxdr):
+        """calculate_device's dict of one structure, dxdr given without
+        its zero pad row."""
         if dxdr is not None:
             dxdr = torch.cat([dxdr, dxdr.new_zeros((1,) + dxdr.shape[1:])])
         return {"x": x, "dxdr": dxdr, "elements": prep["elements"],
-                "seq": seq if self.derivative else None, "nseq": nseq}
+                "seq": prep["seq"] if self.derivative else None,
+                "nseq": prep["nseq"]}
+
+    def bytes_per_pair(self, device) -> float:
+        """Peak device bytes per pair of one float64 ``_so3_core`` call
+        with derivatives, measured once per descriptor and card: the
+        call's ``torch.cuda.max_memory_allocated`` above what was
+        allocated before it, over its pairs (this resets the card's peak
+        memory statistics).  The probe has PROBE_PAIRS pairs around
+        PROBE_PAIRS / 32 centres, about an fcc metal's pairs per atom at
+        rcut 5 A, each pair a seq row of its own."""
+        dev = torch.device(device)
+        key = str(dev)
+        if key not in self._pair_bytes:
+            P, natoms = PROBE_PAIRS, PROBE_PAIRS // 32
+            rng = np.random.RandomState(0)
+            u = rng.normal(size=(P, 3))
+            rij = u / np.linalg.norm(u, axis=1)[:, None] \
+                * rng.uniform(1.0, self.rcut, (P, 1))
+            centre = np.arange(P) % natoms
+            prep = {"rij": rij, "w": np.ones(P), "pair_center": centre,
+                    "pair_seq": np.arange(P),
+                    "self_seq": P + np.arange(natoms),
+                    "self_ids": np.arange(natoms),
+                    "seq": np.stack([np.r_[centre, np.arange(natoms)],
+                                     np.zeros(P + natoms, int)], axis=1),
+                    "nseq": P + natoms, "natoms": natoms}
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = self._core([prep], dev, torch.float64)
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev) - before
+            del out
+            self._pair_bytes[key] = peak / P
+        return self._pair_bytes[key]
+
+    def default_pair_budget(self, device) -> int:
+        """Pairs per ``_so3_core`` call of the batched ingest.  On the
+        CPU the JAX package's flat 262 144.  On a card, the float64
+        ``bytes_per_pair`` against MEMORY_SHARE of the free memory
+        (``torch.cuda.mem_get_info``); the first call on a card runs the
+        probe, which resets the card's peak memory statistics."""
+        dev = torch.device(device)
+        if dev.type != "cuda" or not self.derivative:
+            return CPU_PAIR_BUDGET
+        per_pair = self.bytes_per_pair(dev)
+        free, _ = torch.cuda.mem_get_info(dev)
+        return max(PROBE_PAIRS, int(MEMORY_SHARE * free / per_pair))
+
+    def _groups(self, atoms_list, pair_budget, device, dtype):
+        """Greedy grouping under the pair budget (at least one structure
+        a group), one ``_core`` call a group: yields (indices, preps, x,
+        dxdr, atom offsets, seq offsets)."""
+        dev = config.device() if device is None else torch.device(device)
+        dt = config.dtype(dev) if dtype is None else dtype
+        if pair_budget is None:
+            pair_budget = self.default_pair_budget(dev)
+        preps = [self._prep_structure(atoms) for atoms in atoms_list]
+        groups, cur, cur_pairs = [], [], 0
+        for i, p in enumerate(preps):
+            npairs = len(p["pair_seq"])
+            if cur and cur_pairs + npairs > pair_budget:
+                groups.append(cur)
+                cur, cur_pairs = [], 0
+            cur.append(i)
+            cur_pairs += npairs
+        if cur:
+            groups.append(cur)
+        for grp in groups:
+            ps = [preps[i] for i in grp]
+            yield (grp, ps) + self._core(ps, dev, dt)
+
+    def calculate_many_device(self, atoms_list, dtype=None, pair_budget=None,
+                              device=None):
+        """``calculate_device`` of many structures, one ``_so3_core`` call
+        per group of structures under ``pair_budget`` pairs (default
+        ``default_pair_budget``): a list of dicts in calculate_device's
+        form, one per structure, each x and dxdr a slice of its group's
+        (dxdr with its zero pad row appended).  ``pair_budget=math.inf``
+        makes one group of them all, without the probe."""
+        out = [None] * len(atoms_list)
+        for grp, ps, x, dxdr, ao, so in self._groups(
+                atoms_list, pair_budget, device, dtype):
+            for k, (i, p) in enumerate(zip(grp, ps)):
+                out[i] = self._device_dict(
+                    p, x[ao[k]:ao[k + 1]],
+                    None if dxdr is None else dxdr[so[k]:so[k + 1]])
+        return out
+
+    def calculate_many(self, atoms_list, dtype=None, pair_budget=None,
+                       device=None):
+        """Batched descriptor ingest (the JAX package's
+        ``SO3.calculate_many``): as ``calculate_many_device``, returned as
+        host dicts in :meth:`calculate`'s form, copied once a group."""
+        out = [None] * len(atoms_list)
+        for grp, ps, x, dxdr, ao, so in self._groups(
+                atoms_list, pair_budget, device, dtype):
+            x = x.cpu().numpy()
+            dxdr = None if dxdr is None else dxdr.cpu().numpy()
+            for k, (i, p) in enumerate(zip(grp, ps)):
+                out[i] = {"x": x[ao[k]:ao[k + 1]],
+                          "dxdr": None if dxdr is None
+                          else dxdr[so[k]:so[k + 1]],
+                          "rdxdr": None, "elements": p["elements"],
+                          "seq": p["seq"] if self.derivative else None}
+        return out

@@ -4,7 +4,8 @@ Port of the JAX package's ``optimize.py``.  The reference drives NEB
 through ase.optimize.BFGS / FIRE (gpr_calc/NEB.py:32,50-59).  These
 implementations follow the standard algorithms and operate on anything
 exposing get_positions / set_positions / get_forces (Atoms or an NEB
-object).  Writing a trajectory (ULM) is not ported yet.
+object), and write each step's structure (every image of an NEB) to an
+ASE-readable ULM trajectory when given one.
 """
 from __future__ import annotations
 
@@ -22,10 +23,11 @@ class Optimizer:
         self.verbose = verbose
         self.nsteps = 0
         self.fmax = None
+        self._traj_writer = None
         if trajectory is not None:
-            raise NotImplementedError(
-                "trajectory files (ULM) are not ported yet (ROADMAP.md, "
-                "port queue item 3)")
+            from .io.trajectory import TrajectoryWriter
+            mode = "a" if append_trajectory else "w"
+            self._traj_writer = TrajectoryWriter(trajectory, mode=mode)
 
     def converged(self, forces=None) -> bool:
         if forces is None:
@@ -41,15 +43,27 @@ class Optimizer:
         t = time.strftime("%H:%M:%S")
         print(f"{name}: {self.nsteps:4d} {t} {e:15.6f} {fmax:15.6f}")
 
+    def _write_traj(self):
+        if self._traj_writer is None:
+            return
+        images = getattr(self.obj, "images", None)
+        if images is not None:
+            for im in images:
+                self._traj_writer.write(im)
+        else:
+            self._traj_writer.write(self.obj)
+
     def run(self, fmax: float = 0.05, steps: int = 100000000) -> bool:
         self.fmax = fmax
         forces = self.obj.get_forces()
         self._log(forces)
+        self._write_traj()
         while not self.converged(forces) and self.nsteps < steps:
             self.step(forces)
             self.nsteps += 1
             forces = self.obj.get_forces()
             self._log(forces)
+            self._write_traj()
         return self.converged(forces)
 
     def step(self, forces):

@@ -32,8 +32,8 @@ import torch
 
 from .. import config
 from ..ops.kff import (TP, _mirror, dense, energy_operand, force_operand,
-                       kee_from_ops, kef_from_ops, kff_from_ops,
-                       n_tri_tiles)
+                       kee_from_ops, kee_served, kef_from_ops,
+                       kff_from_ops, n_tri_tiles)
 from .mesh import Mesh, shard_train_data
 
 # sharded builds since the last reset_builds(), by kind
@@ -175,7 +175,7 @@ def k_block_sharded(e1, f1, e2, f2, params, mesh: Mesh, kind: str = "rbf",
                                 **kw),))
     root = mesh.root
     (K_ff,), (K_ef,) = _gather(ff, root, 1), _gather(ef, root, 1)
-    K_ee = kee_from_ops(U1e, w1, A1, U2e, w2, A2, params, zeta, kind=kind)
+    K_ee = kee_served(U1e, w1, A1, U2e, w2, A2, params, zeta, kind=kind)
     K_fe = kef_from_ops(U2, w2, A2, X1, re1, B1, params, zeta, **kw).T
     builds["k_block"] += 1
     return torch.cat([torch.cat([K_ee, K_ef], dim=1),

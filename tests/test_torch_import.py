@@ -17,14 +17,17 @@ def test_port_imports_with_jax_blocked():
         "import gpr_calculator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('neb', 'mep', 'optimize', 'io.ase_db', 'parallel',\n"
+        "for m in ('neb', 'mep', 'optimize', 'io.ase_db', 'io.ulm',\n"
+        "          'io.trajectory', 'io.vasp', 'calculators.lj', 'parallel',\n"
         "          'parallel.mesh', 'parallel.sharded_kernels',\n"
         "          'parallel.cholesky', 'parallel.dryrun'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "from gpr_calculator_tpu_torch.parallel import make_mesh\n"
         "assert make_mesh(4, ['cpu'] * 4).size == 4\n"
         "assert callable(p.neb_calc) and callable(p.get_images)\n"
-        "assert callable(p.GP.set_GPR)\n"
+        "assert callable(p.GP.set_GPR) and callable(p.GP.load)\n"
+        "assert callable(p.GP.predict_structures)\n"
+        "assert callable(p.neb.OnTheFlyBatchedNEB) and callable(p.io.read)\n"
         "assert not any(k == 'gpr_calculator_tpu'\n"
         "               or k.startswith('gpr_calculator_tpu.')\n"
         "               for k in sys.modules)\n"

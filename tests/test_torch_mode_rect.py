@@ -197,8 +197,8 @@ def test_k_block_in_one_buffer_in_each_mode(kind, mode, monkeypatch):
     t = TK.side_operands(e1, f1, mode, "train")
     assert kff.operand_precision(q.X) == mode
     kw = dict(kind=kind, mm_precision=mode)
-    ee = kff.kee_from_ops(q.Ue, q.w, q.A, t.Ue, t.w, t.A, params, 2,
-                          kind=kind)
+    ee = kff.kee_served(q.Ue, q.w, q.A, t.Ue, t.w, t.A, params, 2,
+                        kind=kind)
     ef = kff.kef_from_ops(q.U, q.w, q.A, t.X, t.re, t.B, params, 2, **kw)
     fe = kff.kef_from_ops(t.U, t.w, t.A, q.X, q.re, q.B, params, 2, **kw).T
     ff = kff.kff_from_ops(q.X, q.re, q.B, t.X, t.re, t.B, params, 2, **kw)

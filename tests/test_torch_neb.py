@@ -153,13 +153,3 @@ def test_optimizers_match_jax(name):
         runs.append((converged, opt.nsteps, well.x))
     assert runs[0][:2] == runs[1][:2] and runs[0][0]
     np.testing.assert_allclose(runs[0][2], runs[1][2], rtol=0, atol=1e-14)
-
-
-def test_unported_options_raise():
-    images = T.au_on_al100_images()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.neb_calc(images, None, batched=True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        T.neb_calc(images, None, traj="band.traj")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        T.get_images("initial.traj", "final.traj")

@@ -354,8 +354,8 @@ def test_the_configured_mode_reaches_every_build():
     A = e.x.shape[1]
     U, w = kff.energy_operand(e, "highest")
     Um, _ = kff.energy_operand(e, "bf16x4")
-    assert torch.equal(Kb[:m, :m], kff.kee_from_ops(U, w, A, U, w, A,
-                                                    RBF, 2))
+    assert torch.equal(Kb[:m, :m], kff.kee_served(U, w, A, U, w, A,
+                                                  RBF, 2))
     assert torch.equal(K[:m, :m], kff._mirror(kff.kee_from_ops(
         Um, w, A, Um, w, A, RBF, 2)))
     assert not torch.equal(K[:m, :m], TK.k_self(e, f1, RBF, 2)[:m, :m])

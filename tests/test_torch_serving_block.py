@@ -269,8 +269,8 @@ def test_k_block_in_one_buffer_equals_concatenated(kind, mode):
     q = TK.side_operands(e2, f2, mode)
     t = TK.side_operands(e1, f1, mode, "train")
     kw = dict(kind=kind, mm_precision=mode)
-    ee = kff.kee_from_ops(q.Ue, q.w, q.A, t.Ue, t.w, t.A, params, 2,
-                          kind=kind)
+    ee = kff.kee_served(q.Ue, q.w, q.A, t.Ue, t.w, t.A, params, 2,
+                        kind=kind)
     ef = kff.kef_from_ops(q.U, q.w, q.A, t.X, t.re, t.B, params, 2, **kw)
     fe = kff.kef_from_ops(t.U, t.w, t.A, q.X, q.re, q.B, params, 2, **kw).T
     ff = kff.kff_from_ops(q.X, q.re, q.B, t.X, t.re, t.B, params, 2, **kw)
@@ -283,6 +283,25 @@ def test_k_block_in_one_buffer_equals_concatenated(kind, mode):
     with pytest.raises(ValueError, match="built in mode"):
         TK.k_block(e2, f2, e1, f1, params, 2, kind, mm_precision=other,
                    train_ops=t)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "dot"])
+def test_kee_served_rounds_a_float64_product_once(kind):
+    """The served K_EE: on float32 operands the float64 K_EE rounded once
+    to float32; on float64 operands K_EE itself."""
+    (e1, _, e2, _), _ = _data(73, torch.float32, 2)
+    params = RBF if kind == "rbf" else DOT
+    U1, w1 = kff.energy_operand(e1, "highest")
+    U2, w2 = kff.energy_operand(e2, "highest")
+    A1, A2 = e1.x.shape[1], e2.x.shape[1]
+    ours = kff.kee_served(U1, w1, A1, U2, w2, A2, params, 2, kind=kind)
+    f64 = torch.float64
+    ref = kff.kee_from_ops(U1.to(f64), w1.to(f64), A1, U2.to(f64),
+                           w2.to(f64), A2, params, 2, kind=kind)
+    assert ours.dtype == torch.float32 and torch.equal(ours, ref.float())
+    assert torch.equal(
+        kff.kee_served(U1.to(f64), w1.to(f64), A1, U2.to(f64), w2.to(f64),
+                       A2, params, 2, kind=kind), ref)
 
 
 def test_out_and_transpose_on_the_cpu():
@@ -423,8 +442,9 @@ def _request(gp, image):
 def test_factorize_solves_float32_covariance_in_float64():
     """_factorize on float32 data: alpha is the float64 solve of the same
     float32 K, kept in float64, which a float32 solve of this
-    ill-conditioned K misses by far; L keeps the working dtype and is K's
-    factor; the served mean is the float64 product with alpha."""
+    ill-conditioned K misses by far; L is K's factor, kept in float64 as
+    well; the served mean is the float64 product with alpha, the variance
+    a float64 solve against L."""
     from gpr_calculator_tpu_torch.models.gp import _factorize, _noise_diag
     from gpr_calculator_tpu_torch.ops.packing import EnergyData, ForceData
     rng = np.random.RandomState(11)
@@ -444,7 +464,7 @@ def test_factorize_solves_float32_covariance_in_float64():
     params, noise = {"sigma": 2.0, "l": 1.0}, (1e-3, 1e-2)
     y = torch.as_tensor(rng.randn(m_e + 3 * m_f) * 0.1, dtype=f32)
     L, alpha = _factorize(e, f, y, params, *noise, 2, "rbf")
-    assert L.dtype == f32 and alpha.dtype == torch.float64
+    assert L.dtype == torch.float64 and alpha.dtype == torch.float64
     K = TK.k_self(e, f, params, 2)
     K.diagonal().add_(_noise_diag(e, f, *noise))
     a64 = torch.cholesky_solve(y.double()[:, None],
@@ -458,5 +478,5 @@ def test_factorize_solves_float32_covariance_in_float64():
     from gpr_calculator_tpu_torch.models.gp import _predict_packed
     mean, std = _predict_packed(e, f, e, f, params, alpha, L, 2, True)
     Kt = TK.k_block(e, f, e, f, params, 2)
-    assert mean.dtype == torch.float64 and std.dtype == f32
+    assert mean.dtype == torch.float64 and std.dtype == torch.float64
     assert torch.equal(mean, Kt.double() @ alpha)
