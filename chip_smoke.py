@@ -63,8 +63,17 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       launches alone, then parallel.dryrun.dryrun_multichip(4); and the
       times of the sharded builds beside the single launches (on one
       card: overhead, not speed-up).
-(a)-(j) and (m) run in the default precision, "highest"; (m) runs after
-(j).  Around those runs it
+  (n) the incremental refit of fit(opt=False): (n1) at the 10k bench
+      shape, in "highest" and "bf16x4", 25 and 100 rows appended to a
+      factorised model, the blocks it builds against a full k_self, its
+      served mean and sigma against a full refit, its launches (K2, K3 and
+      one K1 over the new rows alone) and its time against a full
+      _factorize; (n2) the on-the-fly Langevin MD/EOS example
+      (examples/md_onthefly.py) at its full width, its final model held
+      to a full refit on the card (a CPU float64 model recorded); (n3) the
+      serial RBF NEB with opt_freq=3, its barrier against (i)'s.
+(a)-(j), (m) and (n) run in the default precision, "highest" ((n1) also
+in "bf16x4"); (m) runs after (j), (n) after (m).  Around those runs it
 checks every kernel (every mode, and the deriv and K3-dual kernels no
 path reaches) against its plain PyTorch version at the paths' shapes --
 the batched ones too: the bands of 3 and 7 structures as the query side
@@ -148,6 +157,15 @@ BAND_TOL = 1e-3
 # the batched ingest: N_INGEST perturbed 65-atom slabs, each with its
 # energy and the forces of INGEST_FORCES atoms
 N_INGEST, INGEST_FORCES = 100, 20
+# (n1) rows appended to the 10 000-row bench set, (energy points, force
+# points): one 8-atom structure's worth (1 E + 8 F = 25 rows) and 100 rows
+APPENDS = ((1, 8), (10, 30))
+# (n2) the on-the-fly MD example at its full width: one sweep of its seven
+# volumes, 400 steps each; its noise (noise_e, noise_f)
+MD_STEPS, MD_VOLUMES = 400, 7
+MD_NOISE_E, MD_NOISE_F = 2e-3, 0.1
+# (n3) the serial RBF NEB re-optimises at every opt_freq-th refit only
+NEB_OPT_FREQ = 3
 # one NVIDIA H100 SXM (data sheet, dense): fp32 outside the tensor cores,
 # bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
@@ -339,11 +357,11 @@ def ptxas_lines(compiler_log):
             yield name, body, line.strip()
 
 
-def bench_data(torch, device, m_e=1000, m_f=3000, envs=32, d=30):
+def bench_data(torch, device, m_e=1000, m_f=3000, envs=32, d=30, seed=0):
     """bench.py's synthetic workload (1000 energy points, 3000 force
     points, 32 envs each, d=30: a 10k x 10k covariance), float32."""
     from gpr_calculator_tpu_torch.ops.packing import EnergyData, ForceData
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     f32 = torch.float32
     e = EnergyData(
         x=torch.as_tensor(rng.uniform(0.2, 1.0, (m_e, envs, d)), dtype=f32,
@@ -361,6 +379,317 @@ def bench_data(torch, device, m_e=1000, m_f=3000, envs=32, d=30):
                             dtype=torch.int32, device=device),
         nreal=m_f)
     return e, f
+
+
+def bench_points(torch, device, m_e, m_f, seed):
+    """bench_data(seed)'s rows as a GP's training points, with labels
+    drawn from N(0, 0.1) (per-atom energies, force vectors)."""
+    e, f = bench_data(torch, device, m_e, m_f, seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    ex, ee = e.x.double().cpu().numpy(), e.ele.cpu().numpy()
+    fx, fd, fe = (f.x.double().cpu().numpy(), f.dxdr.double().cpu().numpy(),
+                  f.ele.cpu().numpy())
+    return {"energy": [(ex[i], float(rng.normal(0.0, 0.1)), ee[i])
+                       for i in range(m_e)],
+            "force": [(fx[i], fd[i], rng.normal(0.0, 0.1, 3), fe[i])
+                      for i in range(m_f)]}
+
+
+def bench_gp(T, device, dtype, *point_sets):
+    """An RBF GP at the bench's (sigma, l) = (2, 1) and noise (0.01, 0.1)
+    holding the given training points, not fitted."""
+    gp = T.GP(kernel=T.RBF(para=[2.0, 1.0], zeta=2), noise_e=0.01,
+              noise_f=0.1, log_file=None, device=device, dtype=dtype)
+    for pts in point_sets:
+        gp.set_train_pts(pts, mode="a+")
+    return gp
+
+
+def served_off(a, b, m_e, natoms, noise):
+    """|dE|, max|dF|, |dsigma_E|, max|dsigma_F| between two served
+    (mean, std) of one structure (energy rows [:m_e], per atom), each
+    over its limit, a tenth of the noise (E, sigma_E: of the structure's
+    total)."""
+    (ma, sa), (mb, sb) = a, b
+    lim_e, lim_f = 0.1 * noise[0] * natoms, 0.1 * noise[1]
+    return ((abs(ma[0] - mb[0]) * natoms, lim_e),
+            (float(np.abs(ma[m_e:] - mb[m_e:]).max()), lim_f),
+            (abs(sa[0] - sb[0]) * natoms, lim_e),
+            (float(np.abs(sa[m_e:] - sb[m_e:]).max()), lim_f))
+
+
+def run_incremental(T, torch, kff, dev, dtype, query, log, card,
+                    m_e=1000, m_f=3000, reps=5):
+    """(n1) The incremental refit at the bench shape, in highest and
+    bf16x4: a GP holding bench_data's rows (m_e E + m_f F), factorised
+    from scratch, takes the rows of APPENDS (drawn from the same
+    generator) through fit(opt=False).  Gates: the cross block K(old,
+    new) and the new self block the refit builds against the matching
+    blocks of a full k_self within KERNEL_RTOL of their max; the extended
+    model's served mean and sigma at the query points (``query``: the (g)
+    request) against a full factorisation of the same rows on the card
+    within a tenth of the noise; one incremental refit; and (in main)
+    the launches.  Times: the append (blocks, chol_append, the host read
+    of L_c's diagonal, chol_solve) against a full _factorize of the same
+    rows, host clock to a synchronise, median of ``reps``; chol_append's
+    new factor against the same append in place into a capacity
+    buffer.
+    Returns the launch counts of each incremental fit by (mode, k)."""
+    from gpr_calculator_tpu_torch.models.gp import (_factorize,
+                                                    _factor_perm,
+                                                    _noise_diag)
+    from gpr_calculator_tpu_torch.ops import kernels as K_ops
+    from gpr_calculator_tpu_torch.ops import linalg
+    pe, pf, natoms = query
+    base = bench_points(torch, dev, m_e, m_f, seed=0)
+    out = {}
+    for mode in ("highest", "bf16x4"):
+        T.config.set_kff_precision(mode)
+        for kE, kF in APPENDS:
+            tag = f"{mode}, {m_e} E + {m_f} F + {kE} E + {kF} F"
+            new = bench_points(torch, dev, kE, kF, seed=1 + kE)
+            gp = bench_gp(T, dev, dtype, base)
+            gp.fit(opt=False, show=False)
+            gp.set_train_pts(new, mode="a+")
+            ref = bench_gp(T, dev, dtype, base, new)
+            ref.fit(opt=False, show=False)
+            # the blocks the refit builds against those of a full k_self
+            B, C = gp._append_blocks(m_e, m_f)
+            e_all, f_all, _, _ = ref._train_view()
+            K = K_ops.k_self(e_all, f_all, ref.kernel.params(), 2)
+            K.diagonal().add_(_noise_diag(e_all, f_all, 0.01, 0.1))
+            # packed rows of the old and the appended points in ref's K
+            m = e_all.m
+            old = torch.as_tensor(np.r_[:m_e, m:m + 3 * m_f], device=dev)
+            add = torch.as_tensor(np.r_[m_e:m_e + kE,
+                                        m + 3 * m_f:m + 3 * (m_f + kF)],
+                                  device=dev)
+            for what, got, want in (
+                    ("cross block K(old, new)", B,
+                     K[old[:, None], add[None, :]]),
+                    ("new self block", C, K[add[:, None], add[None, :]])):
+                want = want.double()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                parts = {"EE": (slice(None, m_e), slice(None, kE)),
+                         "EF": (slice(None, m_e), slice(kE, None)),
+                         "FE": (slice(m_e, None), slice(None, kE)),
+                         "FF": (slice(m_e, None), slice(kE, None))} \
+                    if what.startswith("cross") else {}
+                log(f"(n1) {tag}: {what} {tuple(got.shape)} against the "
+                    f"full k_self's: max|diff| = {err:.3e}, max = "
+                    f"{scale:.3e} (limit {KERNEL_RTOL} of max); by part "
+                    + json.dumps({k: float((got[v] - want[v]).abs().max())
+                                  for k, v in parts.items()}))
+                if not err <= KERNEL_RTOL * scale:
+                    raise AssertionError(f"(n1) {tag}: the {what} is not "
+                                         "the full covariance's")
+            del K
+            # the append's time; chol_append (a new factor) against the
+            # same append written in place into a float64 capacity buffer
+            # of 256-row steps
+            L0, k = gp.L_, C.shape[0]
+            perm = _factor_perm([(m_e, m_f), (kE, kF)], m_e + kE)
+            ylab = gp._y_factor_order(perm)
+
+            def append():
+                L, d = linalg.chol_append(L0, *gp._append_blocks(m_e, m_f))
+                d.cpu()
+                return linalg.chol_solve(L, ylab)
+            n0 = L0.shape[0]
+            cap = (n0 + k + 255) // 256 * 256
+            buf = L0.new_zeros((cap, cap))
+            buf[:n0, :n0] = L0
+
+            def in_place():
+                S = torch.linalg.solve_triangular(buf[:n0, :n0], B,
+                                                  upper=False)
+                buf[n0:n0 + k, :n0] = S.T
+                buf[n0:n0 + k, n0:n0 + k] = torch.linalg.cholesky_ex(
+                    C - S.T @ S)[0]
+                return buf[:n0 + k, :n0 + k]
+            y_all = ref._y_vector(e_all, f_all, ref.N_energy, ref.N_forces)
+            t_app = host_ms(torch, append, reps)
+            t_full = host_ms(torch, lambda: _factorize(
+                e_all, f_all, y_all, ref.kernel.params(), 0.01, 0.1, 2,
+                "rbf"), reps)
+            t_cat = host_ms(torch, lambda: linalg.chol_append(L0, B, C),
+                            reps)
+            t_buf = host_ms(torch, in_place, reps)
+            del buf
+            kff.reset_launches()
+            gp.fit(opt=False, show=False)
+            torch.cuda.synchronize()
+            out[(mode, kE + 3 * kF)] = dict(kff.launches)
+            rs, rf = gp.refit_stats, ref.refit_stats
+            log(f"(n1) [{card}] {tag}: the append (blocks, chol_append, "
+                f"L_c's diagonal read, chol_solve) {t_app[1]:.3f} ms against "
+                f"a full _factorize {t_full[1]:.3f} ms (median of {reps}, "
+                f"min/max {t_app[0]:.3f}/{t_app[2]:.3f} and "
+                f"{t_full[0]:.3f}/{t_full[2]:.3f}); chol_append (a new factor)"
+                f" {t_cat[1]:.3f} ms, in place into a capacity buffer "
+                f"{t_buf[1]:.3f} ms; refit_stats: this fit "
+                f"{rs['incremental_ms']:.3f} ms incremental, the model's "
+                f"first {rs['full_ms']:.3f} ms full, the reference's "
+                f"{rf['full_ms']:.3f} ms full; launches "
+                f"{json.dumps(nonzero(kff.launches))}")
+            if rs["incremental"] != 1 or rs["full"] != 1:
+                raise AssertionError(f"(n1) {tag}: refit_stats {rs}")
+            te, tf, _, _ = gp._train_view()
+            re_, rf_, _, _ = ref._train_view()
+            offs = served_off(gp._serve(pe, pf, te, tf, True),
+                              ref._serve(pe, pf, re_, rf_, True), pe.m,
+                              natoms, (0.01, 0.1))
+            log(f"(n1) {tag}: served against the full refit: |dE| "
+                f"{offs[0][0]:.3e} eV, max|dF| {offs[1][0]:.3e} eV/A, "
+                f"|dsigma_E| {offs[2][0]:.3e} eV, max|dsigma_F| "
+                f"{offs[3][0]:.3e} eV/A (limits {offs[0][1]:.3e}, "
+                f"{offs[1][1]:.3e})")
+            if not all(np.isfinite(v) and v <= lim for v, lim in offs):
+                raise AssertionError(f"(n1) {tag}: the extended model is "
+                                     "not the full refit's")
+            del gp, ref, B, C
+    T.config.set_kff_precision("highest")
+    return out
+
+
+def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
+           volumes=MD_VOLUMES):
+    """(n2) The on-the-fly MD/EOS example (examples/md_onthefly.run) at
+    its full width on the card, counted: its record, the ms a step and
+    the K1/K2/K3 launches a step, the training-side operand builds and
+    what one costs at the final size.  Gates: at least one incremental
+    refit; the final model's (the rows added after its last refit taken
+    in first, by fit(opt=False)) served E, F, sigma_E and sigma_F on the
+    last volume's structure and four perturbed copies against a full
+    factorisation of the same training set on the card, each within a
+    tenth of the noise or, where larger, the full refit's own distance
+    from a CPU float64 model of that training set (recorded with the MD
+    model's).  A tenth of the noise does not hold against float64 for the
+    full refit itself (E up to 6.4e-3 eV against 1.6e-3, forces up to
+    0.027 eV/A against 0.01, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+    at this model's l ~ 0.22 and noise_e = 2e-3 eV/atom the
+    float32 blocks' rounding is the float32 port's floor, and two float32
+    builds of K that round differently (the appended cross block's K3
+    against a full refit's K1) differ by up to that much.  Returns the
+    launch counts."""
+    from gpr_calculator_tpu_torch import convert
+    from gpr_calculator_tpu_torch.examples import md_onthefly as ex
+    kept = []
+
+    class Kept(ex.Langevin):
+        def run(self, n):
+            kept.append(self.atoms)
+            return super().run(n)
+
+    orig, ex.Langevin = ex.Langevin, Kept
+    kff.reset_launches()
+    K_ops.reset_operand_builds()
+    try:
+        rec, gp = ex.run(steps_per_volume=steps, max_volumes=volumes,
+                         device=dev, dtype=dtype)
+    finally:
+        ex.Langevin = orig
+    torch.cuda.synchronize()
+    launches = dict(kff.launches)
+    builds = dict(K_ops.operand_builds)
+    log(f"(n2) [{card}] MD record: {json.dumps(rec)}")
+    log(f"(n2) [{card}] {1e3 * rec['wall_s'] / rec['md_steps']:.3f} ms a "
+        f"step (wall over {rec['md_steps']} steps); launches a step "
+        f"{per_k(launches, rec['md_steps'])}; launches "
+        f"{json.dumps(nonzero(launches))}; operand builds "
+        f"{json.dumps(builds)}; refit_stats {json.dumps(gp.refit_stats)}")
+    te, tf, _, _ = gp._train_view()
+    t_ops = host_ms(torch, lambda: K_ops.side_operands(
+        te, tf, T.config.kff_precision(), "train"), 5)
+    log(f"(n2) [{card}] the training side's operands at the final "
+        f"{te.m} E + {tf.m} F points ({tf.m * tf.x.shape[1]} force envs): "
+        f"{t_ops[1]:.3f} ms a build (median of 5; rebuilt once after "
+        f"each refit, {builds['train']} builds in the run)")
+    if rec["refit_incremental"] < 1:
+        raise AssertionError("(n2) the MD run made no incremental refit")
+    if (te.nreal, tf.nreal) != (gp.N_energy, gp.N_forces):
+        # rows added after the last refit: the model takes them (one more
+        # incremental refit) so that it and the references hold one set
+        gp.fit(opt=False, show=False)
+        log(f"(n2) the final model takes the {gp.N_energy - te.nreal} E + "
+            f"{gp.N_forces - tf.nreal} F points added after its last refit: "
+            f"refit_stats {json.dumps(gp.refit_stats)}")
+    state = convert.state_of(gp)
+    for key in ("alpha", "L", "n_fit"):
+        state.pop(key, None)
+    full = convert.gp_from_state(state, device=dev, dtype=dtype,
+                                 log_file=None)
+    full.fit(opt=False, show=False)
+    cpu = cpu_f64_copy(T, gp, fit=True)
+    if full.refit_stats["full"] != 1 or cpu.refit_stats["full"] != 1:
+        raise AssertionError("(n2) the references were not refit in full")
+    rng = np.random.RandomState(3)
+    last = kept[-1]
+    strucs = [last] + [perturbed(last, rng, 0.03) for _ in range(4)]
+    models = {"MD model": gp, "card full refit": full, "CPU float64": cpu}
+    bad = []
+
+    def dist(a, b, n):
+        """|dE|, max|dF|, |dsigma_E| (of the total), max|dsigma_F|."""
+        return np.array([abs(a[0] - b[0]), float(np.abs(a[1] - b[1]).max()),
+                         abs(a[3] - b[3]) * n,
+                         float(np.abs(a[4] - b[4]).max())])
+    for k, a in enumerate(strucs):
+        out = {w: m.predict_structure(a, return_std=True)
+               for w, m in models.items()}
+        n = len(a)
+        tenth = 0.1 * np.array([MD_NOISE_E * n, MD_NOISE_F, MD_NOISE_E * n,
+                                MD_NOISE_F])
+        floor = dist(out["card full refit"], out["CPU float64"], n)
+        lim = np.maximum(tenth, floor)
+        for one, other in (("MD model", "card full refit"),
+                           ("MD model", "CPU float64"),
+                           ("card full refit", "CPU float64")):
+            d = dist(out[one], out[other], n)
+            gated = other == "card full refit"
+            log(f"(n2) structure {k}, the {one} against the {other}: |dE| "
+                f"{d[0]:.3e} eV, max|dF| {d[1]:.3e} eV/A, |dsigma_E| "
+                f"{d[2]:.3e} eV, max|dsigma_F| {d[3]:.3e} eV/A"
+                + (f" (limits {lim[0]:.3e}, {lim[1]:.3e}, {lim[2]:.3e}, "
+                   f"{lim[3]:.3e})" if gated else " (recorded)"))
+            if gated and not (np.all(np.isfinite(d)) and np.all(d <= lim)):
+                bad.append(k)
+    if bad:
+        raise AssertionError(f"(n2) the MD model disagrees with the card's "
+                             f"full refit on structures {bad}")
+    return launches
+
+
+def run_neb_opt_freq(T, torch, kff, dev, dtype, log, barrier):
+    """(n3) The serial RBF NEB from set_GPR, as in (i), with the
+    hyperparameters re-optimised at every NEB_OPT_FREQ-th refit only (the
+    rest incremental).  Gates: converged within 150 steps, at least one
+    incremental refit, the barrier within BARRIER_TOL of (i)'s
+    ``barrier``.  Returns the launch counts."""
+    gp, images = run_training(T, dev, dtype)
+    kff.reset_launches()
+    t0 = time.time()
+    calc = T.GPR(base=T.EMT(), ff=gp, save=False, opt_freq=NEB_OPT_FREQ)
+    band = T.neb_calc(images, calc, fmax=0.05, steps=150)
+    torch.cuda.synchronize()
+    launches = dict(kff.launches)
+    E = np.asarray(band.energies, float)
+    bar = float(E.max() - E[0])
+    log(f"(n3) NEB with opt_freq={NEB_OPT_FREQ}: {time.time() - t0:.2f} s, "
+        f"converged {band.converged} in {band.nsteps} steps, barrier "
+        f"{bar:.7f} eV ((i): {barrier:.7f}), base/surrogate/fits "
+        f"{gp.use_base}/{gp.use_surrogate}/{gp.fits}, N_energy="
+        f"{gp.N_energy} N_forces={gp.N_forces}; refit_stats "
+        f"{json.dumps(gp.refit_stats)}; launches a step "
+        f"{per_k(launches, band.nsteps)}")
+    if not band.converged or band.nsteps > 150 or \
+            gp.refit_stats["incremental"] < 1 or \
+            abs(bar - barrier) > BARRIER_TOL:
+        raise AssertionError("(n3) the opt_freq NEB did not converge with "
+                             "an incremental refit to (i)'s barrier within "
+                             f"{BARRIER_TOL} eV")
+    return launches
 
 
 def to_f64(torch, e, f):
@@ -1936,6 +2265,33 @@ def main(argv=None) -> int:
         T, torch, kff, K_ops, dev, log, card)
     check_launches(path_launches["ingest"], ("kff_tri", "kef_rect"),
                    "ingest", absent=DOT)
+
+    # (n1) the incremental refit at the bench shape, in highest and
+    # bf16x4: K2 and K3 on the cross block, one K1 on the new rows alone
+    card = card_line()
+    qe, qf = slice_request(gp, images[2], dev, f32)
+    inc = run_incremental(T, torch, kff, dev, f32,
+                          (qe, qf, len(images[2])), log, card)
+    inc_launches = {}
+    for (mode, k), c in inc.items():
+        names = [kname(b, mode) for b in ("kef_rect", "kff_rect", "kff_tri")]
+        check_launches(c, names, f"{mode} incremental refit of {k} rows",
+                       absent=[n for n in NAMES if n not in names])
+        if c[kname("kff_tri", mode)] != 1:
+            raise AssertionError(f"{c[kname('kff_tri', mode)]} K1 launches "
+                                 f"in the {mode} incremental refit of {k} "
+                                 "rows: one, over the new rows, expected")
+        for name, v in c.items():
+            inc_launches[name] = inc_launches.get(name, 0) + v
+    path_launches["incremental"] = inc_launches
+    # (n2) the on-the-fly MD/EOS example at full width
+    path_launches["md"] = run_md(T, torch, kff, K_ops, dev, f32, log, card)
+    check_launches(path_launches["md"], RBF, "MD", absent=DOT)
+    # (n3) the serial NEB with opt_freq, against (i)'s barrier
+    path_launches["neb_opt_freq"] = run_neb_opt_freq(
+        T, torch, kff, dev, f32, log, neb["barrier"])
+    check_launches(path_launches["neb_opt_freq"], RBF, "opt_freq NEB",
+                   absent=DOT)
 
     # (k1) the precision modes on the path: set_GPR and the NEB in bf16x4
     # (RBF, then Dot), then the RBF path in bf16, each counted

@@ -32,8 +32,9 @@ class GPR(Calculator):
         self.freq = self.parameters.get("freq", 10)
         self.save = self.parameters.get("save", True)
         # opt_freq > 1: re-optimise hyperparameters only every k-th refit;
-        # the other refits refactorise at the current hyperparameters
-        # (fit(opt=False); the incremental rank update is not ported).
+        # the other refits extend the factor by the appended rows at the
+        # current hyperparameters (fit(opt=False), an incremental rank-k
+        # update).
         # Default 1 reproduces the reference behaviour (opt=True every
         # refit, calculator.py:104).
         self.opt_freq = self.parameters.get("opt_freq", 1)

@@ -3,7 +3,9 @@
 ``state_of`` reads a fitted GP of either package through its attributes
 and NumPy alone (this module never imports JAX): the ``save_dict``
 metadata (kernel, descriptor, noise), the training lists and, when
-present, the weights and the Cholesky factor restricted to the real rows.
+present, the weights and the Cholesky factor restricted to the real rows
+(the port's after incremental appends in their insertion order,
+``L_groups``).
 ``gp_from_state`` builds the port's GP from such a state on any device,
 so both packages can be held to the same computation.
 """
@@ -12,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.gp import GP
+from .models.gp import GP, _factor_perm
 from .models.kernels import kernel_from_dict
 from .ops.so3 import SO3
 
@@ -48,6 +50,13 @@ def state_of(gp) -> dict:
         rows = _real_rows(int(e.x.shape[0]), n_e, n_f)
         state["alpha"] = _numpy(gp.alpha_)[rows]
         state["n_fit"] = (n_e, n_f)
+        if isinstance(gp, GP):
+            # the port: the factor over the real rows in the insertion
+            # order of its groups [(kE, kF), ...] (canonical for one)
+            if gp._inc is not None:
+                state["L"] = _numpy(gp.L_)
+                state["L_groups"] = [tuple(g) for g in gp._inc["groups"]]
+            return state
         L = _canonical_factor(gp, rows)
         if L is not None:
             state["L"] = L
@@ -55,10 +64,10 @@ def state_of(gp) -> dict:
 
 
 def _canonical_factor(gp, rows):
-    """The lower factor over the real rows in canonical order [E..., F...],
-    or None when the GP holds it in another order.  The JAX package keeps
-    it in a capacity buffer after a full factorisation (one group, no
-    ghost rows: canonical order); after incremental appends the rows are
+    """The JAX GP's lower factor over the real rows in canonical order
+    [E..., F...], or None when it holds it in another order.  It keeps it
+    in a capacity buffer after a full factorisation (one group, no ghost
+    rows: canonical order); after incremental appends the rows are
     permuted, and that factor is not carried."""
     if getattr(gp, "L_", None) is not None:
         return _numpy(gp.L_)[np.ix_(rows, rows)]
@@ -72,7 +81,8 @@ def _canonical_factor(gp, rows):
 def gp_from_state(state: dict, device=None, dtype=None,
                   log_file: str = "gpr.log") -> GP:
     """The port's GP holding ``state``; fitted (alpha_, L_) when the state
-    carries the weights and factor, else ready for ``fit(opt=False)``."""
+    carries the weights and factor (in the order of ``L_groups``, default
+    canonical), else ready for ``fit(opt=False)``."""
     sd = state["save_dict"]
     gp = GP(kernel=kernel_from_dict(sd["kernel"]),
             descriptor=SO3.from_dict(sd["descriptor"]),
@@ -88,16 +98,11 @@ def gp_from_state(state: dict, device=None, dtype=None,
     if "alpha" in state and "L" in state:
         n_e, n_f = state["n_fit"]
         e, f = gp._pack(n_e, n_f)
-        rows = torch.as_tensor(_real_rows(e.m, n_e, n_f), device=gp.device)
-        n = e.m + 3 * f.m
+        groups = state.get("L_groups", [(n_e, n_f)])
+        perm = _factor_perm(groups, n_e)
         # float64 whatever the working dtype, as ``_factorize`` keeps them
-        f64 = torch.float64
-        alpha = torch.zeros(n, dtype=f64, device=gp.device)
-        alpha[rows] = torch.as_tensor(state["alpha"], dtype=f64,
-                                      device=gp.device)
-        L = torch.eye(n, dtype=f64, device=gp.device)
-        L[rows[:, None], rows[None, :]] = torch.as_tensor(
-            state["L"], dtype=f64, device=gp.device)
-        gp.alpha_, gp.L_ = alpha, L
-        gp._fit_snapshot = (e, f, n_e, n_f)
+        kw = dict(dtype=torch.float64, device=gp.device)
+        gp._adopt_factor(e, f, n_e, n_f, torch.as_tensor(state["L"], **kw),
+                         torch.as_tensor(np.asarray(state["alpha"])[perm],
+                                         **kw), groups)
     return gp

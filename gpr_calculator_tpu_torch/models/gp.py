@@ -6,10 +6,11 @@ energy labels, queue semantics and dispatch thresholds.  ``fit(opt=True)``
 first runs scipy's L-BFGS-B over the analytic-gradient NLL of the
 kernel's family (``_nll_rbf_analytic``: one fused (K, dK/dgamma) pass
 per evaluation; ``_nll_dot_analytic``: one K build and the pair-count
-matrix), then every fit is a full refactorisation.  The covariance
-blocks come from ``ops/kernels.py`` (the hand-written CUDA kernels on
-the card), the Cholesky factor, the solves and K^-1 from
-``torch.linalg``.
+matrix), then refactorises from scratch; ``fit(opt=False)`` extends the
+factor of the last fit by the rows appended since (``ops/linalg.py``,
+the JAX package's ``_try_incremental_fit``).  The covariance blocks come
+from ``ops/kernels.py`` (the hand-written CUDA kernels on the card), the
+Cholesky factor, the solves and K^-1 from ``torch.linalg``.
 
 Each GP works on one device and dtype (default ``config.device()`` /
 ``config.dtype()``), so a card model and a CPU model can live side by
@@ -24,6 +25,7 @@ import json
 import logging
 import math
 import os
+import time
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -33,6 +35,8 @@ from scipy.optimize import minimize
 from .. import config
 from ..atoms.atoms import ATOMIC_NUMBERS
 from ..ops import kernels as K_ops
+from ..ops import linalg
+from ..ops.kff import _sorts
 from ..ops.packing import EnergyData, ForceData, pack_energy, pack_force
 from ..ops.so3 import SO3
 from .kernels import RBF, Dot, kernel_from_dict
@@ -252,7 +256,7 @@ def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
 def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
                     tf: ForceData, params, alpha, L, zeta: int,
                     return_std: bool, kind: str = "rbf", mesh=None,
-                    train_ops=None):
+                    train_ops=None, cols=None):
     """Cross covariance, GEMV with alpha and (optionally) the predictive
     std by a triangular solve against the factor: var = diag - |L^-1 k|^2
     (gaussianprocess.py:873-911), clamped at zero, in the factor's dtype
@@ -264,7 +268,10 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
     next (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).  mesh: the training
     force axis of the cross covariance runs in stripes over the shards;
     the GEMV and the solve stay on the root.  train_ops: the training
-    side's operands when the caller keeps them (``GP._train_operands``)."""
+    side's operands when the caller keeps them (``GP._train_operands``).
+    cols: the packed training column of each row of L when the factor is
+    in another order (after incremental appends, ``GP._factor_cols``);
+    alpha stays in packed order."""
     Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh,
                        train_ops=train_ops)
     # alpha is float64 on every device (``_factorize``): the weights are
@@ -277,7 +284,8 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
     diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind),
                       K_ops.diag_force(pf, params, zeta, kind).reshape(-1)
                       .to(dt)])
-    V = torch.linalg.solve_triangular(L, Kt.T.to(dt), upper=False)
+    KtT = Kt.T if cols is None else Kt.T.index_select(0, cols)
+    V = torch.linalg.solve_triangular(L, KtT.to(dt), upper=False)
     var = torch.clamp(diag - (V * V).sum(dim=0), min=0.0)
     return mean, torch.sqrt(var)
 
@@ -286,6 +294,27 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
 # serving pack: gather the prediction blocks from the device-resident
 # descriptor tensors (SO3.calculate_device), host index maps only
 # ---------------------------------------------------------------------------
+
+def _packed_rows(nE: int, nF: int, m_e: int) -> np.ndarray:
+    """Packed row of each real training row in canonical order [E...,
+    3 rows per force point...] (padding sits after each block's real
+    points)."""
+    return np.r_[np.arange(nE), m_e + np.arange(3 * nF)]
+
+
+def _factor_perm(groups, nE_total: int) -> np.ndarray:
+    """Canonical real row of each factor row for the insertion-order
+    groups [(kE, kF), ...] of an incrementally extended factor: each
+    group's energy rows, then its force rows (the JAX package's
+    ``_factor_perm`` without its ghost rows)."""
+    perm, e_off, f_off = [], 0, 0
+    for ke, kf in groups:
+        perm.append(np.arange(e_off, e_off + ke))
+        perm.append(nE_total + np.arange(3 * f_off, 3 * (f_off + kf)))
+        e_off += ke
+        f_off += kf
+    return np.concatenate(perm).astype(np.int64)
+
 
 def _pack_on_device(xs, dxs, e_idx, ele_e, counts, nreal_e, centers, rows,
                     ele_f, nreal_f):
@@ -487,10 +516,18 @@ class GP:
         self.N_forces_queue = 0
         self.N_queue = 0
 
-        self.alpha_ = None
-        self.L_ = None
+        self.alpha_ = None          # float64 weights, packed order
+        self.L_ = None              # float64 lower factor, factor order
+        self._factor_cols = None    # packed column of each factor row
         self._fit_snapshot = None   # (EnergyData, ForceData, nE, nF)
         self._serve_ops = None      # (snapshot, its serving operands)
+        # what the factor holds, for the incremental refit: {"sig",
+        # "groups": [(kE, kF), ...]}; None forces the next fit to
+        # refactorise
+        self._inc = None
+        # the factorisation step of fit() by path: counts and wall ms
+        self.refit_stats = {"full": 0, "incremental": 0,
+                            "full_ms": 0.0, "incremental_ms": 0.0}
 
         self.fits = 0
         self.use_base = 0
@@ -588,6 +625,9 @@ class GP:
             self.train_db = []
             self.N_energy = self.N_forces = 0
             self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
+            # a replaced training set must not be appended to the factor
+            # of the old one
+            self._inc = None
 
         N_E, N_F = 0, 0
         for d in data.get("db", []):
@@ -702,9 +742,12 @@ class GP:
     def fit(self, TrainData=None, show: bool = True, opt: bool = True,
             maxiter: int = 10):
         """opt=True: optimise the kernel's (sigma, l) or (sigma, sigma0)
-        [and the noise] by L-BFGS-B over the NLL from the current values;
-        then refactorise the training covariance (always a full
-        factorisation)."""
+        [and the noise] by L-BFGS-B over the NLL from the current values,
+        then refactorise the training covariance from scratch.
+        opt=False: extend the factor of the last fit by the rows appended
+        since (``_try_incremental_fit``), or refactorise where it cannot.
+        ``refit_stats`` counts each path with the wall milliseconds of
+        its factorisation step (on the card up to the device's finish)."""
         if TrainData is not None:
             self.set_train_pts(TrainData)
         if show:
@@ -723,21 +766,148 @@ class GP:
                 self.noise_f = float(self.f_coef * params[-1])
             else:
                 self.kernel.update(params)
-        try:
-            L, alpha = _factorize(e, f, y, self.kernel.params(),
-                                  self.noise_e, self.noise_f,
-                                  self.kernel.zeta, self.kernel.kind,
-                                  mesh=self._mesh_arg(),
-                                  chol_mode=self._chol_mode(e, f))
-        except FloatingPointError as exc:
-            self.logging.error(str(exc))
-            raise
-        self.L_, self.alpha_ = L, alpha
-        self._fit_snapshot = (e, f, self.N_energy, self.N_forces)
-        self._serve_ops = None
-        self.logging.info("Cholesky decomposition complete")
+        t0 = time.perf_counter()
+        if not opt and self._try_incremental_fit(e, f):
+            path = "incremental"
+            self.logging.info("Cholesky rank-update complete")
+        else:
+            try:
+                L, alpha = _factorize(e, f, y, self.kernel.params(),
+                                      self.noise_e, self.noise_f,
+                                      self.kernel.zeta, self.kernel.kind,
+                                      mesh=self._mesh_arg(),
+                                      chol_mode=self._chol_mode(e, f))
+            except FloatingPointError as exc:
+                self.logging.error(str(exc))
+                raise
+            self._record_full_factor(e, f, self.N_energy, self.N_forces, L,
+                                     alpha)
+            path = "full"
+            self.logging.info("Cholesky decomposition complete")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.refit_stats[path] += 1
+        self.refit_stats[path + "_ms"] += (time.perf_counter() - t0) * 1e3
         self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
         self.fits += 1
+
+    # -- incremental refit (gp.py:1223-1425 of the JAX package) --------------
+    def _params_signature(self):
+        """What the factor depends on besides the data: the kernel, its
+        hyperparameters, the noise, the working dtype and the matmul
+        precision of the covariance builds."""
+        return (self.kernel.kind, self.kernel.zeta,
+                tuple(round(float(p), 14) for p in self.kernel.parameters()),
+                round(self.noise_e, 14), round(self.noise_f, 14),
+                self.dtype, config.kff_precision())
+
+    def _record_full_factor(self, e: EnergyData, f: ForceData, nE: int,
+                            nF: int, L, alpha):
+        """Keep a from-scratch factor and weights (``_factorize``'s, over
+        the packed rows) for serving and later appends: their real rows,
+        in canonical order.  The padded rows have unit noise and no
+        coupling, so the real rows of the padded factor are the factor of
+        the real covariance."""
+        rows = _packed_rows(nE, nF, e.m)
+        r = torch.as_tensor(rows, device=L.device)
+        if len(rows) != L.shape[0]:
+            L = L[r[:, None], r[None, :]]
+        self._adopt_factor(e, f, nE, nF, L, alpha[r], [(nE, nF)])
+
+    def _adopt_factor(self, e: EnergyData, f: ForceData, nE: int, nF: int,
+                      L, alpha_fac, groups):
+        """Serve from, and append to, the float64 factor L and weights
+        alpha_fac of the real rows in the insertion order of ``groups``
+        (``_factor_perm``): the weights scattered into packed order, and
+        the packed column of each factor row (``_factor_cols``), which
+        ``_predict_packed`` gathers the cross covariance by."""
+        self._inc = {"sig": self._params_signature(), "groups": list(groups)}
+        cols = torch.as_tensor(_packed_rows(nE, nF, e.m)[
+            _factor_perm(groups, nE)], device=self.device)
+        alpha = torch.zeros(e.m + 3 * f.m, dtype=torch.float64,
+                            device=self.device)
+        alpha[cols] = alpha_fac
+        self.L_, self.alpha_, self._factor_cols = L, alpha, cols
+        self._fit_snapshot = (e, f, nE, nF)
+        self._serve_ops = None
+
+    def _y_factor_order(self, perm):
+        """The labels in factor order, float64 on the model's device."""
+        y = np.concatenate([
+            np.asarray(self._energy_y[:self.N_energy], float),
+            np.asarray(self._force_y[:self.N_forces], float).reshape(-1)])
+        return torch.as_tensor(y[perm], dtype=torch.float64,
+                               device=self.device)
+
+    def _append_blocks(self, nE0: int, nF0: int):
+        """(B, C) of the rows appended since the last fit, float64, in
+        factor order: B = K(old, new) (n_old, k) and C = K(new, new) plus
+        the noise (k, k).  B is built as K(new, old) by ``k_block`` with
+        the kept operands of the last fit's training set and transposed
+        (under a mesh its stripes run over the old training force axis),
+        C by ``k_self``: K2, K3 and one K1 over the new rows alone.  Both
+        blocks read operands rounded as ``k_self`` rounds them, with K_EE
+        from those (``gram=True``), and take the noise in the working
+        dtype before the cast, as ``_factorize`` does, and the new
+        rows' envs sorted by element where a full refit's sides would be
+        (a point's sum then runs in the same order), so they are the
+        blocks of the K a full refit would build up to the kernels'
+        float32 summation order."""
+        te, tf, _, _ = self._fit_snapshot
+        kw = dict(d=te.d, device=self.device, dtype=self.dtype)
+        e_new = pack_energy(self._energy_pts[nE0:self.N_energy], **kw)
+        f_new = pack_force(self._force_pts[nF0:self.N_forces], **kw)
+        params, zeta, kind = (self.kernel.params(), self.kernel.zeta,
+                              self.kernel.kind)
+        sort = (_sorts(None, self.N_energy, max(te.x.shape[1],
+                                                e_new.x.shape[1])),
+                _sorts(None, self.N_forces, max(tf.x.shape[1],
+                                                f_new.x.shape[1])))
+        K_no = K_ops.k_block(e_new, f_new, te, tf, params, zeta, kind,
+                             mesh=self._mesh_arg(),
+                             train_ops=self._train_operands(), gram=True,
+                             sort=sort)
+        C = K_ops.k_self(e_new, f_new, params, zeta, kind, sort=sort)
+        C.diagonal().add_(_noise_diag(e_new, f_new, self.noise_e,
+                                      self.noise_f))
+        new = torch.as_tensor(_packed_rows(self.N_energy - nE0,
+                                           self.N_forces - nF0, e_new.m),
+                              device=self.device)
+        f64 = torch.float64
+        B = K_no.index_select(0, new).index_select(1, self._factor_cols)
+        return B.T.to(f64), C[new[:, None], new[None, :]].to(f64)
+
+    def _try_incremental_fit(self, e: EnergyData, f: ForceData) -> bool:
+        """Extend the factor of the last fit by the rows appended since,
+        in O(n^2 k) (``linalg.chol_append``), and solve the weights
+        against it; False when a refactorisation is needed: no factor
+        kept, another signature (hyperparameters, noise, dtype,
+        precision), rows removed, or an extension that is not positive
+        definite (then the state is dropped and logged)."""
+        st = self._inc
+        if st is None or st["sig"] != self._params_signature():
+            return False
+        nE0, nF0 = (sum(g[i] for g in st["groups"]) for i in (0, 1))
+        kE, kF = self.N_energy - nE0, self.N_forces - nF0
+        if kE < 0 or kF < 0:
+            return False
+        groups = st["groups"] + ([(kE, kF)] if kE or kF else [])
+        L = self.L_
+        if kE or kF:
+            L, lc_diag = linalg.chol_append(L, *self._append_blocks(nE0,
+                                                                    nF0))
+            lc_diag = lc_diag.cpu().numpy()
+            if not (np.all(np.isfinite(lc_diag)) and np.all(lc_diag > 0)):
+                self._inc = None
+                self.logging.info(
+                    "Cholesky rank-update not positive definite: "
+                    "refactorising from scratch")
+                return False
+        alpha = linalg.chol_solve(L, self._y_factor_order(
+            _factor_perm(groups, self.N_energy)))
+        self._adopt_factor(e, f, self.N_energy, self.N_forces, L, alpha,
+                           groups)
+        return True
 
     # -- prediction ----------------------------------------------------------
     def _train_view(self):
@@ -768,7 +938,8 @@ class GP:
                                     self.alpha_, self.L_, self.kernel.zeta,
                                     return_std, self.kernel.kind,
                                     mesh=self._mesh_arg(),
-                                    train_ops=self._train_operands())
+                                    train_ops=self._train_operands(),
+                                    cols=self._factor_cols)
         mean = mean.cpu().numpy()
         return mean, None if std is None else std.cpu().numpy()
 

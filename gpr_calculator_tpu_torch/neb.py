@@ -6,9 +6,8 @@ energies pinned to the stored training energies (NEB.py:64-74) and the
 optional base-calculator re-evaluation of the converged path; the batched
 band (``batched=True``: ``OnTheFlyBatchedNEB``, every interior image
 served by one ``GP.predict_structures`` a step); ``get_images`` (from
-Atoms, structure files or a trajectory's tail) and
-``reaction_coordinate``.  Not ported yet: the plots (``plot_path``,
-``plot_progress``; ROADMAP.md, port queue item 8).
+Atoms, structure files or a trajectory's tail), ``reaction_coordinate``
+and the figures ``plot_path`` and ``plot_progress`` (matplotlib, Agg).
 """
 from __future__ import annotations
 
@@ -212,3 +211,77 @@ def reaction_coordinate(images) -> np.ndarray:
                         cell, pbc)
         s[k] = s[k - 1] + float(np.linalg.norm(d))
     return s
+
+
+def plot_path(data, unit="eV", fontsize=15, figname="neb_path.png",
+              title="NEB Path", max_yticks=8, x_scale=False):
+    """Render energy vs reaction coordinate for one or more image chains
+    (same deliverable as the reference's NEB-path figure: image markers
+    plus a smooth endpoint-clamped guide curve per chain).
+
+    data: iterable of (images, energies, label) triples.
+    """
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib.ticker import MaxNLocator
+    from scipy.interpolate import CubicSpline
+
+    fig, ax = plt.subplots(figsize=(8, 6))
+    for images, energies, label in data:
+        s = reaction_coordinate(images)
+        if x_scale and s[-1] > 0:
+            s = s / s[-1]
+        markers = ax.plot(s, energies, marker="o", ls="none")[0]
+        # endpoints are minima: clamp the guide curve to zero slope
+        # there.  CubicSpline needs strictly increasing x: drop
+        # duplicate-coordinate images (e.g. an unmoved frame in a
+        # restart chain) from the guide curve only
+        keep = np.r_[True, np.diff(s) > 1e-12]
+        if keep.sum() >= 2:
+            guide = CubicSpline(s[keep], np.asarray(energies)[keep],
+                                bc_type="clamped")
+            dense = np.linspace(s[0], s[-1], 120)
+            ax.plot(dense, guide(dense), ls="--",
+                    color=markers.get_color(), label=label)
+
+    ax.margins(x=0.08)
+    ax.yaxis.set_major_locator(MaxNLocator(max_yticks))
+    ax.set_xlabel("Reaction Coordinates", fontsize=fontsize)
+    ax.set_ylabel(f"Energy ({unit})", fontsize=fontsize)
+    ax.set_title(title, fontsize=fontsize * 1.1)
+    ax.legend(fontsize=fontsize, frameon=False, loc="upper right")
+    fig.tight_layout()
+    fig.savefig(figname, dpi=300)
+    plt.close(fig)
+
+
+def plot_progress(trajectory, calc, N_images, start=0, interval=50,
+                  figname="neb-process.png"):
+    """Overlay the NEB path at successive optimizer snapshots from a
+    trajectory file (convergence-progress figure; endpoints pinned to the
+    stored training energies like neb_calc does)."""
+    from .io import read
+
+    frames = read(trajectory, index=":")
+    n_snap = len(frames) // N_images
+    gp = calc.parameters.ff
+    data = []
+    for snap in range(start, n_snap, interval):
+        print(f"Processing step {snap} of {n_snap}")
+        chain = frames[snap * N_images:(snap + 1) * N_images]
+        energies = np.empty(len(chain))
+        energies[0] = _endpoint_energy(gp, chain[0], 0)
+        energies[-1] = _endpoint_energy(gp, chain[-1], N_images - 1)
+        for image in chain[1:-1]:
+            image.calc = calc
+        # frozen: rendering a figure must not dispatch to the base
+        # calculator, grow the training set, or refit the live GP
+        calc.freeze()
+        try:
+            energies[1:-1] = [im.get_potential_energy()
+                              for im in chain[1:-1]]
+        finally:
+            calc.unfreeze()
+        data.append((chain, energies, f"NEB_iter_{snap}"))
+    plot_path(data, figname=figname)

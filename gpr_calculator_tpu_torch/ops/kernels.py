@@ -98,7 +98,7 @@ def _sharded(mesh, plain: bool = False) -> bool:
 
 def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
            kind: str = "rbf", plain: bool = False, dtype=None,
-           mm_precision: str | None = None, mesh=None):
+           mm_precision: str | None = None, mesh=None, sort=(None, None)):
     """Symmetric training covariance (K_FE = K_EF^T, RBF_mb.py:161-165);
     kind="rbf_dgamma" gives dK/dgamma of the RBF one (the deriv builds).
 
@@ -117,7 +117,9 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
     symmetric.  mesh:
     K1's tile ranges and the energy-row stripes run one per shard
     (``self_blocks_sharded``); K_FF and K_EF are the unsharded ones bit
-    for bit."""
+    for bit.  sort: whether the (energy, force) side's envs are sorted by
+    element (``energy_operand``, ``force_operand``; None: by the side's
+    size), on the unsharded route."""
     mode = config.kff_precision(mm_precision)
     if _sharded(mesh, plain) and _sharded_train_ok(f.m, mesh.size):
         from ..parallel.sharded_kernels import self_blocks_sharded
@@ -125,8 +127,8 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
                                    mm_precision=mode, dtype=dtype)
         return K
     A, B, m = e.x.shape[1], f.x.shape[1], e.m
-    U, w = energy_operand(e, mode)
-    X, re = force_operand(f, mode)
+    U, w = energy_operand(e, mode, sort[0])
+    X, re = force_operand(f, mode, sort[1])
     Ud = dense(U)
     dt = Ud.dtype if dtype is None else dtype
     (K,), direct = _self_buffers(e, f, 1, dt, Ud.device)
@@ -220,30 +222,43 @@ class SideOperands(NamedTuple):
 
 
 def side_operands(e: EnergyData, f: ForceData, mode: str,
-                  role: str = "query") -> SideOperands:
-    """Build one side's operands (counted in ``operand_builds[role]``)."""
-    U, w = energy_operand(e, mode)
-    X, re = force_operand(f, mode)
-    Ue = U if mode == "highest" else energy_operand(e, "highest")[0]
+                  role: str = "query", sort=(None, None)) -> SideOperands:
+    """Build one side's operands (counted in ``operand_builds[role]``);
+    sort: as in ``k_self``."""
+    U, w = energy_operand(e, mode, sort[0])
+    X, re = force_operand(f, mode, sort[1])
+    Ue = U if mode == "highest" else energy_operand(e, "highest", sort[0])[0]
     operand_builds[role] += 1
     return SideOperands(mode, U, w, e.x.shape[1], X, re, f.x.shape[1], Ue)
 
 
 def block_operands(e1: EnergyData, f1: ForceData, e2: EnergyData,
-                   f2: ForceData, mode: str):
+                   f2: ForceData, mode: str, sort=(None, None)):
     """The operands of one serving block in ``mode``: (U, w, A) and (X,
     re, B) of both sides, and the two unrounded energy operands K_EE
-    reads."""
-    s1 = side_operands(e1, f1, mode)
+    reads; sort: data1's, as in ``k_self``."""
+    s1 = side_operands(e1, f1, mode, sort=sort)
     s2 = side_operands(e2, f2, mode, "train")
     return ((s1.U, s1.w, s1.A), (s1.X, s1.re, s1.B),
             (s2.U, s2.w, s2.A), (s2.X, s2.re, s2.B), s1.Ue, s2.Ue)
 
 
+def block_kee(U1e, U1, w1, A1: int, U2e, U2, w2, A2: int, params,
+              zeta: int, kind: str, gram: bool):
+    """K_EE of a block: of a training Gram (``gram``: the rounded
+    operands U in their dtype, as ``k_self`` builds it) or served (the
+    unrounded ones Ue in float64, rounded once: ``kee_served``)."""
+    if gram:
+        return kee_from_ops(dense(U1), w1, A1, dense(U2), w2, A2, params,
+                            zeta, kind=kind)
+    return kee_served(U1e, w1, A1, U2e, w2, A2, params, zeta, kind=kind)
+
+
 def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
             params, zeta: int = 2, kind: str = "rbf",
             mm_precision: str | None = None, mesh=None,
-            train_ops: SideOperands | None = None):
+            train_ops: SideOperands | None = None, gram: bool = False,
+            sort=(None, None)):
     """[[K_EE, K_EF], [K_FE, K_FF]] for (rows: data1, cols: data2) -- the
     serving cross-covariance, built in ONE buffer: the block is allocated
     once, kernel K2 writes K_EF into its slice and, in the other
@@ -252,7 +267,12 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
     K_EF, K_FE and K_FF take the matmul precision ``mm_precision``; K_EE
     is computed from the unrounded energy operands, as in the JAX
     package's serving build (``kee``, its ops/kernels.py:574), in float64
-    and rounded once (``kee_served``).
+    and rounded once (``kee_served``).  gram=True: the block joins a
+    training covariance (the cross block of an incremental refit), so its
+    K_EE comes from the rounded operands in their dtype (``kee_from_ops``),
+    as in ``k_self``, and the block is a slice of the Gram a full
+    ``k_self`` of both sides would build.  sort: data1's, as in
+    ``k_self``.
     train_ops: the data2 side's operands (``side_operands(e2, f2, mode,
     "train")``) when the caller keeps them, as a fitted GP does; they must
     have been built in this mode.  mesh: the training force axis (data2)
@@ -262,16 +282,16 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
     if _sharded(mesh) and _sharded_serving_ok(f2.m, mesh.size):
         from ..parallel.sharded_kernels import k_block_sharded
         return k_block_sharded(e1, f1, e2, f2, params, mesh, kind, zeta,
-                               mm_precision=mode)
-    s1 = side_operands(e1, f1, mode)
+                               mm_precision=mode, gram=gram, sort=sort)
+    s1 = side_operands(e1, f1, mode, sort=sort)
     s2 = train_ops if train_ops is not None \
         else side_operands(e2, f2, mode, "train")
     if s2.mode != mode:
         raise ValueError(f"train_ops were built in mode {s2.mode!r}, the "
                          f"block asks for {mode!r}")
     kw = dict(kind=kind, mm_precision=mode)
-    K_ee = kee_served(s1.Ue, s1.w, s1.A, s2.Ue, s2.w, s2.A, params, zeta,
-                      kind=kind)
+    K_ee = block_kee(s1.Ue, s1.U, s1.w, s1.A, s2.Ue, s2.U, s2.w, s2.A,
+                     params, zeta, kind, gram)
     m1, m2 = K_ee.shape
     K = torch.empty((m1 + 3 * f1.m, m2 + 3 * f2.m), dtype=K_ee.dtype,
                     device=K_ee.device)

@@ -32,7 +32,7 @@ import torch
 
 from .. import config
 from ..ops.kff import (TP, _mirror, dense, energy_operand, force_operand,
-                       kee_from_ops, kee_served, kef_from_ops,
+                       kee_from_ops, kef_from_ops,
                        kff_from_ops, n_tri_tiles)
 from .mesh import Mesh, shard_train_data
 
@@ -147,17 +147,19 @@ def self_blocks_sharded(e, f, params, kind: str, zeta: int, dual: bool,
 
 
 def k_block_sharded(e1, f1, e2, f2, params, mesh: Mesh, kind: str = "rbf",
-                    zeta: int = 2, mm_precision: str | None = None):
+                    zeta: int = 2, mm_precision: str | None = None,
+                    gram: bool = False, sort=(None, None)):
     """The serving cross-covariance [[K_EE, K_EF], [K_FE, K_FF]] (rows:
     prediction data 1, cols: training data 2) with the training force
     axis in column stripes over ``mesh``: K3 and K2 run per stripe on its
     shard and are concatenated on the root; K_EE and K_FE touch only the
     small training energy axis and are computed on the root, as in
-    ``ops.kernels.k_block``."""
-    from ..ops.kernels import block_operands
+    ``ops.kernels.k_block`` (``gram``: its K_EE as a training Gram's;
+    ``sort``: data1's env order)."""
+    from ..ops.kernels import block_kee, block_operands
     mode = config.kff_precision(mm_precision)
     (U1, w1, A1), (X1, re1, B1), (U2, w2, A2), (X2, re2, B2), U1e, U2e = \
-        block_operands(e1, f1, e2, f2, mode)
+        block_operands(e1, f1, e2, f2, mode, sort)
     _on_root(mesh, X1, X2)
     kw = dict(kind=kind, mm_precision=mode)
     ef, ff = [], []
@@ -175,7 +177,8 @@ def k_block_sharded(e1, f1, e2, f2, params, mesh: Mesh, kind: str = "rbf",
                                 **kw),))
     root = mesh.root
     (K_ff,), (K_ef,) = _gather(ff, root, 1), _gather(ef, root, 1)
-    K_ee = kee_served(U1e, w1, A1, U2e, w2, A2, params, zeta, kind=kind)
+    K_ee = block_kee(U1e, U1, w1, A1, U2e, U2, w2, A2, params, zeta, kind,
+                     gram)
     K_fe = kef_from_ops(U2, w2, A2, X1, re1, B1, params, zeta, **kw).T
     builds["k_block"] += 1
     return torch.cat([torch.cat([K_ee, K_ef], dim=1),

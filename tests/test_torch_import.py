@@ -20,7 +20,9 @@ def test_port_imports_with_jax_blocked():
         "for m in ('neb', 'mep', 'optimize', 'io.ase_db', 'io.ulm',\n"
         "          'io.trajectory', 'io.vasp', 'calculators.lj', 'parallel',\n"
         "          'parallel.mesh', 'parallel.sharded_kernels',\n"
-        "          'parallel.cholesky', 'parallel.dryrun'):\n"
+        "          'parallel.cholesky', 'parallel.dryrun', 'md', 'analysis',\n"
+        "          'utils', 'utils_profiling', 'ops.linalg',\n"
+        "          'examples.md_onthefly'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "from gpr_calculator_tpu_torch.parallel import make_mesh\n"
         "assert make_mesh(4, ['cpu'] * 4).size == 4\n"
@@ -65,5 +67,5 @@ def test_packaging_finds_the_parallel_package():
     cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
     include = cfg["tool"]["setuptools"]["packages"]["find"]["include"]
     found = find_packages(str(ROOT), include=include)
-    for pkg in ("parallel", "ops", "models"):
+    for pkg in ("parallel", "ops", "models", "examples"):
         assert f"gpr_calculator_tpu_torch.{pkg}" in found

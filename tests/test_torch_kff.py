@@ -23,11 +23,17 @@ from gpr_calculator_tpu_torch.ops.packing import pack_energy, pack_force
 def _on_cpu():
     """The port runs on the card unless asked: the port's test modules
     (each imports this fixture) ask for the CPU, and leave the default
-    device and matmul precision as they found them."""
+    device and matmul precision as they found them.  They run torch on
+    one thread: the suite runs in several worker processes at once, where
+    the spinning OpenMP threads of each slowed the port's many small
+    operations several-fold; the thread count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     config.set_device("cpu")
     yield
     config.set_device(None)
     config.set_kff_precision("highest")
+    torch.set_num_threads(threads)
 
 
 PARAMS = {"sigma": 1.3, "l": 0.9}
