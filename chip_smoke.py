@@ -70,7 +70,8 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       one K1 over the new rows alone) and its time against a full
       _factorize; (n2) the on-the-fly Langevin MD/EOS example
       (examples/md_onthefly.py) at its full width, its final model held
-      to a full refit on the card (a CPU float64 model recorded); (n3) the
+      to a full refit on the card and to a CPU float64 model, and where
+      the float32 model's distance from float64 comes from; (n3) the
       serial RBF NEB with opt_freq=3, its barrier against (i)'s.
 (a)-(j), (m) and (n) run in the default precision, "highest" ((n1) also
 in "bf16x4"); (m) runs after (j), (n) after (m).  Around those runs it
@@ -79,10 +80,13 @@ path reaches) against its plain PyTorch version at the paths' shapes --
 the batched ones too: the bands of 3 and 7 structures as the query side
 against the slice model's and the batched NEBs' training sets, and the
 ingest's training set (K1 at its 6100 rows, K2 with 65 envs an energy
-point) against its band of 5 slabs -- and at the 10k-covariance bench
-shape, and the card's bf16 split of the
-operand rows against the CPU's ((b), (k2)); factorises that covariance
-in each mode and holds alpha from bf16x4 to float32 ((c), (k3));
+point) against its band of 5 slabs; the final MD model's training set
+against the last volume's 8-atom request; the (n1) appended rows, sorted
+as the refit sorts them, against the bench training side and against
+themselves -- and at the 10k-covariance bench shape, and the card's bf16
+split of the operand rows against the CPU's ((b), (k2)); factorises
+that covariance in each mode and holds alpha from bf16x4 to float32
+((c), (k3));
 re-serves the frozen slice model against a float64 CPU model; times
 kernel and plain versions at the slice, a mid and the bench shape, with
 each one's bound on the card, and one NLL+gradient evaluation, and
@@ -456,7 +460,8 @@ def run_incremental(T, torch, kff, dev, dtype, query, log, card,
             # the blocks the refit builds against those of a full k_self
             B, C = gp._append_blocks(m_e, m_f)
             e_all, f_all, _, _ = ref._train_view()
-            K = K_ops.k_self(e_all, f_all, ref.kernel.params(), 2)
+            K = K_ops.k_self(e_all, f_all, ref.kernel.params(), 2,
+                             dtype=torch.float64)
             K.diagonal().add_(_noise_diag(e_all, f_all, 0.01, 0.1))
             # packed rows of the old and the appended points in ref's K
             m = e_all.m
@@ -560,19 +565,14 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
     the K1/K2/K3 launches a step, the training-side operand builds and
     what one costs at the final size.  Gates: at least one incremental
     refit; the final model's (the rows added after its last refit taken
-    in first, by fit(opt=False)) served E, F, sigma_E and sigma_F on the
-    last volume's structure and four perturbed copies against a full
-    factorisation of the same training set on the card, each within a
-    tenth of the noise or, where larger, the full refit's own distance
-    from a CPU float64 model of that training set (recorded with the MD
-    model's).  A tenth of the noise does not hold against float64 for the
-    full refit itself (E up to 6.4e-3 eV against 1.6e-3, forces up to
-    0.027 eV/A against 0.01, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
-    at this model's l ~ 0.22 and noise_e = 2e-3 eV/atom the
-    float32 blocks' rounding is the float32 port's floor, and two float32
-    builds of K that round differently (the appended cross block's K3
-    against a full refit's K1) differ by up to that much.  Returns the
-    launch counts."""
+    in first, by fit(opt=False), and logged) served E, F, sigma_E and
+    sigma_F on the last volume's structure and four perturbed copies
+    within a tenth of the noise of a full factorisation of the same
+    training set on the card and of a CPU float64 model of it.  The full
+    refit is held to the float64 model at the same limits, and where its
+    distance from float64 comes from is recorded (``f64_split``).
+    Returns the launch counts, the final model and the last volume's
+    structure."""
     from gpr_calculator_tpu_torch import convert
     from gpr_calculator_tpu_torch.examples import md_onthefly as ex
     kept = []
@@ -608,13 +608,15 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
         f"each refit, {builds['train']} builds in the run)")
     if rec["refit_incremental"] < 1:
         raise AssertionError("(n2) the MD run made no incremental refit")
-    if (te.nreal, tf.nreal) != (gp.N_energy, gp.N_forces):
+    queued = (gp.N_energy - te.nreal, gp.N_forces - tf.nreal)
+    if any(queued):
         # rows added after the last refit: the model takes them (one more
         # incremental refit) so that it and the references hold one set
         gp.fit(opt=False, show=False)
-        log(f"(n2) the final model takes the {gp.N_energy - te.nreal} E + "
-            f"{gp.N_forces - tf.nreal} F points added after its last refit: "
-            f"refit_stats {json.dumps(gp.refit_stats)}")
+    log(f"(n2) rows added after the MD model's last refit: {queued[0]} E + "
+        f"{queued[1]} F" + (f", taken in by one more fit(opt=False): "
+                            f"refit_stats {json.dumps(gp.refit_stats)}"
+                            if any(queued) else ""))
     state = convert.state_of(gp)
     for key in ("alpha", "L", "n_fit"):
         state.pop(key, None)
@@ -639,26 +641,24 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
         out = {w: m.predict_structure(a, return_std=True)
                for w, m in models.items()}
         n = len(a)
-        tenth = 0.1 * np.array([MD_NOISE_E * n, MD_NOISE_F, MD_NOISE_E * n,
-                                MD_NOISE_F])
-        floor = dist(out["card full refit"], out["CPU float64"], n)
-        lim = np.maximum(tenth, floor)
+        lim = 0.1 * np.array([MD_NOISE_E * n, MD_NOISE_F, MD_NOISE_E * n,
+                              MD_NOISE_F])
         for one, other in (("MD model", "card full refit"),
                            ("MD model", "CPU float64"),
                            ("card full refit", "CPU float64")):
             d = dist(out[one], out[other], n)
-            gated = other == "card full refit"
             log(f"(n2) structure {k}, the {one} against the {other}: |dE| "
                 f"{d[0]:.3e} eV, max|dF| {d[1]:.3e} eV/A, |dsigma_E| "
-                f"{d[2]:.3e} eV, max|dsigma_F| {d[3]:.3e} eV/A"
-                + (f" (limits {lim[0]:.3e}, {lim[1]:.3e}, {lim[2]:.3e}, "
-                   f"{lim[3]:.3e})" if gated else " (recorded)"))
-            if gated and not (np.all(np.isfinite(d)) and np.all(d <= lim)):
-                bad.append(k)
+                f"{d[2]:.3e} eV, max|dsigma_F| {d[3]:.3e} eV/A (limits "
+                f"{lim[0]:.3e}, {lim[1]:.3e}, {lim[2]:.3e}, {lim[3]:.3e})")
+            if not (np.all(np.isfinite(d)) and np.all(d <= lim)):
+                bad.append((k, one, other))
+    f64_split(T, torch, kff, K_ops, full, strucs, (MD_NOISE_E, MD_NOISE_F),
+              log, "(n2)")
     if bad:
-        raise AssertionError(f"(n2) the MD model disagrees with the card's "
-                             f"full refit on structures {bad}")
-    return launches
+        raise AssertionError(f"(n2) models outside a tenth of the noise "
+                             f"(structure, model, reference): {bad}")
+    return launches, gp, last
 
 
 def run_neb_opt_freq(T, torch, kff, dev, dtype, log, barrier):
@@ -692,11 +692,142 @@ def run_neb_opt_freq(T, torch, kff, dev, dtype, log, barrier):
     return launches
 
 
-def to_f64(torch, e, f):
-    """The (EnergyData, ForceData) pair with float64 descriptors."""
+MODEL_STEP = "K_EE and the energy prior in float64 (the model)"
+
+
+def f64_split(T, torch, kff, K_ops, gp, strucs, noise, log, phase):
+    """Which float32 ingredient of a float32 model carries its distance
+    from float64.  ``gp`` (fitted in full) is rebuilt step by step, each
+    factor and solve in float64 as ``_factorize`` and ``_predict_packed``
+    do them, from the port's earlier all-float32 form -- the descriptors
+    and labels rounded to float32, the whole training K (its noise added
+    in float32) and the served block (K_EE rounded once) from the
+    kernels, the energy prior from operands normalised in float64 -- to
+    a float64 model of the same data (the plain versions, as
+    ``card_f64_copy``), one ingredient more in float64 at each step:
+    K_EE and the energy prior as the model now builds them (MODEL_STEP:
+    the training and the served K_EE and the prior in float64 from the
+    float32 operands), the training K_EF and K_FE, K_FF, then every block
+    and the prior from operands built in float64 from the float32
+    descriptors, the labels, the descriptors.  Every step serves
+    ``strucs``; its distance from the float64 end is logged (|dE|,
+    max|dF|, |dsigma_E|, max|dsigma_F|, the energies of the structure's
+    total, each the max over the structures), MODEL_STEP's also from
+    ``gp`` itself.  Recorded, not gated.  Returns {step: those four}."""
+    from gpr_calculator_tpu_torch import convert
+    from gpr_calculator_tpu_torch.models.gp import _noise_diag
     f64 = torch.float64
-    return (e._replace(x=e.x.to(f64), counts=e.counts.to(f64)),
-            f._replace(x=f.x.to(f64), dxdr=f.dxdr.to(f64)))
+    params, zeta, kind = gp.kernel.params(), gp.kernel.zeta, gp.kernel.kind
+    state = convert.state_of(gp)
+    for key in ("alpha", "L", "n_fit"):
+        state.pop(key, None)
+    g64 = convert.gp_from_state(state, device=gp.device, dtype=f64,
+                                log_file=None)
+    nE, nF = gp.N_energy, gp.N_forces
+    e64, f64s = g64._pack(nE, nF)
+    e32, f32s = gp._pack(nE, nF)
+    er, fr = to_f64(torch, e32, f32s)
+    m = e32.m
+
+    def noisy(K, e, f):
+        K.diagonal().add_(_noise_diag(e, f, gp.noise_e, gp.noise_f))
+        return K.to(f64)
+    K32 = noisy(K_ops.k_self(e32, f32s, params, zeta, kind), e32, f32s)
+    Km = noisy(K_ops.k_self(e32, f32s, params, zeta, kind, dtype=f64), e32,
+               f32s)
+    Kr = noisy(K_ops.k_self(er, fr, params, zeta, kind, plain=True), er, fr)
+    K64 = noisy(K_ops.k_self(e64, f64s, params, zeta, kind, plain=True),
+                e64, f64s)
+    y32 = gp._y_vector(e32, f32s, nE, nF).to(f64)
+    y64 = g64._y_vector(e64, f64s, nE, nF)
+    parts = {"K_EF, K_FE": [(slice(None, m), slice(m, None)),
+                            (slice(m, None), slice(None, m))],
+             "K_FF": [(slice(m, None), slice(m, None))]}
+
+    def hybrid(names):
+        K = Km.clone()
+        for name in names:
+            for p in parts[name]:
+                K[p] = Kr[p]
+        return K
+    # (step, K, y, served block and prior: "float32", "model" or "plain",
+    # descriptors)
+    steps = [("all float32 (K_EE too)", K32, y32, "float32", "rounded"),
+             (MODEL_STEP, Km, y32, "model", "rounded"),
+             ("+ K_EF, K_FE", hybrid(["K_EF, K_FE"]), y32, "model",
+              "rounded"),
+             ("+ K_FF", hybrid(["K_EF, K_FE", "K_FF"]), y32, "model",
+              "rounded"),
+             ("+ every block from float64 operands", Kr, y32, "plain",
+              "rounded"),
+             ("+ labels", Kr, y64, "plain", "rounded"),
+             ("+ descriptors (the float64 model)", K64, y64, "plain",
+              "float64")]
+    queries = []
+    for a in strucs:
+        q64 = slice_request(g64, a, gp.device, f64)
+        q32 = to_f64(torch, *q64, dtype=gp.dtype)
+        queries.append((len(a), q64, q32))
+
+    def serve(K, y, block, descs):
+        L = torch.linalg.cholesky(K)
+        alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+        te, tf = (e64, f64s) if descs == "float64" else (er, fr)
+        out = []
+        for n, q64, q32 in queries:
+            pe, pf = q32
+            if block == "float32":
+                Kt = K_ops.k_block(pe, pf, e32, f32s, params, zeta,
+                                   kind).to(f64)
+                ee = K_ops.diag_energy(to_f64(torch, pe, pf)[0], params,
+                                       zeta, kind)
+            elif block == "model":
+                Kt = K_ops.k_block(pe, pf, e32, f32s, params, zeta, kind,
+                                   dtype=f64)
+                ee = K_ops.diag_energy(pe, params, zeta, kind, dtype=f64)
+            else:
+                pe, pf = q64 if descs == "float64" else to_f64(torch, pe,
+                                                                pf)
+                Kt = plain_block(torch, kff, pe, pf, te, tf, params, zeta,
+                                 kind)
+                ee = K_ops.diag_energy(pe, params, zeta, kind)
+            diag = torch.cat([ee, K_ops.diag_force(pf, params, zeta, kind)
+                              .reshape(-1).to(f64)])
+            V = torch.linalg.solve_triangular(L, Kt.T, upper=False)
+            std = torch.clamp(diag - (V * V).sum(0), min=0.0).sqrt()
+            out.append((n, pe.m, (Kt @ alpha).cpu().numpy(),
+                        std.cpu().numpy()))
+        return out
+    served = {name: serve(K, y, block, descs)
+              for name, K, y, block, descs in steps}
+    end = served[steps[-1][0]]
+
+    def dist(a, b):
+        return np.max([[v for v, _ in served_off((ma, sa), (mb, sb), me, n,
+                                                 noise)]
+                       for (n, me, ma, sa), (_, _, mb, sb) in zip(a, b)], 0)
+    own = [(n, me, *gp._serve(*q32, *gp._train_view()[:2], True))
+           for (n, _, q32), (_, me, _, _) in zip(queries, end)]
+    d_own = dist(served[MODEL_STEP], own)
+    log(f"{phase} float64 split: '{MODEL_STEP}' against the model itself: "
+        f"|dE| {d_own[0]:.3e} eV, max|dF| {d_own[1]:.3e} "
+        f"eV/A, |dsigma_E| {d_own[2]:.3e} eV, max|dsigma_F| "
+        f"{d_own[3]:.3e} eV/A")
+    out = {}
+    for name, *_ in steps:
+        d = out[name] = dist(served[name], end)
+        log(f"{phase} float64 split: {name} against float64: |dE| "
+            f"{d[0]:.3e} eV, max|dF| {d[1]:.3e} eV/A, |dsigma_E| "
+            f"{d[2]:.3e} eV, max|dsigma_F| {d[3]:.3e} eV/A (recorded)")
+    return out
+
+
+def to_f64(torch, e, f, dtype=None):
+    """The (EnergyData, ForceData) pair with float64 descriptors (or
+    ``dtype``'s)."""
+    dt = torch.float64 if dtype is None else dtype
+    return (e._replace(x=e.x.to(dt), counts=e.counts.to(dt)),
+            f._replace(x=f.x.to(dt), dxdr=f.dxdr.to(dt)))
 
 
 def pair_count(re1, B1, re2, B2, symmetric):
@@ -767,13 +898,14 @@ def work(name, d, lhs, rhs, out_numel, pairs=None):
 
 
 def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest",
-                 sort=None):
+                 sort=None, query_only=False):
     """(name, kernel call, plain call, (mma ops, fp32 ops, bytes)) for
     every kernel of the family in ``mode`` at the shapes of one serving
     request (e1, f1) against a training set (e2, f2), zeta = 2; the
     operands are built in the mode (sort: their envs sorted by element,
-    or not, or by the operand functions' default), and the plain version reads the
-    same rounded values."""
+    or not, or by the operand functions' default), and the plain version
+    reads the same rounded values.  query_only: only the cases that read
+    the request side (K2 both ways, K3)."""
     U1, w1 = kff.energy_operand(e1, mode, sort)
     X1, re1 = kff.force_operand(f1, mode, sort)
     U2, w2 = kff.energy_operand(e2, mode, sort)
@@ -813,32 +945,34 @@ def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest",
                 work(name, d, lhs, rhs, out * (1 + fl["dual"])))
 
     if kind == "dot":
-        return [kff_case("kff_tri_dot", F2, F2, symmetric=True),
-                kef_case("kef_rect_dot", E2, F2),
-                kef_case("kef_rect_dot", E1, F2),
-                kef_case("kef_rect_dot", E2, F1),
-                kff_case("kff_rect_dot", F1, F2)]
-    return [kff_case("kff_tri", F2, F2, symmetric=True),
-            kff_case("kff_tri_dual", F2, F2, symmetric=True),
-            kff_case("kff_tri_deriv", F2, F2, symmetric=True),
-            kef_case("kef_rect_dual", E2, F2),
-            kef_case("kef_rect_deriv", E2, F2),
-            kef_case("kef_rect", E2, F2),
-            kef_case("kef_rect", E1, F2),
-            kef_case("kef_rect", E2, F1),
-            kff_case("kff_rect", F1, F2),
-            kff_case("kff_rect_dual", F1, F2),
-            kff_case("kff_rect_deriv", F1, F2)]
+        own = [lambda: kff_case("kff_tri_dot", F2, F2, symmetric=True),
+               lambda: kef_case("kef_rect_dot", E2, F2)]
+        cross = [lambda: kef_case("kef_rect_dot", E1, F2),
+                 lambda: kef_case("kef_rect_dot", E2, F1),
+                 lambda: kff_case("kff_rect_dot", F1, F2)]
+    else:
+        own = [lambda: kff_case("kff_tri", F2, F2, symmetric=True),
+               lambda: kff_case("kff_tri_dual", F2, F2, symmetric=True),
+               lambda: kff_case("kff_tri_deriv", F2, F2, symmetric=True),
+               lambda: kef_case("kef_rect_dual", E2, F2),
+               lambda: kef_case("kef_rect_deriv", E2, F2),
+               lambda: kef_case("kef_rect", E2, F2)]
+        cross = [lambda: kef_case("kef_rect", E1, F2),
+                 lambda: kef_case("kef_rect", E2, F1),
+                 lambda: kff_case("kff_rect", F1, F2),
+                 lambda: kff_case("kff_rect_dual", F1, F2),
+                 lambda: kff_case("kff_rect_deriv", F1, F2)]
+    return [case() for case in (cross if query_only else own + cross)]
 
 
 def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC),
-              sort=None):
+              sort=None, query_only=False):
     """kernel_cases of both families in each of ``modes``."""
+    kw = dict(sort=sort, query_only=query_only)
     return [c for m in modes
-            for c in (kernel_cases(kff, e1, f1, e2, f2, params, mode=m,
-                                   sort=sort)
+            for c in (kernel_cases(kff, e1, f1, e2, f2, params, mode=m, **kw)
                       + kernel_cases(kff, e1, f1, e2, f2, dparams, "dot",
-                                     m, sort=sort))]
+                                     m, **kw))]
 
 
 def compare(torch, cases, tag, errs, log, plain_ms=None):
@@ -1864,12 +1998,13 @@ def sharded_bench(T, torch, K_ops, par, mesh, be, bf, pe, pf, params, y,
             if not (dn <= 1e-6 and dg <= 1e-6):
                 raise AssertionError(f"sharded {label} NLL differs from the "
                                      f"unsharded one in {mode}")
-    # the float32 covariance the factorisations see and its float64
-    # weights: _factorize solves in float64 whoever factors, so both
-    # sharded routes are held to the unsharded weights
-    K = K_ops.k_self(be, bf, params, 2, mesh=mesh)
+    # the covariance the factorisations see (float32 force blocks, K_EE
+    # and the noise in float64) and its float64 weights: _factorize
+    # solves in float64 whoever factors, so both sharded routes are held
+    # to the unsharded weights
+    K = K_ops.k_self(be, bf, params, 2, mesh=mesh, dtype=torch.float64)
     K.diagonal().add_(_noise_diag(be, bf, 0.01, 0.1))
-    L64 = torch.linalg.cholesky(K.double())
+    L64 = torch.linalg.cholesky(K)
     a64 = torch.cholesky_solve(y.double()[:, None], L64)[:, 0]
     L_u, a_u = _factorize(be, bf, y, params, 0.01, 0.1, 2, "rbf")
     e_u = rel_to(a_u.double(), a64)
@@ -1885,6 +2020,7 @@ def sharded_bench(T, torch, K_ops, par, mesh, be, bf, pe, pf, params, y,
             raise AssertionError(f"sharded _factorize alpha ({cm}) outside "
                                  f"its limit in {mode}")
     del L_s
+    K = K.float()
     e_sh = rel_to(par.cholesky_sharded(K, mesh).double(), L64)
     e_lib = rel_to(torch.linalg.cholesky(K).double(), L64)
     log(f"{tag} cholesky_sharded of the {tuple(K.shape)} float32 covariance "
@@ -2285,7 +2421,8 @@ def main(argv=None) -> int:
             inc_launches[name] = inc_launches.get(name, 0) + v
     path_launches["incremental"] = inc_launches
     # (n2) the on-the-fly MD/EOS example at full width
-    path_launches["md"] = run_md(T, torch, kff, K_ops, dev, f32, log, card)
+    path_launches["md"], md_gp, md_last = run_md(T, torch, kff, K_ops, dev,
+                                                 f32, log, card)
     check_launches(path_launches["md"], RBF, "MD", absent=DOT)
     # (n3) the serial NEB with opt_freq, against (i)'s barrier
     path_launches["neb_opt_freq"] = run_neb_opt_freq(
@@ -2417,6 +2554,15 @@ def main(argv=None) -> int:
                              dparams),
             "ingest training set, band of 5 slabs", errs, log)
     del lgp, ite, itf
+    # the MD path's shapes: the final MD model's training set (SO3 nmax 2,
+    # lmax 2: d = 9, 8 envs a point) against the last volume's 8-atom
+    # request, K1 at its rows and the dual kernels of its NLL included
+    mte, mtf, _, _ = md_gp._train_view()
+    qe, qf = slice_request(md_gp, md_last, dev, f32)
+    compare(torch, all_cases(kff, qe, qf, mte, mtf, md_gp.kernel.params(),
+                             dparams),
+            "MD training set, the last volume's request", errs, log)
+    del md_gp, mte, mtf
     for tag, mgp in mode_models.items():
         mode = tag.split("_")[0]
         kind = "dot" if tag.endswith("_dot") else "rbf"
@@ -2430,6 +2576,18 @@ def main(argv=None) -> int:
     bench_plain_ms = {}
     bench_cases = all_cases(kff, be, bf, be, bf, bparams, bdparams)
     compare(torch, bench_cases, "bench", errs, log, bench_plain_ms)
+    # the (n1) shapes: each set of appended rows, sorted by element as the
+    # refit sorts them (kernels.gram_sorts), against the bench training
+    # side (K2 both ways, K3) and against itself (K1 on the new rows)
+    for kE, kF in APPENDS:
+        ne, nf = bench_data(torch, dev, kE, kF, seed=1 + kE)
+        tag = f"{kE} E + {kF} F appended"
+        compare(torch, all_cases(kff, ne, nf, be, bf, bparams, bdparams,
+                                 sort=True, query_only=True),
+                f"{tag}, against the bench training side", errs, log)
+        compare(torch, all_cases(kff, ne, nf, ne, nf, bparams, bdparams,
+                                 sort=True),
+                f"{tag}, against themselves", errs, log)
     # the sixteen mode K2/K3 kernels also on packed operands at the bench
     # shape (bench_cases sorts both sides, as the operand builders do by
     # default at this size), one case a kernel
@@ -2667,13 +2825,13 @@ def main(argv=None) -> int:
     # _predict_packed from _factorize's alpha (a float64 solve, float64
     # weights, a float64 product) against a float64 solve of the same K;
     # beside it, recorded, the two float32 routes it replaces
-    Kb = K_ops.k_self(be, bf, bparams, 2)
+    Kb = K_ops.k_self(be, bf, bparams, 2, dtype=torch.float64)
     Kb.diagonal().add_(_noise_diag(be, bf, 0.01, 0.1))
     a64 = torch.cholesky_solve(y.double()[:, None],
-                               torch.linalg.cholesky(Kb.double()))[:, 0]
+                               torch.linalg.cholesky(Kb))[:, 0]
     L_b, a_b = _factorize(be, bf, y, bparams, 0.01, 0.1, 2, "rbf")
-    Kt = K_ops.k_block(pe, pf, be, bf, bparams, 2)
-    mean64 = Kt.double() @ a64
+    Kt = K_ops.k_block(pe, pf, be, bf, bparams, 2, dtype=torch.float64)
+    mean64 = Kt @ a64
     natoms = len(images[2])
     lim_e, lim_f = 0.1 * 0.01 * natoms, 0.1 * 0.1
 
@@ -2695,11 +2853,12 @@ def main(argv=None) -> int:
                              "solve of the same K")
     sigma_vs_f64(torch, K_ops, pe, pf, be, bf, bparams, Kb, Kt, L_b, a_b,
                  natoms, log)
-    a32 = torch.cholesky_solve(y[:, None], torch.linalg.cholesky(Kb))[:, 0]
+    a32 = torch.cholesky_solve(y[:, None],
+                               torch.linalg.cholesky(Kb.float()))[:, 0]
     for what, a in (("a float32 solve and a float32 product", a32),
                     ("the float64 solve rounded to float32 and a float32 "
                      "product", a64.float())):
-        dE, dF = off(Kt @ a)
+        dE, dF = off(Kt.float() @ a)
         log(f"(g) the same request from {what}: max|da| = "
             f"{rel_to(a.double(), a64):.3e} of max|alpha|, |dE| = {dE:.3e} "
             f"eV, max|dF| = {dF:.3e} eV/A (recorded)")

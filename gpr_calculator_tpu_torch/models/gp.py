@@ -36,7 +36,6 @@ from .. import config
 from ..atoms.atoms import ATOMIC_NUMBERS
 from ..ops import kernels as K_ops
 from ..ops import linalg
-from ..ops.kff import _sorts
 from ..ops.packing import EnergyData, ForceData, pack_energy, pack_force
 from ..ops.so3 import SO3
 from .kernels import RBF, Dot, kernel_from_dict
@@ -99,10 +98,18 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
     the build is sharded (``k_self``), and with chol_mode="sharded" the
     factorisation too; L and alpha are on the root.
 
-    K comes in the working dtype (float32 on the card, from the kernels);
-    it is factorised and solved in float64, as the NLL does.  L and alpha
-    are returned in float64: the served mean is a float64 product of the
-    float32 cross covariance with alpha, the variance a float64 solve
+    K is assembled in float64: the force blocks come from the kernels
+    in the working dtype (float32 on the card) and are cast, K_EE is
+    computed in float64 from the same rounded operands and the noise is
+    added in float64.  On the MD example's final model (l ~ 0.22,
+    noise_e = 2e-3 eV/atom) the whole K and the served block in float32
+    put a served energy 1.5e-3-2.7e-3 eV and a force 0.016-0.019 eV/A off
+    a float64 model; with K_EE, the served K_EE and the energy prior in
+    float64, 1.7e-4-5.0e-4 eV and 1.8e-3-4.1e-3 eV/A (NVIDIA H100 80GB
+    HBM3, 700.00 W; PERF.md).  It is factorised and solved in float64,
+    as the NLL does.  L and alpha are returned in float64: the served
+    mean is a float64 product of the cross covariance (float32 kernel
+    blocks, K_EE in float64) with alpha, the variance a float64 solve
     against L (``_predict_packed``).  At the 10 000-row bench
     covariance a float32 solve left alpha 12 % of max|alpha| off the
     float64 solve of the same K and moved a served energy by 0.14-0.16 eV,
@@ -111,10 +118,10 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
     0.018 eV, 1.4 times the limit (NVIDIA H100 80GB HBM3, 700.00 W;
     PERF.md).  The factor in float32 left the served energy variance of a
     6100-row model, ~2e-7 of its prior, all rounding (``_predict_packed``)."""
-    K = K_ops.k_self(e, f, params, zeta, kind, mesh=mesh)
+    K = K_ops.k_self(e, f, params, zeta, kind, mesh=mesh,
+                     dtype=torch.float64)
     K.diagonal().add_(_noise_diag(e, f, noise_e, noise_f))
-    dtype = K.dtype
-    K = K.to(torch.float64)
+    dtype = e.x.dtype
     L, info = _chol_mesh(K, mesh, chol_mode)
     del K
     alpha = torch.cholesky_solve(y.to(torch.float64)[:, None], L)[:, 0]
@@ -273,15 +280,20 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
     in another order (after incremental appends, ``GP._factor_cols``);
     alpha stays in packed order."""
     Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh,
-                       train_ops=train_ops)
+                       train_ops=train_ops, dtype=alpha.dtype)
     # alpha is float64 on every device (``_factorize``): the weights are
-    # large and cancel in this product
-    mean = Kt.to(alpha.dtype) @ alpha
+    # large and cancel in this product, and K_EE, whose rounding to
+    # float32 they amplify most, stays in float64 (k_block's dtype)
+    mean = Kt @ alpha
     if not return_std:
         return mean, None
+    # the energy prior from the operands the served K_EE reads (unit
+    # descriptors normalised in the data's dtype), in float64: operands
+    # normalised in float64 differ from those by ~1e-7 in |u|, which
+    # 1/l^2 amplifies where sigma_E is a small difference of the prior
+    # and |L^-1 k|^2 (PERF.md)
     dt = L.dtype
-    pe = pe._replace(x=pe.x.to(dt), counts=pe.counts.to(dt))
-    diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind),
+    diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind, dtype=dt),
                       K_ops.diag_force(pf, params, zeta, kind).reshape(-1)
                       .to(dt)])
     KtT = Kt.T if cols is None else Kt.T.index_select(0, cols)
@@ -847,35 +859,32 @@ class GP:
         (under a mesh its stripes run over the old training force axis),
         C by ``k_self``: K2, K3 and one K1 over the new rows alone.  Both
         blocks read operands rounded as ``k_self`` rounds them, with K_EE
-        from those (``gram=True``), and take the noise in the working
-        dtype before the cast, as ``_factorize`` does, and the new
-        rows' envs sorted by element where a full refit's sides would be
-        (a point's sum then runs in the same order), so they are the
-        blocks of the K a full refit would build up to the kernels'
-        float32 summation order."""
+        from those (``gram=True``), are assembled in float64 with the
+        noise added there, as ``_factorize`` does, and sort the new rows'
+        envs by element where a full refit's sides would be (a point's
+        sum then runs in the same order), so they are the blocks of the K
+        a full refit would build up to the kernels' float32 summation
+        order."""
         te, tf, _, _ = self._fit_snapshot
         kw = dict(d=te.d, device=self.device, dtype=self.dtype)
         e_new = pack_energy(self._energy_pts[nE0:self.N_energy], **kw)
         f_new = pack_force(self._force_pts[nF0:self.N_forces], **kw)
         params, zeta, kind = (self.kernel.params(), self.kernel.zeta,
                               self.kernel.kind)
-        sort = (_sorts(None, self.N_energy, max(te.x.shape[1],
-                                                e_new.x.shape[1])),
-                _sorts(None, self.N_forces, max(tf.x.shape[1],
-                                                f_new.x.shape[1])))
+        f64 = torch.float64
         K_no = K_ops.k_block(e_new, f_new, te, tf, params, zeta, kind,
                              mesh=self._mesh_arg(),
                              train_ops=self._train_operands(), gram=True,
-                             sort=sort)
-        C = K_ops.k_self(e_new, f_new, params, zeta, kind, sort=sort)
+                             dtype=f64)
+        C = K_ops.k_self(e_new, f_new, params, zeta, kind, rest=(te, tf),
+                         dtype=f64)
         C.diagonal().add_(_noise_diag(e_new, f_new, self.noise_e,
                                       self.noise_f))
         new = torch.as_tensor(_packed_rows(self.N_energy - nE0,
                                            self.N_forces - nF0, e_new.m),
                               device=self.device)
-        f64 = torch.float64
         B = K_no.index_select(0, new).index_select(1, self._factor_cols)
-        return B.T.to(f64), C[new[:, None], new[None, :]].to(f64)
+        return B.T, C[new[:, None], new[None, :]]
 
     def _try_incremental_fit(self, e: EnergyData, f: ForceData) -> bool:
         """Extend the factor of the last fit by the rows appended since,

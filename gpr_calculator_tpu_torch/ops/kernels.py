@@ -31,10 +31,10 @@ from typing import NamedTuple
 import torch
 
 from .. import config
-from .kff import (TP, _coeffs, _mirror, _point_sum, _scalars, dense,
-                  energy_operand, force_operand, kee_from_ops, kee_served,
-                  kef_from_ops, kef_plain, kff_from_ops, kff_plain,
-                  n_tri_tiles)
+from .kff import (TP, _coeffs, _mirror, _point_sum, _scalars, _sorts,
+                  dense, energy_operand, force_operand, kee_from_ops,
+                  kee_served, kef_from_ops, kef_plain, kff_from_ops,
+                  kff_plain, n_tri_tiles)
 from .packing import EnergyData, ForceData
 
 
@@ -98,7 +98,7 @@ def _sharded(mesh, plain: bool = False) -> bool:
 
 def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
            kind: str = "rbf", plain: bool = False, dtype=None,
-           mm_precision: str | None = None, mesh=None, sort=(None, None)):
+           mm_precision: str | None = None, mesh=None, rest=None):
     """Symmetric training covariance (K_FE = K_EF^T, RBF_mb.py:161-165);
     kind="rbf_dgamma" gives dK/dgamma of the RBF one (the deriv builds).
 
@@ -117,9 +117,10 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
     symmetric.  mesh:
     K1's tile ranges and the energy-row stripes run one per shard
     (``self_blocks_sharded``); K_FF and K_EF are the unsharded ones bit
-    for bit.  sort: whether the (energy, force) side's envs are sorted by
-    element (``energy_operand``, ``force_operand``; None: by the side's
-    size), on the unsharded route."""
+    for bit.  rest: the training rows (e0, f0) these rows extend (the new
+    self block of an incremental refit): the envs are then sorted as a
+    full refit's sides would be (``gram_sorts``), on the unsharded
+    route."""
     mode = config.kff_precision(mm_precision)
     if _sharded(mesh, plain) and _sharded_train_ok(f.m, mesh.size):
         from ..parallel.sharded_kernels import self_blocks_sharded
@@ -127,6 +128,7 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
                                    mm_precision=mode, dtype=dtype)
         return K
     A, B, m = e.x.shape[1], f.x.shape[1], e.m
+    sort = gram_sorts(e, f, rest)
     U, w = energy_operand(e, mode, sort[0])
     X, re = force_operand(f, mode, sort[1])
     Ud = dense(U)
@@ -221,10 +223,25 @@ class SideOperands(NamedTuple):
     Ue: torch.Tensor
 
 
+def gram_sorts(e: EnergyData, f: ForceData, rest=None):
+    """Whether the (energy, force) side's envs are sorted by element
+    (``energy_operand``, ``force_operand``): None for each, the side's own
+    size decides; or, where the rows extend the training rows ``rest`` =
+    (e0, f0) (the blocks of an incremental refit), by the size of the
+    side a full refit of both would pack, so that a point's sum runs in
+    that refit's order."""
+    if rest is None:
+        return None, None
+    e0, f0 = rest
+    return (_sorts(None, e.m + e0.m, max(e.x.shape[1], e0.x.shape[1])),
+            _sorts(None, f.m + f0.m, max(f.x.shape[1], f0.x.shape[1])))
+
+
 def side_operands(e: EnergyData, f: ForceData, mode: str,
-                  role: str = "query", sort=(None, None)) -> SideOperands:
+                  role: str = "query", rest=None) -> SideOperands:
     """Build one side's operands (counted in ``operand_builds[role]``);
-    sort: as in ``k_self``."""
+    rest: as in ``k_self``."""
+    sort = gram_sorts(e, f, rest)
     U, w = energy_operand(e, mode, sort[0])
     X, re = force_operand(f, mode, sort[1])
     Ue = U if mode == "highest" else energy_operand(e, "highest", sort[0])[0]
@@ -233,32 +250,36 @@ def side_operands(e: EnergyData, f: ForceData, mode: str,
 
 
 def block_operands(e1: EnergyData, f1: ForceData, e2: EnergyData,
-                   f2: ForceData, mode: str, sort=(None, None)):
+                   f2: ForceData, mode: str, gram: bool = False):
     """The operands of one serving block in ``mode``: (U, w, A) and (X,
     re, B) of both sides, and the two unrounded energy operands K_EE
-    reads; sort: data1's, as in ``k_self``."""
-    s1 = side_operands(e1, f1, mode, sort=sort)
+    reads; gram: as in ``k_block``."""
+    s1 = side_operands(e1, f1, mode, rest=(e2, f2) if gram else None)
     s2 = side_operands(e2, f2, mode, "train")
     return ((s1.U, s1.w, s1.A), (s1.X, s1.re, s1.B),
             (s2.U, s2.w, s2.A), (s2.X, s2.re, s2.B), s1.Ue, s2.Ue)
 
 
 def block_kee(U1e, U1, w1, A1: int, U2e, U2, w2, A2: int, params,
-              zeta: int, kind: str, gram: bool):
-    """K_EE of a block: of a training Gram (``gram``: the rounded
-    operands U in their dtype, as ``k_self`` builds it) or served (the
-    unrounded ones Ue in float64, rounded once: ``kee_served``)."""
+              zeta: int, kind: str, gram: bool, dtype=None):
+    """K_EE of a block in ``dtype`` (default: the operands'): of a
+    training Gram (``gram``: from the rounded operands U, computed in
+    ``dtype`` as ``k_self`` computes it) or served (from the unrounded
+    ones Ue in float64, rounded once: ``kee_served``)."""
     if gram:
-        return kee_from_ops(dense(U1), w1, A1, dense(U2), w2, A2, params,
-                            zeta, kind=kind)
-    return kee_served(U1e, w1, A1, U2e, w2, A2, params, zeta, kind=kind)
+        dt = dense(U1).dtype if dtype is None else dtype
+        return kee_from_ops(dense(U1).to(dt), w1.to(dt), A1,
+                            dense(U2).to(dt), w2.to(dt), A2, params, zeta,
+                            kind=kind)
+    return kee_served(U1e, w1, A1, U2e, w2, A2, params, zeta, kind=kind,
+                      dtype=dtype)
 
 
 def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
             params, zeta: int = 2, kind: str = "rbf",
             mm_precision: str | None = None, mesh=None,
             train_ops: SideOperands | None = None, gram: bool = False,
-            sort=(None, None)):
+            dtype=None):
     """[[K_EE, K_EF], [K_FE, K_FF]] for (rows: data1, cols: data2) -- the
     serving cross-covariance, built in ONE buffer: the block is allocated
     once, kernel K2 writes K_EF into its slice and, in the other
@@ -269,10 +290,12 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
     package's serving build (``kee``, its ops/kernels.py:574), in float64
     and rounded once (``kee_served``).  gram=True: the block joins a
     training covariance (the cross block of an incremental refit), so its
-    K_EE comes from the rounded operands in their dtype (``kee_from_ops``),
-    as in ``k_self``, and the block is a slice of the Gram a full
-    ``k_self`` of both sides would build.  sort: data1's, as in
-    ``k_self``.
+    K_EE comes from the rounded operands (``kee_from_ops``), as in
+    ``k_self``, data1's envs are sorted as that Gram's would be
+    (``gram_sorts``), and the block is a slice of the Gram a full
+    ``k_self`` of both sides would build.  dtype (default: the data's):
+    the block's; K_EE is computed in it (served: rounded once to it), the
+    kernels' blocks are cast to it.
     train_ops: the data2 side's operands (``side_operands(e2, f2, mode,
     "train")``) when the caller keeps them, as a fitted GP does; they must
     have been built in this mode.  mesh: the training force axis (data2)
@@ -282,8 +305,8 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
     if _sharded(mesh) and _sharded_serving_ok(f2.m, mesh.size):
         from ..parallel.sharded_kernels import k_block_sharded
         return k_block_sharded(e1, f1, e2, f2, params, mesh, kind, zeta,
-                               mm_precision=mode, gram=gram, sort=sort)
-    s1 = side_operands(e1, f1, mode, sort=sort)
+                               mm_precision=mode, gram=gram, dtype=dtype)
+    s1 = side_operands(e1, f1, mode, rest=(e2, f2) if gram else None)
     s2 = train_ops if train_ops is not None \
         else side_operands(e2, f2, mode, "train")
     if s2.mode != mode:
@@ -291,17 +314,18 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
                          f"block asks for {mode!r}")
     kw = dict(kind=kind, mm_precision=mode)
     K_ee = block_kee(s1.Ue, s1.U, s1.w, s1.A, s2.Ue, s2.U, s2.w, s2.A,
-                     params, zeta, kind, gram)
+                     params, zeta, kind, gram, dtype)
     m1, m2 = K_ee.shape
-    K = torch.empty((m1 + 3 * f1.m, m2 + 3 * f2.m), dtype=K_ee.dtype,
+    K = torch.empty((m1 + 3 * f1.m, m2 + 3 * f2.m), dtype=e1.x.dtype,
                     device=K_ee.device)
-    K[:m1, :m2] = K_ee
     kef_from_ops(s1.U, s1.w, s1.A, s2.X, s2.re, s2.B, params, zeta,
                  out=K[:m1, m2:], **kw)
     kef_from_ops(s2.U, s2.w, s2.A, s1.X, s1.re, s1.B, params, zeta,
                  out=K[m1:, :m2], transpose=True, **kw)
     kff_from_ops(s1.X, s1.re, s1.B, s2.X, s2.re, s2.B, params, zeta,
                  out=K[m1:, m2:], **kw)
+    K = K.to(K_ee.dtype)
+    K[:m1, :m2] = K_ee
     return K
 
 
@@ -317,11 +341,16 @@ def count_ee(e: EnergyData):
     return _point_sum(pair, A, A)
 
 
-def diag_energy(e: EnergyData, params, zeta: int = 2, kind: str = "rbf"):
-    """Per-point K_EE(p, p), (m,)."""
+def diag_energy(e: EnergyData, params, zeta: int = 2, kind: str = "rbf",
+                dtype=None):
+    """Per-point K_EE(p, p), (m,), computed in ``dtype`` (default: the
+    data's) from the data's unrounded operands, as ``kee_served``
+    computes the served K_EE."""
     m, A = e.x.shape[:2]
     sigma2, p2 = _scalars(params, kind)
     U, w = energy_operand(e, "highest")
+    if dtype is not None:
+        U, w = U.to(dtype), w.to(dtype)
     U = U.reshape(m, A, -1)
     wgt, ele = w[0].reshape(m, A), w[1].reshape(m, A)
     k, _, _, _ = _coeffs(torch.bmm(U, U.transpose(1, 2)), sigma2, p2, zeta,

@@ -631,17 +631,18 @@ def kee_from_ops(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int,
 
 
 def kee_served(U1, w1, A1: int, U2, w2, A2: int, params, zeta: int,
-               kind: str = "rbf"):
+               kind: str = "rbf", dtype=None):
     """K_EE of a served block: ``kee_from_ops`` in float64, rounded once
-    to the operands' dtype.  A float32 product's sums follow the number
-    of query rows (the library picks its kernel by shape), so a band
-    served at once and its structures served one at a time differed by
-    that rounding, which the weights amplify: 1.3e-4 eV on a 13-atom
-    energy (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)."""
+    to ``dtype`` (default: the operands').  A float32 product's sums
+    follow the number of query rows (the library picks its kernel by
+    shape), so a band served at once and its structures served one at a
+    time differed by that rounding, which the weights amplify: 1.3e-4 eV
+    on a 13-atom energy (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)."""
     f64 = torch.float64
     return kee_from_ops(dense(U1).to(f64), w1.to(f64), A1,
                         dense(U2).to(f64), w2.to(f64), A2, params, zeta,
-                        kind=kind).to(dense(U1).dtype)
+                        kind=kind).to(dense(U1).dtype if dtype is None
+                                      else dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -148,18 +148,18 @@ def self_blocks_sharded(e, f, params, kind: str, zeta: int, dual: bool,
 
 def k_block_sharded(e1, f1, e2, f2, params, mesh: Mesh, kind: str = "rbf",
                     zeta: int = 2, mm_precision: str | None = None,
-                    gram: bool = False, sort=(None, None)):
+                    gram: bool = False, dtype=None):
     """The serving cross-covariance [[K_EE, K_EF], [K_FE, K_FF]] (rows:
     prediction data 1, cols: training data 2) with the training force
     axis in column stripes over ``mesh``: K3 and K2 run per stripe on its
     shard and are concatenated on the root; K_EE and K_FE touch only the
     small training energy axis and are computed on the root, as in
-    ``ops.kernels.k_block`` (``gram``: its K_EE as a training Gram's;
-    ``sort``: data1's env order)."""
+    ``ops.kernels.k_block`` (``gram``: the block of a training Gram, its
+    K_EE and data1's env order as there; ``dtype``: the block's)."""
     from ..ops.kernels import block_kee, block_operands
     mode = config.kff_precision(mm_precision)
     (U1, w1, A1), (X1, re1, B1), (U2, w2, A2), (X2, re2, B2), U1e, U2e = \
-        block_operands(e1, f1, e2, f2, mode, sort)
+        block_operands(e1, f1, e2, f2, mode, gram)
     _on_root(mesh, X1, X2)
     kw = dict(kind=kind, mm_precision=mode)
     ef, ff = [], []
@@ -178,11 +178,12 @@ def k_block_sharded(e1, f1, e2, f2, params, mesh: Mesh, kind: str = "rbf",
     root = mesh.root
     (K_ff,), (K_ef,) = _gather(ff, root, 1), _gather(ef, root, 1)
     K_ee = block_kee(U1e, U1, w1, A1, U2e, U2, w2, A2, params, zeta, kind,
-                     gram)
+                     gram, dtype)
     K_fe = kef_from_ops(U2, w2, A2, X1, re1, B1, params, zeta, **kw).T
     builds["k_block"] += 1
-    return torch.cat([torch.cat([K_ee, K_ef], dim=1),
-                      torch.cat([K_fe, K_ff], dim=1)], dim=0)
+    dt = K_ee.dtype
+    return torch.cat([torch.cat([K_ee, K_ef.to(dt)], dim=1),
+                      torch.cat([K_fe.to(dt), K_ff.to(dt)], dim=1)], dim=0)
 
 
 def kff_sharded(f, params, mesh: Mesh, zeta: int = 2, kind: str = "rbf",

@@ -297,3 +297,34 @@ def test_incremental_fit_under_a_mesh_matches_unsharded(grown):
         config.set_sharded_gate("auto")
     assert gp.refit_stats["incremental"] == 3
     _same(_served(gp, strucs), _served(grown["RBF"][0], strucs))
+
+
+def test_appended_rows_sort_as_a_full_refit(monkeypatch):
+    """The blocks of an incremental refit sort the new rows' envs by the
+    size of the side a full refit of all rows would pack
+    (``kernels.gram_sorts``), not by the new rows' own: a new force side
+    under SORT_MIN_ENVS joined to a training side that takes the whole
+    over it is sorted; the appended model then serves as a full refit at
+    that threshold does."""
+    from gpr_calculator_tpu_torch.ops import kernels as K_ops
+    from gpr_calculator_tpu_torch.ops import kff
+    from gpr_calculator_tpu_torch.ops.packing import pack_energy, pack_force
+    labels = _labelled(T)
+    gp = _fresh(T, "RBF")
+    for lab in labels[:3]:
+        gp.add_structure(lab)
+    gp.fit(show=False, opt=False)
+    te, tf, nE0, nF0 = gp._fit_snapshot
+    gp.add_structure(labels[3])
+    kw = dict(d=te.d, dtype=torch.float64)
+    e_new = pack_energy(gp._energy_pts[nE0:gp.N_energy], **kw)
+    f_new = pack_force(gp._force_pts[nF0:gp.N_forces], **kw)
+    envs = f_new.m * f_new.x.shape[1]
+    monkeypatch.setattr(kff, "SORT_MIN_ENVS", envs + 1)
+    assert not kff._sorts(None, f_new.m, f_new.x.shape[1])
+    assert K_ops.gram_sorts(e_new, f_new) == (None, None)
+    assert K_ops.gram_sorts(e_new, f_new, (te, tf))[1] is True
+    gp.fit(show=False, opt=False)
+    assert gp.refit_stats["incremental"] == 1
+    strucs = [s for s, _, _ in labels]
+    _same(_served(gp, strucs), _served(_full(gp), strucs))

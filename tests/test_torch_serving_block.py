@@ -304,6 +304,33 @@ def test_kee_served_rounds_a_float64_product_once(kind):
                        A2, params, 2, kind=kind), ref)
 
 
+@pytest.mark.parametrize("gram", [False, True])
+@pytest.mark.parametrize("kind", ["rbf", "dot"])
+def test_k_block_in_float64_keeps_k_ee_unrounded(kind, gram):
+    """k_block(dtype=float64) on float32 data: the float32 block's kernel
+    parts cast, K_EE in float64 -- served, the float64 product not rounded
+    (kee_served); of a training Gram (gram=True), computed in float64
+    from the rounded operands, as k_self(dtype=float64) computes it."""
+    (e1, f1, e2, f2), _ = _data(74, torch.float32, 2)
+    params = RBF if kind == "rbf" else DOT
+    f64 = torch.float64
+    K32 = TK.k_block(e2, f2, e1, f1, params, 2, kind, gram=gram)
+    K = TK.k_block(e2, f2, e1, f1, params, 2, kind, gram=gram, dtype=f64)
+    m1, m2 = e2.m, e1.m
+    assert K.dtype == f64 and K32.dtype == torch.float32
+    rest = torch.ones_like(K, dtype=torch.bool)
+    rest[:m1, :m2] = False
+    assert torch.equal(K[rest], K32.double()[rest])
+    U1, w1 = kff.energy_operand(e2, "highest")
+    U2, w2 = kff.energy_operand(e1, "highest")
+    ee = kff.kee_from_ops(U1.to(f64), w1.to(f64), e2.x.shape[1], U2.to(f64),
+                          w2.to(f64), e1.x.shape[1], params, 2, kind=kind)
+    assert torch.equal(K[:m1, :m2], ee)
+    if not gram:
+        # served in float32: the same product rounded once
+        assert torch.equal(K32[:m1, :m2], ee.float())
+
+
 def test_out_and_transpose_on_the_cpu():
     """out= and transpose= of the wrappers on CPU tensors: the plain
     version's block, written into a slice and nothing else."""
@@ -441,10 +468,11 @@ def _request(gp, image):
 
 def test_factorize_solves_float32_covariance_in_float64():
     """_factorize on float32 data: alpha is the float64 solve of the same
-    float32 K, kept in float64, which a float32 solve of this
-    ill-conditioned K misses by far; L is K's factor, kept in float64 as
-    well; the served mean is the float64 product with alpha, the variance
-    a float64 solve against L."""
+    K (float32 force blocks, K_EE and the noise in float64), kept in
+    float64, which a float32 solve of this ill-conditioned K misses by
+    far; L is K's factor, kept in float64 as well; the served mean is the
+    float64 product of the served block (its K_EE in float64) with alpha,
+    the variance a float64 solve against L."""
     from gpr_calculator_tpu_torch.models.gp import _factorize, _noise_diag
     from gpr_calculator_tpu_torch.ops.packing import EnergyData, ForceData
     rng = np.random.RandomState(11)
@@ -465,11 +493,12 @@ def test_factorize_solves_float32_covariance_in_float64():
     y = torch.as_tensor(rng.randn(m_e + 3 * m_f) * 0.1, dtype=f32)
     L, alpha = _factorize(e, f, y, params, *noise, 2, "rbf")
     assert L.dtype == torch.float64 and alpha.dtype == torch.float64
-    K = TK.k_self(e, f, params, 2)
+    K = TK.k_self(e, f, params, 2, dtype=torch.float64)
     K.diagonal().add_(_noise_diag(e, f, *noise))
     a64 = torch.cholesky_solve(y.double()[:, None],
-                               torch.linalg.cholesky(K.double()))[:, 0]
-    a32 = torch.cholesky_solve(y[:, None], torch.linalg.cholesky(K))[:, 0]
+                               torch.linalg.cholesky(K))[:, 0]
+    a32 = torch.cholesky_solve(y[:, None],
+                               torch.linalg.cholesky(K.float()))[:, 0]
     scale = float(a64.abs().max())
     ours = float((alpha.double() - a64).abs().max()) / scale
     plain32 = float((a32.double() - a64).abs().max()) / scale
@@ -477,6 +506,6 @@ def test_factorize_solves_float32_covariance_in_float64():
     _close((L.double() @ L.double().T).numpy(), K.double().numpy(), 1e-6)
     from gpr_calculator_tpu_torch.models.gp import _predict_packed
     mean, std = _predict_packed(e, f, e, f, params, alpha, L, 2, True)
-    Kt = TK.k_block(e, f, e, f, params, 2)
+    Kt = TK.k_block(e, f, e, f, params, 2, dtype=torch.float64)
     assert mean.dtype == torch.float64 and std.dtype == torch.float64
-    assert torch.equal(mean, Kt.double() @ alpha)
+    assert torch.equal(mean, Kt @ alpha)
