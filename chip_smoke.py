@@ -8,8 +8,9 @@ run below:  python3 chip_smoke.py --alt-source OTHER  times the highest
 kernels and the mode K1-K3 kernels of the package's csrc/ and of another
 revision's sources with the same entry points (OTHER: a directory of
 .cu/.cuh files, or one .cu file such as an older csrc/kff.cu) in turns;
---alt-root OTHER_CHECKOUT  times one slice request's _predict_packed of
-this checkout and of another in turns.
+--alt-root OTHER_CHECKOUT  times one slice request's _predict_packed and
+one bench NLL+gradient of each kernel family of this checkout and of
+another in turns.
 
 Builds the CUDA kernels from csrc/ and drives the port's main paths,
 each with the launch counts reset just before and read just after, for
@@ -73,15 +74,30 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       to a full refit on the card and to a CPU float64 model, and where
       the float32 model's distance from float64 comes from; (n3) the
       serial RBF NEB with opt_freq=3, its barrier against (i)'s.
-(a)-(j), (m) and (n) run in the default precision, "highest" ((n1) also
-in "bf16x4"); (m) runs after (j), (n) after (m).  Around those runs it
+  (o) the last modules of the JAX package: (o1) stress serving, an RBF
+      model with SO3(stress=True) on LJ-labelled periodic Cu cells served
+      by predict_structure(stress=True) and a GPR stress request against
+      a CPU float64 model, K2 and K3 one launch a column group of three
+      (3 each for the 9 columns, and the energy row's K2), the latency of
+      a stress request beside a plain one; (o2) the Hutchinson trace of
+      the NLL gradient at the 10k bench shape, RBF and Dot, highest and
+      bf16x4, against the exact trace (value bit for bit, the gradient
+      within the gate at 64 and 1024 probes), the ms and peak memory of
+      each, and fit(trace="auto") taking the trace its gate decides;
+      (o3) sparsify on the slice model beside a CPU float64 copy's, the
+      refit against float64, and predict(return_cov=True) against
+      predict's std.
+(a)-(j), (m), (n) and (o) run in the default precision, "highest" ((n1)
+and (o2) also in "bf16x4"); (m) runs after (j), (n) after (m), (o) after
+(n).  Around those runs it
 checks every kernel (every mode, and the deriv and K3-dual kernels no
 path reaches) against its plain PyTorch version at the paths' shapes --
 the batched ones too: the bands of 3 and 7 structures as the query side
 against the slice model's and the batched NEBs' training sets, and the
 ingest's training set (K1 at its 6100 rows, K2 with 65 envs an energy
 point) against its band of 5 slabs; the final MD model's training set
-against the last volume's 8-atom request; the (n1) appended rows, sorted
+against the last volume's 8-atom request; each column group of the (o1)
+stress requests against their training sets; the (n1) appended rows, sorted
 as the refit sorts them, against the bench training side and against
 themselves -- and at the 10k-covariance bench shape, and the card's bf16
 split of the operand rows against the CPU's ((b), (k2)); factorises
@@ -170,6 +186,12 @@ MD_STEPS, MD_VOLUMES = 400, 7
 MD_NOISE_E, MD_NOISE_F = 2e-3, 0.1
 # (n3) the serial RBF NEB re-optimises at every opt_freq-th refit only
 NEB_OPT_FREQ = 3
+# (o1) the stress model: LJ labels of periodic Cu cells, its (sigma, l)
+# (tests/test_stress.py's starting point, factorised there without the
+# optimisation that runs sigma to its bound) and noise
+STRESS_LJ = {"rc": 3.2, "sigma": 2.2, "epsilon": 0.4}
+STRESS_THETA = (1.0, 0.8)
+STRESS_NOISE = (0.002, 0.05)
 # one NVIDIA H100 SXM (data sheet, dense): fp32 outside the tensor cores,
 # bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
@@ -1090,8 +1112,8 @@ def dot_nll_f32_ee(torch, gp, theta):
     nll, g = gp_mod._analytic_nll(
         K_ops.k_self(e, f, params, gp.kernel.zeta, "dot"), e, f, y,
         theta[0], gp.noise_e, gp.noise_f, gp.f_coef, False,
-        lambda Kinv, alpha: torch.zeros((), dtype=torch.float64,
-                                        device=alpha.device))
+        lambda traces, alpha: torch.zeros((), dtype=torch.float64,
+                                          device=alpha.device))
     return float(nll), float(g[0])
 
 
@@ -1369,10 +1391,13 @@ def compare_sources(torch, T, kff, alt_source, log):
 
 def predict_packed_of(torch, T, log):
     """--predict-packed: one slice request's _predict_packed (with std;
-    host clock to a synchronise, min / median / max of 30) of the package
-    this process imported, printed as one JSON line.  A model that keeps
-    its training-side operands serves from them."""
-    from gpr_calculator_tpu_torch.models.gp import _predict_packed
+    host clock to a synchronise, min / median / max of 30) and one bench
+    NLL+gradient of each kernel family (CUDA events, mean of 3) of the
+    package this process imported, printed as one JSON line.  A model
+    that keeps its training-side operands serves from them."""
+    from gpr_calculator_tpu_torch.models.gp import (_nll_dot_analytic,
+                                                    _nll_rbf_analytic,
+                                                    _predict_packed)
     dev, f32 = torch.device("cuda"), torch.float32
     gp, images, _ = run_slice(T, dev, f32, lambda msg: None)
     pe, pf = slice_request(gp, images[2], dev, f32)
@@ -1382,15 +1407,25 @@ def predict_packed_of(torch, T, log):
     ms = host_ms(torch, lambda: _predict_packed(
         pe, pf, te, tf, gp.kernel.params(), gp.alpha_, gp.L_, 2, True, "rbf",
         **kw), 30)
+    be, bf = bench_data(torch, dev)
+    y = torch.as_tensor(np.random.RandomState(1).normal(
+        0.0, 0.1, be.m + 3 * bf.m), dtype=f32, device=dev)
+    rest = (be, bf, y, (0.01, 0.1), 10.0, 2, False)
+    nll_ms = {"rbf": cuda_ms(torch, lambda: _nll_rbf_analytic(
+                  (2.0, 1.0), *rest), 3),
+              "dot": cuda_ms(torch, lambda: _nll_dot_analytic(
+                  (2.0, 2.0), *rest), 3)}
     log(json.dumps({"package": os.path.dirname(os.path.dirname(T.__file__)),
                     "card": card_line(), "predict_packed_ms":
-                    dict(zip(("min", "median", "max"), ms))}))
+                    dict(zip(("min", "median", "max"), ms)),
+                    "bench_nll_ms": nll_ms}))
 
 
 def compare_roots(alt_root, log):
-    """--alt-root: _predict_packed of this checkout's package and of the
-    one under ``alt_root`` (another revision's checkout), each in a process
-    of its own (``--predict-packed``), in turns (other, own, own, other)."""
+    """--alt-root: _predict_packed and the bench NLLs of this checkout's
+    package and of the one under ``alt_root`` (another revision's
+    checkout), each in a process of its own (``--predict-packed``), in
+    turns (other, own, own, other)."""
     for root in (alt_root, ROOT, ROOT, alt_root):
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--predict-packed",
@@ -2165,6 +2200,318 @@ def range_times(torch, kff, par, mesh, f, params, dparams, reps, plain_reps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# (o) stress serving, the Hutchinson trace, sparsify and the covariance
+# ---------------------------------------------------------------------------
+
+def periodic_cu(T, seed, natoms=4, a=3.8):
+    """tests/test_stress.py's make_periodic: a distorted fcc-like periodic
+    Cu cell with a triclinic tilt (the off-diagonal strain rows live)."""
+    rng = np.random.RandomState(seed)
+    frac = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
+                     [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])[:natoms]
+    cell = np.eye(3) * a
+    cell[0, 1] = 0.13 * a
+    pos = frac @ cell + 0.05 * a * rng.randn(natoms, 3)
+    return T.Atoms(numbers=[29] * natoms, positions=pos, cell=cell, pbc=True)
+
+
+def stress_model(T, dev, dtype):
+    """An RBF GP with SO3(nmax=2, lmax=2, rcut=3.2, stress=True) trained on
+    five periodic Cu cells labelled by LJ (tests/test_stress.py's lj_gp),
+    at (sigma, l) = STRESS_THETA, factorised once (fit(opt=False))."""
+    from gpr_calculator_tpu_torch.calculators.lj import LJ
+    lj = LJ(STRESS_LJ)
+    gp = T.GP(kernel=T.RBF(para=list(STRESS_THETA), zeta=2),
+              descriptor=T.SO3(nmax=2, lmax=2, rcut=STRESS_LJ["rc"],
+                               stress=True),
+              noise_e=STRESS_NOISE[0], noise_f=STRESS_NOISE[1],
+              log_file=None, device=dev, dtype=dtype)
+    for k in range(5):
+        s = periodic_cu(T, 10 + k)
+        e, f, _ = lj.calculate(s)
+        gp.add_structure((s, e, f))
+    gp.fit(opt=False, show=False)
+    return gp
+
+
+def stress_request(gp, atoms):
+    """One structure packed as a served stress request on the model's
+    device: (EnergyData, ForceData with 9 columns) of every atom."""
+    from gpr_calculator_tpu_torch.atoms.atoms import ATOMIC_NUMBERS
+    from gpr_calculator_tpu_torch.models.gp import _pack_from_device_descs
+    dd = gp.descriptor.calculate_device(atoms, device=gp.device,
+                                        dtype=gp.dtype)
+    ele = np.asarray([ATOMIC_NUMBERS[s] for s in dd["elements"]])
+    return _pack_from_device_descs([dd], [ele], [list(range(len(ele)))],
+                                   stress=True)
+
+
+def column_groups(f):
+    """The 3-column ForceData of each group of three cartesian columns of
+    a 9-column side: each gives the operand ``force_operands`` builds for
+    that group, so the kernel cases read what a stress request reads."""
+    return [f._replace(dxdr=f.dxdr[..., c:c + 3].contiguous())
+            for c in range(0, f.ncart, 3)]
+
+
+def run_stress(T, torch, kff, dev, log, card, slice_gp, slice_image):
+    """(o1) stress serving on the card: the LJ periodic-Cu model served
+    through predict_structure(stress=True) and a GPR stress request,
+    counted, against a CPU float64 model of the same training set: E
+    within 0.1 noise_e natoms, F and sigma_F within 0.1 noise_f, each
+    atom's 6 stress rows within 0.1 noise_f rcut / V (the force limit
+    carried through the strain rows' r / V), their sum within natoms
+    times that; K3 3 and K2 4 (3 K_FE + the energy row's K_EF) launches a
+    request, nothing else.  Then the latency of a stress request beside a
+    plain one, on this model and on a stress-enabled copy of the slice
+    model.  Returns (launches, the column-group shapes for (b)/(k2))."""
+    from gpr_calculator_tpu_torch import convert
+    from gpr_calculator_tpu_torch.calculators.lj import LennardJones
+    f32 = torch.float32
+    gp = stress_model(T, dev, f32)
+    ref = cpu_f64_copy(T, gp, fit=True)
+    probes = [periodic_cu(T, s) for s in (30, 31, 32)]
+    calcs = []
+    for model in (gp, ref):
+        calc = T.GPR(base=LennardJones(STRESS_LJ), ff=model, save=False,
+                     stress=True)
+        calc.verbose = False
+        calc.freeze()
+        calcs.append(calc)
+    kff.reset_launches()
+    served = [gp.predict_structure(a, stress=True, return_std=True)
+              for a in probes]
+    calcs[0].calculate(probes[0].copy(), ["energy", "forces", "stress"])
+    torch.cuda.synchronize()
+    launches = dict(kff.launches)
+    n_req = len(probes) + 1
+    log(f"(o1) launches in {n_req} stress requests: "
+        f"{json.dumps(nonzero(launches))}")
+    check_launches(launches, ("kef_rect", "kff_rect"), "stress",
+                   absent=[n for n in NAMES
+                           if n not in ("kef_rect", "kff_rect")])
+    if launches["kff_rect"] != 3 * n_req or \
+            launches["kef_rect"] != 4 * n_req:
+        raise AssertionError("a stress request takes 3 K3 and 4 K2 "
+                             "launches (a launch per column group)")
+    noise_e, noise_f = STRESS_NOISE
+    for a, (E, F, S, sE, sF) in zip(probes, served):
+        rE, rF, rS, rsE, rsF = ref.predict_structure(a, stress=True,
+                                                     return_std=True)
+        n, V = len(a), a.get_volume()
+        lim_s = 0.1 * noise_f * STRESS_LJ["rc"] / V
+        offs = (("E", abs(E - rE), 0.1 * noise_e * n),
+                ("sigma_E", abs(sE - rsE), 0.1 * noise_e * n),
+                ("F", float(np.abs(F - rF).max()), 0.1 * noise_f),
+                ("sigma_F", float(np.abs(sF - rsF).max()), 0.1 * noise_f),
+                ("S rows", float(np.abs(S - rS).max()), lim_s),
+                ("S sum", float(np.abs(S.sum(0) - rS.sum(0)).max()),
+                 n * lim_s))
+        log(f"(o1) [{card}] stress request ({n} atoms, V = {V:.3f} A^3) "
+            "against CPU f64: " + ", ".join(
+                f"|d{k}| {v:.3e} (limit {lim:.3e})" for k, v, lim in offs)
+            + f"; max|S| {np.abs(rS).max():.4f} eV/A^3")
+        if not all(np.isfinite(v) and v <= lim for _, v, lim in offs):
+            raise AssertionError("the card's stress request is outside the "
+                                 "limits against float64")
+    calcs[1].calculate(probes[0].copy(), ["energy", "forces", "stress"])
+    dS = float(np.abs(calcs[0].results["stress"]
+                      - calcs[1].results["stress"]).max())
+    lim = len(probes[0]) * 0.1 * noise_f * STRESS_LJ["rc"] / \
+        probes[0].get_volume()
+    stress = np.array2string(calcs[0].results["stress"], precision=5)
+    log(f"(o1) GPR(stress=True) results['stress'] {stress} against CPU "
+        f"f64: max|dS| {dS:.3e} (limit {lim:.3e})")
+    if not dS <= lim:
+        raise AssertionError("the GPR stress result is off float64")
+    # the latency of a stress request beside a plain one: on this model,
+    # and on a stress-enabled copy of the slice model (13 atoms)
+    sgp = convert.gp_from_state(convert.state_of(slice_gp), device=dev,
+                                dtype=f32, log_file=None)
+    sgp.descriptor = T.SO3(nmax=3, lmax=4, rcut=5.0, stress=True)
+    plain = convert.gp_from_state(convert.state_of(gp), device=dev,
+                                  dtype=f32, log_file=None)
+    plain.descriptor = T.SO3(nmax=2, lmax=2, rcut=STRESS_LJ["rc"])
+    for tag, model, atoms in (("LJ Cu cell", (gp, plain), probes[0]),
+                              ("slice", (sgp, slice_gp), slice_image)):
+        ms_s = host_ms(torch, lambda: model[0].predict_structure(
+            atoms, stress=True, return_std=True), 20)
+        ms_p = host_ms(torch, lambda: model[1].predict_structure(
+            atoms, return_std=True), 20)
+        log(f"(o1) [{card}] {tag} request ({len(atoms)} atoms), host clock "
+            f"to a synchronise, min / median / max of 20: with stress "
+            f"{ms_s[0]:.3f} / {ms_s[1]:.3f} / {ms_s[2]:.3f} ms, plain "
+            f"(a descriptor without strain rows) {ms_p[0]:.3f} / "
+            f"{ms_p[1]:.3f} / {ms_p[2]:.3f} ms")
+    te, tf, _, _ = gp._train_view()
+    ste, stf, _, _ = sgp._train_view()
+    shapes = [("LJ Cu stress request", stress_request(gp, probes[0]), te, tf,
+               gp.kernel.params()),
+              ("slice stress request", stress_request(sgp, slice_image), ste,
+               stf, sgp.kernel.params())]
+    return launches, shapes
+
+
+def run_hutch(T, torch, kff, dev, log, card):
+    """(o2) the NLL and its gradient at the 10k bench shape with the exact
+    trace and the Hutchinson estimate, RBF and Dot, highest and bf16x4:
+    the ms and peak memory of each at 64 probes (the default); the
+    estimate's value must equal the exact one bit for bit and its
+    gradient lie within the gate, 5 % of the exact norm + 1e-3 (at 1024
+    probes too, where the distance is recorded beside it); then one
+    fit(trace="auto") of a 10k model, which must run the gate and take
+    the trace it decides.  Returns the launches of the hutch evaluations
+    and the fit."""
+    from gpr_calculator_tpu_torch.models.gp import (_nll_dot_analytic,
+                                                    _nll_rbf_analytic,
+                                                    _probe_block)
+    f32 = torch.float32
+    be, bf = bench_data(torch, dev)
+    n = be.m + 3 * bf.m
+    y = torch.as_tensor(np.random.RandomState(1).normal(0.0, 0.1, n),
+                        dtype=f32, device=dev)
+    probes = {p: _probe_block(n, p, dev) for p in (64, 1024)}
+    cases = (("RBF", _nll_rbf_analytic, (2.0, 1.0)),
+             ("Dot", _nll_dot_analytic, (2.0, 2.0)))
+    launches = {k: 0 for k in kff.launches}
+    for mode in ("highest", "bf16x4"):
+        T.config.set_kff_precision(mode)
+        for label, fn, th in cases:
+            args = (th, be, bf, y, (0.01, 0.1), 10.0, 2, False)
+            kw = {"exact": {}, "hutch": dict(trace="hutch", probes=probes[64])}
+            out, ms, peak = {}, {}, {}
+            for trace in ("exact", "hutch"):
+                kff.reset_launches()
+                out[trace] = fn(*args, **kw[trace])
+                torch.cuda.synchronize()
+                if trace == "hutch":
+                    for k, v in kff.launches.items():
+                        launches[k] += v
+                ms[trace] = cuda_ms(torch, lambda: fn(*args, **kw[trace]), 3)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                fn(*args, **kw[trace])
+                torch.cuda.synchronize()
+                peak[trace] = torch.cuda.max_memory_allocated(dev) - before
+            out["hutch 1024"] = fn(*args, trace="hutch", probes=probes[1024])
+            v_e, g_e = out["exact"][0], out["exact"][1].cpu().numpy()
+            lim = 0.05 * float(np.linalg.norm(g_e)) + 1e-3
+            dist = {}
+            for key in ("hutch", "hutch 1024"):
+                g_h = out[key][1].cpu().numpy()
+                dist[key] = (float(np.linalg.norm(g_h - g_e)), g_h)
+            log(f"(o2) [{card}] bench (1000 E + 3000 F), {label} NLL + "
+                f"gradient in {mode}: exact {ms['exact']:.3f} ms, peak "
+                f"{peak['exact'] / 1e9:.3f} GB above the data; hutch (64 "
+                f"probes) {ms['hutch']:.3f} ms, peak "
+                f"{peak['hutch'] / 1e9:.3f} GB; value exact {float(v_e)!r}"
+                f", hutch {float(out['hutch'][0])!r}; grad exact "
+                f"{np.array2string(g_e, precision=8)}, hutch 64 "
+                f"{np.array2string(dist['hutch'][1], precision=8)} "
+                f"(|dg| {dist['hutch'][0]:.3e}, "
+                f"{dist['hutch'][0] / np.linalg.norm(g_e):.3e} of |g|), "
+                f"hutch 1024 |dg| {dist['hutch 1024'][0]:.3e} "
+                f"({dist['hutch 1024'][0] / np.linalg.norm(g_e):.3e}); the "
+                f"gate's limit {lim:.3e}")
+            for key in ("hutch", "hutch 1024"):
+                if float(out[key][0]) != float(v_e):
+                    raise AssertionError(f"the {key} {label} NLL value is "
+                                         "not the exact one")
+                if not dist[key][0] <= lim:
+                    raise AssertionError(f"the {key} {label} gradient is "
+                                         "outside the gate")
+    T.config.set_kff_precision("highest")
+    gp = bench_gp(T, dev, f32, bench_points(torch, dev, 1000, 3000, 0))
+    gp.trace = "auto"
+    kff.reset_launches()
+    t0 = time.perf_counter()
+    gp.fit(opt=True, show=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, v in kff.launches.items():
+        launches[k] += v
+    verdict = gp._trace_gate[1] if gp._trace_gate else None
+    log(f"(o2) [{card}] fit(trace='auto') at n = {n}: the gate at theta0 "
+        f"-> {verdict}, trace used {gp._nll_trace_used}, theta "
+        f"({gp.kernel.parameters()[0]:.6f}, "
+        f"{gp.kernel.parameters()[1]:.6f}), {wall:.2f} s")
+    if verdict is None or gp._nll_trace_used not in (verdict, "exact"):
+        raise AssertionError("fit(trace='auto') at 10k rows ran no gate or "
+                             "took a trace the gate did not allow")
+    return launches
+
+
+def run_sparsify_cov(T, torch, kff, dev, log, card, slice_gp, images):
+    """(o3) sparsify and the predictive covariance on the card, from a
+    copy of the slice model (images 0 and 4 are one structure up to a
+    lattice translation): the ids its sparsify removes beside a CPU
+    float64 copy's (recorded: float32 blocks floor the eigenvalues far
+    above l_tol), its refit held to a CPU float64 model after the same
+    removal at 0.1 of the noise, and _predict_cov's diagonal against
+    predict's std.  Returns the launches of sparsify and of the
+    covariance."""
+    from gpr_calculator_tpu_torch import convert
+    from gpr_calculator_tpu_torch.atoms.atoms import ATOMIC_NUMBERS
+    from gpr_calculator_tpu_torch.models.gp import _group_force_points
+    state = convert.state_of(slice_gp)
+    for key in ("alpha", "L", "n_fit"):
+        state.pop(key, None)
+    models, removed = {}, {}
+    for tag, kw in (("card", dict(device=dev, dtype=torch.float32)),
+                    ("CPU f64", dict(device="cpu", dtype=torch.float64))):
+        gp = convert.gp_from_state(state, log_file=None, **kw)
+        gp.fit(opt=False, show=False)
+
+        def record(e_ids, f_ids, gp=gp, tag=tag):
+            removed[tag] = (sorted(int(i) for i in e_ids),
+                            sorted(int(i) for i in f_ids))
+            type(gp).remove_train_pts(gp, e_ids, f_ids)
+        gp.remove_train_pts = record
+        removed[tag] = ([], [])
+        models[tag] = gp
+    kff.reset_launches()
+    models["card"].sparsify()
+    torch.cuda.synchronize()
+    sp_launches = dict(kff.launches)
+    models["CPU f64"].sparsify()
+    log(f"(o3) sparsify of the slice model ({state['N_energy']} E + "
+        f"{state['N_forces']} F): removed (energy, force) ids card "
+        f"{removed['card']}, CPU f64 {removed['CPU f64']} ("
+        f"{'the same' if removed['card'] == removed['CPU f64'] else 'other'}"
+        " ids; recorded, not a gate); launches "
+        f"{json.dumps(nonzero(sp_launches))}")
+    gp = models["card"]
+    reserve_vs_f64(T, gp, images, log, "(o3) the sparsified card model "
+                   "against a CPU f64 model after the same removal")
+    image = images[2]
+    d = gp.descriptor.calculate(image, device=dev, dtype=torch.float64)
+    ele = np.asarray([ATOMIC_NUMBERS[s] for s in d["elements"]])
+    free = [i for i in range(len(image)) if i not in
+            set(image.fixed_indices())]
+    X = {"energy": [(d["x"], ele)],
+         "force": _group_force_points(d, ele, free)}
+    kff.reset_launches()
+    mean, cov = gp.predict(X, return_cov=True)
+    torch.cuda.synchronize()
+    cov_launches = dict(kff.launches)
+    _, std = gp.predict(X, return_std=True)
+    sq = np.sqrt(np.clip(np.diag(cov), 0.0, None))
+    err = float(np.abs(sq - std).max())
+    log(f"(o3) [{card}] predict(return_cov=True), one request of "
+        f"{len(free)} free atoms: cov {cov.shape}, max|sqrt(diag cov) - "
+        f"std| = {err:.3e}, {err / std.max():.3e} of max std (limit 1e-6); "
+        f"launches {json.dumps(nonzero(cov_launches))}")
+    if not (np.all(np.isfinite(cov)) and err <= 1e-6 * std.max()):
+        raise AssertionError("_predict_cov's diagonal is not predict's "
+                             "variance")
+    check_launches(cov_launches, ("kff_tri", "kef_rect", "kff_rect"), "cov",
+                   absent=[n for n in NAMES
+                           if n not in ("kff_tri", "kef_rect", "kff_rect")])
+    return sp_launches, cov_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--alt-source", help="another revision's kernel "
@@ -2172,10 +2519,11 @@ def main(argv=None) -> int:
                     "entry points): time its kernels beside the package's, "
                     "in turns, and stop")
     ap.add_argument("--alt-root", help="another revision's checkout: time "
-                    "its _predict_packed beside this one's, in turns, and "
-                    "stop")
+                    "its _predict_packed and bench NLLs beside this one's, "
+                    "in turns, and stop")
     ap.add_argument("--predict-packed", action="store_true",
-                    help="time one slice request's _predict_packed and stop")
+                    help="time one slice request's _predict_packed and the "
+                    "bench NLLs, and stop")
     ap.add_argument("--package-root", help="import the package from here")
     args = ap.parse_args(argv)
     if args.package_root:
@@ -2201,6 +2549,7 @@ def main(argv=None) -> int:
             compare_roots(args.alt_root, log)
         return 0
 
+    t_run = time.time()
     dev, f32 = torch.device("cuda"), torch.float32
     log(f"(a) card: {card_line()}")
     t0 = time.time()
@@ -2430,6 +2779,21 @@ def main(argv=None) -> int:
     check_launches(path_launches["neb_opt_freq"], RBF, "opt_freq NEB",
                    absent=DOT)
 
+    # (o1) stress serving on the card, counted; (o2) the Hutchinson trace
+    # at the bench shape; (o3) sparsify and the predictive covariance
+    card = card_line()
+    path_launches["stress"], stress_shapes = run_stress(
+        T, torch, kff, dev, log, card, gp, images[2])
+    path_launches["hutch"] = run_hutch(T, torch, kff, dev, log, card)
+    check_launches(path_launches["hutch"], [
+        kname(b, m) for m in ("highest", "bf16x4")
+        for b in ("kff_tri_dual", "kef_rect_dual", "kff_tri_dot",
+                  "kef_rect_dot")], "hutch")
+    path_launches["sparsify"], path_launches["cov"] = run_sparsify_cov(
+        T, torch, kff, dev, log, card, gp, images)
+    check_launches(path_launches["sparsify"], ("kff_tri", "kef_rect"),
+                   "sparsify", absent=DOT)
+
     # (k1) the precision modes on the path: set_GPR and the NEB in bf16x4
     # (RBF, then Dot), then the RBF path in bf16, each counted
     mode_models = {}
@@ -2563,6 +2927,13 @@ def main(argv=None) -> int:
                              dparams),
             "MD training set, the last volume's request", errs, log)
     del md_gp, mte, mtf
+    # the stress requests' shapes (o1), in every mode: each group of three
+    # columns of the 9-column query side, as K2 (both ways) and K3 read it
+    for tag, (qe, qf), ste, stf, sparams in stress_shapes:
+        for g, fg in enumerate(column_groups(qf)):
+            compare(torch, all_cases(kff, qe, fg, ste, stf, sparams, dparams,
+                                     query_only=True),
+                    f"{tag}, column group {g}", errs, log)
     for tag, mgp in mode_models.items():
         mode = tag.split("_")[0]
         kind = "dot" if tag.endswith("_dot") else "rbf"
@@ -3004,6 +3375,7 @@ def main(argv=None) -> int:
                  **range_cell(name, "slice"), "mid": range_cell(name, "mid"),
                  "bench": range_cell(name, "bench")}
                 for name in RANGE_NAMES]
+    log(f"whole run: {time.time() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,2 @@
-from .gp import GP  # noqa
+from .gp import GP, CUR  # noqa
 from .kernels import RBF, Dot  # noqa

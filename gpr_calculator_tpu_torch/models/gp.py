@@ -6,9 +6,14 @@ energy labels, queue semantics and dispatch thresholds.  ``fit(opt=True)``
 first runs scipy's L-BFGS-B over the analytic-gradient NLL of the
 kernel's family (``_nll_rbf_analytic``: one fused (K, dK/dgamma) pass
 per evaluation; ``_nll_dot_analytic``: one K build and the pair-count
-matrix), then refactorises from scratch; ``fit(opt=False)`` extends the
-factor of the last fit by the rows appended since (``ops/linalg.py``,
-the JAX package's ``_try_incremental_fit``).  The covariance blocks come
+matrix), its traces exact or estimated (``GP(trace=)``), then
+refactorises from scratch; ``fit(opt=False)`` extends the factor of the
+last fit by the rows appended since (``ops/linalg.py``, the JAX
+package's ``_try_incremental_fit``).  Serving gives energies, forces and,
+with a stress-enabled descriptor, each atom's stress rows
+(``predict_structure(stress=True)``), their stds, or the full predictive
+covariance (``predict(return_cov=True)``); ``sparsify`` drops the
+training points CUR finds redundant.  The covariance blocks come
 from ``ops/kernels.py`` (the hand-written CUDA kernels on the card), the
 Cholesky factor, the solves and K^-1 from ``torch.linalg``.
 
@@ -90,6 +95,32 @@ def _chol_mesh(K, mesh, chol_mode: str = "replicated"):
     return L, int(info)
 
 
+# the share of a device's free memory that the float64 buffers of
+# ``GP._predict_cov``, ``CUR`` and ``GP.sparsify`` may take
+MEMORY_SHARE = 0.5
+
+
+def _free_bytes(device) -> int:
+    """The device's free memory: ``torch.cuda.mem_get_info`` on a card,
+    the host's available physical memory on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _check_buffers(device, nbytes: int, what: str) -> None:
+    """ValueError when ``nbytes`` of buffers for ``what`` exceed
+    MEMORY_SHARE of the device's free memory (the JAX package builds
+    these dense n^2 and n x n_query buffers unguarded)."""
+    free = _free_bytes(device)
+    if nbytes > MEMORY_SHARE * free:
+        raise ValueError(
+            f"{what} needs {nbytes / 2 ** 30:.3g} GiB of float64 buffers, "
+            f"more than {MEMORY_SHARE} of the {free / 2 ** 30:.3g} GiB "
+            f"free on {torch.device(device)}")
+
+
 def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
                noise_f: float, zeta: int, kind: str = "rbf", mesh=None,
                chol_mode: str = "replicated"):
@@ -142,28 +173,107 @@ def _split_theta(theta, noise_fixed, f_coef, noise_opt: bool):
     return theta, float(noise_fixed[0]), float(noise_fixed[1])
 
 
+# The Hutchinson estimate of the NLL gradient's traces (the JAX
+# package's gp.py:140-181): tr(K^-1 A) ~ <W, A Z> / p with W = K^-1 Z for
+# a fixed Rademacher probe block Z (n, p), O(n^2 p) from the factor in
+# place of the n^2-word K^-1 the exact trace forms.  A trace's error is
+# ~sqrt(2 / p) |A|_F, sqrt(2 / (p n)) of it for an evenly spread
+# spectrum; what the gradient's is at a size is what the gate measures
+# (at the 10k bench shape 2.7 % (RBF) and 0.25 % (Dot) of |g| at 64
+# probes, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).  Z is drawn once per
+# (n, p) and kept, so the estimate is one smooth function of theta
+# across L-BFGS-B's evaluations.  Padded rows are exact: K is the
+# identity there and z_i^2 = 1.
+TRACES = ("exact", "hutch", "auto")
+_HUTCH_MIN_N = 6144     # "auto": hutch from this many rows, behind the gate
+
+
+def _probe_block(n: int, n_probe: int, device):
+    """The fixed Rademacher probe block Z (n, n_probe), float64 on
+    ``device``, from a torch.Generator seeded 0 there."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    bits = torch.randint(0, 2, (n, n_probe), generator=gen, device=device)
+    return bits.to(torch.float64) * 2.0 - 1.0
+
+
+def _hutch_solve(L, n_probe: int = 64, probes=None):
+    """(Z, W = K^-1 Z) from the lower factor L of K: Z the given probe
+    block ``probes`` (n, p), else ``_probe_block(n, n_probe)`` on L's
+    device."""
+    Z = _probe_block(L.shape[0], n_probe, L.device) if probes is None \
+        else probes.to(dtype=L.dtype, device=L.device)
+    return Z, torch.cholesky_solve(Z, L)
+
+
+def _resolve_trace_mode(n: int, trace: str = "auto") -> str:
+    """The trace an n-row NLL takes: "exact" or "hutch" as asked;
+    "auto" the estimate from ``_HUTCH_MIN_N`` rows on (GP.fit then runs
+    the measured gate, ``GP._gated_trace_mode``)."""
+    if trace not in TRACES:
+        raise ValueError(f"trace must be one of {TRACES}, got {trace!r}")
+    if trace != "auto":
+        return trace
+    return "hutch" if n >= _HUTCH_MIN_N else "exact"
+
+
+class _Traces:
+    """The traces tr(K^-1 A) of an NLL gradient, from the float64 lower
+    factor L of K: exact from K^-1 = ``cholesky_inverse(L)``, or with
+    ``hutch`` the estimate <W, A Z> / p of ``_hutch_solve``, which forms
+    no K^-1."""
+
+    def __init__(self, L, hutch: bool, n_probe: int = 64, probes=None):
+        self.Kinv = None
+        if hutch:
+            self.Z, self.W = _hutch_solve(L, n_probe, probes)
+        else:
+            self.Kinv = torch.cholesky_inverse(L)
+            self.kinv_diag = self.Kinv.diagonal().clone()
+
+    def of(self, A, m=None):
+        """tr(K^-1 A) of a symmetric A on the leading m rows and columns
+        (m None: all of them), zero elsewhere."""
+        if self.Kinv is None:
+            Z = self.Z[:m]
+            return torch.sum(self.W[:m] * (A @ Z)) / Z.shape[1]
+        if m is None:
+            return torch.dot(self.Kinv.reshape(-1), A.reshape(-1))
+        return (self.Kinv[:m, :m] * A).sum()
+
+    def of_diag(self, v):
+        """tr(K^-1 diag(v))."""
+        if self.Kinv is None:
+            return torch.sum(self.W * (self.Z * v[:, None])) / \
+                self.Z.shape[1]
+        return torch.dot(self.kinv_diag, v)
+
+
 def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
                   noise_e: float, noise_f: float, f_coef, noise_opt: bool,
-                  second_grad, mesh=None, chol_mode: str = "replicated"):
+                  second_grad, mesh=None, chol_mode: str = "replicated",
+                  trace: str = "exact", n_probe: int = 64, probes=None):
     """(-LML, grad) from the kernel covariance Kk: the part both kernel
     families share (gp.py:270-436 of the JAX package).
 
     0.5 tr((K^-1 - aa^T) dK/dtheta) with dK/dsigma = 2 Kk / sigma (free:
-    it reuses the solve); ``second_grad(Kinv, alpha)`` gives the second
-    kernel hyperparameter's.  The trace is exact at every size, from
-    K^-1 = ``cholesky_inverse(L)`` (n^2 float64 words: 800 MB at
-    n = 10k); the Hutchinson estimate the JAX package switches to at 6144
-    rows is not ported.  A K that is not positive definite
-    (``cholesky_ex`` info != 0) gives (+inf, zeros).
+    it reuses the solve); ``second_grad(traces, alpha)`` gives the second
+    kernel hyperparameter's from a ``_Traces``.  trace="exact" takes the
+    traces from K^-1 = ``cholesky_inverse(L)`` (n^2 float64 words: 800 MB
+    at n = 10k), trace="hutch" estimates them from ``n_probe`` probes
+    (``probes``: a given block (n, p), else ``_probe_block``) without
+    forming K^-1; the value is the same computation in both.  A K that is
+    not positive definite (``cholesky_ex`` info != 0) gives (+inf,
+    zeros).
 
-    Precision: Kk comes in the working dtype (float32 on the card, from
-    the kernels); the factor, K^-1 and every reduction are float64.  K is
-    ill-conditioned where L-BFGS-B starts (RBF: cond ~1e8 at l = 0.1), and
-    there a float32 Cholesky alone moved the NLL by ~1e-4 of its value,
-    and float32 reductions the l-gradient by ~1e-3.  On the card float64
-    costs ~2x the memory of those n^2 buffers and little time next to the
-    kernels.  With chol_mode="sharded" the float64 factor is the
-    mesh-sharded one."""
+    Precision: Kk comes in float64 (K_EE computed in float64 from the
+    rounded operands, the kernels' float32 force blocks cast); the factor,
+    the traces and every reduction are float64.  K is ill-conditioned
+    where L-BFGS-B starts (RBF: cond ~1e8 at l = 0.1), and there a float32
+    Cholesky alone moved the NLL by ~1e-4 of its value, and float32
+    reductions the l-gradient by ~1e-3.  With chol_mode="sharded" the
+    float64 factor is the mesh-sharded one."""
+    if trace not in ("exact", "hutch"):
+        raise ValueError(f"trace must be 'exact' or 'hutch', got {trace!r}")
     f64 = torch.float64
     nz = _noise_diag(e, f, noise_e, noise_f).to(f64)
     K = Kk.to(f64)
@@ -183,14 +293,12 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
     nll = (0.5 * ya + torch.log(L.diagonal()).sum()
            + 0.5 * n_real * math.log(2 * math.pi))
 
-    Kinv = torch.cholesky_inverse(L)
+    traces = _Traces(L, trace == "hutch", n_probe, probes)
     del L
-    kinv_diag = Kinv.diagonal().clone()
-    g_second = second_grad(Kinv, alpha)
-    del Kinv
+    g_second = second_grad(traces, alpha)
     # tr(Kinv Kk) = n - tr(Kinv Nz); a^T Kk a = a^T y - a^T Nz a
     # (padding rows cancel through the unit noise placed on them)
-    tr_kk = n - torch.dot(kinv_diag, nz)
+    tr_kk = n - traces.of_diag(nz)
     aKka = ya - torch.dot(nz * alpha, alpha)
     g_sigma = (tr_kk - aKka) / sigma
     grads = [g_sigma, g_second]
@@ -200,7 +308,7 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
                    < f.nreal).to(f64).repeat_interleave(3)
         dnz = torch.cat([valid_e * (2.0 * noise_e),
                          valid_f * (2.0 * float(f_coef) ** 2 * noise_e)])
-        grads.append(0.5 * (torch.dot(kinv_diag, dnz)
+        grads.append(0.5 * (traces.of_diag(dnz)
                             - torch.dot(alpha * alpha, dnz)))
     return nll, torch.stack(grads)
 
@@ -208,39 +316,44 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
 def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
                       f_coef, zeta: int, noise_opt: bool,
                       plain: bool = False, mesh=None,
-                      chol_mode: str = "replicated"):
+                      chol_mode: str = "replicated", trace: str = "exact",
+                      n_probe: int = 64, probes=None):
     """(-LML, grad) of the RBF kernel with ANALYTIC hyperparameter
     derivatives (gp.py:270-346 of the JAX package), theta = (sigma,
     l[, noise_e]): dK/dl = dK/dgamma * (-1/l^3), where dK/dgamma comes
-    from the same fused pass as K (``k_self_dual``), and the trace
-    tr(K^-1 dK/dgamma) is exact.  plain=True builds the blocks with the
+    from the same fused pass as K (``k_self_dual``, K_EE and dK_EE/dgamma
+    computed in float64 from the rounded operands, as ``_factorize``'s K),
+    and the trace tr(K^-1 dK/dgamma) is exact or, with trace="hutch",
+    estimated (``_analytic_nll``).  plain=True builds the blocks with the
     plain versions on any device; mesh shards the dual pass
     (``k_self_dual``) and, by chol_mode, the factorisation."""
     kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
                                         noise_opt)
     params = _params_from_theta("rbf", kp)
-    Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain, mesh=mesh)
+    Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain, mesh=mesh,
+                               dtype=torch.float64)
 
-    def g_l(Kinv, alpha):
-        Kd64 = Kd.to(torch.float64)
-        tr_kd = torch.dot(Kinv.reshape(-1), Kd64.reshape(-1))
-        g_gamma = 0.5 * (tr_kd - torch.dot(alpha, Kd64 @ alpha))
+    def g_l(traces, alpha):
+        g_gamma = 0.5 * (traces.of(Kd) - torch.dot(alpha, Kd @ alpha))
         return g_gamma * (-1.0 / params["l"] ** 3)
     return _analytic_nll(Kk, e, f, y, params["sigma"], noise_e, noise_f,
-                         f_coef, noise_opt, g_l, mesh, chol_mode)
+                         f_coef, noise_opt, g_l, mesh, chol_mode, trace,
+                         n_probe, probes)
 
 
 def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
                       f_coef, zeta: int, noise_opt: bool,
                       plain: bool = False, mesh=None,
-                      chol_mode: str = "replicated"):
+                      chol_mode: str = "replicated", trace: str = "exact",
+                      n_probe: int = 64, probes=None):
     """(-LML, grad) of the Dot kernel with ANALYTIC hyperparameter
     derivatives (gp.py:353-436 of the JAX package), theta = (sigma,
     sigma0[, noise_e]).  K comes from ONE gradient-free build per
     evaluation (K1-dot, K2-dot on the card): sigma0 enters k = s2 (c^z +
     s0^2) only through the additive constant, so dK/dsigma0 = 2 s2 s0 W
     on the energy block alone, W = ``count_ee`` (float64), and g_sigma0 =
-    0.5 * 2 s2 s0 (tr(K^-1_EE W) - a_E^T W a_E).  plain=True builds the
+    0.5 * 2 s2 s0 (tr(K^-1_EE W) - a_E^T W a_E), the trace exact or, with
+    trace="hutch", estimated (``_analytic_nll``).  plain=True builds the
     blocks with the plain versions on any device; mesh shards the build
     and, by chol_mode, the factorisation."""
     kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
@@ -252,12 +365,26 @@ def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
     W = K_ops.count_ee(e).to(torch.float64)
     m = e.m
 
-    def g_sigma0(Kinv, alpha):
+    def g_sigma0(traces, alpha):
         a_e = alpha[:m]
-        tr_dee = (Kinv[:m, :m] * W).sum()
-        return sigma * sigma * sigma0 * (tr_dee - torch.dot(a_e, W @ a_e))
+        return sigma * sigma * sigma0 * (traces.of(W, m)
+                                         - torch.dot(a_e, W @ a_e))
     return _analytic_nll(Kk, e, f, y, sigma, noise_e, noise_f, f_coef,
-                         noise_opt, g_sigma0, mesh, chol_mode)
+                         noise_opt, g_sigma0, mesh, chol_mode, trace,
+                         n_probe, probes)
+
+
+def _prior(pe: EnergyData, pf: ForceData, params, zeta: int, kind: str,
+           dtype):
+    """The served prior variance K(x, x) of each row of the points, in
+    ``dtype``: the energy prior from the operands the served K_EE reads
+    (unit descriptors normalised in the data's dtype), computed in dtype
+    -- operands normalised in float64 differ from those by ~1e-7 in |u|,
+    which 1/l^2 amplifies where sigma_E is a small difference of the
+    prior and |L^-1 k|^2 (PERF.md) --, the force rows' ``diag_force``."""
+    return torch.cat([K_ops.diag_energy(pe, params, zeta, kind, dtype=dtype),
+                      K_ops.diag_force(pf, params, zeta, kind).reshape(-1)
+                      .to(dtype)])
 
 
 def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
@@ -287,15 +414,8 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
     mean = Kt @ alpha
     if not return_std:
         return mean, None
-    # the energy prior from the operands the served K_EE reads (unit
-    # descriptors normalised in the data's dtype), in float64: operands
-    # normalised in float64 differ from those by ~1e-7 in |u|, which
-    # 1/l^2 amplifies where sigma_E is a small difference of the prior
-    # and |L^-1 k|^2 (PERF.md)
     dt = L.dtype
-    diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind, dtype=dt),
-                      K_ops.diag_force(pf, params, zeta, kind).reshape(-1)
-                      .to(dt)])
+    diag = _prior(pe, pf, params, zeta, kind, dt)
     KtT = Kt.T if cols is None else Kt.T.index_select(0, cols)
     V = torch.linalg.solve_triangular(L, KtT.to(dt), upper=False)
     var = torch.clamp(diag - (V * V).sum(dim=0), min=0.0)
@@ -328,14 +448,27 @@ def _factor_perm(groups, nE_total: int) -> np.ndarray:
     return np.concatenate(perm).astype(np.int64)
 
 
+# the strain rows a stress request appends to a force point's columns:
+# (xx, yy, zz, xy, xz, yz) of the flattened 3 x 3 rdxdr (the reference's
+# Voigt pick, gaussianprocess.py:863-871)
+_STRESS_COLS = (0, 4, 8, 1, 2, 5)
+
+
 def _pack_on_device(xs, dxs, e_idx, ele_e, counts, nreal_e, centers, rows,
-                    ele_f, nreal_f):
+                    ele_f, nreal_f, rdxs=None):
     """Build (EnergyData, ForceData) from per-structure descriptor tensors
     (x (natoms_s, d), dxdr (nseq_s + 1, d, 3)); the index maps address
-    the concatenated tensors, pads pointing at zero rows."""
+    the concatenated tensors, pads pointing at zero rows.  rdxs: the
+    structures' rdxdr (nseq_s + 1, d, 3, 3), whose strain columns
+    (``_STRESS_COLS``) are appended to each force point's 3 (9 in all)."""
     x_cat = torch.cat(list(xs), dim=0)
     x_ext = torch.cat([x_cat, x_cat.new_zeros((1, x_cat.shape[1]))])
     dx_cat = torch.cat(list(dxs), dim=0)
+    if rdxs is not None:
+        rd = torch.cat(list(rdxs), dim=0)
+        rd = rd.reshape(rd.shape[0], rd.shape[1], 9)[:, :,
+                                                     list(_STRESS_COLS)]
+        dx_cat = torch.cat([dx_cat, rd], dim=2)
     pe = EnergyData(x=x_ext[e_idx], ele=ele_e, counts=counts,
                     nreal=nreal_e)
     pf = ForceData(x=x_ext[centers], dxdr=dx_cat[rows], ele=ele_f,
@@ -343,15 +476,20 @@ def _pack_on_device(xs, dxs, e_idx, ele_e, counts, nreal_e, centers, rows,
     return pe, pf
 
 
-def _group_force_points(d, ele, sel):
+def _group_force_points(d, ele, sel, stress: bool = False):
     """Force points for the atoms in ``sel``: group the descriptor's seq
-    rows by target atom and gather (x_envs, dxdr_rows, ele_envs)."""
+    rows by target atom and gather (x_envs, dxdr_rows, ele_envs), with
+    the 6 strain columns appended (9 in all) when ``stress``."""
     seq = d["seq"]
     pts = []
     for i in sel:
         ids = np.flatnonzero(seq[:, 1] == i)
         _i = seq[ids, 0]
-        pts.append((d["x"][_i], d["dxdr"][ids], ele[_i]))
+        dx = d["dxdr"][ids]
+        if stress:
+            rd = d["rdxdr"][ids].reshape(len(ids), -1, 9)
+            dx = np.concatenate((dx, rd[:, :, list(_STRESS_COLS)]), axis=2)
+        pts.append((d["x"][_i], dx, ele[_i]))
     return pts
 
 
@@ -406,8 +544,10 @@ def _serve_gather_meta(descs, numbers_list, sel_lists):
                 rows=rows, ele_f=ele_f, m_f=m_f)
 
 
-def _pack_from_device_descs(descs, numbers_list, sel_lists):
-    """calculate_device outputs -> (pe, pf) gathered on their device."""
+def _pack_from_device_descs(descs, numbers_list, sel_lists,
+                            stress: bool = False):
+    """calculate_device outputs -> (pe, pf) gathered on their device;
+    stress: the force points carry the strain rows (9 columns)."""
     meta = _serve_gather_meta(descs, numbers_list, sel_lists)
     x0 = descs[0]["x"]
 
@@ -418,21 +558,22 @@ def _pack_from_device_descs(descs, numbers_list, sel_lists):
         [d["x"] for d in descs], [d["dxdr"] for d in descs],
         t(meta["e_idx"]), t(meta["ele_e"]), t(meta["counts"], x0.dtype),
         len(descs), t(meta["centers"]), t(meta["rows"]), t(meta["ele_f"]),
-        meta["m_f"])
+        meta["m_f"], rdxs=[d["rdxdr"] for d in descs] if stress else None)
 
 
-def _pack_structures(strucs, descs):
-    """Structures and their ``calculate_device`` dicts -> (pe, pf, free
-    atom ids per structure): one energy point a structure and one force
-    point a free atom, the served request's pack."""
+def _pack_structures(strucs, descs, stress: bool = False):
+    """Structures and their ``calculate_device`` dicts -> (pe, pf, atom
+    ids per structure): one energy point a structure and one force point
+    a free atom, the served request's pack; with ``stress`` one a atom,
+    fixed or not, with the strain rows (the JAX package's gp.py:1841)."""
     eles, sels = [], []
     for struc, dd in zip(strucs, descs):
         eles.append(np.asarray([ATOMIC_NUMBERS[s] for s in dd["elements"]],
                                int))
         fix_ids = set(int(i) for i in struc.fixed_indices()) \
-            if hasattr(struc, "fixed_indices") else set()
+            if hasattr(struc, "fixed_indices") and not stress else set()
         sels.append([i for i in range(len(struc)) if i not in fix_ids])
-    pe, pf = _pack_from_device_descs(descs, eles, sels)
+    pe, pf = _pack_from_device_descs(descs, eles, sels, stress)
     return pe, pf, sels
 
 
@@ -474,13 +615,24 @@ class GP:
     """Drop-in equivalent of gpr_calc.gaussianprocess.GP: training with
     hyperparameter optimisation, serving, and saving the training set."""
 
+    # the gate of trace="auto": hutch is kept when its gradient at theta0
+    # is within this share of the exact one's norm (plus 1e-3)
+    _HUTCH_GATE_RTOL = 0.05
+
     def __init__(self, kernel=None, descriptor=None, base_potential=None,
                  noise_e=0.005, noise_f=0.1, f_coef=10,
                  log_file: str = "gpr.log", device=None, dtype=None,
-                 mesh=None):
+                 mesh=None, trace: str = "exact", n_probe: int = 64):
         """mesh: an optional ``parallel.Mesh`` (``parallel.make_mesh``)
         whose root is the model's device: the covariance builds, and at
-        scale the Cholesky, are sharded over it."""
+        scale the Cholesky, are sharded over it.  trace: the NLL
+        gradient's traces in ``fit(opt=True)``, "exact", "hutch" (the
+        Hutchinson estimate from ``n_probe`` fixed probes) or "auto"
+        (hutch from ``_HUTCH_MIN_N`` rows when it passes the measured
+        gate at theta0, ``_gated_trace_mode``); the JAX package's default
+        is "auto", the port's "exact" until the estimate is measured
+        against it at the benchmark's sizes."""
+        _resolve_trace_mode(0, trace)
         self.log_file = log_file
         logger = logging.getLogger(
             f"gpr_calculator_tpu_torch.gp.{log_file or 'default'}")
@@ -513,6 +665,12 @@ class GP:
                     f"the GP works on {self.device}, the mesh's root is "
                     f"{mesh.root}: they must be one device")
         self.mesh = mesh
+        self.trace = trace
+        self.n_probe = int(n_probe)
+        self._probes = None          # the kept Rademacher block Z
+        self._trace_gate = None      # (key, mode) of the last gate verdict
+        self._nll_trace_used = "exact"
+        self._data_version = 0       # bumped by every set_train_pts
 
         # host-side ragged training store
         self._energy_pts: List[Tuple[np.ndarray, np.ndarray]] = []
@@ -557,6 +715,10 @@ class GP:
         return s
 
     __repr__ = __str__
+
+    def todict(self):
+        """API parity with the reference (an empty dict)."""
+        return {}
 
     @property
     def train_y(self):
@@ -631,6 +793,7 @@ class GP:
 
     # -- training-data management (gaussianprocess.py:381-629) --------------
     def set_train_pts(self, data: Dict, mode: str = "w"):
+        self._data_version += 1
         if mode == "w":
             self._energy_pts, self._energy_y = [], []
             self._force_pts, self._force_y = [], []
@@ -664,6 +827,59 @@ class GP:
         self.N_forces_queue += N_F
         self.N_queue += N_E + N_F
 
+    def get_train_x(self):
+        """The training inputs without the queued points
+        (gaussianprocess.py:553-577), in the point-list layout:
+        {"energy": [(x, ele), ...], "force": [(x, dxdr, ele), ...]}."""
+        n_e = self.N_energy - self.N_energy_queue
+        n_f = self.N_forces - self.N_forces_queue
+        if self.N_queue <= 0 or n_e <= 0:
+            n_e = self.N_energy
+        if self.N_queue <= 0 or n_f <= 0:
+            n_f = self.N_forces
+        return {"energy": list(self._energy_pts[:n_e]),
+                "force": list(self._force_pts[:n_f])}
+
+    def add_train_pts_energy(self, energy_data):
+        """Append energy training points (gaussianprocess.py:579-601), a
+        list of (x, energy_per_atom, ele)."""
+        self.set_train_pts({"energy": list(energy_data)}, mode="a+")
+
+    def add_train_pts_force(self, force_data):
+        """Append force training points (gaussianprocess.py:602-629), a
+        list of (x, dxdr, force_vec, ele)."""
+        self.set_train_pts({"force": list(force_data)}, mode="a+")
+
+    def remove_train_pts(self, e_ids, f_ids):
+        """Delete the energy points ``e_ids`` and force points ``f_ids``
+        (indices into the training lists) and refit from scratch
+        (gaussianprocess.py:427-464): the training set is replaced
+        (``set_train_pts(mode="w")``), its database rows keep the points
+        that stay, then a full ``fit()``."""
+        e_ids, f_ids = set(int(i) for i in e_ids), set(int(i) for i in f_ids)
+        data = {"energy": [], "force": [], "db": []}
+        for i, (x, ele) in enumerate(self._energy_pts):
+            if i not in e_ids:
+                data["energy"].append((x, self._energy_y[i], ele))
+        for i, (x, dxdr, ele) in enumerate(self._force_pts):
+            if i not in f_ids:
+                data["force"].append((x, dxdr, self._force_y[i], ele))
+        e_seen, f_seen = 0, 0
+        for (atoms, energy, force, energy_in, force_in) in self.train_db:
+            new_energy_in = energy_in and (e_seen not in e_ids)
+            if energy_in:
+                e_seen += 1
+            new_force_in = []
+            for fi in force_in:
+                if f_seen not in f_ids:
+                    new_force_in.append(fi)
+                f_seen += 1
+            if new_energy_in or new_force_in:
+                data["db"].append((atoms, energy, force, new_energy_in,
+                                   new_force_in))
+        self.set_train_pts(data, mode="w")
+        self.fit()
+
     def _mesh_arg(self):
         """The mesh the builds get: None for a mesh of one shard."""
         if self.mesh is not None and self.mesh.size > 1:
@@ -674,8 +890,9 @@ class GP:
         return _resolve_chol_mode(self._mesh_arg(), e.m + 3 * f.m)
 
     # -- LML / fit -----------------------------------------------------------
-    def _nll_fn(self):
-        """The analytic-gradient NLL of the kernel's family."""
+    def _nll_fn(self, trace: str = "exact"):
+        """The analytic-gradient NLL of the kernel's family, its traces
+        exact or (trace="hutch") estimated from the kept probe block."""
         nll = {"rbf": _nll_rbf_analytic,
                "dot": _nll_dot_analytic}.get(self.kernel.kind)
         if nll is None:
@@ -684,10 +901,59 @@ class GP:
         zeta = self.kernel.zeta
 
         def call(theta, e, f, y, noise_fixed, f_coef, noise_opt):
+            probes = self._probe_block(e.m + 3 * f.m) \
+                if trace == "hutch" else None
             return nll(theta, e, f, y, noise_fixed, f_coef, zeta, noise_opt,
                        mesh=self._mesh_arg(),
-                       chol_mode=self._chol_mode(e, f))
+                       chol_mode=self._chol_mode(e, f), trace=trace,
+                       n_probe=self.n_probe, probes=probes)
         return call
+
+    def _probe_block(self, n: int):
+        """The Rademacher block of the Hutchinson traces at n rows, drawn
+        once per (n, n_probe) on the model's device and kept."""
+        Z = self._probes
+        if Z is None or Z.shape != (n, self.n_probe):
+            Z = self._probes = _probe_block(n, self.n_probe, self.device)
+        return Z
+
+    def _gated_trace_mode(self, e, f, y, theta0, noise_opt: bool) -> str:
+        """The trace one ``fit(opt=True)`` takes: ``trace`` resolved at
+        the training size (``_resolve_trace_mode``); where "auto" picks
+        the estimate, its gradient at theta0 is held against the exact
+        one once, and hutch is kept only within _HUTCH_GATE_RTOL of the
+        exact gradient's norm plus 1e-3 (the JAX package's gp.py:
+        1062-1100).  The verdict is kept for the training data's version
+        (bumped by ``set_train_pts``, which ``add_structure`` calls),
+        theta0, the noise and the precision: new data or other
+        hyperparameters measure again (the JAX package keyed it by size
+        alone, so it never went stale)."""
+        n = e.m + 3 * f.m
+        mode = _resolve_trace_mode(n, self.trace)
+        if mode == "exact" or self.trace == "hutch":
+            return mode
+        key = (self._data_version, noise_opt, self.n_probe,
+               tuple(float(t) for t in theta0), self._params_signature())
+        if self._trace_gate is not None and self._trace_gate[0] == key:
+            return self._trace_gate[1]
+        noise_fixed = (self.noise_e, self.noise_f)
+        f_coef = float(self.f_coef)
+        _, g_h = self._nll_fn("hutch")(theta0, e, f, y, noise_fixed, f_coef,
+                                       noise_opt)
+        _, g_e = self._nll_fn("exact")(theta0, e, f, y, noise_fixed, f_coef,
+                                       noise_opt)
+        g_h = g_h.detach().cpu().numpy().astype(float)
+        g_e = g_e.detach().cpu().numpy().astype(float)
+        err = float(np.linalg.norm(g_h - g_e))
+        ok = bool(np.all(np.isfinite(g_h))) and err <= (
+            self._HUTCH_GATE_RTOL * float(np.linalg.norm(g_e)) + 1e-3)
+        mode = "hutch" if ok else "exact"
+        self.logging.info(
+            "NLL trace gate at n=%d: |g_hutch - g_exact| = %.3e "
+            "(|g_exact| = %.3e) -> %s", n, err,
+            float(np.linalg.norm(g_e)), mode)
+        self._trace_gate = (key, mode)
+        return mode
 
     def _theta(self):
         """(theta0, bounds, noise_opt) of the hyperparameter search."""
@@ -699,11 +965,12 @@ class GP:
             bounds = bounds + [list(self.noise_bounds)]
         return theta0, bounds, noise_opt
 
-    def _objective(self, e, f, y, noise_opt: bool, show: bool = False):
+    def _objective(self, e, f, y, noise_opt: bool, show: bool = False,
+                   trace: str = "exact"):
         """theta -> (NLL, gradient) as float and float64 array for
         L-BFGS-B; a non-finite NLL (K not positive definite) gives
         (inf, zeros), gp.py:1163-1164 of the JAX package."""
-        nll_fn = self._nll_fn()
+        nll_fn = self._nll_fn(trace)
         noise_fixed = (self.noise_e, self.noise_f)
 
         def obj(theta):
@@ -725,7 +992,8 @@ class GP:
     def log_marginal_likelihood(self, params, eval_gradient=False,
                                 clone_kernel=False):
         """LML (and its gradient) at theta = (sigma, l or sigma0[,
-        noise_e]) over the whole training set."""
+        noise_e]) over the whole training set, with the exact trace
+        whatever ``trace`` is."""
         theta0, _, noise_opt = self._theta()
         if len(params) != len(theta0):
             raise ValueError(f"expected {len(theta0)} hyperparameters")
@@ -744,18 +1012,27 @@ class GP:
             return lml, g
         return lml
 
+    def _minimize(self, fun, theta0, bounds, maxiter: int = 10):
+        """scipy's L-BFGS-B result over the objective (the optimizer
+        settings of gaussianprocess.py:204-220)."""
+        return minimize(fun, theta0, method="L-BFGS-B", bounds=bounds,
+                        jac=True, options={"maxiter": maxiter, "ftol": 1e-2})
+
     def optimize(self, fun, theta0, bounds, maxiter: int = 10):
-        """L-BFGS-B host loop over the objective (the optimizer settings of
-        gaussianprocess.py:204-220)."""
-        res = minimize(fun, theta0, method="L-BFGS-B", bounds=bounds,
-                       jac=True, options={"maxiter": maxiter, "ftol": 1e-2})
+        """L-BFGS-B host loop over the objective: (theta, NLL)."""
+        res = self._minimize(fun, theta0, bounds, maxiter)
         return res.x, res.fun
 
     def fit(self, TrainData=None, show: bool = True, opt: bool = True,
             maxiter: int = 10):
         """opt=True: optimise the kernel's (sigma, l) or (sigma, sigma0)
         [and the noise] by L-BFGS-B over the NLL from the current values,
-        then refactorise the training covariance from scratch.
+        its traces as ``trace`` and the gate decide
+        (``_gated_trace_mode``), then refactorise the training covariance
+        from scratch.  With the estimated traces L-BFGS-B pairs an exact
+        value with an estimated gradient, so a run that ends in a failed
+        line search (scipy's status 2, e.g. ABNORMAL_TERMINATION_IN_LNSRCH)
+        is run once more with the exact trace, and logged.
         opt=False: extend the factor of the last fit by the rows appended
         since (``_try_incremental_fit``), or refactorise where it cannot.
         ``refit_stats`` counts each path with the wall milliseconds of
@@ -769,9 +1046,20 @@ class GP:
         if opt:
             print(f"Update GP model => {self.N_queue}/{maxiter}")
             theta0, bounds, noise_opt = self._theta()
-            params, _ = self.optimize(
-                self._objective(e, f, y, noise_opt, show), theta0, bounds,
-                maxiter=maxiter)
+            trace = self._gated_trace_mode(e, f, y, theta0, noise_opt)
+            res = self._minimize(self._objective(e, f, y, noise_opt, show,
+                                                 trace), theta0, bounds,
+                                 maxiter)
+            if trace == "hutch" and res.status == 2:
+                self.logging.info(
+                    "L-BFGS-B with the Hutchinson trace ended in %r: "
+                    "rerun with the exact trace", str(res.message))
+                trace = "exact"
+                res = self._minimize(self._objective(e, f, y, noise_opt,
+                                                     show), theta0, bounds,
+                                     maxiter)
+            self._nll_trace_used = trace
+            params = res.x
             if noise_opt:
                 self.kernel.update(params[:-1])
                 self.noise_e = float(params[-1])
@@ -802,6 +1090,11 @@ class GP:
         self.refit_stats[path + "_ms"] += (time.perf_counter() - t0) * 1e3
         self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
         self.fits += 1
+
+    def set_K_inv(self):
+        """API parity (gaussianprocess.py:128-131): the reference forms
+        K^-1 here; this GP keeps the factor ``L_`` and forms none."""
+        return
 
     # -- incremental refit (gp.py:1223-1425 of the JAX package) --------------
     def _params_signature(self):
@@ -955,32 +1248,47 @@ class GP:
     def _predict_points(self, energy_pts, force_pts, return_std=False,
                         total_E=False):
         """Means (and stds) for explicit descriptor points, ordered
-        [energies..., forces...] (gaussianprocess.py:319-379)."""
+        [energies..., forces...] (gaussianprocess.py:319-379); a force
+        point gives 3 rows, or 9 when its dxdr carries the strain rows."""
         te, tf, _, _ = self._train_view()
         kw = dict(d=te.d, device=self.device, dtype=self.dtype)
         pe = pack_energy(energy_pts, **kw)
         pf = pack_force(force_pts, **kw)
         mean, std = self._serve(pe, pf, te, tf, return_std)
         nE, nF = len(energy_pts), len(force_pts)
+        f_rows = slice(pe.m, pe.m + pf.ncart * nF)
         mean_e = mean[:nE]
-        mean_f = mean[pe.m:pe.m + 3 * nF]
+        mean_f = mean[f_rows]
         if total_E:
             mean_e = mean_e * np.asarray([len(p[0]) for p in energy_pts])
         if return_std:
             std_e = std[:nE]
-            std_f = std[pe.m:pe.m + 3 * nF]
+            std_f = std[f_rows]
             if total_E:
                 std_e = std_e * np.asarray([len(p[0]) for p in energy_pts])
             return mean_e, mean_f, std_e, std_f
         return mean_e, mean_f
 
-    def predict(self, X: Dict, total_E=False, return_std=False):
-        """Predict for explicit point dicts (gaussianprocess.py:319-379)."""
+    def predict(self, X: Dict, total_E=False, return_std=False,
+                return_cov=False, stress=False):
+        """Predict for explicit point dicts (gaussianprocess.py:319-379):
+        means ordered [energies..., rows of each force point...], a force
+        point's rows 3, or 9 when its dxdr carries the strain rows
+        appended (as ``predict_structure(stress=True)`` builds them; the
+        raw kernel rows' sign).  stress=True checks that the points do.
+        return_std adds the stds; return_cov returns (mean, the full
+        predictive covariance) instead (``_predict_cov``)."""
         energy_pts = [(np.asarray(p[0], float), np.asarray(p[-1], int))
                       for p in X.get("energy", [])]
         force_pts = [(np.asarray(p[0], float), np.asarray(p[1], float),
                       np.asarray(p[-1], int))
                      for p in X.get("force", [])]
+        if stress and force_pts and force_pts[0][1].shape[2] != 9:
+            raise ValueError(
+                "stress=True requires 9-column force points (dxdr with "
+                "appended rdxdr stress terms, cf. predict_structure)")
+        if return_cov:
+            return self._predict_cov(energy_pts, force_pts, total_E)
         out = self._predict_points(energy_pts, force_pts,
                                    return_std=return_std, total_E=total_E)
         if return_std:
@@ -990,15 +1298,59 @@ class GP:
         mean_e, mean_f = out
         return np.concatenate([mean_e, mean_f])
 
+    def _predict_cov(self, energy_pts, force_pts, total_E=False):
+        """(mean, cov): the full predictive covariance K(X, X) - K_t K^-1
+        K_t^T of the points (gaussianprocess.py:363-366), on the model's
+        device in float64: K_t from ``k_block`` (K2, K3) and the points'
+        own block from ``k_self`` (K1, K2), both float64 as serving and
+        ``_factorize`` assemble them, solved against the float64 factor
+        ``L_`` in its insertion order (``_factor_cols``).  Its diagonal
+        takes the prior that ``predict``'s std is served from
+        (``_prior``), so the two give one variance: on the card the
+        self block's float32 diagonal and that prior differ by float32
+        rounding of a prior far larger than the posterior variance.  Only
+        the returned arrays go to the host.  Raises ValueError, before any
+        allocation, when its float64 buffers would take more than
+        MEMORY_SHARE of the device's free memory."""
+        te, tf, _, _ = self._train_view()
+        kw = dict(d=te.d, device=self.device, dtype=self.dtype)
+        pe = pack_energy(energy_pts, **kw)
+        pf = pack_force(force_pts, **kw)
+        n_q, n_t = pe.m + pf.ncart * pf.m, te.m + 3 * tf.m
+        _check_buffers(self.device, 8 * (3 * n_q * n_t + 3 * n_q * n_q),
+                       "the predictive covariance")
+        f64 = torch.float64
+        params, zeta, kind = (self.kernel.params(), self.kernel.zeta,
+                              self.kernel.kind)
+        Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind,
+                           mesh=self._mesh_arg(),
+                           train_ops=self._train_operands(), dtype=f64)
+        mean = Kt @ self.alpha_
+        V = torch.linalg.solve_triangular(
+            self.L_, Kt.T.index_select(0, self._factor_cols), upper=False)
+        del Kt
+        cov = K_ops.k_self(pe, pf, params, zeta, kind, dtype=f64)
+        cov.diagonal().copy_(_prior(pe, pf, params, zeta, kind, f64))
+        cov -= V.T @ V
+        nE, nF = len(energy_pts), len(force_pts)
+        rows = torch.as_tensor(
+            np.r_[np.arange(nE), pe.m + np.arange(pf.ncart * nF)],
+            device=self.device)
+        mean = mean[rows].cpu().numpy()
+        if total_E:
+            mean[:nE] *= np.asarray([len(p[0]) for p in energy_pts])
+        return mean, cov[rows[:, None], rows[None, :]].cpu().numpy()
+
     def predict_structure(self, struc, stress: bool = False,
                           return_std: bool = False, f_tol: float = 1e-8):
         """Main per-structure API (gaussianprocess.py:834-918): energy,
-        forces (fixed atoms zero) and, with return_std, their stds."""
-        if stress:
-            raise NotImplementedError(
-                "stress prediction is not ported yet (ROADMAP: stress)")
-        E, F, *std = self._serve_structures([struc], return_std)[0]
-        return (E, F, None, *std)
+        forces (fixed atoms zero), the per-atom stress rows S (natoms, 6)
+        in (xx, yy, zz, xy, xz, yz) with ``stress`` (else None) and, with
+        return_std, the stds of E and F: (E, F, S[, E_std, F_std]).
+        stress needs a descriptor built with stress=True."""
+        E, F, S, *std = self._serve_structures([struc], return_std,
+                                               stress)[0]
+        return (E, F, S, *std)
 
     def predict_structures(self, strucs, return_std: bool = False):
         """Batched per-structure prediction (gp.py:1989-2069 of the JAX
@@ -1008,51 +1360,86 @@ class GP:
         an optimizer step.  Returns a list of (E, F) or (E, F, E_std,
         F_std) per structure, with the base potential added and fixed-atom
         rows as ``predict_structure`` gives them."""
-        return self._serve_structures(strucs, return_std)
+        return [(E, F, *std) for E, F, _, *std
+                in self._serve_structures(strucs, return_std)]
 
-    def _serve_structures(self, strucs, return_std):
+    def _serve_structures(self, strucs, return_std, stress: bool = False):
         """Serve structures in one descriptor call, one pack and one
-        served block: per structure (E, F) or (E, F, E_std, F_std), E and
-        F with the base potential added and the fixed atoms' forces and
-        stds zero.  The descriptors (``SO3.calculate_many_device``, one
-        ``_so3_core`` call) are computed in float64 and rounded once to
-        the working dtype: in float32 the core's segment sums
-        (``index_add_``) add in no fixed order on the card, so a structure
-        served twice got descriptors ~4e-7 apart and energies up to
-        1.6e-4 eV apart (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)."""
+        served block: per structure (E, F, S) or (E, F, S, E_std, F_std),
+        E and F with the base potential added and the fixed atoms' forces
+        zero (their stds too, but with ``stress``, as the JAX package
+        gives them).  stress: every atom's force point carries the strain
+        rows, and S = -(their 6 rows) (natoms, 6) plus the base
+        potential's stress in that column order, else S is None.  The
+        descriptors (``SO3.calculate_many_device``, one ``_so3_core``
+        call) are computed in float64 and rounded once to the working
+        dtype: in float32 the core's segment sums (``index_add_``) add in
+        no fixed order on the card, so a structure served twice got
+        descriptors ~4e-7 apart and energies up to 1.6e-4 eV apart (NVIDIA
+        H100 80GB HBM3, 700.00 W; PERF.md)."""
+        if stress and not getattr(self.descriptor, "stress", False):
+            raise ValueError(
+                "stress=True needs a stress-enabled descriptor: construct "
+                "SO3(..., stress=True) so the rdxdr strain rows are "
+                "computed")
         descs = self.descriptor.calculate_many_device(
             strucs, device=self.device, dtype=torch.float64,
             pair_budget=math.inf)
         for d in descs:
-            d["x"] = d["x"].to(self.dtype)
-            if d["dxdr"] is not None:
-                d["dxdr"] = d["dxdr"].to(self.dtype)
+            for key in ("x", "dxdr", "rdxdr"):
+                if d[key] is not None:
+                    d[key] = d[key].to(self.dtype)
         te, tf, _, _ = self._train_view()
-        pe, pf, sels = _pack_structures(strucs, descs)
+        pe, pf, sels = _pack_structures(strucs, descs, stress)
         mean, std = self._serve(pe, pf, te, tf, return_std)
+        ncart = pf.ncart
         out = []
         f_off = pe.m
-        for k, (struc, free_ids) in enumerate(zip(strucs, sels)):
+        for k, (struc, ids) in enumerate(zip(strucs, sels)):
             natoms = len(struc)
-            rows = slice(f_off, f_off + 3 * len(free_ids))
+            rows = slice(f_off, f_off + ncart * len(ids))
             f_off = rows.stop
+            if not stress:
+                fixed = np.setdiff1d(np.arange(natoms), ids)
+            else:
+                fixed = np.asarray(struc.fixed_indices() if hasattr(
+                    struc, "fixed_indices") else [], int)
             E = mean[k] * natoms
+            mean_rows = mean[rows].reshape(-1, ncart)
             F = np.zeros((natoms, 3))
-            F[free_ids] = mean[rows].reshape(-1, 3)
+            F[ids] = mean_rows[:, :3]
+            F[fixed] = 0.0
+            # the raw rows carry the force functional's sign, -dE/d(eps)
+            # / vol for the strain columns: negated to the ASE convention
+            # (the JAX package's gp.py:1876-1886)
+            S = -mean_rows[:, 3:] if stress else None
             if self.base_potential is not None:
-                e_off, f_base, _ = self.compute_base_potential(struc)
+                e_off, f_base, s_off = self.compute_base_potential(struc)
                 E += e_off
                 F += f_base
-                F[np.setdiff1d(np.arange(natoms), free_ids)] = 0.0
+                F[fixed] = 0.0
+                if stress and s_off is not None:
+                    # the base calculators give ASE Voigt (xx, yy, zz, yz,
+                    # xz, xy); the strain rows are (xx, yy, zz, xy, xz, yz)
+                    S = S + np.asarray(s_off)[..., [0, 1, 2, 5, 4, 3]]
             if not return_std:
-                out.append((E, F))
+                out.append((E, F, S))
                 continue
             F_std = np.zeros((natoms, 3))
-            F_std[free_ids] = std[rows].reshape(-1, 3)
-            out.append((E, F, std[k], F_std))
+            F_std[ids] = std[rows].reshape(-1, ncart)[:, :3]
+            out.append((E, F, S, std[k], F_std))
         return out
 
     # -- validation (gaussianprocess.py:490-551) -----------------------------
+    def update_y_train(self):
+        """API parity (gaussianprocess.py:472-488): the stored labels as
+        the (N_E + 3 N_F, 1) column ``y_train`` of the reference."""
+        y = np.concatenate([
+            np.asarray(self._energy_y[:self.N_energy], float),
+            np.asarray(self._force_y[:self.N_forces], float).reshape(-1)])
+        self.y_train = y.reshape(-1, 1)
+        return self.y_train
+
     def validate_data(self, test_data=None, total_E=False,
                       return_std=False, show=False):
         if test_data is None:
@@ -1200,6 +1587,34 @@ class GP:
                   F1.reshape(-1) + force_off.reshape(-1), F_std)
         return pts_to_add, N_pts, errors
 
+    # -- sparsification (gaussianprocess.py:1004-1023, 1165-1182) -------------
+    def sparsify(self, e_tol=1e-10, f_tol=1e-10):
+        """Drop the training points CUR finds redundant and refit: the
+        kernel covariance of the training set (``k_self`` in float64, K1
+        and K2 on the card; no noise), CUR over its energy block and its
+        force block on the model's device, and a force point removed only
+        when all three of its rows are chosen (the JAX package's rule);
+        then ``remove_train_pts``, which refits from scratch."""
+        e, f = self._pack(self.N_energy, self.N_forces)
+        N_e, N_f = self.N_energy, self.N_forces
+        n = e.m + 3 * f.m
+        _check_buffers(self.device,
+                       8 * (n * n + 3 * max(N_e, 3 * N_f) ** 2),
+                       "sparsify")
+        K = K_ops.k_self(e, f, self.kernel.params(), self.kernel.zeta,
+                         self.kernel.kind, mesh=self._mesh_arg(),
+                         dtype=torch.float64)
+        pts_e = CUR(K[:N_e, :N_e], e_tol)
+        pts = CUR(K[e.m:e.m + 3 * N_f, e.m:e.m + 3 * N_f], f_tol)
+        del K
+        chosen = np.zeros(3 * N_f, bool)
+        chosen[pts] = True
+        pts_f = [i for i in range(N_f) if chosen[3 * i:3 * i + 3].all()]
+        print("{:d} energy and {:d} forces will be removed".format(
+            len(pts_e), len(pts_f)))
+        if len(pts_e) + len(pts_f) > 0:
+            self.remove_train_pts(pts_e, pts_f)
+
     # -- bootstrap (gaussianprocess.py:1025-1116) -----------------------------
     @classmethod
     def set_GPR(cls, images, base, kernel="RBF", zeta=2.0, noise_e=0.002,
@@ -1318,3 +1733,22 @@ class GP:
             self.add_structure((image.copy(), eng, forces))
         self.fit()
         self.validate_data(show=True)
+
+
+def CUR(K, l_tol=1e-10):
+    """The rows that CUR finds redundant in the symmetric K
+    (gaussianprocess.py:1165-1182; Appendix D of Jinnouchi et al., PRB 100,
+    014105 (2019)): with the N eigenvalues of K below ``l_tol``, the N
+    rows of the largest weight in their eigenvectors, sum over those
+    eigenvectors of U_ij^2.  ``torch.linalg.eigh`` in float64 runs on K's
+    device (a NumPy K: on the CPU), the ranking on the host (NumPy's
+    argsort, as the JAX package's).  Raises ValueError, before it
+    allocates, when its float64 buffers would take more than MEMORY_SHARE
+    of that device's free memory."""
+    K = torch.as_tensor(K)
+    n = K.shape[0]
+    _check_buffers(K.device, 8 * 3 * n * n, "CUR")
+    L, U = torch.linalg.eigh(K.to(torch.float64))
+    low = L < l_tol
+    omega = (U[:, low] ** 2).sum(dim=1).cpu().numpy()
+    return np.argsort(-omega)[:int(low.sum())]

@@ -22,10 +22,12 @@ class _BlockAPI:
 
     ``data`` is the point-list layout the GP stores: ``{"energy": [(x,
     ele), ...], "force": [(x, dxdr, ele), ...]}`` with x (Ni, d) and dxdr
-    (Ni, d, 3).  Rows/cols are ordered [energies..., 3 rows per force
-    point...] like the reference's build_covariance (kernels/base.py:
-    3-30).  The points are packed on the working device and dtype
-    (``config``); the results are NumPy arrays."""
+    (Ni, d, 3), or (Ni, d, 9) with the strain rows appended (as
+    ``GP.predict_structure(stress=True)`` builds them).  Rows/cols are
+    ordered [energies..., 3 (9) rows per force point...] like the
+    reference's build_covariance (kernels/base.py:3-30).  The points are
+    packed on the working device and dtype (``config``); the results are
+    NumPy arrays."""
 
     def _pack(self, data):
         energy_pts = [(np.asarray(p[0], float), np.asarray(p[-1], int))
@@ -43,25 +45,25 @@ class _BlockAPI:
                 len(energy_pts), len(force_pts))
 
     @staticmethod
-    def _real_rows(e, n_e, n_f):
+    def _real_rows(e, f, n_e, n_f):
         # pack_* emits one dummy padded point for an empty side; keep the
         # real rows (absent blocks drop out, like build_covariance's None
         # branches)
-        return np.r_[np.arange(n_e), e.m + np.arange(3 * n_f)]
+        return np.r_[np.arange(n_e), e.m + np.arange(f.ncart * n_f)]
 
     def k_total(self, data1, data2=None, f_tol=1e-10, tol=None):
         """Block covariance [[K_EE, K_EF], [K_FE, K_FF]] (RBF_mb.py:135-171,
         Dot_mb.py:87-119); data2=None gives the symmetric self
         covariance."""
         e1, f1, n_e1, n_f1 = self._pack(data1)
-        r = self._real_rows(e1, n_e1, n_f1)
+        r = self._real_rows(e1, f1, n_e1, n_f1)
         if data2 is None:
             K = K_ops.k_self(e1, f1, self.params(), self.zeta, self.kind)
             return _numpy(K)[np.ix_(r, r)]
         e2, f2, n_e2, n_f2 = self._pack(data2)
         K = K_ops.k_block(e1, f1, e2, f2, self.params(), self.zeta,
                           self.kind)
-        return _numpy(K)[np.ix_(r, self._real_rows(e2, n_e2, n_f2))]
+        return _numpy(K)[np.ix_(r, self._real_rows(e2, f2, n_e2, n_f2))]
 
     def k_total_with_grad(self, data1, f_tol=1e-10):
         """(C, dC), dC = dstack(dC/dsigma, dC/d(second parameter))
@@ -81,16 +83,35 @@ class _BlockAPI:
             C2[:e1.m, :e1.m] = (2.0 * self.sigma ** 2 * self.sigma0
                                 * _numpy(K_ops.count_ee(e1)))
         C_s = (2.0 / self.sigma) * K
-        ix = np.ix_(*[self._real_rows(e1, n_e1, n_f1)] * 2)
+        ix = np.ix_(*[self._real_rows(e1, f1, n_e1, n_f1)] * 2)
         return K[ix], np.dstack((C_s[ix], C2[ix]))
 
     def k_total_with_stress(self, data1, data2, tol=1e-10):
-        raise NotImplementedError(
-            "stress rows are not ported yet (ROADMAP.md, port queue item 6)")
+        """(C, C_stress) for serving with strain rows (RBF_mb.py:206-229):
+        data1's force points carry 9 cartesian columns (dxdr with the
+        strain rows appended, as ``GP.predict_structure(stress=True)``
+        builds them); one served block (``k_block``: K2 and K3 a launch
+        per group of three columns) gives all 9 rows a point, and C_stress
+        takes rows 3..8 of each.  The raw kernel rows' sign, as the
+        reference's; ``GP.predict_structure`` negates them."""
+        e1, f1, n_e1, n_f1 = self._pack(data1)
+        if n_f1 and f1.ncart != 9:
+            raise ValueError(
+                "stress build needs 9-column force points (dxdr with "
+                "appended rdxdr stress terms, cf. GP.predict_structure)")
+        e2, f2, n_e2, n_f2 = self._pack(data2)
+        full = _numpy(K_ops.k_block(e1, f1, e2, f2, self.params(),
+                                    self.zeta, self.kind))
+        full = full[:, self._real_rows(e2, f2, n_e2, n_f2)]
+        ncols = full.shape[1]
+        f_blocks = full[e1.m:e1.m + 9 * n_f1].reshape(n_f1, 9, ncols)
+        C = np.concatenate(
+            [full[:n_e1], f_blocks[:, :3].reshape(3 * n_f1, ncols)], axis=0)
+        return C, f_blocks[:, 3:].reshape(6 * n_f1, ncols)
 
     def diag(self, data):
-        """Self-variance diagonal: one entry per energy point, then 3 per
-        force point (RBF_mb.py:62-133)."""
+        """Self-variance diagonal: one entry per energy point, then 3 (or
+        9) per force point (RBF_mb.py:62-133)."""
         e, f, n_e, n_f = self._pack(data)
         params = self.params()
         out = []

@@ -32,9 +32,9 @@ import torch
 
 from .. import config
 from .kff import (TP, _coeffs, _mirror, _point_sum, _scalars, _sorts,
-                  dense, energy_operand, force_operand, kee_from_ops,
-                  kee_served, kef_from_ops, kef_plain, kff_from_ops,
-                  kff_plain, n_tri_tiles)
+                  dense, energy_operand, force_operand, force_operands,
+                  kee_from_ops, kee_served, kef_from_ops, kef_plain,
+                  kff_from_ops, kff_plain, n_tri_tiles)
 from .packing import EnergyData, ForceData
 
 
@@ -120,8 +120,12 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
     for bit.  rest: the training rows (e0, f0) these rows extend (the new
     self block of an incremental refit): the envs are then sorted as a
     full refit's sides would be (``gram_sorts``), on the unsharded
-    route."""
+    route.  Force points with 9 cartesian columns (the self block of a
+    stress request's predictive covariance) take ``_k_self_groups``, on
+    one device."""
     mode = config.kff_precision(mm_precision)
+    if f.ncart != 3:
+        return _k_self_groups(e, f, params, zeta, kind, plain, dtype, mode)
     if _sharded(mesh, plain) and _sharded_train_ok(f.m, mesh.size):
         from ..parallel.sharded_kernels import self_blocks_sharded
         (K,) = self_blocks_sharded(e, f, params, kind, zeta, False, mesh,
@@ -153,9 +157,44 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
     return K
 
 
+def _k_self_groups(e: EnergyData, f: ForceData, params, zeta: int,
+                   kind: str, plain: bool, dtype, mode: str):
+    """``k_self`` of force points with strain rows, rows (point, 9): per
+    group of three columns (``force_operands``) K_EF by K2 and the
+    diagonal group block by K1; between two groups K3, the lower block
+    its transpose.  Assembled group-major and permuted once into (point,
+    group, 3) order."""
+    A, B, m = e.x.shape[1], f.x.shape[1], e.m
+    U, w = energy_operand(e, mode)
+    Xs, re = force_operands(f, mode)
+    Ud = dense(U)
+    dt = Ud.dtype if dtype is None else dtype
+    kef = kef_plain if plain else kef_from_ops
+    kff = kff_plain if plain else kff_from_ops
+    kw = dict(kind=kind) if plain else dict(kind=kind, mm_precision=mode)
+    n_g, n_f = len(Xs), 3 * f.m
+    K = torch.empty((m + n_g * n_f,) * 2, dtype=dt, device=Ud.device)
+    K[:m, :m] = _mirror(kee_from_ops(Ud.to(dt), w.to(dt), A, Ud.to(dt),
+                                     w.to(dt), A, params, zeta, kind=kind))
+    for g, Xg in enumerate(Xs):
+        rg = slice(m + g * n_f, m + (g + 1) * n_f)
+        K[:m, rg] = kef(U, w, A, Xg, re, B, params, zeta, **kw)
+        K[rg, rg] = kff(Xg, re, B, Xg, re, B, params, zeta, symmetric=True,
+                        **kw)
+        for h in range(g + 1, n_g):
+            rh = slice(m + h * n_f, m + (h + 1) * n_f)
+            K[rg, rh] = kff(Xg, re, B, Xs[h], re, B, params, zeta, **kw)
+            K[rh, rg] = K[rg, rh].T
+        K[rg, :m] = K[:m, rg].T
+    order = torch.arange(n_g * n_f, device=K.device).view(
+        n_g, f.m, 3).transpose(0, 1).reshape(-1)
+    order = torch.cat([torch.arange(m, device=K.device), m + order])
+    return K[order[:, None], order[None, :]]
+
+
 def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
                 plain: bool = False, mm_precision: str | None = None,
-                mesh=None):
+                mesh=None, dtype=None):
     """(K, dK/dgamma) of the symmetric RBF training covariance, gamma =
     1 / (2 l^2): one fused pass per block (K1-dual, K2-dual on the card),
     which the analytic NLL gradient runs at every L-BFGS-B evaluation.
@@ -164,21 +203,26 @@ def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
     precision, and all three blocks read the same rounded values (PSD
     contract); each matrix is one buffer that K1-dual and K2-dual write
     their two planes into (``out=``, ``outd=``), and both come out exactly
-    symmetric.  plain=True
-    takes the plain versions on any device (the float64 reference on the
-    card).  mesh: the dual pass over K1's tile ranges, one per shard."""
+    symmetric.  dtype (default: the operands'): the result's, as in
+    ``k_self``: K_EE and dK_EE/dgamma are computed in it from the rounded
+    operand values and the kernels' force blocks are cast to it, so K in
+    float64 is ``k_self(dtype=float64)``'s K.  plain=True takes the plain
+    versions on any device (the float64 reference on the card).  mesh:
+    the dual pass over K1's tile ranges, one per shard."""
     mode = config.kff_precision(mm_precision)
     if _sharded(mesh, plain) and _sharded_train_ok(f.m, mesh.size):
         from ..parallel.sharded_kernels import self_blocks_sharded
         return self_blocks_sharded(e, f, params, "rbf", zeta, True, mesh,
-                                   mm_precision=mode)
+                                   mm_precision=mode, dtype=dtype)
     A, B, m = e.x.shape[1], f.x.shape[1], e.m
     U, w = energy_operand(e, mode)
     X, re = force_operand(f, mode)
     Ud = dense(U)
-    Ks, direct = _self_buffers(e, f, 2, Ud.dtype, Ud.device)
+    dt = Ud.dtype if dtype is None else dtype
+    Ks, direct = _self_buffers(e, f, 2, dt, Ud.device)
     direct = direct and not plain
-    ee = kee_from_ops(Ud, w, A, Ud, w, A, params, zeta, dual=True)
+    ee = kee_from_ops(Ud.to(dt), w.to(dt), A, Ud.to(dt), w.to(dt), A,
+                      params, zeta, dual=True)
     if plain:
         ef = kef_plain(U, w, A, X, re, B, params, zeta, dual=True)
         ff = kff_plain(X, re, B, X, re, B, params, zeta, symmetric=True,
@@ -211,8 +255,10 @@ def reset_operand_builds() -> None:
 
 class SideOperands(NamedTuple):
     """The operands of one side of a serving block in matmul precision
-    ``mode``: energy (U, w, A), force (X, re, B), and the unrounded
-    energy rows ``Ue`` that K_EE reads (U itself in "highest")."""
+    ``mode``: energy (U, w, A), force (X, re, B), the unrounded energy
+    rows ``Ue`` that K_EE reads (U itself in "highest"), and ``Xs`` the
+    operands of the strain column groups of a stress request's force
+    points (``force_operands``; empty for three columns)."""
     mode: str
     U: torch.Tensor
     w: torch.Tensor
@@ -221,6 +267,7 @@ class SideOperands(NamedTuple):
     re: torch.Tensor
     B: int
     Ue: torch.Tensor
+    Xs: tuple = ()
 
 
 def gram_sorts(e: EnergyData, f: ForceData, rest=None):
@@ -243,10 +290,11 @@ def side_operands(e: EnergyData, f: ForceData, mode: str,
     rest: as in ``k_self``."""
     sort = gram_sorts(e, f, rest)
     U, w = energy_operand(e, mode, sort[0])
-    X, re = force_operand(f, mode, sort[1])
+    (X, *Xs), re = force_operands(f, mode, sort[1])
     Ue = U if mode == "highest" else energy_operand(e, "highest", sort[0])[0]
     operand_builds[role] += 1
-    return SideOperands(mode, U, w, e.x.shape[1], X, re, f.x.shape[1], Ue)
+    return SideOperands(mode, U, w, e.x.shape[1], X, re, f.x.shape[1], Ue,
+                        tuple(Xs))
 
 
 def block_operands(e1: EnergyData, f1: ForceData, e2: EnergyData,
@@ -300,9 +348,17 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
     "train")``) when the caller keeps them, as a fitted GP does; they must
     have been built in this mode.  mesh: the training force axis (data2)
     runs in column stripes, one per shard (``k_block_sharded``, which
-    builds its own operands)."""
+    builds its own operands).  data1's force points may carry 9 cartesian
+    columns (a stress request; data2 carries 3): its rows are then
+    (point, 9), each group of three columns (``force_operands``) one
+    launch of K2 with the transposed store and one of K3, and the block
+    is built unsharded on the mesh's root."""
     mode = config.kff_precision(mm_precision)
-    if _sharded(mesh) and _sharded_serving_ok(f2.m, mesh.size):
+    if f2.ncart != 3:
+        raise ValueError("the training side of a block carries 3 "
+                         "cartesian columns")
+    if _sharded(mesh) and _sharded_serving_ok(f2.m, mesh.size) \
+            and f1.ncart == 3:
         from ..parallel.sharded_kernels import k_block_sharded
         return k_block_sharded(e1, f1, e2, f2, params, mesh, kind, zeta,
                                mm_precision=mode, gram=gram, dtype=dtype)
@@ -316,14 +372,28 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
     K_ee = block_kee(s1.Ue, s1.U, s1.w, s1.A, s2.Ue, s2.U, s2.w, s2.A,
                      params, zeta, kind, gram, dtype)
     m1, m2 = K_ee.shape
-    K = torch.empty((m1 + 3 * f1.m, m2 + 3 * f2.m), dtype=e1.x.dtype,
-                    device=K_ee.device)
+    groups = (s1.X,) + s1.Xs
+    K = torch.empty((m1 + 3 * len(groups) * f1.m, m2 + 3 * f2.m),
+                    dtype=e1.x.dtype, device=K_ee.device)
     kef_from_ops(s1.U, s1.w, s1.A, s2.X, s2.re, s2.B, params, zeta,
                  out=K[:m1, m2:], **kw)
-    kef_from_ops(s2.U, s2.w, s2.A, s1.X, s1.re, s1.B, params, zeta,
-                 out=K[m1:, :m2], transpose=True, **kw)
-    kff_from_ops(s1.X, s1.re, s1.B, s2.X, s2.re, s2.B, params, zeta,
-                 out=K[m1:, m2:], **kw)
+    # a stress request's rows are (point, 9): a column group's rows are
+    # then no 2-D view of one row stride, which the kernels' out= needs.
+    # So the groups' rows are built group-major, each group a slab that
+    # K2 (transposed) and K3 write in place, and permuted into (point,
+    # group, 3) order by one strided copy.
+    rows = K[m1:] if len(groups) == 1 else torch.empty(
+        (len(groups), 3 * f1.m, K.shape[1]), dtype=K.dtype, device=K.device)
+    for g, Xg in enumerate(groups):
+        slab = rows if len(groups) == 1 else rows[g]
+        kef_from_ops(s2.U, s2.w, s2.A, Xg, s1.re, s1.B, params, zeta,
+                     out=slab[:, :m2], transpose=True, **kw)
+        kff_from_ops(Xg, s1.re, s1.B, s2.X, s2.re, s2.B, params, zeta,
+                     out=slab[:, m2:], **kw)
+    if len(groups) > 1:
+        K[m1:].view(f1.m, len(groups), 3, -1).copy_(
+            rows.view(len(groups), f1.m, 3, -1).transpose(0, 1))
+        del rows
     K = K.to(K_ee.dtype)
     K[:m1, :m2] = K_ee
     return K
@@ -361,17 +431,21 @@ def diag_energy(e: EnergyData, params, zeta: int = 2, kind: str = "rbf",
 
 
 def diag_force(f: ForceData, params, zeta: int = 2, kind: str = "rbf"):
-    """Per-point diagonal of the 3 x 3 K_FF(p, p) block, (m, 3)."""
+    """Per-point diagonal of the ncart x ncart K_FF(p, p) block, (m,
+    ncart): 3 columns, or 9 with the strain rows of a stress request."""
     m, B = f.x.shape[:2]
     sigma2, p2 = _scalars(params, kind)
-    X, re = force_operand(f, "highest")
-    X = X.reshape(4, m, B, -1)
-    G = torch.einsum("ipad,jpbd->ijpab", X, X)          # (4, 4, m, B, B)
+    Xs, re = force_operands(f, "highest")
     rinv, ele = re[0].reshape(m, B), re[1].reshape(m, B)
     w = (rinv[:, :, None] * rinv[:, None, :]
          * (ele[:, :, None] == ele[:, None, :]))
-    _, A, Bc, _ = _coeffs(G[0, 0], sigma2, p2, zeta, kind)
-    A, Bc = A * w, Bc * w
-    cols = [(A * G[1 + u, 1 + u] + Bc * G[1 + u, 0] * G[0, 1 + u])
-            .sum(dim=(1, 2)) for u in range(3)]
+    cols = []
+    for X in Xs:
+        X = X.reshape(4, m, B, -1)
+        G = torch.einsum("ipad,jpbd->ijpab", X, X)      # (4, 4, m, B, B)
+        if not cols:
+            _, A, Bc, _ = _coeffs(G[0, 0], sigma2, p2, zeta, kind)
+            A, Bc = A * w, Bc * w
+        cols += [(A * G[1 + u, 1 + u] + Bc * G[1 + u, 0] * G[0, 1 + u])
+                 .sum(dim=(1, 2)) for u in range(3)]
     return torch.stack(cols, dim=1)

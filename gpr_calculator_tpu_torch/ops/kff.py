@@ -206,16 +206,25 @@ def _sorts(sort, m: int, B: int) -> bool:
     return m * B >= SORT_MIN_ENVS if sort is None else bool(sort)
 
 
-def force_operand(f, mm_precision: str | None = None,
-                  sort: bool | None = None):
-    """(X, re (2, N)) for a ForceData side, N = m * B: X (4, N, DP) in
-    the data's dtype, or its bf16 parts (P, 4, N, DP) for float32 data
-    in a bf16 mode.  sort: each point's envs ordered by element, padding
-    last (see the module docstring); None sorts sides of SORT_MIN_ENVS
-    envs or more."""
+def force_operands(f, mm_precision: str | None = None,
+                   sort: bool | None = None):
+    """(Xs, re (2, N)) for a ForceData side, N = m * B: one operand X_g =
+    [u; Jt of columns 3g..3g+2] a group of three cartesian columns of
+    f.dxdr -- one group for a force point, three (the forces, then the
+    strain rows xx, yy, zz and xy, xz, yz) for the 9 columns of a stress
+    request -- each (4, N, DP) in the data's dtype, or its bf16 parts
+    (P, 4, N, DP) for float32 data in a bf16 mode.  K_FF and K_EF are
+    linear in a side's Jt rows, so each group is a side of its own for
+    the kernels.  sort: each point's envs ordered by element, padding
+    last, alike in every group (see the module docstring); None sorts
+    sides of SORT_MIN_ENVS envs or more."""
     mode = config.kff_precision(mm_precision)
     m, B, d = f.x.shape
     x, J, ele = f.x, f.dxdr, f.ele
+    ncart = J.shape[3]
+    if ncart % 3:
+        raise ValueError(f"{ncart} cartesian columns are not whole groups "
+                         "of three")
     n = torch.sqrt(torch.sum(x * x, dim=2))
     valid = (n > config.EPS) & (ele > 0)
     if _sorts(sort, m, B):
@@ -223,16 +232,32 @@ def force_operand(f, mm_precision: str | None = None,
         x = torch.take_along_dim(x, order[:, :, None], 1)
         J = torch.take_along_dim(J, order[:, :, None, None], 1)
         ele, n, valid = (torch.gather(t, 1, order) for t in (ele, n, valid))
-    x, J = x.reshape(m * B, d), J.reshape(m * B, d, 3)
+    x, J = x.reshape(m * B, d), J.reshape(m * B, d, ncart)
     ele, n, valid = ele.reshape(-1), n.reshape(-1), valid.reshape(-1)
     nsafe = torch.where(valid, n, torch.ones_like(n))
     u = x / nsafe[:, None]
     rinv = torch.where(valid, 1.0 / nsafe, torch.zeros_like(n))
     q = torch.einsum("ndu,nd->nu", J, u)
     Jt = J - u[:, :, None] * q[:, None, :]
-    X = torch.cat([u[None], Jt.permute(2, 0, 1)], dim=0)     # (4, N, d)
+    X = torch.cat([u[None], Jt.permute(2, 0, 1)], dim=0)  # (1 + ncart, N, d)
+    groups = [X] if ncart == 3 else [
+        X[[0, 1 + c, 2 + c, 3 + c]] for c in range(0, ncart, 3)]
     re = torch.stack([rinv, ele.to(x.dtype)])
-    return _pad_lanes(_rounded(X, mode)), re.contiguous()
+    return ([_pad_lanes(_rounded(Xg, mode)) for Xg in groups],
+            re.contiguous())
+
+
+def force_operand(f, mm_precision: str | None = None,
+                  sort: bool | None = None):
+    """(X, re (2, N)) for a ForceData side of three cartesian columns, N
+    = m * B: X (4, N, DP) in the data's dtype, or its bf16 parts (P, 4,
+    N, DP) for float32 data in a bf16 mode (``force_operands``; a side
+    with strain rows has one operand per group of three columns)."""
+    Xs, re = force_operands(f, mm_precision, sort)
+    if len(Xs) != 1:
+        raise ValueError(f"a side of {f.ncart} cartesian columns has "
+                         f"{len(Xs)} operands: use force_operands")
+    return Xs[0], re
 
 
 def energy_operand(e, mm_precision: str | None = None,

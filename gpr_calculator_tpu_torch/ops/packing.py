@@ -1,7 +1,11 @@
 """Padded tensor layout for GPR training/prediction points.
 
     energy point block:  x (m, A, d), ele (m, A)
-    force point block :  x (m, B, d), dxdr (m, B, d, 3), ele (m, B)
+    force point block :  x (m, B, d), dxdr (m, B, d, ncart), ele (m, B)
+
+ncart is 3, or 9 for the points of a stress request: the 3 force columns
+and the 6 strain columns (xx, yy, zz, xy, xz, yz) of the descriptor's
+rdxdr rows.
 
 A/B are padded per-point environment counts and ``ele == 0`` marks
 padding (zero descriptors), as in the JAX package's ``ops/packing.py``.
@@ -50,7 +54,8 @@ class ForceData(NamedTuple):
 
     x     : (m, B, d) descriptors of the environments whose power
             spectrum depends on the target atom's position
-    dxdr  : (m, B, d, 3) gradients dX/dr of each environment
+    dxdr  : (m, B, d, ncart) gradients dX/dr of each environment (and,
+            ncart = 9, its strain rows)
     ele   : (m, B) int32 atomic numbers of env centres, 0 = padding
     nreal : number of real points
     """
@@ -71,6 +76,10 @@ class ForceData(NamedTuple):
     @property
     def d(self) -> int:
         return self.x.shape[2]
+
+    @property
+    def ncart(self) -> int:
+        return self.dxdr.shape[3]
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -135,9 +144,10 @@ def pack_energy(points: Sequence, m_pad: Optional[int] = None,
 
 def pack_force(points: Sequence, m_pad: Optional[int] = None,
                b_pad: Optional[int] = None, d: Optional[int] = None,
-               device=None, dtype=None) -> ForceData:
-    """Pack ragged force points [(x_i (Ni, d), dxdr_i (Ni, d, 3),
-    ele_i (Ni,)), ...]."""
+               device=None, dtype=None, ncart: int = 3) -> ForceData:
+    """Pack ragged force points [(x_i (Ni, d), dxdr_i (Ni, d, c),
+    ele_i (Ni,)), ...], c = 3 or 9 (stress rows appended); ``ncart``
+    is the width of an empty block and must be 3 or the points' c."""
     dev, dt = _placement(device, dtype)
     n = len(points)
     if n == 0:
@@ -147,7 +157,8 @@ def pack_force(points: Sequence, m_pad: Optional[int] = None,
         b_pad = b_pad or 1
         return ForceData(
             x=torch.zeros((m_pad, b_pad, d), dtype=dt, device=dev),
-            dxdr=torch.zeros((m_pad, b_pad, d, 3), dtype=dt, device=dev),
+            dxdr=torch.zeros((m_pad, b_pad, d, ncart), dtype=dt,
+                             device=dev),
             ele=torch.zeros((m_pad, b_pad), dtype=torch.int32, device=dev),
             nreal=0)
     d_data = points[0][0].shape[1]
@@ -155,16 +166,19 @@ def pack_force(points: Sequence, m_pad: Optional[int] = None,
         raise ValueError(f"declared descriptor width d={d} but the points "
                          f"carry {d_data}")
     d = d_data
-    if points[0][1].shape[2] != 3:
-        raise ValueError("force points must carry 3 cartesian columns "
-                         "(stress rows are not ported)")
+    nc_data = points[0][1].shape[2]
+    if nc_data not in (3, 9) or ncart not in (3, nc_data):
+        raise ValueError(f"declared ncart={ncart} but the force points "
+                         f"carry {nc_data} cartesian columns (3, or 9 with "
+                         "the strain rows)")
+    ncart = nc_data
     max_b = max(int(p[0].shape[0]) for p in points)
     m_pad = m_pad or n
     b_pad = b_pad or max_b
     if m_pad < n or b_pad < max_b:
         raise ValueError("padding smaller than the data")
     x = np.zeros((m_pad, b_pad, d), np.float64)
-    dxdr = np.zeros((m_pad, b_pad, d, 3), np.float64)
+    dxdr = np.zeros((m_pad, b_pad, d, ncart), np.float64)
     ele = np.zeros((m_pad, b_pad), np.int32)
     for i, (xi, di, ei) in enumerate(points):
         ni = xi.shape[0]

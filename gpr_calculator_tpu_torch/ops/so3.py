@@ -11,10 +11,13 @@ The radial integral is Gauss-Chebyshev quadrature of the scaled Bessel
 integrand (ops/bessel.py); Y_lm are real (re, im) pairs (ops/sph.py).
 Everything after the host-built neighbour list runs on the tensors'
 device.  Outputs follow the reference dict contract:
-  {'x': (natoms, ncoef), 'dxdr': (nseq, ncoef, 3), 'elements': [str],
-   'seq': (nseq, 2)}
+  {'x': (natoms, ncoef), 'dxdr': (nseq, ncoef, 3), 'rdxdr': (nseq,
+   ncoef, 3, 3) or None, 'elements': [str], 'seq': (nseq, 2)}
 with dxdr[s] = dP(centre i_s)/dr_{j_s} and the (i, i) rows carrying
--sum_{j != i} dP_i/dr_j.
+-sum_{j != i} dP_i/dr_j.  With ``stress=True`` the strain rows rdxdr[s,
+c, n, m] = -(sum of R_n dP_c/dr_m over the pairs of row s) / volume, R
+the absolute position of the pair's neighbour (the self rows: minus that
+of the centre), the reference's convention (SO3.py:298-306).
 """
 from __future__ import annotations
 
@@ -97,15 +100,18 @@ def _segment_sum(vals, seg, nseg):
 
 
 def _so3_core(rij, weights, pair_center, pair_seq, self_seq, self_ids,
-              seq_center, q, G0, *, nmax: int, lmax: int, natoms: int,
-              nseq: int, rcut: float, alpha: float, derivative: bool,
-              cutoff: str):
+              seq_center, q, G0, pair_Ri=None, pair_Rj=None, *, nmax: int,
+              lmax: int, natoms: int, nseq: int, rcut: float, alpha: float,
+              derivative: bool, cutoff: str, stress: bool = False):
     """Pair c/dc -> per-centre power spectrum and its gradients.
 
     rij (P, 3), weights (P,), pair_center (P,), pair_seq (P,) with nseq
     for pairs outside the selection, self_seq/self_ids the (i, i) seq
-    rows and their atom ids, seq_center (nseq,), q (NQ,), G0 (nmax, NQ).
-    Returns (x (natoms, ncoef), dxdr (nseq, ncoef, 3) or None)."""
+    rows and their atom ids, seq_center (nseq,), q (NQ,), G0 (nmax, NQ);
+    with stress, pair_Ri/pair_Rj (P, 3) the absolute positions of each
+    pair's centre and neighbour.  Returns (x (natoms, ncoef), dxdr (nseq,
+    ncoef, 3) or None, pstress (nseq, ncoef, 3, 3) or None): pstress
+    before the caller's -1/volume (the JAX package's ops/so3.py:254-265)."""
     P = rij.shape[0]
     ncoef = nmax * (nmax + 1) // 2 * (lmax + 1)
     cut_fn = CUTOFFS[cutoff]
@@ -137,7 +143,7 @@ def _so3_core(rij, weights, pair_center, pair_seq, self_seq, self_ids,
                                natoms + 1)[:natoms]
         Pfull = (torch.einsum("anlm,aklm->ankl", ctot_re, ctot_re)
                  + torch.einsum("anlm,aklm->ankl", ctot_im, ctot_im))
-        return Pfull[:, tri[0], tri[1], :].reshape(natoms, ncoef), None
+        return Pfull[:, tri[0], tri[1], :].reshape(natoms, ncoef), None, None
 
     # Y to lmax+1 for the gradient recurrence
     Yext = ylm_all_ri(lmax + 1, u, ones)
@@ -188,13 +194,22 @@ def _so3_core(rij, weights, pair_center, pair_seq, self_seq, self_ids,
     dxdr = _segment_sum(dP_tri, pair_seq, nseq + 1)[:nseq]
     center_tot = _segment_sum(dxdr, seq_center, natoms + 1)[:natoms]
     dxdr = dxdr.index_add(0, self_seq, -center_tot[self_ids])
-    return x, dxdr
+    if not stress:
+        return x, dxdr, None
+    # pstress[(i, j)] = -sum_w Rj (x) dP_w; the self rows [(i, i)] add
+    # sum over the centre's pairs of Ri (x) dP, stored (ncoef, 3 = R,
+    # 3 = gradient) as the reference's 'wn,wijkm->wijknm' (SO3.py:298-303)
+    pstress = -_segment_sum(torch.einsum("pn,pcm->pcnm", pair_Rj, dP_tri),
+                            pair_seq, nseq + 1)[:nseq]
+    rdPi = _segment_sum(torch.einsum("pn,pcm->pcnm", pair_Ri, dP_tri),
+                        pair_center, natoms + 1)[:natoms]
+    return x, dxdr, pstress.index_add(0, self_seq, rdPi[self_ids])
 
 
 class SO3:
     """Drop-in equivalent of gpr_calc.SO3.SO3 (constructor contract
-    SO3.py:23-34, validation SO3.py:67-174).  Stress (rdxdr) rows are not
-    ported."""
+    SO3.py:23-34, validation SO3.py:67-174).  stress=True adds the strain
+    rows ``rdxdr`` to every dict (it needs derivative=True)."""
 
     def __init__(self, nmax: int = 3, lmax: int = 3, rcut: float = 3.5,
                  alpha: float = 2.0, derivative: bool = True,
@@ -211,15 +226,16 @@ class SO3:
         if cutoff_function not in CUTOFFS:
             raise NotImplementedError(
                 f"cutoff function {cutoff_function!r} not implemented")
-        if stress:
-            raise NotImplementedError(
-                "stress rows are not ported yet (ROADMAP: stress)")
+        if stress and not derivative:
+            raise ValueError(
+                "stress=True requires derivative=True (the rdxdr strain "
+                "terms are built from the gradient chain)")
         self.nmax = nmax
         self.lmax = lmax
         self.rcut = float(rcut)
         self.alpha = float(alpha)
         self.derivative = derivative
-        self.stress = False
+        self.stress = stress
         self.cutoff_function = cutoff_function
         self.weight_on = weight_on
         self._type = "SO3"
@@ -239,6 +255,20 @@ class SO3:
                    alpha=d["alpha"], derivative=d.get("derivative", True),
                    stress=d.get("stress", False))
 
+    def load_from_dict(self, d):
+        """Re-initialise from ``save_dict``'s dict (SO3.py:59-65)."""
+        self.__init__(nmax=d["nmax"], lmax=d["lmax"], rcut=d["rcut"],
+                      alpha=d["alpha"], derivative=d.get("derivative", True),
+                      stress=d.get("stress", False))
+
+    def clear_memory(self):
+        """API parity with SO3.clear_memory (SO3.py:176-184): the
+        reference frees per-structure arrays it caches on the instance;
+        here no per-structure state lives on it (the measured bytes per
+        pair and the quadrature constants are per descriptor), so there
+        is nothing to free."""
+        return
+
     @property
     def ncoef(self) -> int:
         return self.nmax * (self.nmax + 1) // 2 * (self.lmax + 1)
@@ -257,7 +287,8 @@ class SO3:
             "x": out["x"].cpu().numpy(),
             "dxdr": None if out["dxdr"] is None
             else out["dxdr"][:nseq].cpu().numpy(),
-            "rdxdr": None,
+            "rdxdr": None if out["rdxdr"] is None
+            else out["rdxdr"][:nseq].cpu().numpy(),
             "elements": out["elements"],
             "seq": out["seq"],
         }
@@ -301,17 +332,22 @@ class SO3:
         self_seq = np.searchsorted(uniq, key_self)
         elements = list(getattr(atoms, "symbols", [])) or [
             CHEMICAL_SYMBOLS[int(zz)] for zz in numbers]
-        return {"rij": rij, "w": w, "pair_center": pi, "pair_seq": pair_seq,
+        prep = {"rij": rij, "w": w, "pair_center": pi, "pair_seq": pair_seq,
                 "self_seq": self_seq, "self_ids": ids_arr, "seq": seq,
                 "nseq": len(seq), "natoms": natoms, "elements": elements}
+        if self.stress:
+            Ri = np.asarray(atoms.positions, float)[pi]
+            prep.update(Ri=Ri, Rj=Ri + rij, volume=atoms.get_volume())
+        return prep
 
     def _core(self, preps, dev, dt):
         """One ``_so3_core`` call over the concatenated pairs of the
         prepared structures ``preps``: the batch axis is the pair and seq
         lists with per-structure atom and seq-row offsets, which the
         core's segment sums handle as they are.  Returns (x (natoms_tot,
-        ncoef), dxdr (nseq_tot, ncoef, 3) or None, atom offsets, seq
-        offsets)."""
+        ncoef), dxdr (nseq_tot, ncoef, 3) or None, rdxdr (nseq_tot,
+        ncoef, 3, 3) or None -- each structure's rows scaled by -1 / its
+        volume --, atom offsets, seq offsets)."""
         ao = np.cumsum([0] + [p["natoms"] for p in preps])
         so = np.cumsum([0] + [p["nseq"] for p in preps])
         natoms, nseq = int(ao[-1]), int(so[-1])
@@ -328,47 +364,61 @@ class SO3:
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=dev)
 
-        x, dxdr = _so3_core(
-            torch.as_tensor(cat("rij"), dtype=dt, device=dev),
-            torch.as_tensor(cat("w"), dtype=dt, device=dev),
+        def flt(a):
+            return torch.as_tensor(a, dtype=dt, device=dev)
+
+        stress = self.stress
+        x, dxdr, pstress = _so3_core(
+            flt(cat("rij")), flt(cat("w")),
             idx(cat("pair_center", ao)), idx(pair_seq),
             idx(cat("self_seq", so)), idx(cat("self_ids", ao)),
             idx(np.concatenate([p["seq"][:, 0] + ao[k]
                                 for k, p in enumerate(preps)])),
-            torch.as_tensor(self._q, dtype=dt, device=dev),
-            torch.as_tensor(self._G0, dtype=dt, device=dev),
+            flt(self._q), flt(self._G0),
+            flt(cat("Ri")) if stress else None,
+            flt(cat("Rj")) if stress else None,
             nmax=self.nmax, lmax=self.lmax, natoms=natoms, nseq=nseq,
             rcut=self.rcut, alpha=self.alpha, derivative=self.derivative,
-            cutoff=self.cutoff_function)
-        return x, dxdr, ao, so
+            cutoff=self.cutoff_function, stress=stress)
+        if pstress is not None:
+            # -1 / volume of each structure on its own seq rows
+            scale = np.repeat([-1.0 / p["volume"] for p in preps],
+                              [p["nseq"] for p in preps])
+            pstress = pstress * flt(scale)[:, None, None, None]
+        return x, dxdr, pstress, ao, so
 
     def calculate_device(self, atoms, atom_ids=None, device=None,
                          dtype=None):
         """Descriptor tensors on ``device`` (default ``config.device()``):
 
-          x     (natoms, ncoef)
-          dxdr  (nseq + 1, ncoef, 3) -- row nseq is zero, a safe gather
-                target for padding
-          seq   (nseq, 2) host numpy; 'elements' list; 'nseq' int
+          x      (natoms, ncoef)
+          dxdr   (nseq + 1, ncoef, 3) -- row nseq is zero, a safe gather
+                 target for padding
+          rdxdr  (nseq + 1, ncoef, 3, 3) with the same zero row, or None
+                 (stress=False)
+          seq    (nseq, 2) host numpy; 'elements' list; 'nseq' int
         """
         dev = config.device() if device is None else torch.device(device)
         dt = config.dtype(dev) if dtype is None else dtype
         prep = self._prep_structure(atoms, atom_ids)
-        x, dxdr, _, _ = self._core([prep], dev, dt)
-        return self._device_dict(prep, x, dxdr)
+        x, dxdr, rdxdr, _, _ = self._core([prep], dev, dt)
+        return self._device_dict(prep, x, dxdr, rdxdr)
 
-    def _device_dict(self, prep, x, dxdr):
-        """calculate_device's dict of one structure, dxdr given without
-        its zero pad row."""
-        if dxdr is not None:
-            dxdr = torch.cat([dxdr, dxdr.new_zeros((1,) + dxdr.shape[1:])])
-        return {"x": x, "dxdr": dxdr, "elements": prep["elements"],
+    def _device_dict(self, prep, x, dxdr, rdxdr):
+        """calculate_device's dict of one structure, dxdr and rdxdr given
+        without their zero pad row."""
+        def padded(t):
+            return None if t is None else torch.cat(
+                [t, t.new_zeros((1,) + t.shape[1:])])
+        return {"x": x, "dxdr": padded(dxdr), "rdxdr": padded(rdxdr),
+                "elements": prep["elements"],
                 "seq": prep["seq"] if self.derivative else None,
                 "nseq": prep["nseq"]}
 
     def bytes_per_pair(self, device) -> float:
         """Peak device bytes per pair of one float64 ``_so3_core`` call
-        with derivatives, measured once per descriptor and card: the
+        with derivatives (and strain rows where the descriptor has them),
+        measured once per descriptor and card: the
         call's ``torch.cuda.max_memory_allocated`` above what was
         allocated before it, over its pairs (this resets the card's peak
         memory statistics).  The probe has PROBE_PAIRS pairs around
@@ -389,7 +439,8 @@ class SO3:
                     "self_ids": np.arange(natoms),
                     "seq": np.stack([np.r_[centre, np.arange(natoms)],
                                      np.zeros(P + natoms, int)], axis=1),
-                    "nseq": P + natoms, "natoms": natoms}
+                    "nseq": P + natoms, "natoms": natoms,
+                    "Ri": np.zeros((P, 3)), "Rj": rij, "volume": 1.0}
             torch.cuda.synchronize(dev)
             before = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -416,7 +467,7 @@ class SO3:
     def _groups(self, atoms_list, pair_budget, device, dtype):
         """Greedy grouping under the pair budget (at least one structure
         a group), one ``_core`` call a group: yields (indices, preps, x,
-        dxdr, atom offsets, seq offsets)."""
+        dxdr, rdxdr, atom offsets, seq offsets)."""
         dev = config.device() if device is None else torch.device(device)
         dt = config.dtype(dev) if dtype is None else dtype
         if pair_budget is None:
@@ -445,12 +496,14 @@ class SO3:
         (dxdr with its zero pad row appended).  ``pair_budget=math.inf``
         makes one group of them all, without the probe."""
         out = [None] * len(atoms_list)
-        for grp, ps, x, dxdr, ao, so in self._groups(
+        for grp, ps, x, dxdr, rdxdr, ao, so in self._groups(
                 atoms_list, pair_budget, device, dtype):
             for k, (i, p) in enumerate(zip(grp, ps)):
+                rows = slice(so[k], so[k + 1])
                 out[i] = self._device_dict(
                     p, x[ao[k]:ao[k + 1]],
-                    None if dxdr is None else dxdr[so[k]:so[k + 1]])
+                    None if dxdr is None else dxdr[rows],
+                    None if rdxdr is None else rdxdr[rows])
         return out
 
     def calculate_many(self, atoms_list, dtype=None, pair_budget=None,
@@ -459,14 +512,16 @@ class SO3:
         ``SO3.calculate_many``): as ``calculate_many_device``, returned as
         host dicts in :meth:`calculate`'s form, copied once a group."""
         out = [None] * len(atoms_list)
-        for grp, ps, x, dxdr, ao, so in self._groups(
+        for grp, ps, x, dxdr, rdxdr, ao, so in self._groups(
                 atoms_list, pair_budget, device, dtype):
             x = x.cpu().numpy()
-            dxdr = None if dxdr is None else dxdr.cpu().numpy()
+            dxdr, rdxdr = (None if t is None else t.cpu().numpy()
+                           for t in (dxdr, rdxdr))
             for k, (i, p) in enumerate(zip(grp, ps)):
+                rows = slice(so[k], so[k + 1])
                 out[i] = {"x": x[ao[k]:ao[k + 1]],
-                          "dxdr": None if dxdr is None
-                          else dxdr[so[k]:so[k + 1]],
-                          "rdxdr": None, "elements": p["elements"],
+                          "dxdr": None if dxdr is None else dxdr[rows],
+                          "rdxdr": None if rdxdr is None else rdxdr[rows],
+                          "elements": p["elements"],
                           "seq": p["seq"] if self.derivative else None}
         return out

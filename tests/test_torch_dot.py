@@ -221,8 +221,21 @@ def test_block_api_matches_jax(kind):
     for i in range(2):
         _close(dK[:, :, i], dKj[:, :, i])
     _close(ours.diag(d1), ref.diag(d1))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ours.k_total_with_stress(d1, d1)
+    # k_total_with_stress needs 9-column points (the strain rows
+    # appended) in both packages; with them the two agree, as the
+    # 9-column diagonal does
+    for api in (ours, ref):
+        with pytest.raises(ValueError, match="9-column"):
+            api.k_total_with_stress(d1, d1)
+    rng = np.random.RandomState(5)
+    d9 = {"energy": ep[:2], "force": [
+        (p[0], np.concatenate([p[1], rng.uniform(-1.0, 1.0, p[1].shape[:2]
+                                                 + (6,))], axis=2), p[-1])
+        for p in fp2]}
+    for a, b in zip(ours.k_total_with_stress(d9, d1),
+                    ref.k_total_with_stress(d9, d1)):
+        _close(a, b)
+    _close(ours.diag(d9), ref.diag(d9))
 
 
 # ---------------------------------------------------------------------------

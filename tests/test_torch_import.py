@@ -22,13 +22,16 @@ def test_port_imports_with_jax_blocked():
         "          'parallel.mesh', 'parallel.sharded_kernels',\n"
         "          'parallel.cholesky', 'parallel.dryrun', 'md', 'analysis',\n"
         "          'utils', 'utils_profiling', 'ops.linalg',\n"
-        "          'examples.md_onthefly'):\n"
+        "          'examples.md_onthefly', 'examples.emt_serial',\n"
+        "          'examples.emt_batched'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "from gpr_calculator_tpu_torch.parallel import make_mesh\n"
         "assert make_mesh(4, ['cpu'] * 4).size == 4\n"
         "assert callable(p.neb_calc) and callable(p.get_images)\n"
         "assert callable(p.GP.set_GPR) and callable(p.GP.load)\n"
         "assert callable(p.GP.predict_structures)\n"
+        "assert callable(p.GP.sparsify) and callable(p.models.CUR)\n"
+        "assert p.SO3(stress=True).stress\n"
         "assert callable(p.neb.OnTheFlyBatchedNEB) and callable(p.io.read)\n"
         "assert not any(k == 'gpr_calculator_tpu'\n"
         "               or k.startswith('gpr_calculator_tpu.')\n"
