@@ -87,9 +87,34 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       (o3) sparsify on the slice model beside a CPU float64 copy's, the
       refit against float64, and predict(return_cov=True) against
       predict's std.
+  (p) float64 on the card, the JAX package's default x64 mode
+      (GP(..., dtype=torch.float64)) on the _f64 kernels of
+      csrc/kff_f64.cu: (p1) each of the twelve against its float64 plain
+      version within 1e-12 max|plain| at the slice, mid and bench shapes,
+      sorted and as packed, with its ptxas registers and spills, its
+      time, plain time and bound, and its K1 tile ranges over four
+      virtual shards summed bit for bit (the K2/K3 stripes too); (p2)
+      set_GPR and the serial on-the-fly NEB, RBF then Dot, then the
+      batched RBF NEB, the NLL and gradient at theta0 and theta* within
+      1e-10 of the plain float64 build on the card and within 1e-9 of a
+      CPU float64 model, and every NEB the JAX package's run (steps,
+      counts, barrier within 1e-6 eV); (p3) the 10 000-row bench: the RBF
+      and Dot NLL+gradient against the plain float64 build within 1e-10
+      (the Dot gradient 1e-8), _factorize, a served 13-atom request and a
+      25-row append, each against a float64 model built from the plain
+      versions, with ms and peak memory; (p4) the MD example at full
+      width (100 steps a volume), its final model against a CPU float64
+      refit within 1e-8 eV and eV/A.  Every path counted: only _f64
+      kernels, and no call of kff_plain or kef_plain.  After each path
+      its _f64 kernels are held to their plain versions (1e-12
+      max|plain|) at the shapes it gave them: each NEB's request against
+      its final training set (the batched one: its band), the bench
+      request against the factorised and the appended training set, the
+      appended rows against the bench side and themselves, and the MD
+      model's training set against the last volume's request.
 (a)-(j), (m), (n) and (o) run in the default precision, "highest" ((n1)
 and (o2) also in "bf16x4"); (m) runs after (j), (n) after (m), (o) after
-(n).  Around those runs it
+(n), (p) after (l).  Around those runs it
 checks every kernel (every mode, and the deriv and K3-dual kernels no
 path reaches) against its plain PyTorch version at the paths' shapes --
 the batched ones too: the bands of 3 and 7 structures as the query side
@@ -125,6 +150,7 @@ line is a JSON list of the kernels, the second-to-last the card's name and
 power limit, the last a JSON status object.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -193,9 +219,31 @@ STRESS_LJ = {"rc": 3.2, "sigma": 2.2, "epsilon": 0.4}
 STRESS_THETA = (1.0, 0.8)
 STRESS_NOISE = (0.002, 0.05)
 # one NVIDIA H100 SXM (data sheet, dense): fp32 outside the tensor cores,
-# bf16 on the tensor cores, and HBM3 bandwidth
+# bf16 on the tensor cores, and HBM3 bandwidth; fp64 on the CUDA cores and
+# on the tensor cores (DMMA)
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+PEAK_FP64, PEAK_FP64_TC = 34e12, 67e12
 MODES = ("bf16x4", "bf16")
+# (p) float64 on the card: the _f64 kernels (csrc/kff_f64.cu) against
+# their float64 plain versions, |diff| <= F64_RTOL max|plain|; the NLL
+# and gradient against the plain float64 build on the card, relative; NEB
+# barriers against the JAX package's, eV (the steps and counts equal);
+# the MD model against a CPU float64 refit, eV, eV/A
+F64 = "f64"
+F64_RTOL, F64_NLL_RTOL, F64_BARRIER_TOL, F64_MD_TOL = 1e-12, 1e-10, 1e-6, \
+    1e-8
+# (p2) the NLL and gradient against a CPU float64 model, relative: the
+# card's and the CPU's float64 linear algebra alone (the plain build on
+# the card against the CPU model) read up to 1.9e-10 at set_GPR's start
+# (cond(K) ~1e8)
+F64_CPU_RTOL = 1e-9
+# (p3) the bench gradient against the plain float64 build, relative, by
+# kernel: the Dot one reads 5.4e-10 (dNLL/dsigma0 ~ 1 is a difference of
+# traces ~1e4), 2.4e-8 between two plain builds that sum in other orders
+F64_BENCH_GRAD_RTOL = {"RBF": 1e-10, "Dot": 1e-8}
+# (p4) the MD example in float64 at full width, 100 steps a volume: at
+# (n2)'s 400 the float64 sweep took the whole script past 450 s
+F64_MD_STEPS = 100
 PREC = {"highest": 0, "bf16x4": 1, "bf16": 2}   # template PREC
 # kernel base name -> (template parameters <LC, MODE, SEL, KIND> -- MODE
 # 1: the triangular K1, 0: the rectangular K2/K3 --, the Pallas kernel it
@@ -236,6 +284,8 @@ TRI_MMA = {f"{b}_{m}": f"{params},{PREC[m]}" for m in MODES
 def source_of(name):
     """The source file of kernel (or range launch) ``name``."""
     base, mode = split_name(name)
+    if mode == F64:
+        return CSRC + "kff_f64.cu"
     if base.startswith("kff_tri"):
         return CSRC + ("kff_tri.cu" if mode == "highest"
                        else "kff_tri_mma.cu")
@@ -248,8 +298,8 @@ def kname(base, mode):
 
 
 def split_name(name):
-    """kernel name -> (base, mode)."""
-    for mode in MODES:
+    """kernel name -> (base, mode); mode F64 for the float64 kernels."""
+    for mode in MODES + (F64,):
         if name.endswith("_" + mode):
             return name[:-len(mode) - 1], mode
     return name, "highest"
@@ -257,6 +307,12 @@ def split_name(name):
 
 NAMES = [kname(b, m) for m in PREC for b in BASES]
 RANGE_NAMES = [kname(b + "_range", m) for m in PREC for b in K1_BASES]
+# the twelve float64 entry points: rect_f64_kernel<LC, SEL, KIND> (K2,
+# K3) and tri_f64_kernel<SEL, KIND> (K1), and their range launches
+F64_NAMES = [kname(b, F64) for b in BASES]
+F64_RANGE_NAMES = [kname(b + "_range", F64) for b in K1_BASES]
+RECT_F64 = {kname(b, F64): v for b, v in RECT.items()}
+TRI_F64 = {kname(b, F64): v for b, v in TRI.items()}
 
 
 def replaces(name):
@@ -356,11 +412,17 @@ def run_neb(T, gp, images, batched=False):
 
 def ptxas_lines(compiler_log):
     """(kernel name, body, ptxas resource line) for each instantiation of
+    tri_f64_kernel<SEL, KIND> and rect_f64_kernel<LC, SEL, KIND> (K1 and
+    K2, K3 in float64), of
     tri_mma_kernel<SEL, KIND, PREC> (K1 in the bf16 modes), of
     rect_mma_kernel<LC, SEL, KIND, PREC> (K2, K3 in the bf16 modes), of
     rect_kernel<LC, SEL, KIND> (K2, K3 in highest) and of tri_kernel<SEL,
     KIND> (K1 in highest)."""
     bodies = {
+        "tri_f64": (r"tri_f64_kernelILi(\d)ELi(\d)E",
+                    {params: name for name, params in TRI_F64.items()}),
+        "rect_f64": (r"rect_f64_kernelILi(\d)ELi(\d)ELi(\d)E",
+                     {params: name for name, params in RECT_F64.items()}),
         "tri_mma": (r"tri_mma_kernelILi(\d)ELi(\d)ELi(\d)E",
                     {params: name for name, params in TRI_MMA.items()}),
         "rect_mma": (r"rect_mma_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E",
@@ -581,7 +643,7 @@ def run_incremental(T, torch, kff, dev, dtype, query, log, card,
 
 
 def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
-           volumes=MD_VOLUMES):
+           volumes=MD_VOLUMES, phase="(n2)", tol=None):
     """(n2) The on-the-fly MD/EOS example (examples/md_onthefly.run) at
     its full width on the card, counted: its record, the ms a step and
     the K1/K2/K3 launches a step, the training-side operand builds and
@@ -592,9 +654,11 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
     within a tenth of the noise of a full factorisation of the same
     training set on the card and of a CPU float64 model of it.  The full
     refit is held to the float64 model at the same limits, and where its
-    distance from float64 comes from is recorded (``f64_split``).
-    Returns the launch counts, the final model and the last volume's
-    structure."""
+    distance from float64 comes from is recorded (``f64_split``).  tol
+    (a float64 model): E and F held within ``tol`` (eV, eV/A) instead,
+    sigma at the noise limits, and no ``f64_split``.
+    Returns the launch counts (and plain-version calls), the final model
+    and the last volume's structure."""
     from gpr_calculator_tpu_torch import convert
     from gpr_calculator_tpu_torch.examples import md_onthefly as ex
     kept = []
@@ -613,10 +677,10 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
     finally:
         ex.Langevin = orig
     torch.cuda.synchronize()
-    launches = dict(kff.launches)
+    launches = counted(kff)
     builds = dict(K_ops.operand_builds)
-    log(f"(n2) [{card}] MD record: {json.dumps(rec)}")
-    log(f"(n2) [{card}] {1e3 * rec['wall_s'] / rec['md_steps']:.3f} ms a "
+    log(f"{phase} [{card}] MD record: {json.dumps(rec)}")
+    log(f"{phase} [{card}] {1e3 * rec['wall_s'] / rec['md_steps']:.3f} ms a "
         f"step (wall over {rec['md_steps']} steps); launches a step "
         f"{per_k(launches, rec['md_steps'])}; launches "
         f"{json.dumps(nonzero(launches))}; operand builds "
@@ -624,18 +688,18 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
     te, tf, _, _ = gp._train_view()
     t_ops = host_ms(torch, lambda: K_ops.side_operands(
         te, tf, T.config.kff_precision(), "train"), 5)
-    log(f"(n2) [{card}] the training side's operands at the final "
+    log(f"{phase} [{card}] the training side's operands at the final "
         f"{te.m} E + {tf.m} F points ({tf.m * tf.x.shape[1]} force envs): "
         f"{t_ops[1]:.3f} ms a build (median of 5; rebuilt once after "
         f"each refit, {builds['train']} builds in the run)")
     if rec["refit_incremental"] < 1:
-        raise AssertionError("(n2) the MD run made no incremental refit")
+        raise AssertionError(f"{phase} the MD run made no incremental refit")
     queued = (gp.N_energy - te.nreal, gp.N_forces - tf.nreal)
     if any(queued):
         # rows added after the last refit: the model takes them (one more
         # incremental refit) so that it and the references hold one set
         gp.fit(opt=False, show=False)
-    log(f"(n2) rows added after the MD model's last refit: {queued[0]} E + "
+    log(f"{phase} rows added after the MD model's last refit: {queued[0]} E + "
         f"{queued[1]} F" + (f", taken in by one more fit(opt=False): "
                             f"refit_stats {json.dumps(gp.refit_stats)}"
                             if any(queued) else ""))
@@ -647,7 +711,7 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
     full.fit(opt=False, show=False)
     cpu = cpu_f64_copy(T, gp, fit=True)
     if full.refit_stats["full"] != 1 or cpu.refit_stats["full"] != 1:
-        raise AssertionError("(n2) the references were not refit in full")
+        raise AssertionError(f"{phase} the references were not refit in full")
     rng = np.random.RandomState(3)
     last = kept[-1]
     strucs = [last] + [perturbed(last, rng, 0.03) for _ in range(4)]
@@ -665,20 +729,23 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
         n = len(a)
         lim = 0.1 * np.array([MD_NOISE_E * n, MD_NOISE_F, MD_NOISE_E * n,
                               MD_NOISE_F])
+        if tol is not None:
+            lim[:2] = tol
         for one, other in (("MD model", "card full refit"),
                            ("MD model", "CPU float64"),
                            ("card full refit", "CPU float64")):
             d = dist(out[one], out[other], n)
-            log(f"(n2) structure {k}, the {one} against the {other}: |dE| "
+            log(f"{phase} structure {k}, the {one} against the {other}: |dE| "
                 f"{d[0]:.3e} eV, max|dF| {d[1]:.3e} eV/A, |dsigma_E| "
                 f"{d[2]:.3e} eV, max|dsigma_F| {d[3]:.3e} eV/A (limits "
                 f"{lim[0]:.3e}, {lim[1]:.3e}, {lim[2]:.3e}, {lim[3]:.3e})")
             if not (np.all(np.isfinite(d)) and np.all(d <= lim)):
                 bad.append((k, one, other))
-    f64_split(T, torch, kff, K_ops, full, strucs, (MD_NOISE_E, MD_NOISE_F),
-              log, "(n2)")
+    if tol is None:
+        f64_split(T, torch, kff, K_ops, full, strucs,
+                  (MD_NOISE_E, MD_NOISE_F), log, phase)
     if bad:
-        raise AssertionError(f"(n2) models outside a tenth of the noise "
+        raise AssertionError(f"{phase} models outside a tenth of the noise "
                              f"(structure, model, reference): {bad}")
     return launches, gp, last
 
@@ -877,6 +944,16 @@ def bound(mma_ops, fp32_ops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_f64(dot_ops, asm_ops, nbytes):
+    """(least ms on the card, what binds it) of a float64 kernel: the dot
+    products at the FP64 tensor-core peak plus the assembly at the FP64
+    CUDA-core peak, or the bytes over the memory rate."""
+    t_ops = dot_ops / PEAK_FP64_TC + asm_ops / PEAK_FP64
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def range_pair_count(torch, kff, re, B, tiles):
     """pair_count of a tile-range launch of K1: the valid same-element
     env pairs of the point pairs p <= q inside upper-triangle tiles
@@ -900,7 +977,10 @@ def work(name, d, lhs, rhs, out_numel, pairs=None):
     for highest, as four bf16 products (bf16x4) or one (bf16) on the
     tensor cores -- plus the coefficients and the assembly in fp32 (K_FF
     40 per plane set, 46 for the dK/dgamma one; K_EF 12 and 10); each
-    operand read once, each output written once."""
+    operand read once, each output written once.  A float64 kernel
+    (mode F64): the dot products in the first slot (``bound_f64`` puts
+    them at the FP64 tensor-core peak), the assembly in the second, 8
+    bytes an output element."""
     (X1, re1, B1), (X2, re2, B2) = lhs, rhs
     base, mode = split_name(name)
     base = base.removesuffix("_range")
@@ -911,11 +991,11 @@ def work(name, d, lhs, rhs, out_numel, pairs=None):
     planes = (40, 46) if kff_block else (12, 10)
     asm = {"_dual": planes[0] + planes[1],
            "_deriv": planes[1]}.get(base[base.rfind("_"):], planes[0])
-    mma = {"highest": 0, "bf16x4": 4 * dots, "bf16": dots}[mode]
+    mma = {"highest": 0, "bf16x4": 4 * dots, "bf16": dots, F64: dots}[mode]
     fp32 = asm + (dots if mode == "highest" else 0)
     tensors = {t.data_ptr(): t for t in (X1, re1, X2, re2)}.values()
     nbytes = sum(t.numel() * t.element_size() for t in tensors) \
-        + 4 * out_numel
+        + (8 if mode == F64 else 4) * out_numel
     return pairs * mma, pairs * fp32, nbytes
 
 
@@ -927,11 +1007,13 @@ def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest",
     operands are built in the mode (sort: their envs sorted by element,
     or not, or by the operand functions' default), and the plain version
     reads the same rounded values.  query_only: only the cases that read
-    the request side (K2 both ways, K3)."""
-    U1, w1 = kff.energy_operand(e1, mode, sort)
-    X1, re1 = kff.force_operand(f1, mode, sort)
-    U2, w2 = kff.energy_operand(e2, mode, sort)
-    X2, re2 = kff.force_operand(f2, mode, sort)
+    the request side (K2 both ways, K3).  mode F64: the float64 kernels,
+    on float64 data (named ``<base>_f64``)."""
+    prec = "highest" if mode == F64 else mode
+    U1, w1 = kff.energy_operand(e1, prec, sort)
+    X1, re1 = kff.force_operand(f1, prec, sort)
+    U2, w2 = kff.energy_operand(e2, prec, sort)
+    X2, re2 = kff.force_operand(f2, prec, sort)
     A1, B1, A2, B2 = e1.x.shape[1], f1.x.shape[1], e2.x.shape[1], \
         f2.x.shape[1]
     d = e2.x.shape[2]
@@ -950,7 +1032,7 @@ def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest",
         out = 3 * (lhs[0].shape[-2] // lhs[2]) * 3 * (rhs[0].shape[-2]
                                                       // rhs[2])
         name = kname(base, mode)
-        return (name, call(kff.kff_from_ops, mm_precision=mode),
+        return (name, call(kff.kff_from_ops, mm_precision=prec),
                 call(kff.kff_plain),
                 work(name, d, lhs, rhs, out * (1 + fl["dual"])))
 
@@ -962,7 +1044,7 @@ def kernel_cases(kff, e1, f1, e2, f2, params, kind="rbf", mode="highest",
         out = (lhs[0].shape[-2] // lhs[2]) * 3 * (rhs[0].shape[-2]
                                                   // rhs[2])
         name = kname(base, mode)
-        return (name, call(kff.kef_from_ops, mm_precision=mode),
+        return (name, call(kff.kef_from_ops, mm_precision=prec),
                 call(kff.kef_plain),
                 work(name, d, lhs, rhs, out * (1 + fl["dual"])))
 
@@ -997,13 +1079,15 @@ def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC),
                                      m, **kw))]
 
 
-def compare(torch, cases, tag, errs, log, plain_ms=None):
-    """Every plane of each kernel within KERNEL_RTOL max|plain| of the
-    same plane of its plain version (dual kernels: K and dK/dgamma); K1
+def compare(torch, cases, tag, errs, log, plain_ms=None, rtol=KERNEL_RTOL,
+            phase=None):
+    """Every plane of each kernel within ``rtol`` max|plain| of the same
+    plane of its plain version (dual kernels: K and dK/dgamma); K1
     exactly symmetric.  plain_ms, when given, receives the time of each
     kernel's first plain call (CUDA events, one call)."""
-    phase = "(b)" if all(split_name(c[0])[1] == "highest"
-                         for c in cases) else "(k2)"
+    if phase is None:
+        phase = "(b)" if all(split_name(c[0])[1] == "highest"
+                             for c in cases) else "(k2)"
     for name, kern, plain, _ in cases:
         Ks = kern()
         start = torch.cuda.Event(enable_timing=True)
@@ -1022,10 +1106,10 @@ def compare(torch, cases, tag, errs, log, plain_ms=None):
             what = f"{name} {plane}" if len(Ks) > 1 else name
             log(f"{phase} {tag} {what} {tuple(K.shape)}: max|kernel-plain| "
                 f"= {err:.3e}, max|plain| = {scale:.3e}")
-            if not err <= KERNEL_RTOL * scale:
+            if not err <= rtol * scale:
                 raise AssertionError(
                     f"{what} disagrees with its plain version at {tag}: "
-                    f"{err:.3e} > {KERNEL_RTOL} * {scale:.3e}")
+                    f"{err:.3e} > {rtol} * {scale:.3e}")
             if name.startswith("kff_tri") and not torch.equal(K, K.T):
                 raise AssertionError(f"{what} is not exactly symmetric")
             errs[name] = max(errs.get(name, 0.0), err)
@@ -1033,6 +1117,12 @@ def compare(torch, cases, tag, errs, log, plain_ms=None):
 
 def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
+
+
+def counted(kff):
+    """The launch counts and the plain versions' calls since the last
+    ``kff.reset_launches()``."""
+    return {**kff.launches, **kff.plain_calls}
 
 
 def check_launches(counts, names, path, absent=()):
@@ -1600,19 +1690,29 @@ def plain_block(torch, kff, pe, pf, te, tf, params, zeta, kind):
 
 def card_f64_copy(T, torch, kff, K_ops, gp):
     """A float64 model of ``gp``'s training set on the card, fitted at its
-    hyperparameters, through the plain versions (the kernels are float32
-    alone): the plain K, a float64 Cholesky factor and weights, and the
-    served block of float64 descriptors, with _predict_packed's mean and
-    variance.  The CPU float64 copy of (m1) would take minutes at the
-    ingest's 6100 rows."""
+    hyperparameters, through the plain versions (``plain_serve``: the
+    reference a model on the kernels is held to).  The CPU float64 copy
+    of (m1) would take minutes at the ingest's 6100 rows."""
     from gpr_calculator_tpu_torch import convert
-    from gpr_calculator_tpu_torch.models.gp import _noise_diag
-    f64 = torch.float64
     state = convert.state_of(gp)
     for key in ("alpha", "L", "n_fit"):
         state.pop(key, None)
-    ref = convert.gp_from_state(state, device=gp.device, dtype=f64,
-                                log_file=None)
+    ref = convert.gp_from_state(state, device=gp.device,
+                                dtype=torch.float64, log_file=None)
+    serve, (e, f) = plain_serve(torch, kff, K_ops, ref)
+    ref._fit_snapshot = (e, f, ref.N_energy, ref.N_forces)
+    ref._serve = serve
+    return ref
+
+
+def plain_serve(torch, kff, K_ops, ref):
+    """(serve, (e, f)) of the float64 GP ``ref``'s training set fitted at
+    its hyperparameters through the plain versions on its device: the
+    plain K, a float64 Cholesky factor and weights; serve(pe, pf, te, tf,
+    return_std) takes the served block of float64 descriptors from the
+    plain versions against (te, tf) = (e, f), with _predict_packed's mean
+    and variance."""
+    from gpr_calculator_tpu_torch.models.gp import _noise_diag
     e, f = ref._pack(ref.N_energy, ref.N_forces)
     y = ref._y_vector(e, f, ref.N_energy, ref.N_forces)
     params, zeta, kind = (ref.kernel.params(), ref.kernel.zeta,
@@ -1634,9 +1734,7 @@ def card_f64_copy(T, torch, kff, K_ops, gp):
         V = torch.linalg.solve_triangular(L, Kt.T, upper=False)
         return mean, torch.clamp(diag - (V * V).sum(0), min=0.0) \
             .sqrt().cpu().numpy()
-    ref._fit_snapshot = (e, f, ref.N_energy, ref.N_forces)
-    ref._serve = serve
-    return ref
+    return serve, (e, f)
 
 
 def sigma_jitter(torch, K_ops, gp, ref, bands, log, card):
@@ -1903,21 +2001,23 @@ def k1_flags(base, kind):
 
 
 def sharded_k1(torch, kff, par, mesh, f, params, kind, mode, tag, errs, log,
-               with_plain):
+               with_plain, rtol=KERNEL_RTOL, phase="(l1)"):
     """(l1) every K1 variant of the family in ``mode`` over the mesh's
-    tile ranges: each shard's output within KERNEL_RTOL max|plain| of
+    tile ranges: each shard's output within ``rtol`` max|plain| of
     kff_plain(tiles=) (``with_plain``), and the sum of the shards' outputs
     on the root equal to the single launch bit for bit, every plane
-    exactly symmetric."""
+    exactly symmetric.  Float64 data: the float64 kernels (the ``_f64``
+    range names)."""
     X, re = kff.force_operand(f, mode)
     B = f.x.shape[1]
+    kmode = F64 if X.dtype == torch.float64 else mode
     ranges = par.partition_tri_tiles(kff.n_tri_tiles(f.m), mesh.size)
     shards = par.shard_train_data(mesh, X, re)
     bases = ("kff_tri_dot",) if kind == "dot" else (
         "kff_tri", "kff_tri_dual", "kff_tri_deriv")
     for base in bases:
         fl = k1_flags(base, kind)
-        name = kname(base + "_range", mode)
+        name = kname(base + "_range", kmode)
         single = planes_of(kff.kff_from_ops(
             X, re, B, X, re, B, params, 2, symmetric=True, mm_precision=mode,
             **fl))
@@ -1935,11 +2035,11 @@ def sharded_k1(torch, kff, par, mesh, f, params, kind, mode, tag, errs, log,
                 for K, P in zip(part, plain):
                     err, scale = float((K - P).abs().max()), \
                         float(P.abs().max())
-                    if not err <= KERNEL_RTOL * scale:
+                    if not err <= rtol * scale:
                         raise AssertionError(
                             f"{name} tiles {tiles} disagrees with "
                             f"kff_plain(tiles=) at {tag}: {err:.3e} > "
-                            f"{KERNEL_RTOL} * {scale:.3e}")
+                            f"{rtol} * {scale:.3e}")
                     errs[name] = max(errs.get(name, 0.0), err)
             moved = [p.to(mesh.root) for p in part]
             if total is None:
@@ -1953,14 +2053,14 @@ def sharded_k1(torch, kff, par, mesh, f, params, kind, mode, tag, errs, log,
                     f"the sum of {name} over {ranges} is not the single "
                     f"launch bit for bit at {tag} (max diff "
                     f"{float((K - S).abs().max()):.3e})")
-        log(f"(l1) {tag} {name} {tuple(single[0].shape)}: tile ranges "
+        log(f"{phase} {tag} {name} {tuple(single[0].shape)}: tile ranges "
             f"{ranges}, sum over shards == single launch bit for bit"
             + (f", max|range - plain(tiles)| = {errs[name]:.3e}"
                if with_plain else ""))
 
 
 def sharded_stripes(torch, kff, par, mesh, e, f, params, kind, mode, tag,
-                    log):
+                    log, phase="(l1)"):
     """(l1) the K3 row stripes (kff_sharded) and the K2 energy-row stripes
     (kef_sharded), concatenated, equal the single launch bit for bit."""
     U, w = kff.energy_operand(e, mode)
@@ -1976,7 +2076,8 @@ def sharded_stripes(torch, kff, par, mesh, e, f, params, kind, mode, tag,
         if not torch.equal(striped, single):
             raise AssertionError(f"{what} {kind} {mode} stripes differ from "
                                  f"the single launch at {tag}")
-        log(f"(l1) {tag} {what} {kind} {mode} {tuple(single.shape)}: stripes "
+        log(f"{phase} {tag} {what} {kind} {mode} {single.dtype} "
+            f"{tuple(single.shape)}: stripes "
             f"{[t.shape[0] for t in parts]} rows on "
             f"{[str(t.device) for t in parts]}, concatenated == single "
             "launch bit for bit")
@@ -2512,6 +2613,515 @@ def run_sparsify_cov(T, torch, kff, dev, log, card, slice_gp, images):
     return sp_launches, cov_launches
 
 
+# ---------------------------------------------------------------------------
+# (p) float64 on the card: the JAX package's default x64 mode
+# ---------------------------------------------------------------------------
+
+RBF_F64 = [kname(b, F64) for b in RBF]
+DOT_F64 = [kname(b, F64) for b in DOT]
+
+
+def check_f64_path(counts, names, path, family):
+    """Every kernel of ``names`` ran on the float64 path, no kernel outside
+    the float64 ``family`` (no float32, mode or range kernel), and no
+    plain version."""
+    check_launches(counts, names, path,
+                   absent=[n for n in NAMES + RANGE_NAMES + F64_NAMES
+                           + F64_RANGE_NAMES if n not in family])
+    if counts["kff_plain"] or counts["kef_plain"]:
+        raise AssertionError(f"the plain versions ran on the {path} path: "
+                             f"kff_plain {counts['kff_plain']}, kef_plain "
+                             f"{counts['kef_plain']}")
+
+
+def f64_kernel_checks(torch, kff, par, dev, log, card, slice_sides,
+                      compiler_log):
+    """(p1) Every _f64 kernel against its float64 plain version on the
+    card, within F64_RTOL max|plain|, on operands sorted by element and
+    as packed: at the slice's shapes (``slice_sides``: the request and
+    the slice model's training set, in float64) and the mid shape every
+    case of both families, at the bench shape each kernel against the
+    plane of one shared plain pass (RBF: the dual pass, K_FF symmetric
+    and K_EF; Dot: K_FF and K_EF), computed once on sorted operands; the
+    K1 tile ranges over four virtual shards against kff_plain(tiles=)
+    and, summed, against the single launch bit for bit, and the K2/K3
+    stripes, at each shape.  Times (CUDA events) with the bound of each
+    (``bound_f64``).  Returns (max|kernel - plain| by kernel, slice
+    times, {"mid": ..., "bench": ...})."""
+    f64 = torch.float64
+    for name, body, line in ptxas_lines(compiler_log):
+        if body in ("tri_f64", "rect_f64"):
+            log(f"(p1) ptxas {name} ({body}_kernel): {line}")
+    params, dparams = {"sigma": SIGMA, "l": L_SCALE}, {"sigma": 0.6,
+                                                       "sigma0": 1.7}
+    bparams, bdparams = {"sigma": 2.0, "l": 1.0}, {"sigma": 2.0,
+                                                   "sigma0": 2.0}
+    pe, pf, te, tf = slice_sides
+    me, mf = to_f64(torch, *bench_data(torch, dev, m_e=250, m_f=750))
+    be, bf = to_f64(torch, *bench_data(torch, dev))
+    errs, times, at = {}, {}, {"mid": {}, "bench": {}}
+
+    def cases(e1, f1, e2, f2, p, dp, sort):
+        return (kernel_cases(kff, e1, f1, e2, f2, p, "rbf", F64, sort)
+                + kernel_cases(kff, e1, f1, e2, f2, dp, "dot", F64, sort))
+
+    for tag, sides, p, dp in (("slice", (pe, pf, te, tf), params, dparams),
+                              ("mid", (me, mf, me, mf), bparams, bdparams)):
+        for sort in (True, False):
+            compare(torch, cases(*sides, p, dp, sort), f"{tag}, envs "
+                    f"{'sorted by element' if sort else 'as packed'}", errs,
+                    log, rtol=F64_RTOL, phase="(p1)")
+        # times on the operands as the model builds them (sort=None)
+        for name, kern, plain, wk in cases(*sides, p, dp, None):
+            if name in (times if tag == "slice" else at[tag]):
+                continue
+            reps = (50, 10) if tag == "slice" else (5, 1)
+            cell = (cuda_ms(torch, kern, reps[0]),
+                    cuda_ms(torch, plain, reps[1]), *bound_f64(*wk))
+            if tag == "slice":
+                times[name] = cell
+            else:
+                at[tag][name] = dict(ms=cell[0], plain_ms=cell[1],
+                                     bound_ms=cell[2], bound_by=cell[3])
+    # the bench shape: one shared plain pass per block family
+    A = B = be.x.shape[1]
+    ops = {sort: (kff.energy_operand(be, "highest", sort),
+                  kff.force_operand(bf, "highest", sort))
+           for sort in (True, False)}
+    (U, w), (X, re_) = ops[True]
+    refs = {}
+    for key, fn in (
+            ("rbf_ff", lambda: kff.kff_plain(X, re_, B, X, re_, B, bparams,
+                                             2, symmetric=True, dual=True)),
+            ("rbf_ef", lambda: kff.kef_plain(U, w, A, X, re_, B, bparams,
+                                             2, dual=True)),
+            ("dot_ff", lambda: (kff.kff_plain(X, re_, B, X, re_, B,
+                                              bdparams, 2, symmetric=True,
+                                              kind="dot"),)),
+            ("dot_ef", lambda: (kff.kef_plain(U, w, A, X, re_, B, bdparams,
+                                              2, kind="dot"),))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        planes = fn()
+        end.record()
+        torch.cuda.synchronize()
+        refs[key] = (planes, start.elapsed_time(end))
+    which = {"": (0,), "_dual": (0, 1), "_deriv": (1,), "_dot": (0,)}
+    for base in BASES:
+        name = kname(base, F64)
+        dot = base.endswith("_dot")
+        key = ("dot" if dot else "rbf") + ("_ef" if base.startswith("kef")
+                                           else "_ff")
+        suffix = base[base.rfind("_"):] if base.count("_") > 1 else ""
+        ref_planes = [refs[key][0][i] for i in which[suffix]]
+        fl = k1_flags(base, "dot" if dot else "rbf")
+        p = bdparams if dot else bparams
+
+        def call(sort):
+            (U_, w_), (X_, r_) = ops[sort]
+            if base.startswith("kef"):
+                return lambda: kff.kef_from_ops(U_, w_, A, X_, r_, B, p, 2,
+                                                **fl)
+            return lambda: kff.kff_from_ops(
+                X_, r_, B, X_, r_, B, p, 2,
+                symmetric=base.startswith("kff_tri"), **fl)
+        for sort in (True, False):
+            got = planes_of(call(sort)())
+            torch.cuda.synchronize()
+            for K, P in zip(got, ref_planes):
+                err, scale = float((K - P).abs().max()), float(P.abs().max())
+                log(f"(p1) bench, envs {'sorted' if sort else 'as packed'} "
+                    f"{name} {tuple(K.shape)}: max|kernel-plain| = "
+                    f"{err:.3e}, max|plain| = {scale:.3e}")
+                if not err <= F64_RTOL * scale:
+                    raise AssertionError(f"{name} disagrees with its plain "
+                                         f"version at bench: {err:.3e} > "
+                                         f"{F64_RTOL} * {scale:.3e}")
+                if base.startswith("kff_tri") and not torch.equal(K, K.T):
+                    raise AssertionError(f"{name} is not exactly symmetric")
+                errs[name] = max(errs.get(name, 0.0), err)
+            del got
+        lhs = (U, w, A) if base.startswith("kef") else (X, re_, B)
+        out = (be.m if base.startswith("kef") else 3 * bf.m) * 3 * bf.m
+        bms, by = bound_f64(*work(name, be.x.shape[2], lhs, (X, re_, B),
+                                  out * (1 + fl["dual"])))
+        at["bench"][name] = dict(ms=cuda_ms(torch, call(True), 2),
+                                 plain_ms=refs[key][1], bound_ms=bms,
+                                 bound_by=by)
+    del refs, ops
+    for tag in ("slice", "mid", "bench"):
+        for name in F64_NAMES:
+            if tag == "slice":
+                ms, pms, bms, by = times[name]
+            else:
+                c = at[tag][name]
+                ms, pms, bms, by = (c["ms"], c["plain_ms"], c["bound_ms"],
+                                    c["bound_by"])
+            log(f"(p1) [{card}] {tag} {name}: kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms" + (" (the shared plain pass)"
+                                   if tag == "bench" else "")
+                + f", bound {bms:.4g} ms ({by}); {bms / ms:.3f} of the "
+                "bound")
+    # the K1 tile ranges and the K2/K3 stripes over four virtual shards
+    mesh = par.make_mesh(N_SHARDS, [f"cuda:{i % torch.cuda.device_count()}"
+                                    for i in range(N_SHARDS)])
+    for tag, (e_, f_), p, dp in (("slice", (te, tf), params, dparams),
+                                 ("mid", (me, mf), bparams, bdparams),
+                                 ("bench", (be, bf), bparams, bdparams)):
+        for kind, prm in (("rbf", p), ("dot", dp)):
+            sharded_k1(torch, kff, par, mesh, f_, prm, kind, "highest", tag,
+                       errs, log, tag != "bench", rtol=F64_RTOL,
+                       phase="(p1)")
+            sharded_stripes(torch, kff, par, mesh, e_, f_, prm, kind,
+                            "highest", tag, log, phase="(p1)")
+    return errs, times, at
+
+
+@contextlib.contextmanager
+def recorded_decisions(out):
+    """Each decision of the dispatcher (``DispatchPolicy.needs_base``)
+    appended to ``out`` as (needs base, the policy, its inputs)."""
+    from gpr_calculator_tpu_torch.dispatch import DispatchPolicy
+    orig = DispatchPolicy.needs_base
+
+    def needs_base(self, natoms, F, E_std_total, F_std):
+        res = orig(self, natoms, F, E_std_total, F_std)
+        out.append((bool(res), self, (natoms, np.array(F),
+                                      float(E_std_total), np.array(F_std))))
+        return res
+    DispatchPolicy.needs_base = needs_base
+    try:
+        yield
+    finally:
+        DispatchPolicy.needs_base = orig
+
+
+def decision_margins(decision):
+    """(needs base, force margin = the policy's force reference less the
+    largest sigma_F, energy margin = its energy tolerance less sigma_E)
+    of a recorded decision."""
+    res, policy, (natoms, F, E_std_total, F_std) = decision
+    return (res, policy.force_reference(natoms, F) - float(np.max(F_std)),
+            policy.tolerances(natoms)[0] - E_std_total)
+
+
+def f64_neb(T, torch, kff, gp, images, kernel, jref, fam, log, card,
+            batched=False):
+    """(p2) One on-the-fly NEB of a float64 model on the card, counted:
+    only the family's _f64 kernels and no plain version; converged in
+    the JAX package's steps with its base/surrogate/fit counts and rows,
+    and its barrier within F64_BARRIER_TOL.  On a mismatch the CPU
+    float64 run of the port (the JAX package's run, tests/test_torch_neb.py)
+    is repeated and the first dispatcher decision that differs is
+    printed with both margins.  Returns the counts."""
+    what = f"{'batched ' if batched else ''}{kernel} NEB"
+    decisions = []
+    kff.reset_launches()
+    t0 = time.time()
+    with recorded_decisions(decisions):
+        neb, E = run_neb(T, gp, images, batched=batched)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = counted(kff)
+    log(f"(p2) [{card}] float64 {what}: {wall:.2f} s, band energies "
+        f"{np.array2string(E, precision=7)} eV, {len(decisions)} "
+        "dispatcher decisions")
+    for key, ref_val in jref.items():
+        log(f"(p2) float64 {what} {key}: card {neb[key]}, JAX CPU f64 "
+            f"{ref_val}")
+    log(f"(p2) float64 {what}: launches a step "
+        f"{per_k(counts, neb['nsteps'])}; launches "
+        f"{json.dumps(nonzero(counts))}")
+    check_f64_path(counts, [kname(b, F64) for b in fam], f"float64 {what}",
+                   [kname(b, F64) for b in fam])
+    same = all(neb[k] == v for k, v in jref.items() if k != "barrier") \
+        and abs(neb["barrier"] - jref["barrier"]) <= F64_BARRIER_TOL
+    if not same:
+        cpu = []
+        cgp, cimages = run_training(T, "cpu", torch.float64, kernel=kernel)
+        with recorded_decisions(cpu):
+            run_neb(T, cgp, cimages, batched=batched)
+        first = next((i for i, (a, b) in enumerate(zip(decisions, cpu))
+                      if a[0] != b[0]), None)
+        log(f"(p2) float64 {what}: the first dispatcher decision that "
+            f"differs from the CPU float64 run: "
+            + ("none in the common length" if first is None else
+               f"#{first}: card {decision_margins(decisions[first])}, CPU "
+               f"{decision_margins(cpu[first])} (needs base, force margin, "
+               "energy margin)"))
+        raise AssertionError(f"the float64 {what} on the card is not the "
+                             "JAX package's run")
+    return counts
+
+
+def f64_nll_check(gp, ref, theta, tag, log):
+    """(p2) A float64 card model's NLL and gradient at theta on the _f64
+    kernels against the same evaluation from the plain float64 build on
+    the card, within F64_NLL_RTOL relative (the kernels' own share), and
+    against the CPU float64 model ``ref`` within F64_CPU_RTOL.  The plain
+    build on the card against the CPU model (the two devices' float64
+    linear algebra) is recorded beside them."""
+    from gpr_calculator_tpu_torch.models import gp as gp_mod
+    e, f = gp._pack(gp.N_energy, gp.N_forces)
+    y = gp._y_vector(e, f, gp.N_energy, gp.N_forces)
+    nll = {"rbf": gp_mod._nll_rbf_analytic,
+           "dot": gp_mod._nll_dot_analytic}[gp.kernel.kind]
+    _, _, noise_opt = gp._theta()
+    v, g = nll(list(theta), e, f, y, (gp.noise_e, gp.noise_f),
+               float(gp.f_coef), gp.kernel.zeta, noise_opt, plain=True)
+    evals = {"kernels": gp.log_marginal_likelihood(list(theta),
+                                                   eval_gradient=True),
+             "plain": (-float(v), -g.detach().cpu().numpy()),
+             "CPU": ref.log_marginal_likelihood(list(theta),
+                                                eval_gradient=True)}
+
+    def rel(a, b):
+        (la, ga), (lb, gb) = evals[a], evals[b]
+        return (abs(la - lb) / abs(lb),
+                float(np.linalg.norm(ga - gb) / np.linalg.norm(gb)))
+    kp, kc, floor = rel("kernels", "plain"), rel("kernels", "CPU"), \
+        rel("plain", "CPU")
+    log(f"(p2) NLL at {tag} = ({theta[0]:.6g}, {theta[1]:.6g}): card f64 "
+        f"{-evals['kernels'][0]:.12g}, grad "
+        f"{np.array2string(-evals['kernels'][1], precision=10)}; against "
+        f"the plain float64 build on the card {kp[0]:.3e} / {kp[1]:.3e} "
+        f"relative (limit {F64_NLL_RTOL}); against the CPU float64 model "
+        f"{kc[0]:.3e} / {kc[1]:.3e} (limit {F64_CPU_RTOL}); the plain "
+        f"build on the card against the CPU model {floor[0]:.3e} / "
+        f"{floor[1]:.3e} (recorded)")
+    if not (max(kp) <= F64_NLL_RTOL and max(kc) <= F64_CPU_RTOL):
+        raise AssertionError(f"(p2) the float64 NLL/gradient at {tag} is "
+                             "outside the limits")
+
+
+def f64_path_shapes(torch, kff, gp, query, tag, errs, log, kinds=None,
+                    query_only=False):
+    """(p1) at a float64 path's shapes: every _f64 kernel of ``kinds``
+    (default: the model's family) on ``query`` (EnergyData, ForceData)
+    against ``gp``'s training set, as the path builds the operands,
+    within F64_RTOL max|plain| of its plain version."""
+    te, tf, _, _ = gp._train_view()
+    dparams = {"sigma": 0.6, "sigma0": 1.7}
+    cases = []
+    for kind in kinds or (gp.kernel.kind,):
+        params = gp.kernel.params() if kind == gp.kernel.kind else dparams
+        cases += kernel_cases(kff, *query, te, tf, params, kind, F64,
+                              query_only=query_only)
+    compare(torch, cases, tag, errs, log, rtol=F64_RTOL, phase="(p1)")
+
+
+def run_f64_paths(T, torch, kff, dev, log, card, errs):
+    """(p2) set_GPR and the serial on-the-fly NEB of a float64 model on
+    the card (``GP.set_GPR(..., dtype=torch.float64)``), RBF then Dot,
+    then the batched RBF NEB, each counted: the NLL and gradient at
+    set_GPR's start and at the JAX theta* held to the plain float64
+    build and to a CPU float64 model (``f64_nll_check``), and each NEB
+    held to the JAX package's run (``f64_neb``); after each NEB its
+    kernels against their plain versions at its shapes (into ``errs``).
+    Returns the launch counts by path."""
+    f64 = torch.float64
+    paths = {}
+    for kernel, theta0, jtheta, jneb, fam, train in (
+            ("RBF", THETA0, (SIGMA, L_SCALE), JAX_NEB, RBF,
+             ("kff_tri_dual", "kef_rect_dual")),
+            ("Dot", DOT_THETA0, DOT_THETA, JAX_DOT_NEB, DOT,
+             ("kff_tri_dot", "kef_rect_dot"))):
+        tag = "f64_" if kernel == "RBF" else "f64_dot_"
+        kff.reset_launches()
+        t0 = time.time()
+        gp, images = run_training(T, dev, f64, kernel=kernel)
+        torch.cuda.synchronize()
+        paths[tag + "training"] = counted(kff)
+        theta = gp.kernel.parameters()
+        log(f"(p2) [{card}] float64 set_GPR(kernel={kernel!r}): "
+            f"{time.time() - t0:.2f} s, theta = ({theta[0]:.10f}, "
+            f"{theta[1]:.10f}), JAX CPU f64 ({jtheta[0]:.10f}, "
+            f"{jtheta[1]:.10f}), relative diff ({theta[0] / jtheta[0] - 1:.2e}"
+            f", {theta[1] / jtheta[1] - 1:.2e}); launches "
+            f"{json.dumps(nonzero(paths[tag + 'training']))}")
+        check_f64_path(paths[tag + "training"], [kname(b, F64) for b in train],
+                       f"float64 {kernel} training",
+                       [kname(b, F64) for b in fam])
+        ref = cpu_f64_copy(T, gp, fit=False)
+        for ttag, th in (("theta0", theta0), ("JAX theta*", jtheta)):
+            f64_nll_check(gp, ref, th, ttag, log)
+        paths[tag + "neb"] = f64_neb(T, torch, kff, gp, images, kernel, jneb,
+                                     fam, log, card)
+        f64_path_shapes(torch, kff, gp, slice_request(gp, images[2], dev,
+                                                      f64),
+                        f"float64 {kernel} NEB training set, image 2", errs,
+                        log)
+    gp, images = run_training(T, dev, f64)
+    paths["f64_batched_neb"] = f64_neb(T, torch, kff, gp, images, "RBF",
+                                       JAX_BATCHED_NEB, RBF, log, card,
+                                       batched=True)
+    f64_path_shapes(torch, kff, gp, band_request(gp, images[1:-1]),
+                    "float64 batched RBF NEB training set, its final band",
+                    errs, log)
+    return paths
+
+
+def cuda_peak(torch, fn):
+    """(fn(), the device memory it allocated above what was held before,
+    GiB, at its peak)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+
+def run_f64_bench(T, torch, kff, K_ops, dev, log, card, query, errs):
+    """(p3) The 10 000-row bench in float64 on the card: the RBF and Dot
+    NLL+gradient (exact trace) against the plain float64 build on the
+    card, relative, the value within F64_NLL_RTOL and the gradient within
+    F64_BENCH_GRAD_RTOL (the float64 floor, the plain build on operands
+    left as packed against it, recorded beside), beside the float32
+    evaluation; a GP holding the bench rows factorised
+    (``fit(opt=False)``: _factorize), one 13-atom request (``query``)
+    served from it, then 1 E + 8 F rows appended (the incremental
+    refit), each model's request against a float64 model of its
+    training set built from the plain versions on the card
+    (``plain_serve``) within a millionth of the noise.  Each counted
+    (only _f64 kernels, no plain version), with its ms and peak device
+    memory; then the kernels against their plain versions (into
+    ``errs``) at its shapes: the request against each training set, the
+    appended rows (sorted as the refit sorts them) against the bench side
+    and against themselves.  Returns the launch counts by path."""
+    from gpr_calculator_tpu_torch.models.gp import (_factorize,
+                                                    _nll_dot_analytic,
+                                                    _nll_rbf_analytic)
+    f64 = torch.float64
+    pe, pf, natoms = query
+    be32, bf32 = bench_data(torch, dev)
+    be, bf = to_f64(torch, be32, bf32)
+    n = be.m + 3 * bf.m
+    y = torch.as_tensor(np.random.RandomState(1).normal(0.0, 0.1, n),
+                        dtype=f64, device=dev)
+    paths = {}
+    for label, fn, theta, train in (
+            ("RBF", _nll_rbf_analytic, (2.0, 1.0),
+             ("kff_tri_dual", "kef_rect_dual")),
+            ("Dot", _nll_dot_analytic, (2.0, 2.0),
+             ("kff_tri_dot", "kef_rect_dot"))):
+        tail = ((0.01, 0.1), 10.0, 2, False)
+        kff.reset_launches()
+        (nll, g), gib = cuda_peak(torch, lambda: fn(theta, be, bf, y, *tail))
+        paths[f"f64_bench_{label.lower()}_nll"] = counts = counted(kff)
+        check_f64_path(counts, [kname(b, F64) for b in train],
+                       f"float64 bench {label} NLL",
+                       [kname(b, F64) for b in train])
+        ms = cuda_ms(torch, lambda: fn(theta, be, bf, y, *tail), 2)
+        (nllp, gpl), gibp = cuda_peak(
+            torch, lambda: fn(theta, be, bf, y, *tail, plain=True))
+        (nll32, g32), gib32 = cuda_peak(
+            torch, lambda: fn(theta, be32, bf32, y.float(), *tail))
+        ms32 = cuda_ms(torch, lambda: fn(theta, be32, bf32, y.float(),
+                                         *tail), 2)
+        # the float64 floor: the plain build on operands left as packed
+        # (each point's env sums in another order) against the plain build
+        sort_min, kff.SORT_MIN_ENVS = kff.SORT_MIN_ENVS, 1 << 62
+        try:
+            nllq, gq = fn(theta, be, bf, y, *tail, plain=True)
+        finally:
+            kff.SORT_MIN_ENVS = sort_min
+        nll, nllp, nll32, nllq = (float(v) for v in (nll, nllp, nll32, nllq))
+        g, gpl, g32, gq = (t.cpu().double().numpy()
+                           for t in (g, gpl, g32, gq))
+        gn = float(np.linalg.norm(gpl))
+        dn = abs(nll - nllp) / abs(nllp)
+        dg = float(np.linalg.norm(g - gpl)) / gn
+        fn_, fg = abs(nllq - nllp) / abs(nllp), \
+            float(np.linalg.norm(gq - gpl)) / gn
+        glim = F64_BENCH_GRAD_RTOL[label]
+        log(f"(p3) [{card}] bench {label} NLL + gradient in float64: "
+            f"{ms:.3f} ms, peak {gib:.3f} GiB (float32 on the kernels "
+            f"{ms32:.3f} ms, peak {gib32:.3f} GiB; the plain float64 build "
+            f"peak {gibp:.3f} GiB); NLL {nll:.12g} against the plain "
+            f"{nllp:.12g}: {dn:.3e} relative (limit {F64_NLL_RTOL}), "
+            f"gradient {np.array2string(g, precision=12)} against "
+            f"{np.array2string(gpl, precision=12)}: {dg:.3e} relative "
+            f"(limit {glim}); the float64 floor, the plain build on packed "
+            f"operands: NLL {fn_:.3e}, gradient {fg:.3e} relative "
+            "(recorded); "
+            f"float32 {nll32:.12g}, {abs(nll32 - nllp) / abs(nllp):.3e} "
+            f"and {np.linalg.norm(g32 - gpl) / gn:.3e} off (recorded)")
+        if not (dn <= F64_NLL_RTOL and dg <= glim):
+            raise AssertionError(f"(p3) the float64 bench {label} NLL is not "
+                                 "the plain float64 build's")
+    noise = (0.01 * 1e-5, 0.1 * 1e-5)   # served_off takes a tenth of it
+    gp = bench_gp(T, dev, f64, bench_points(torch, dev, be.m, bf.m, seed=0))
+    kff.reset_launches()
+    _, gib = cuda_peak(torch, lambda: gp.fit(opt=False, show=False))
+    paths["f64_bench_factorize"] = counts = counted(kff)
+    check_f64_path(counts, [kname(b, F64) for b in ("kff_tri", "kef_rect")],
+                   "float64 bench _factorize", RBF_F64)
+    e, f, _, _ = gp._train_view()
+    yv = gp._y_vector(e, f, gp.N_energy, gp.N_forces)
+    ms = cuda_ms(torch, lambda: _factorize(e, f, yv, gp.kernel.params(),
+                                           0.01, 0.1, 2, "rbf"), 2)
+    log(f"(p3) [{card}] bench _factorize in float64 ({e.m} E + {f.m} F "
+        f"points): {ms:.3f} ms, the fit's peak {gib:.3f} GiB")
+    for step in ("factorised", "appended"):
+        te, tf, _, _ = gp._train_view()
+        kff.reset_launches()
+        served, gib = cuda_peak(torch, lambda: gp._serve(pe, pf, te, tf,
+                                                         True))
+        counts = counted(kff)
+        check_f64_path(counts, [kname(b, F64) for b in ("kef_rect",
+                                                        "kff_rect")],
+                       f"float64 bench request ({step})", RBF_F64)
+        t = host_ms(torch, lambda: gp._serve(pe, pf, te, tf, True), 5)
+        serve, ref = plain_serve(torch, kff, K_ops, gp)
+        offs = served_off(served, serve(pe, pf, *ref, True), pe.m, natoms,
+                          noise)
+        log(f"(p3) [{card}] bench request ({step}, {te.m} E + {tf.m} F): "
+            f"{t[1]:.3f} ms (median of 5, host clock), peak {gib:.3f} GiB; "
+            f"against the plain float64 build: |dE| {offs[0][0]:.3e} eV, "
+            f"max|dF| {offs[1][0]:.3e} eV/A, |dsigma_E| {offs[2][0]:.3e} "
+            f"eV, max|dsigma_F| {offs[3][0]:.3e} eV/A (limits "
+            f"{offs[0][1]:.3e}, {offs[1][1]:.3e})")
+        if not all(np.isfinite(v) and v <= lim for v, lim in offs):
+            raise AssertionError(f"(p3) the {step} float64 bench model does "
+                                 "not serve as the plain float64 build")
+        del serve, ref
+        f64_path_shapes(torch, kff, gp, (pe, pf), f"float64 bench request, "
+                        f"{step} training set", errs, log, query_only=True)
+        if step == "appended":
+            break
+        gp.set_train_pts(bench_points(torch, dev, *APPENDS[0], seed=2),
+                         mode="a+")
+        kff.reset_launches()
+        _, gib = cuda_peak(torch, lambda: gp.fit(opt=False, show=False))
+        paths["f64_incremental"] = counts = counted(kff)
+        names = [kname(b, F64) for b in ("kef_rect", "kff_rect", "kff_tri")]
+        check_f64_path(counts, names, "float64 incremental refit", RBF_F64)
+        rs = gp.refit_stats
+        log(f"(p3) [{card}] bench append of {APPENDS[0][0]} E + "
+            f"{APPENDS[0][1]} F in float64: {rs['incremental_ms']:.3f} ms "
+            f"incremental (the first fit {rs['full_ms']:.3f} ms full), peak "
+            f"{gib:.3f} GiB; launches {json.dumps(nonzero(counts))}")
+        if rs["incremental"] != 1 or counts[kname("kff_tri", F64)] != 1:
+            raise AssertionError(f"(p3) the float64 append was not one "
+                                 f"incremental refit with one K1: {rs}")
+        # the append's shapes: its rows (bench_points' rows of seed 2)
+        # against the bench side (K2 both ways, K3) and themselves (K1)
+        ne, nf = to_f64(torch, *bench_data(torch, dev, *APPENDS[0], seed=2))
+        tag = f"float64 {APPENDS[0][0]} E + {APPENDS[0][1]} F appended"
+        bparams = gp.kernel.params()
+        compare(torch, kernel_cases(kff, ne, nf, be, bf, bparams, "rbf", F64,
+                                    sort=True, query_only=True),
+                f"{tag}, against the bench training side", errs, log,
+                rtol=F64_RTOL, phase="(p1)")
+        compare(torch, kernel_cases(kff, ne, nf, ne, nf, bparams, "rbf", F64,
+                                    sort=True),
+                f"{tag}, against themselves", errs, log, rtol=F64_RTOL,
+                phase="(p1)")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--alt-source", help="another revision's kernel "
@@ -2566,18 +3176,24 @@ def main(argv=None) -> int:
             f"{len(bodies.get('rect', ()))}, tri_kernel "
             f"{len(bodies.get('tri', ()))}, rect_mma_kernel "
             f"{len(bodies.get('rect_mma', ()))}, tri_mma_kernel "
-            f"{len(bodies.get('tri_mma', ()))}")
-        if set(bodies) != {"rect", "tri", "rect_mma", "tri_mma"} or \
+            f"{len(bodies.get('tri_mma', ()))}, rect_f64_kernel "
+            f"{len(bodies.get('rect_f64', ()))}, tri_f64_kernel "
+            f"{len(bodies.get('tri_f64', ()))}")
+        if set(bodies) != {"rect", "tri", "rect_mma", "tri_mma", "rect_f64",
+                           "tri_f64"} or \
                 bodies["rect"] != set(RECT) or \
                 bodies["tri"] != set(TRI) or \
                 bodies["rect_mma"] != set(MMA) or \
                 bodies["tri_mma"] != set(TRI_MMA) or \
+                bodies["rect_f64"] != set(RECT_F64) or \
+                bodies["tri_f64"] != set(TRI_F64) or \
                 "cov_kernel" in compiler_log:
             raise AssertionError("the library does not hold 8 rect_kernel, "
-                                 "4 tri_kernel, 16 rect_mma_kernel and 8 "
-                                 "tri_mma_kernel instantiations and no "
+                                 "4 tri_kernel, 16 rect_mma_kernel, 8 "
+                                 "tri_mma_kernel, 8 rect_f64_kernel and 4 "
+                                 "tri_f64_kernel instantiations and no "
                                  "cov_kernel")
-        for body in ("rect_mma", "tri_mma"):
+        for body in ("rect_mma", "tri_mma", "rect_f64", "tri_f64"):
             spills = {name: int(m.group(1)) for name, b, line in
                       ptxas_lines(compiler_log) if b == body
                       for m in [re.search(r"(\d+) bytes spill stores",
@@ -3340,6 +3956,33 @@ def main(argv=None) -> int:
                 f"{[round(t, 4) for t in per]} ms, sum / single launch = "
                 f"{sum(per):.4f} / {single:.4f} = {sum(per) / single:.4f}")
 
+    # (p) float64 on the card (the JAX package's default x64 mode): (p1)
+    # every _f64 kernel against its plain version, (p2) set_GPR and the
+    # NEBs, (p3) the 10 000-row bench, (p4) the MD example, each counted
+    t_p = time.time()
+    card = card_line()
+    f64 = torch.float64
+    f64_errs, f64_times, f64_at = f64_kernel_checks(
+        torch, kff, par, dev, log, card,
+        (*slice_request(gp, images[2], dev, f64), *to_f64(torch, te, tf)),
+        compiler_log)
+    path_launches.update(run_f64_paths(T, torch, kff, dev, log, card,
+                                       f64_errs))
+    path_launches.update(run_f64_bench(
+        T, torch, kff, K_ops, dev, log, card,
+        (*slice_request(gp, images[2], dev, f64), len(images[2])), f64_errs))
+    path_launches["f64_md"], md64_gp, md64_last = run_md(
+        T, torch, kff, K_ops, dev, f64, log, card, steps=F64_MD_STEPS,
+        phase="(p4)", tol=F64_MD_TOL)
+    check_f64_path(path_launches["f64_md"], RBF_F64, "float64 MD", RBF_F64)
+    # the MD path's shapes (d = 9, 8 envs a point), both families
+    f64_path_shapes(torch, kff, md64_gp,
+                    slice_request(md64_gp, md64_last, dev, f64),
+                    "float64 MD training set, the last volume's request",
+                    f64_errs, log, kinds=("rbf", "dot"))
+    del md64_gp
+    log(f"(p) float64 on the card: {time.time() - t_p:.1f} s")
+
     def range_cell(name, tag):
         ms, pms, bms, by, per, single = range_at[tag][name]
         return dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
@@ -3375,6 +4018,17 @@ def main(argv=None) -> int:
                  **range_cell(name, "slice"), "mid": range_cell(name, "mid"),
                  "bench": range_cell(name, "bench")}
                 for name in RANGE_NAMES]
+    kernels += [{"name": name, "route": "cuda", "source": source_of(name),
+                 "replaces": replaces(name),
+                 "launches": sum(c[name] for c in path_launches.values()),
+                 "launches_by_path": {p: c[name]
+                                      for p, c in path_launches.items()},
+                 "max_abs_err": f64_errs[name], "ms": f64_times[name][0],
+                 "plain_ms": f64_times[name][1],
+                 "bound_ms": f64_times[name][2],
+                 "bound_by": f64_times[name][3], "library_ms": None,
+                 "mid": f64_at["mid"][name], "bench": f64_at["bench"][name]}
+                for name in F64_NAMES]
     log(f"whole run: {time.time() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -92,8 +92,12 @@ def emt_energy(positions, pair_i, pair_j, offsets, table, type_idx):
     # density contribution of j at i
     sig_contrib = (torch.exp(-eta2[j] * (r - BETA * s0[j]))
                    * ksi_ij * theta / gamma1[i])
+    # index_put(accumulate=True) adds in a fixed order on a card too
+    # (index_add: atomics, no fixed order, energies and forces that vary
+    # from run to run in the last bits)
     sigma1 = torch.zeros(natoms, dtype=positions.dtype,
-                         device=positions.device).index_add(0, i, sig_contrib)
+                         device=positions.device).index_put(
+                             (i,), sig_contrib, accumulate=True)
     sigma1 = torch.clamp(sigma1, min=1e-12)
 
     ds = -torch.log(sigma1 / 12.0) / (BETA * eta2)

@@ -9,8 +9,14 @@ guess: ``device()`` raises until ``set_device("cpu")`` asks for the CPU
 
 The working dtype follows the device unless set explicitly: float64 on
 the CPU (the parity target against the JAX package, ~1e-10) and float32
-on CUDA, where the hand-written covariance kernels run (the counterpart
-of the JAX package's ``GPR_CALC_TPU_X64=0`` mode).
+on CUDA (the counterpart of the JAX package's ``GPR_CALC_TPU_X64=0``
+mode).  ``set_dtype(torch.float64)`` or ``GP(..., dtype=torch.float64)``
+on CUDA is the JAX package's default ``GPR_CALC_TPU_X64=1`` mode: the
+covariance blocks run on the hand-written float64 kernels (the ``_f64``
+entry points of ``ops/kff.py``), which ignore the matmul precision, and
+nothing of the model is rounded to float32.  Either way the covariance
+blocks on the card go through hand-written kernels, never the plain
+versions.
 
 ``kff_precision()`` is the matmul precision of the float32 covariance
 blocks, the counterpart of the JAX package's ``_resolve_precision``
@@ -75,7 +81,8 @@ def set_device(dev) -> None:
 
 def dtype(dev=None) -> torch.dtype:
     """The working floating dtype on ``dev`` (default: the working
-    device): float64 on the CPU, float32 on CUDA."""
+    device): the one ``set_dtype`` chose, else float64 on the CPU and
+    float32 on CUDA."""
     if _DTYPE is not None:
         return _DTYPE
     dev = device() if dev is None else torch.device(dev)
@@ -83,6 +90,8 @@ def dtype(dev=None) -> torch.dtype:
 
 
 def set_dtype(dt) -> None:
+    """Pin the working dtype on every device (None: back to the device's
+    default); float64 on CUDA takes the float64 kernels."""
     global _DTYPE
     _DTYPE = dt
 

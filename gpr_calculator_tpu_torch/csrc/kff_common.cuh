@@ -6,6 +6,8 @@
 //   kff_tri.cu      tri_kernel: K1 in highest (a TMA ring)
 //   kff_rect_mma.cu rect_mma_kernel: K2 and K3 in the bf16 modes
 //   kff_tri_mma.cu  tri_mma_kernel: K1 in the bf16 modes
+//   kff_f64.cu      tri_f64_kernel, rect_f64_kernel: K1, K2 and K3 in
+//                   float64
 //   kff_common.cuh  this file: the operands and the arithmetic every kernel
 //                   computes, the tile and chunk geometry, the kernel
 //                   families and coefficient sets, the per-pair powers, the
@@ -33,7 +35,10 @@
 //   _dot    kind="dot" (_coeff_sets kff_pallas.py:189-192, :780-781)
 // and each in the three matmul precisions of kff_pallas.py:38-63
 // (_pair_blocks :151, _lhs_rhs :394): no further suffix for highest, then
-// _bf16x4 and _bf16.
+// _bf16x4 and _bf16.  For float64 operands (the JAX package's default
+// x64 mode, whose XLA builds kff_self, kef and kff of ops/kernels.py:429,
+// :215, :365 the Pallas gate leaves float64 to) each also has an _f64
+// kernel (kff_f64.cu) that computes the same sums in double.
 //
 // Operands (built once per block side by ops/kff.py, so every block of one
 // training covariance reads the same rounded values):
@@ -92,16 +97,17 @@
 // range (k0 = 0, nk = all tiles) is the single-card call.
 //
 // Every entry point of the library: (X1, re1, m1, B1, X2, re2, m2, B2,
-// out, outd, sigma2, gamma, zeta, k0, nk, ldo, trans, stream).  K_FF: out
+// out, outd, sigma2, gamma, zeta, k0, nk, ldo, trans, stream), with re,
+// out, sigma2 and gamma float (double in the _f64 entry points).  K_FF: out
 // (3 m1, 3 m2); K_EF: out (m1, 3 m2) from energy operands (U1, w1 =
 // [valid/count, element]) against force operands; ldo is the leading
 // dimension of out and outd (at least 3 m2).  outd receives dK/dgamma for
 // _dual and is unused otherwise; gamma is unused by _dot.  K1 (kff_tri*)
-// takes re2 = re1, m2 = m1, B2 = B1, and X2 = X1 in the bf16 modes, but in
-// highest X2 = the k-major copy of (X1, re1) (kff_tri.cu); it writes tiles
-// [k0, k0 + nk) of the upper triangle and their transposes, nothing else:
-// the whole range gives an exactly symmetric out (and outd), a part of it
-// needs out zeroed by the caller.  k0 and nk are unused by the rectangular
+// takes re2 = re1, m2 = m1, B2 = B1, and X2 = X1 in the bf16 modes and in
+// float64, but in highest X2 = the k-major copy of (X1, re1) (kff_tri.cu);
+// it writes tiles [k0, k0 + nk) of the upper triangle and their
+// transposes, nothing else: the whole range gives an exactly symmetric out
+// (and outd), a part of it needs out zeroed by the caller.  k0 and nk are unused by the rectangular
 // kernels.  trans != 0 (the kef_rect* kernels of every mode; K1 and K3
 // refuse it) stores K_EF transposed, out (3 m2, m1) with ldo at least m1.
 #pragma once
@@ -136,15 +142,16 @@ __device__ __forceinline__ void tri_tile(long long k, int& I, int& J) {
   I = (int)(k - j * (j + 1) / 2);
 }
 
-// c^(z-1) and z(z-1) c^(z-2) for an integer exponent z >= 1.
-__device__ __forceinline__ void powers(float c, int zeta, float& d1,
-                                       float& dm2) {
+// c^(z-1) and z(z-1) c^(z-2) for an integer exponent z >= 1, in the
+// scalar type T of the kernel (float, or double for the _f64 kernels).
+template <typename T>
+__device__ __forceinline__ void powers(T c, int zeta, T& d1, T& dm2) {
   if (zeta == 1) {
-    d1 = 1.f;
-    dm2 = 0.f;
+    d1 = T(1);
+    dm2 = T(0);
   } else if (zeta == 2) {
     d1 = c;
-    dm2 = 1.f;
+    dm2 = T(1);
   } else {
     dm2 = c;
     for (int i = 0; i < zeta - 3; ++i) dm2 *= c;
@@ -188,29 +195,31 @@ __device__ __forceinline__ void stage_re_async(const float* __restrict__ re,
 
 // Element range [lo, hi] of the envs with a weight in chunk c of one
 // side's tile, by one warp; (+inf, -inf) for a chunk of padding alone.
-template <int NEX, int CBX>
-__device__ __forceinline__ void chunk_range(const float* __restrict__ re,
+// T: the scalar type of re and of the ranges (float, double; fmin and
+// fmax have overloads of both).
+template <int NEX, int CBX, typename T = float>
+__device__ __forceinline__ void chunk_range(const T* __restrict__ re,
                                             int m, int B, int p0, int c,
-                                            float* __restrict__ rng) {
+                                            T* __restrict__ rng) {
   const long long N = (long long)m * B;
   const int lane = threadIdx.x & 31;
-  float lo = INFINITY, hi = -INFINITY;
+  T lo = INFINITY, hi = -INFINITY;
   for (int env = lane; env < NEX; env += 32) {
     const int p = p0 + env / CBX;
     const int e = c * CBX + env % CBX;
     if (p < m && e < B) {
       const long long n = (long long)p * B + e;
-      if (re[n] != 0.f) {
-        const float el = re[N + n];
-        lo = fminf(lo, el);
-        hi = fmaxf(hi, el);
+      if (re[n] != T(0)) {
+        const T el = re[N + n];
+        lo = fmin(lo, el);
+        hi = fmax(hi, el);
       }
     }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    lo = fmin(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
   if (lane == 0) {
     rng[2 * c] = lo;
@@ -259,4 +268,5 @@ cudaError_t rect_highest_init();
 cudaError_t tri_highest_init();
 cudaError_t rect_mma_init();
 cudaError_t tri_mma_init();
+cudaError_t f64_init();
 }  // namespace kff

@@ -426,13 +426,13 @@ RECT_ENTRY(kff_rect_deriv, 4, DERIV, RBF)
 RECT_ENTRY(kff_rect_dot, 4, KONLY, DOT)
 
 // The shared-memory limits of the ring kernels of every source (K1-K3 in
-// highest and in the modes) on the current device: the library's loader
+// highest, in the modes and in float64) on the current device: the library's loader
 // calls it once for each device before the first launch there.  Returns
 // the first CUDA error.
 int kff_rect_init() {
   const cudaError_t rcs[] = {kff::rect_highest_init(),
                              kff::tri_highest_init(), kff::rect_mma_init(),
-                             kff::tri_mma_init()};
+                             kff::tri_mma_init(), kff::f64_init()};
   for (cudaError_t rc : rcs)
     if (rc != cudaSuccess) return (int)rc;
   return 0;

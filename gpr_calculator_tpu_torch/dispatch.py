@@ -35,12 +35,16 @@ class DispatchPolicy:
             e_tol = 1.2 * natoms * self.gp.noise_e
         return e_tol, 1.2 * self.gp.noise_f
 
+    def force_reference(self, natoms: int, F) -> float:
+        """The bound every force sigma must stay under."""
+        f_tol = self.tolerances(natoms)[1]
+        return max(f_tol, float(np.abs(F).max()) / 2.5)   # calculator.py:72
+
     def needs_base(self, natoms: int, F, E_std_total: float, F_std) -> bool:
-        e_tol, f_tol = self.tolerances(natoms)
-        Fmax = float(np.abs(F).max())
-        f_ref = max(f_tol, Fmax / 2.5)           # calculator.py:72
+        e_tol = self.tolerances(natoms)[0]
         E_fail = float(E_std_total) > e_tol
-        force_fail = not (np.asarray(F_std) < f_ref).all()
+        force_fail = not (np.asarray(F_std)
+                          < self.force_reference(natoms, F)).all()
         return E_fail or force_fail
 
     # -- base fallback (calculator.py:79-99) --------------------------------

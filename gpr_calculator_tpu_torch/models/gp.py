@@ -130,7 +130,8 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
     factorisation too; L and alpha are on the root.
 
     K is assembled in float64: the force blocks come from the kernels
-    in the working dtype (float32 on the card) and are cast, K_EE is
+    in the working dtype (float32 on the card by default, float64 from
+    the ``_f64`` kernels for a float64 model) and are cast, K_EE is
     computed in float64 from the same rounded operands and the noise is
     added in float64.  On the MD example's final model (l ~ 0.22,
     noise_e = 2e-3 eV/atom) the whole K and the served block in float32
@@ -139,8 +140,8 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
     float64, 1.7e-4-5.0e-4 eV and 1.8e-3-4.1e-3 eV/A (NVIDIA H100 80GB
     HBM3, 700.00 W; PERF.md).  It is factorised and solved in float64,
     as the NLL does.  L and alpha are returned in float64: the served
-    mean is a float64 product of the cross covariance (float32 kernel
-    blocks, K_EE in float64) with alpha, the variance a float64 solve
+    mean is a float64 product of the cross covariance (kernel blocks in
+    the working dtype, K_EE in float64) with alpha, the variance a float64 solve
     against L (``_predict_packed``).  At the 10 000-row bench
     covariance a float32 solve left alpha 12 % of max|alpha| off the
     float64 solve of the same K and moved a served energy by 0.14-0.16 eV,
@@ -266,8 +267,9 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
     zeros).
 
     Precision: Kk comes in float64 (K_EE computed in float64 from the
-    rounded operands, the kernels' float32 force blocks cast); the factor,
-    the traces and every reduction are float64.  K is ill-conditioned
+    rounded operands, the kernels' force blocks cast from the working
+    dtype); the factor, the traces and every reduction are float64.  K
+    is ill-conditioned
     where L-BFGS-B starts (RBF: cond ~1e8 at l = 0.1), and there a float32
     Cholesky alone moved the NLL by ~1e-4 of its value, and float32
     reductions the l-gradient by ~1e-3.  With chol_mode="sharded" the
@@ -1373,10 +1375,9 @@ class GP:
         potential's stress in that column order, else S is None.  The
         descriptors (``SO3.calculate_many_device``, one ``_so3_core``
         call) are computed in float64 and rounded once to the working
-        dtype: in float32 the core's segment sums (``index_add_``) add in
-        no fixed order on the card, so a structure served twice got
-        descriptors ~4e-7 apart and energies up to 1.6e-4 eV apart (NVIDIA
-        H100 80GB HBM3, 700.00 W; PERF.md)."""
+        dtype, as the training descriptors are (``convert_train_data``):
+        float32 sums in the core would put them ~4e-7 off (NVIDIA H100
+        80GB HBM3, 700.00 W; PERF.md)."""
         if stress and not getattr(self.descriptor, "stress", False):
             raise ValueError(
                 "stress=True needs a stress-enabled descriptor: construct "

@@ -5,9 +5,10 @@ kernel's pair-count matrix ``count_ee`` -- the part of the JAX package's
 ``ops/kernels.py`` that fitting, training and serving call.
 
 Every block function goes through the operand form of ``ops/kff.py``:
-K_FF and K_EF run the CUDA kernels for float32 tensors on the card and
-the plain PyTorch versions on the CPU; K_EE is a plain product over the
-same operands.  Rows/cols are ordered [energies..., 3 rows per force
+K_FF and K_EF run the CUDA kernels for float32 or float64 tensors on the
+card (float64 data: the ``_f64`` kernels, which write float64) and the
+plain PyTorch versions on the CPU; K_EE is a plain product over the same
+operands.  Rows/cols are ordered [energies..., 3 rows per force
 point...] (the reference's build_covariance, kernels/base.py:3-30).
 ``kind`` is the kernel family, "rbf" or "dot" (``ops/kff.py`` has both
 sets of coefficients), or "rbf_dgamma" in ``k_self``/``k_block``: the
@@ -39,15 +40,17 @@ from .packing import EnergyData, ForceData
 
 
 def _self_buffers(e: EnergyData, f: ForceData, n_planes: int, dtype,
-                  device):
-    """The (m_e + 3 m_f) square buffers of a training covariance, and
-    whether the force blocks are written straight into them: the
-    kernels (or, on the CPU, the plain versions) write float32 on the
-    card, so a buffer of another dtype there takes them by a copy."""
+                  like):
+    """The (m_e + 3 m_f) square buffers of a training covariance, on the
+    device of ``like`` (the dense energy operand), and whether the force
+    blocks are written straight into them: the kernels write the
+    operands' dtype (float32, or float64 for float64 operands), so on the
+    card a buffer of another dtype takes them by a copy; on the CPU the
+    plain versions' blocks are copied in (cast) either way."""
     n = e.m + 3 * f.m
-    bufs = [torch.empty((n, n), dtype=dtype, device=device)
+    bufs = [torch.empty((n, n), dtype=dtype, device=like.device)
             for _ in range(n_planes)]
-    return bufs, device.type == "cpu" or dtype == torch.float32
+    return bufs, like.device.type == "cpu" or dtype == like.dtype
 
 
 def _fill_self(K, m: int, K_ee, ef, ff, direct: bool):
@@ -112,9 +115,9 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
     twice.  plain=True takes the plain versions on any device.  dtype
     (default: the operands') is the result's: K_EE is computed in it from
     the same rounded operand values, the force blocks are cast to it (on
-    the card a buffer that is not float32 takes them by a copy).  Every
-    block is mirrored or transposed from one triangle, so K is exactly
-    symmetric.  mesh:
+    the card a buffer of another dtype than the data's takes them by a
+    copy).  Every block is mirrored or transposed from one triangle, so K
+    is exactly symmetric.  mesh:
     K1's tile ranges and the energy-row stripes run one per shard
     (``self_blocks_sharded``); K_FF and K_EF are the unsharded ones bit
     for bit.  rest: the training rows (e0, f0) these rows extend (the new
@@ -137,7 +140,7 @@ def k_self(e: EnergyData, f: ForceData, params, zeta: int = 2,
     X, re = force_operand(f, mode, sort[1])
     Ud = dense(U)
     dt = Ud.dtype if dtype is None else dtype
-    (K,), direct = _self_buffers(e, f, 1, dt, Ud.device)
+    (K,), direct = _self_buffers(e, f, 1, dt, Ud)
     direct = direct and not plain
     Ud, wd = Ud.to(dt), w.to(dt)
     K_ee = kee_from_ops(Ud, wd, A, Ud, wd, A, params, zeta, kind=kind)
@@ -219,7 +222,7 @@ def k_self_dual(e: EnergyData, f: ForceData, params, zeta: int = 2,
     X, re = force_operand(f, mode)
     Ud = dense(U)
     dt = Ud.dtype if dtype is None else dtype
-    Ks, direct = _self_buffers(e, f, 2, dt, Ud.device)
+    Ks, direct = _self_buffers(e, f, 2, dt, Ud)
     direct = direct and not plain
     ee = kee_from_ops(Ud.to(dt), w.to(dt), A, Ud.to(dt), w.to(dt), A,
                       params, zeta, dual=True)

@@ -59,20 +59,24 @@ Every kernel and plain version stays correct for any order.
 
 Routes.  ``kff_from_ops`` and ``kef_from_ops`` take the plain version for
 tensors on the CPU (any float dtype) and launch the CUDA kernels for
-float32 or bf16-parts operands on a CUDA device; anything else on CUDA
-raises.  The kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect``
-with the suffixes ``_dual``, ``_deriv`` (K1-K3; K3 also ``_dual``) and
-``_dot``, each also with ``_bf16x4`` and ``_bf16`` for the modes) are
-built with nvcc at first use -- every ``csrc/*.cu`` compiled on its own,
-all at once, and linked into one library -- into the package's
-git-ignored ``build/`` directory and bound with ctypes.  ``launches``
-counts each kernel launch.
+float32 or bf16-parts operands, or float64 operands, on a CUDA device;
+anything else on CUDA (float16, float32 mixed with float64) raises.  The
+kernels (K1 ``kff_tri``, K2 ``kef_rect``, K3 ``kff_rect`` with the
+suffixes ``_dual``, ``_deriv`` (K1-K3; K3 also ``_dual``) and ``_dot``,
+each also with ``_bf16x4`` and ``_bf16`` for the modes, and with
+``_f64`` for float64 operands, which write float64 and ignore the mode:
+the JAX package's default x64 mode) are built with nvcc at first use --
+every ``csrc/*.cu`` compiled on its own, all at once, and linked into one
+library -- into the package's git-ignored ``build/`` directory and bound
+with ctypes.  ``launches`` counts each kernel launch, ``plain_calls``
+each call of ``kff_plain`` / ``kef_plain``.
 The ``highest`` K1 kernels read their operand through a tensor map of its
 k-major copy (``tri_operand``, ~49 MB at 3000 points of 32 envs), which
 the wrapper builds once per operand tensor and keeps on it.
 ``out=`` (and ``outd=``, the dK/dgamma plane of a dual pass) writes the
-block into a caller's 2-D float32 view with unit column stride -- a slice
-of a larger buffer -- and ``transpose=True`` (K2, in every mode) stores
+block into a caller's 2-D view (float32, or float64 for float64
+operands) with unit column stride -- a slice of a larger buffer -- and
+``transpose=True`` (K2, in every mode) stores
 K_EF transposed there: the served block of ``ops/kernels.k_block`` and
 the training covariance of ``k_self`` / ``k_self_dual`` are built in one
 buffer this way.
@@ -87,7 +91,7 @@ whole K_FF exactly (the mesh-sharded build of ``parallel/``, which
 replaces the ``cells=``/``owned=`` form of the Pallas kernel,
 kff_pallas.py:592-596, :703-711).  Range launches are counted under
 names of their own (``kff_tri_range``, ``kff_tri_dual_range_bf16x4``,
-...).
+``kff_tri_range_f64``, ...).
 """
 from __future__ import annotations
 
@@ -128,23 +132,34 @@ BASES = ("kff_tri", "kff_tri_dual", "kff_tri_deriv", "kff_tri_dot",
          "kff_rect", "kff_rect_dual", "kff_rect_deriv", "kff_rect_dot")
 # launch-counter names of the tile-range form of the K1 kernels
 RANGE_BASES = tuple(b + "_range" for b in BASES if b.startswith("kff_tri"))
+# the kernel set of float64 operands (the suffix of its names); it is no
+# matmul precision: float64 operands ignore the configured one
+F64 = "f64"
+# every kernel set of the library: the matmul precisions of float32
+# operands, then float64
+KERNEL_MODES = config.PRECISIONS + (F64,)
 
 
 def kernel_name(base: str, mode: str) -> str:
-    """Launch-counter (and entry-point) name of ``base`` in ``mode``."""
+    """Launch-counter (and entry-point) name of ``base`` in ``mode`` (a
+    matmul precision, or ``F64``)."""
     return base if mode == "highest" else f"{base}_{mode}"
 
 
 # the library's entry points, and kernel name -> launches since the last
 # reset_launches() (a range launch counts under its ``_range`` name only)
-_ENTRIES = tuple(kernel_name(b, m) for m in config.PRECISIONS for b in BASES)
-launches = {kernel_name(b, m): 0 for m in config.PRECISIONS
+_ENTRIES = tuple(kernel_name(b, m) for m in KERNEL_MODES for b in BASES)
+launches = {kernel_name(b, m): 0 for m in KERNEL_MODES
             for b in BASES + RANGE_BASES}
+# calls of the plain versions K_FF / K_EF since the last reset_launches():
+# a path on the card that counts none ran its blocks through the kernels
+plain_calls = {"kff_plain": 0, "kef_plain": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, plain_calls):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +579,7 @@ def kff_plain(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
     sigma2, p2 = _scalars(params, kind, dual, deriv)
     if tiles is not None and not symmetric:
         raise ValueError("a tile range needs symmetric=True")
+    plain_calls["kff_plain"] += 1
     X1, X2 = dense(X1), dense(X2)
     m1, m2 = X1.shape[1] // B1, X2.shape[1] // B2
     outs = [X1.new_zeros((m1, 3, m2, 3)) for _ in range(1 + dual)]
@@ -600,6 +616,7 @@ def kef_plain(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
     deriv=True dK/dgamma alone."""
     kind, deriv = _family(kind, deriv)
     sigma2, p2 = _scalars(params, kind, dual, deriv)
+    plain_calls["kef_plain"] += 1
     U1, X2 = dense(U1), dense(X2)
     m1, m2 = U1.shape[0] // A1, X2.shape[1] // B2
     outs = [U1.new_zeros((m1, m2, 3)) for _ in range(1 + dual)]
@@ -763,14 +780,16 @@ def load(path) -> dict:
     points)."""
     lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    LL = ctypes.c_longlong
+    LL, D = ctypes.c_longlong, ctypes.c_double
     fns = {}
     # every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd,
     # sigma2, second scalar, zeta, first tile, tile count, leading
-    # dimension of out, transposed store, stream)
+    # dimension of out, transposed store, stream); the scalars are double
+    # in the float64 kernels
     for name in _ENTRIES:
         fn = getattr(lib, name)
-        fn.argtypes = [P, P, I, I, P, P, I, I, P, P, F, F, I, LL, LL, LL, I,
+        S = D if name.endswith("_" + F64) else F
+        fn.argtypes = [P, P, I, I, P, P, I, I, P, P, S, S, I, LL, LL, LL, I,
                        P]
         fn.restype = I
         fns[name] = fn
@@ -818,15 +837,28 @@ def launch_empty(device) -> None:
         raise RuntimeError(f"kff_empty launch failed: CUDA error {rc}")
 
 
+def _check_dtypes(*tensors):
+    """float32 (or bf16 parts with float32 metadata) for the kernels of the
+    matmul precisions, or float64 throughout for the ``_f64`` kernels."""
+    wide = tensors[0].dtype == torch.float64
+    for t in tensors:
+        if t.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            raise TypeError(f"the CUDA kernels take float32 or float64, got "
+                            f"{t.dtype}")
+        if (t.dtype == torch.float64) != wide:
+            raise TypeError("float64 and float32 operands do not mix in one "
+                            "launch")
+
+
 def _check_cuda(zeta: int, *tensors):
+    """The operands of one launch: of the kernels' dtypes
+    (``_check_dtypes``), on one card, contiguous and aligned."""
     if zeta < 1:
         raise ValueError(f"zeta must be a positive integer, got {zeta}")
+    _check_dtypes(*tensors)
     for t in tensors:
         if t.device != tensors[0].device or t.device.type != "cuda":
             raise ValueError("kernel operands must all lie on one card")
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"the CUDA kernels take float32, got {t.dtype} "
-                            "(float64 on the card is not ported yet)")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
         if t.data_ptr() % 16:
@@ -837,12 +869,13 @@ def _check_side(X, re, B: int, comps: int, mode: str):
     parts = X.dim() - 2 - (comps > 1)
     rows = X.shape[-3] if comps > 1 else 1
     if (rows != comps or X.shape[-1] != DP
-            or parts != (mode != "highest")):
+            or parts != (mode not in ("highest", F64))):
         raise ValueError(f"operand shape {tuple(X.shape)} is not "
                          f"({comps}, N, {DP}) in mode {mode}")
     N = X.shape[-2]
-    if re.dtype != torch.float32:
-        raise TypeError(f"operand metadata must be float32, got {re.dtype}")
+    if re.dtype != _out_dtype(mode):
+        raise TypeError(f"operand metadata must be {_out_dtype(mode)}, got "
+                        f"{re.dtype}")
     if re.shape != (2, N) or B < 1 or N % B:
         raise ValueError("operand rows do not match the env count")
     if N // B > _MAX_POINTS:
@@ -850,12 +883,12 @@ def _check_side(X, re, B: int, comps: int, mode: str):
 
 
 def _mode(mm_precision, *ops) -> str:
-    """The kernel mode: ``mm_precision`` (default: the configured one),
+    """The kernel set: ``mm_precision`` (default: the configured one),
     which float32 and bf16 operands must have been built in; float64
-    operands ignore it."""
+    operands ignore it and take the float64 kernels (``F64``)."""
     mode = config.kff_precision(mm_precision)
     if any(X.dtype == torch.float64 for X in ops):
-        return "highest"
+        return F64
     for X in ops:
         if operand_precision(X) != mode:
             raise ValueError(f"operand built in mode "
@@ -888,21 +921,28 @@ def _launch(base, mode, device, *args, k0=0, nk=0, ldo=0, trans=False,
     launches[kernel_name(base + "_range", mode) if ranged else name] += 1
 
 
-def _check_out(out, rows: int, cols: int, like):
+def _out_dtype(mode: str):
+    """The dtype the kernels of ``mode`` write (and read their metadata
+    in): float64 for ``F64``, else float32."""
+    return torch.float64 if mode == F64 else torch.float32
+
+
+def _check_out(out, rows: int, cols: int, like, dtype):
     """``out=``: a (rows, cols) view on the operands' device.  On the card
-    it must be float32 with contiguous columns (a slice of a larger
-    row-major buffer); on the CPU the plain version's block is copied into
-    it (cast to its dtype)."""
+    it must be of the kernels' ``dtype`` with contiguous columns (a slice
+    of a larger row-major buffer); on the CPU the plain version's block is
+    copied into it (cast to its dtype)."""
     cpu = like.device.type == "cpu"
     if (out.dim() != 2 or tuple(out.shape) != (rows, cols)
-            or (out.dtype != torch.float32 and not cpu)
+            or (out.dtype != dtype and not cpu)
             or out.device != like.device):
-        raise ValueError(f"out must be a ({rows}, {cols}) float32 tensor on "
+        raise ValueError(f"out must be a ({rows}, {cols}) {dtype} tensor on "
                          f"{like.device}, got {tuple(out.shape)} "
                          f"{out.dtype} on {out.device}")
     if cpu:
         return
-    if out.stride(1) != 1 or out.stride(0) < cols or out.data_ptr() % 4:
+    if (out.stride(1) != 1 or out.stride(0) < cols
+            or out.data_ptr() % out.element_size()):
         raise ValueError("out must have contiguous columns (a slice of a "
                          "row-major buffer)")
 
@@ -913,19 +953,20 @@ def _variant(kind: str, dual: bool, deriv: bool) -> str:
 
 
 def _outputs(out, outd, rows: int, cols: int, dual: bool, zero: bool,
-             like):
+             like, dtype):
     """The output views of one launch: ``out`` (and ``outd`` for a dual
-    pass), checked, or new (rows, cols) float32 tensors; zeroed when
-    ``zero`` (a tile-range launch writes its own tiles alone)."""
+    pass), checked, or new (rows, cols) tensors of the kernels' ``dtype``;
+    zeroed when ``zero`` (a tile-range launch writes its own tiles
+    alone)."""
     if not dual and outd is not None:
         raise ValueError("outd= is the dK/dgamma plane of a dual pass")
     planes = []
     for o in (out, outd)[:1 + dual]:
         if o is None:
             o = (torch.zeros if zero else torch.empty)(
-                (rows, cols), dtype=torch.float32, device=like.device)
+                (rows, cols), dtype=dtype, device=like.device)
         else:
-            _check_out(o, rows, cols, like)
+            _check_out(o, rows, cols, like, dtype)
             if zero:
                 o.zero_()
         planes.append(o)
@@ -958,7 +999,7 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
         m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
         given = out is not None or outd is not None
         planes = _outputs(out, outd, 3 * m1, 3 * m2, dual, False,
-                          X1) if given else None
+                          X1, dense(X1).dtype) if given else None
         K = kff_plain(X1, re1, B1, X2, re2, B2, params, zeta,
                       symmetric=symmetric, dual=dual, kind=kind,
                       deriv=deriv, tiles=tiles)
@@ -978,7 +1019,7 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
     else:
         k0, nk = 0, n_tri_tiles(m1) if symmetric else 0
     planes = _outputs(out, outd, 3 * m1, 3 * m2, dual, tiles is not None,
-                      X1)
+                      X1, _out_dtype(mode))
     out, outd = planes[0], planes[-1]
     if outd.stride(0) != out.stride(0):
         raise ValueError("out and outd must have one leading dimension")
@@ -1017,8 +1058,8 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
     shape = (3 * m2, m1) if transpose else (m1, 3 * m2)
     given = out is not None or outd is not None
     if U1.device.type == "cpu":
-        planes = _outputs(out, outd, *shape, dual, False, U1) \
-            if given else None
+        planes = _outputs(out, outd, *shape, dual, False, U1,
+                          dense(U1).dtype) if given else None
         K = kef_plain(U1, w1, A1, X2, re2, B2, params, zeta, dual=dual,
                       kind=kind, deriv=deriv)
         if transpose:
@@ -1032,7 +1073,8 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
     _check_side(U1, w1, A1, 1, mode)
     _check_side(X2, re2, B2, 4, mode)
     if given:
-        planes = _outputs(out, outd, *shape, dual, False, U1)
+        planes = _outputs(out, outd, *shape, dual, False, U1,
+                          _out_dtype(mode))
         out, outd = planes[0], planes[-1]
         if outd.stride(0) != out.stride(0):
             raise ValueError("out and outd must have one leading dimension")
@@ -1041,7 +1083,7 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
             re2.data_ptr(), m2, B2)
     scalars = (sigma2, 0.0 if kind == "dot" else p2, zeta)
     if not given:
-        out = torch.empty(shape, dtype=torch.float32, device=U1.device)
+        out = torch.empty(shape, dtype=_out_dtype(mode), device=U1.device)
         outd = torch.empty_like(out) if dual else out
     _launch(base, mode, U1.device, *args, out.data_ptr(), outd.data_ptr(),
             *scalars, ldo=out.stride(0), trans=transpose)

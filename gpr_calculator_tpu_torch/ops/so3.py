@@ -94,9 +94,14 @@ MEMORY_SHARE = 0.5
 
 
 def _segment_sum(vals, seg, nseg):
+    """out[s] = the sum of vals[k] over seg[k] == s, each segment added in
+    the order of k on every device: ``index_put_(accumulate=True)`` sorts
+    the indices on a card (stably), where ``index_add_`` adds by atomics
+    in no fixed order, so that one structure's descriptors would differ
+    from run to run."""
     out = torch.zeros((nseg,) + vals.shape[1:], dtype=vals.dtype,
                       device=vals.device)
-    return out.index_add_(0, seg, vals)
+    return out.index_put_((seg,), vals, accumulate=True)
 
 
 def _so3_core(rij, weights, pair_center, pair_seq, self_seq, self_ids,
@@ -193,7 +198,8 @@ def _so3_core(rij, weights, pair_center, pair_seq, self_seq, self_ids,
     # seq accumulation + translation-invariance self rows (SO3.py:261-273)
     dxdr = _segment_sum(dP_tri, pair_seq, nseq + 1)[:nseq]
     center_tot = _segment_sum(dxdr, seq_center, natoms + 1)[:natoms]
-    dxdr = dxdr.index_add(0, self_seq, -center_tot[self_ids])
+    dxdr = dxdr.index_put((self_seq,), -center_tot[self_ids],
+                          accumulate=True)
     if not stress:
         return x, dxdr, None
     # pstress[(i, j)] = -sum_w Rj (x) dP_w; the self rows [(i, i)] add
@@ -203,7 +209,8 @@ def _so3_core(rij, weights, pair_center, pair_seq, self_seq, self_ids,
                             pair_seq, nseq + 1)[:nseq]
     rdPi = _segment_sum(torch.einsum("pn,pcm->pcnm", pair_Ri, dP_tri),
                         pair_center, natoms + 1)[:natoms]
-    return x, dxdr, pstress.index_add(0, self_seq, rdPi[self_ids])
+    return x, dxdr, pstress.index_put((self_seq,), rdPi[self_ids],
+                                      accumulate=True)
 
 
 class SO3:

@@ -321,11 +321,18 @@ def test_mode_kernels_match_plain_on_card(cuda, mode, base):
 
 @pytest.mark.gpu
 def test_card_wrappers_raise_on_unsupported_input(cuda):
+    """What the card's wrappers refuse: float16 operands, float64 operands
+    mixed with float32 ones (or float64 rows with float32 metadata),
+    strided or CPU operands.  Float64 operands alone are taken (the _f64
+    kernels, test_f64_kernels_match_plain_on_card)."""
     e, f1, f2, _ = _data(3, torch.float64, device=cuda)
     (U, w, A), (X1, re1, B1), _ = _ops(e, f1, f2)
-    with pytest.raises(TypeError):
-        kff.kff_from_ops(X1, re1, B1, X1, re1, B1, PARAMS, 2)
     X32, re32 = X1.float(), re1.float()
+    U16, X16 = U.half(), X1.half()
+    with pytest.raises(TypeError):
+        kff.kff_from_ops(X16, re1.half(), B1, X16, re1.half(), B1, PARAMS, 2)
+    with pytest.raises(TypeError):
+        kff.kff_from_ops(X1, re1, B1, X32, re32, B1, PARAMS, 2)
     with pytest.raises(ValueError):
         kff.kff_from_ops(X32[:, ::2], re32[:, ::2], B1, X32, re32, B1,
                          PARAMS, 2)
@@ -333,22 +340,25 @@ def test_card_wrappers_raise_on_unsupported_input(cuda):
         kff.kef_from_ops(U.float(), w.float(), A, X32.cpu(), re32.cpu(), B1,
                          PARAMS, 2)
     with pytest.raises(TypeError):
-        kff.kff_from_ops(X1, re1, B1, X1, re1, B1, PARAMS, 2, symmetric=True,
-                         dual=True)
+        kff.kff_from_ops(X1, re32, B1, X1, re32, B1, PARAMS, 2,
+                         symmetric=True, dual=True)
     with pytest.raises(TypeError):
-        kff.kef_from_ops(U, w, A, X1, re1, B1, PARAMS, 2, dual=True)
+        kff.kef_from_ops(U, w, A, X32, re32, B1, PARAMS, 2, dual=True)
     with pytest.raises(ValueError):
         kff.kef_from_ops(U.float(), w.float(), A, X32[:, ::2], re32[:, ::2],
                          B1, PARAMS, 2, dual=True)
     dot = {"sigma": 1.3, "sigma0": 0.7}
     with pytest.raises(TypeError):
-        kff.kff_from_ops(X1, re1, B1, X1, re1, B1, dot, 2, symmetric=True,
-                         kind="dot")
+        kff.kff_from_ops(X16, re1.half(), B1, X16, re1.half(), B1, dot, 2,
+                         symmetric=True, kind="dot")
     with pytest.raises(ValueError):
         kff.kff_from_ops(X32[:, ::2], re32[:, ::2], B1, X32, re32, B1, dot,
                          2, kind="dot")
     with pytest.raises(TypeError):
-        kff.kef_from_ops(U, w, A, X1, re1, B1, dot, 2, kind="dot")
+        kff.kef_from_ops(U16, w.half(), A, X1, re1, B1, dot, 2, kind="dot")
+    with pytest.raises(TypeError):
+        kff.kef_from_ops(U.float(), w.float(), A, X1, re1, B1, dot, 2,
+                         kind="dot")
     Xb, reb = kff.force_operand(
         f1._replace(x=f1.x.float(), dxdr=f1.dxdr.float()), "bf16x4")
     with pytest.raises(ValueError, match="operand built in mode"):
@@ -981,3 +991,148 @@ def test_mode_rect_out_rejects_bad_views_on_card(cuda, mode):
                             mm_precision=mode) is fe
     torch.cuda.synchronize()
     assert not bool(torch.isnan(good).any() or torch.isnan(fe).any())
+
+
+# ---------------------------------------------------------------------------
+# K1, K2 and K3 in float64 (kff_tri*_f64, kef_rect*_f64, kff_rect*_f64)
+# ---------------------------------------------------------------------------
+
+def _close_f64(kern, plain):
+    """Float64 sums of the same products in another order."""
+    err = (kern - plain).abs().max().item()
+    assert err <= 1e-12 * plain.abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("zeta", [1, 2, 3])
+@pytest.mark.parametrize("base", kff.BASES)
+def test_f64_kernels_match_plain_on_card(cuda, base, zeta, sort):
+    """Each ``_f64`` kernel within 1e-12 max|plain| of its float64 plain
+    version on every plane, at ragged point and env counts (13 / 10
+    points, 1..13 / 1..11 envs, three elements), on operands sorted by
+    element or not, zeta 1-3; K1 exactly symmetric; two runs bit-equal;
+    one ``<base>_f64`` launch each and no other kernel."""
+    rng = np.random.RandomState(140 + 3 * kff.BASES.index(base) + zeta)
+    kw = dict(device=cuda, dtype=torch.float64)
+    elements = (13, 29, 79)
+    f1 = pack_force(_ragged(rng, 13, 13, elements), **kw)
+    f2 = pack_force(_ragged(rng, 10, 11, elements), **kw)
+    e = pack_energy([(x, el) for x, _, el in
+                     _ragged(rng, 6, 9, elements)], **kw)
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    X1, re1 = kff.force_operand(f1, sort=sort)
+    X2, re2 = kff.force_operand(f2, sort=sort)
+    B1, B2 = f1.x.shape[1], f2.x.shape[1]
+    sym = base.startswith("kff_tri")
+    if base.startswith("kef"):
+        U, w = kff.energy_operand(e, sort=sort)
+        args = (U, w, e.x.shape[1], X2, re2, B2, p, zeta)
+        fn, plain = kff.kef_from_ops, kff.kef_plain
+    else:
+        args = (X1, re1, B1) + ((X1, re1, B1) if sym else (X2, re2, B2)) \
+            + (p, zeta)
+        flags["symmetric"] = sym
+        fn, plain = kff.kff_from_ops, kff.kff_plain
+    kff.reset_launches()
+    K, again = fn(*args, **flags), fn(*args, **flags)
+    P = plain(*args, **flags)
+    torch.cuda.synchronize()
+    planes = (K, again, P) if flags["dual"] else ((K,), (again,), (P,))
+    for k, k2, pl in zip(*planes):
+        assert k.dtype == torch.float64
+        _close_f64(k, pl)
+        assert torch.equal(k, k2)
+        if sym:
+            assert torch.equal(k, k.T)
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            base + "_f64": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", K1_BASES)
+def test_f64_k1_tile_ranges_sum_to_single_launch_on_card(cuda, base):
+    """Four tile-range launches of a ``_f64`` K1 (29 points, 10 tiles),
+    written into float64 caller views, sum to the single launch bit for
+    bit, each within 1e-12 of kff_plain(tiles=); counted as
+    ``<base>_range_f64``."""
+    from gpr_calculator_tpu_torch.parallel import partition_tri_tiles
+    rng = np.random.RandomState(170)
+    f = pack_force(make_points(rng, 29, 11, 30), device=cuda,
+                   dtype=torch.float64)
+    X, re = kff.force_operand(f, sort=True)
+    B = f.x.shape[1]
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    args = (X, re, B, X, re, B, p, 2)
+
+    def planes(x):
+        return x if isinstance(x, tuple) else (x,)
+    single = planes(kff.kff_from_ops(*args, symmetric=True, **flags))
+    kff.reset_launches()
+    total = [torch.zeros_like(s) for s in single]
+    ranges = partition_tri_tiles(kff.n_tri_tiles(f.m), 4)
+    for tiles in ranges:
+        views = [torch.full_like(s, float("nan")) for s in single]
+        part = planes(kff.kff_from_ops(
+            *args, symmetric=True, tiles=tiles, out=views[0],
+            outd=views[-1] if flags["dual"] else None, **flags))
+        plain = planes(kff.kff_plain(*args, symmetric=True, tiles=tiles,
+                                     **flags))
+        for acc, k, v, pl in zip(total, part, views, plain):
+            assert k is v and k.dtype == torch.float64
+            _close_f64(k, pl)
+            acc.add_(k)
+    torch.cuda.synchronize()
+    for acc, s in zip(total, single):
+        assert torch.equal(acc, s) and torch.equal(acc, acc.T)
+    assert kff.launches == {**dict.fromkeys(kff.launches, 0),
+                            base + "_range_f64": 4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", kff.BASES)
+def test_f64_out_views_on_card(cuda, base):
+    """``out=`` (and ``outd=``) of a ``_f64`` kernel: a float64 slice of a
+    NaN-filled buffer gets the block and nothing else is touched (K2 also
+    transposed); a float32 view is refused."""
+    rng = np.random.RandomState(180)
+    kw = dict(device=cuda, dtype=torch.float64)
+    f = pack_force(_ragged(rng, 9, 7, (13, 79)), **kw)
+    e = pack_energy([(x, el) for x, _, el in _ragged(rng, 5, 6, (13, 79))],
+                    **kw)
+    X, re = kff.force_operand(f)
+    dot = base.endswith("_dot")
+    p = {"sigma": 1.3, "sigma0": 0.7} if dot else PARAMS
+    flags = dict(dual=base.endswith("_dual"), deriv=base.endswith("_deriv"),
+                 kind="dot" if dot else "rbf")
+    if base.startswith("kef"):
+        U, w = kff.energy_operand(e)
+        args, fn, rows = (U, w, 6, X, re, 7, p, 2), kff.kef_from_ops, e.m
+    else:
+        args, fn, rows = (X, re, 7, X, re, 7, p, 2), kff.kff_from_ops, \
+            3 * f.m
+        flags["symmetric"] = base.startswith("kff_tri")
+    K = fn(*args, **flags)
+    K = K if flags["dual"] else (K,)
+    cols = 3 * f.m
+    bufs = [torch.full((rows + 4, cols + 6), float("nan"), **kw) for _ in K]
+    sl = (slice(2, 2 + rows), slice(3, 3 + cols))
+    views = [b[sl] for b in bufs]
+    out = fn(*args, out=views[0], **({"outd": views[1]} if flags["dual"]
+                                     else {}), **flags)
+    torch.cuda.synchronize()
+    for o, v, k, b in zip(out if flags["dual"] else (out,), views, K, bufs):
+        assert o is v and torch.equal(v, k) and _untouched(b, *sl)
+    if base.startswith("kef") and not flags["dual"]:
+        buf = torch.full((cols + 5, rows + 7), float("nan"), **kw)
+        tsl = (slice(1, 1 + cols), slice(4, 4 + rows))
+        fn(*args, out=buf[tsl], transpose=True, **flags)
+        assert torch.equal(buf[tsl], K[0].T) and _untouched(buf, *tsl)
+    with pytest.raises(ValueError):
+        fn(*args, out=views[0].float(), **flags)
