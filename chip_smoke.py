@@ -4,10 +4,11 @@
 Usage (one CUDA card, no arguments):  python3 chip_smoke.py
 
 To compare two revisions on one card in one process tree, instead of the
-run below:  python3 chip_smoke.py --alt-source OTHER  times the highest
-kernels and the mode K1-K3 kernels of the package's csrc/ and of another
-revision's sources with the same entry points (OTHER: a directory of
-.cu/.cuh files, or one .cu file such as an older csrc/kff.cu) in turns;
+run below:  python3 chip_smoke.py --alt-source OTHER  times the highest,
+the mode and the float64 K1-K3 kernels of the package's csrc/ and of
+another revision's sources with the same entry points (OTHER: a directory
+of .cu/.cuh files, or one .cu file such as an older csrc/kff.cu) in turns,
+at d = 30;
 --alt-root OTHER_CHECKOUT  times one slice request's _predict_packed and
 one bench NLL+gradient of each kernel family of this checkout and of
 another in turns.
@@ -112,9 +113,19 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       request against the factorised and the appended training set, the
       appended rows against the bench side and themselves, and the MD
       model's training set against the last volume's request.
+  (q) descriptor widths above one k-slice of 32: every entry point of
+      every mode (the _f64 ones on float64 data) against its plain
+      version at d = 33, 64 and 147, sorted and packed, the K1 tile
+      ranges and the K2/K3 stripes bit for bit at d = 64; then the slice
+      at d = 50 (SO3 nmax=4 lmax=4): set_GPR and the on-the-fly NEB
+      through the kernels alone, counted, in float64 (the JAX package's
+      run: steps, counts, barrier within 1e-6 eV), in "highest"
+      (converged within 0.01 eV of its barrier) and once in "bf16x4"
+      (recorded).  Phase (a) prints the DMMA instructions of each _f64
+      kernel (cuobjdump -sass) beside its ptxas lines.
 (a)-(j), (m), (n) and (o) run in the default precision, "highest" ((n1)
 and (o2) also in "bf16x4"); (m) runs after (j), (n) after (m), (o) after
-(n), (p) after (l).  Around those runs it
+(n), (p) after (l), (q) after (p).  Around those runs it
 checks every kernel (every mode, and the deriv and K3-dual kernels no
 path reaches) against its plain PyTorch version at the paths' shapes --
 the batched ones too: the bands of 3 and 7 structures as the query side
@@ -155,6 +166,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -244,6 +256,19 @@ F64_BENCH_GRAD_RTOL = {"RBF": 1e-10, "Dot": 1e-8}
 # (p4) the MD example in float64 at full width, 100 steps a volume: at
 # (n2)'s 400 the float64 sweep took the whole script past 450 s
 F64_MD_STEPS = 100
+# (q) the slice at a descriptor width above one k-slice of 32: SO3 at
+# nmax 4, lmax 4 (d = 50), and the JAX package's on-the-fly NEB there (CPU
+# float64: GP.set_GPR(images, EMT(), noise_e=0.05/13, noise_f=0.05,
+# nmax=4, lmax=4, rcut=5.0), then neb_calc as JAX_NEB's)
+W50_SO3 = dict(nmax=4, lmax=4, rcut=5.0)
+W50_THETA = (0.8698952095826656, 1.3658675819155097)
+JAX_W50_NEB = dict(converged=True, nsteps=21, barrier=0.34955560322852364,
+                   use_base=7, use_surrogate=58, fits=3, N_energy=12,
+                   N_forces=43)
+# the widths every entry point is held to its plain version at: one past
+# a slice, two slices, nmax 6 / lmax 6; the K1 ranges and K2/K3 stripes
+# bit for bit at the second
+WIDTHS, RANGE_WIDTH = (33, 64, 147), 64
 PREC = {"highest": 0, "bf16x4": 1, "bf16": 2}   # template PREC
 # kernel base name -> (template parameters <LC, MODE, SEL, KIND> -- MODE
 # 1: the triangular K1, 0: the rectangular K2/K3 --, the Pallas kernel it
@@ -386,14 +411,15 @@ def slice_request(gp, image, device, dtype):
         [dd], [ele], [[i for i in range(len(ele)) if i not in fixed]])
 
 
-def run_training(T, device, dtype, kernel="RBF", mesh=None):
+def run_training(T, device, dtype, kernel="RBF", mesh=None, **so3):
     """GP.set_GPR on the five images: EMT labels, add_structure, then
     fit(opt=True) -- L-BFGS-B from set_GPR's starting point over the
-    analytic NLL of the kernel."""
+    analytic NLL of the kernel.  so3: set_GPR's nmax, lmax, rcut (default:
+    3, 4, 5.0)."""
     images = T.au_on_al100_images()
     gp = T.GP.set_GPR(images, T.EMT(), kernel=kernel, noise_e=NOISE_E,
                       noise_f=NOISE_F, log_file=None, device=device,
-                      dtype=dtype, mesh=mesh)
+                      dtype=dtype, mesh=mesh, **so3)
     return gp, images
 
 
@@ -417,19 +443,21 @@ def ptxas_lines(compiler_log):
     tri_mma_kernel<SEL, KIND, PREC> (K1 in the bf16 modes), of
     rect_mma_kernel<LC, SEL, KIND, PREC> (K2, K3 in the bf16 modes), of
     rect_kernel<LC, SEL, KIND> (K2, K3 in highest) and of tri_kernel<SEL,
-    KIND> (K1 in highest)."""
+    KIND> (K1 in highest), and of the four float32 families' kernels of
+    operands wider than one k-slice (tri_ks_kernel, ...), named
+    ``<kernel>/ksl``."""
     bodies = {
-        "tri_f64": (r"tri_f64_kernelILi(\d)ELi(\d)E",
+        "tri_f64": (r"tri_f64()_kernelILi(\d)ELi(\d)E",
                     {params: name for name, params in TRI_F64.items()}),
-        "rect_f64": (r"rect_f64_kernelILi(\d)ELi(\d)ELi(\d)E",
+        "rect_f64": (r"rect_f64()_kernelILi(\d)ELi(\d)ELi(\d)E",
                      {params: name for name, params in RECT_F64.items()}),
-        "tri_mma": (r"tri_mma_kernelILi(\d)ELi(\d)ELi(\d)E",
+        "tri_mma": (r"tri_mma(_ks)?_kernelILi(\d)ELi(\d)ELi(\d)E",
                     {params: name for name, params in TRI_MMA.items()}),
-        "rect_mma": (r"rect_mma_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E",
+        "rect_mma": (r"rect_mma(_ks)?_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E",
                      {params: name for name, params in MMA.items()}),
-        "rect": (r"rect_kernelILi(\d)ELi(\d)ELi(\d)E",
+        "rect": (r"rect(_ks)?_kernelILi(\d)ELi(\d)ELi(\d)E",
                  {params: b for b, params in RECT.items()}),
-        "tri": (r"tri_kernelILi(\d)ELi(\d)E",
+        "tri": (r"tri(_ks)?_kernelILi(\d)ELi(\d)E",
                 {params: b for b, params in TRI.items()})}
     name = None
     for line in compiler_log.splitlines():
@@ -438,11 +466,36 @@ def ptxas_lines(compiler_log):
         found = [(body, m, names) for body, m, names in found if m]
         if found:
             body, m, names = found[0]
-            name = names.get(",".join(m.groups()), "?")
+            ks, *params = m.groups()
+            name = names.get(",".join(params), "?") + (
+                "/ksl" if ks else "")
         elif "Compiling entry function" in line:
             name = None
         elif name and ("registers" in line or "spill" in line):
             yield name, body, line.strip()
+
+
+def sass_dmma(path):
+    """{float64 kernel name: the FP64 tensor-core (DMMA) instructions in
+    its SASS}, from ``cuobjdump -sass`` of the built library at ``path``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    pats = ((r"tri_f64_kernelILi(\d)ELi(\d)E", TRI_F64),
+            (r"rect_f64_kernelILi(\d)ELi(\d)ELi(\d)E", RECT_F64))
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = None
+            for pat, names in pats:
+                m = re.search(pat, line)
+                if m:
+                    name = {v: k for k, v in names.items()}[
+                        ",".join(m.groups())]
+                    counts[name] = 0
+        elif name and re.search(r"\bDMMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 def bench_data(torch, device, m_e=1000, m_f=3000, envs=32, d=30, seed=0):
@@ -1080,11 +1133,12 @@ def all_cases(kff, e1, f1, e2, f2, params, dparams, modes=tuple(PREC),
 
 
 def compare(torch, cases, tag, errs, log, plain_ms=None, rtol=KERNEL_RTOL,
-            phase=None):
+            phase=None, rels=None):
     """Every plane of each kernel within ``rtol`` max|plain| of the same
     plane of its plain version (dual kernels: K and dK/dgamma); K1
     exactly symmetric.  plain_ms, when given, receives the time of each
-    kernel's first plain call (CUDA events, one call)."""
+    kernel's first plain call (CUDA events, one call); rels, the largest
+    max|kernel - plain| / max|plain| of each kernel."""
     if phase is None:
         phase = "(b)" if all(split_name(c[0])[1] == "highest"
                              for c in cases) else "(k2)"
@@ -1113,6 +1167,8 @@ def compare(torch, cases, tag, errs, log, plain_ms=None, rtol=KERNEL_RTOL,
             if name.startswith("kff_tri") and not torch.equal(K, K.T):
                 raise AssertionError(f"{what} is not exactly symmetric")
             errs[name] = max(errs.get(name, 0.0), err)
+            if rels is not None:
+                rels[name] = max(rels.get(name, 0.0), err / scale)
 
 
 def nonzero(counts):
@@ -1221,19 +1277,23 @@ def cuda_ms(torch, fn, reps):
 
 def device_us(torch, kff, base, lhs, rhs, params, reps=200, fns=None,
               outs=None):
-    """Device time of one launch of entry point ``base`` (a highest or a
-    mode kernel; its operands in that mode): CUDA events around ``reps``
-    back-to-back launches through the bound ctypes entry point on
-    preallocated outputs, no Python wrapper between them (uncounted: a
-    measurement, not a path).  fns: the entry points of another library
-    (``kff.load``); the package's own by default.  A K1 kernel (lhs is
-    rhs) runs its whole tile range; where the library takes the k-major
-    copy for it (``kff_tri_rows``), that copy is built once, before the
-    launches.  outs: a list that receives the output planes."""
+    """Device time of one launch of entry point ``base`` (a highest, a
+    mode or a float64 kernel; its operands in that mode): CUDA events
+    around ``reps`` back-to-back launches through the bound ctypes entry
+    point on preallocated outputs, no Python wrapper between them
+    (uncounted: a measurement, not a path).  fns: the entry points of
+    another library (``kff.load``); the package's own by default.
+    Operands of width 32: the entry points of one k-slice.  A K1 kernel (lhs is rhs) runs its whole tile range;
+    where the library takes the k-major copy for it (``kff_tri_rows``),
+    that copy is built once, before the launches.  outs: a list that
+    receives the output planes."""
     (X1, r1, B1), (X2, r2, B2) = lhs, rhs
     m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
     rows = m1 if base.startswith("kef") else 3 * m1
-    out = torch.empty((rows, 3 * m2), dtype=torch.float32, device=X1.device)
+    wide = X1.dtype == torch.float64
+    out = torch.empty((rows, 3 * m2),
+                      dtype=torch.float64 if wide else torch.float32,
+                      device=X1.device)
     outd = torch.empty_like(out)
     second = params.get("l")
     gamma = 0.0 if second is None else 1.0 / (2.0 * float(second) ** 2)
@@ -1424,7 +1484,8 @@ def compare_sources(torch, T, kff, alt_source, log):
     """--alt-source: the device time of one launch of the twelve highest
     kernels but the three rectangular Dot ones (K1, K1-dual, K1-deriv,
     K1-dot, K2 and K3 with their dual and deriv forms), of the sixteen
-    mode K2/K3 kernels and of the eight mode K1 kernels, from the
+    mode K2/K3 kernels, of the eight mode K1 kernels and of the twelve
+    float64 kernels (on float64 operands), from the
     package's csrc/ and from ``alt_source`` --
     another revision's sources with the same entry points, a directory or
     one .cu file -- in turns (other, own, own, other) inside this one
@@ -1435,8 +1496,9 @@ def compare_sources(torch, T, kff, alt_source, log):
     t0 = time.time()
     libs = {"other": kff.load(kff.build(alt_source)[0]), "own": kff._lib()}
     # the other library's ring kernels need their shared-memory limit too
-    if "kff_rect_init" in libs["other"] and libs["other"]["kff_rect_init"]():
-        raise RuntimeError(f"kff_rect_init of {alt_source} failed")
+    for init in ("kff_rect_init", "kff_ks_init"):
+        if init in libs["other"] and libs["other"][init]():
+            raise RuntimeError(f"{init} of {alt_source} failed")
     log(f"[{card}] both libraries built in {time.time() - t0:.1f} s; other: "
         f"{alt_source}")
     gp, images, _ = run_slice(T, dev, f32, lambda msg: None)
@@ -1446,14 +1508,19 @@ def compare_sources(torch, T, kff, alt_source, log):
     be, bf = bench_data(torch, dev)
     bparams = {"sigma": 2.0, "l": 1.0}
     names = [b for b in HIGHEST if b.startswith("kff_tri")
-             or not b.endswith("_dot")] + list(MMA) + list(TRI_MMA)
+             or not b.endswith("_dot")] + list(MMA) + list(TRI_MMA) \
+        + F64_NAMES
     for tag, e1, f1, f2, prm, reps in (
             ("slice", pe, pf, tf, gp.kernel.params(), 200),
             ("mid", me, mf, mf, bparams, 5), ("bench", be, bf, bf, bparams, 3)):
-        for mode in PREC:
-            E1 = kff.energy_operand(e1, mode) + (e1.x.shape[1],)
-            F1, F2 = (kff.force_operand(f, mode) + (f.x.shape[1],)
-                      for f in (f1, f2))
+        for mode in (*PREC, F64):
+            prec = "highest" if mode == F64 else mode
+            e1_, (f1_, f2_) = (e1, (f1, f2)) if mode != F64 else (
+                to_f64(torch, e1, f1)[0],
+                [to_f64(torch, e1, f)[1] for f in (f1, f2)])
+            E1 = kff.energy_operand(e1_, prec) + (e1.x.shape[1],)
+            F1, F2 = (kff.force_operand(f, prec) + (f.x.shape[1],)
+                      for f in (f1_, f2_))
             for name in [n for n in names if split_name(n)[1] == mode]:
                 base = split_name(name)[0]
                 lhs = E1 if base.startswith("kef") else \
@@ -2264,17 +2331,20 @@ def sharded_times(torch, kff, K_ops, par, mesh, be, bf, pe, pf, bparams, y,
     return per, single, red
 
 
-def range_times(torch, kff, par, mesh, f, params, dparams, reps, plain_reps):
+def range_times(torch, kff, par, mesh, f, params, dparams, reps, plain_reps,
+                modes=tuple(PREC)):
     """{range kernel name: (ms, plain ms, bound ms, bound by, per-shard
     ms, single-launch ms)} at one shape: shard 0's tile range of every K1
-    variant in every mode, timed beside kff_plain(tiles=) (``plain_reps``
-    calls; 0: not timed) and its bound, then every shard's range and the
-    single launch."""
+    variant in every mode of ``modes`` (F64: the float64 kernels, on
+    float64 data), timed beside kff_plain(tiles=) (``plain_reps`` calls;
+    0: not timed) and its bound, then every shard's range and the single
+    launch."""
     out = {}
     B = f.x.shape[1]
     ranges = par.partition_tri_tiles(kff.n_tri_tiles(f.m), mesh.size)
-    for mode in PREC:
-        X, re = kff.force_operand(f, mode)
+    for mode in modes:
+        prec = "highest" if mode == F64 else mode
+        X, re = kff.force_operand(f, prec)
         shards = par.shard_train_data(mesh, X, re)
         for base in K1_BASES:
             kind = "dot" if base.endswith("_dot") else "rbf"
@@ -2286,15 +2356,15 @@ def range_times(torch, kff, par, mesh, f, params, dparams, reps, plain_reps):
                 Xs, res = shards[s]
                 return lambda: fn(Xs, res, B, Xs, res, B, prm, 2,
                                   symmetric=True, tiles=ranges[s], **fl, **kw)
-            per = [cuda_ms(torch, call(s, mm_precision=mode), reps)
+            per = [cuda_ms(torch, call(s, mm_precision=prec), reps)
                    for s in range(mesh.size) if ranges[s][1]]
             single = cuda_ms(torch, lambda: kff.kff_from_ops(
                 X, re, B, X, re, B, prm, 2, symmetric=True,
-                mm_precision=mode, **fl), reps)
+                mm_precision=prec, **fl), reps)
             pms = cuda_ms(torch, call(0, fn=kff.kff_plain), plain_reps) \
                 if plain_reps else None
             out_numel = (3 * f.m) ** 2 * (1 + fl["dual"])
-            bms, by = bound(*work(
+            bms, by = (bound_f64 if mode == F64 else bound)(*work(
                 name, f.x.shape[2], (X, re, B), (X, re, B), out_numel,
                 pairs=range_pair_count(torch, kff, re, B, ranges[0])))
             out[name] = (per[0], pms, bms, by, per, single)
@@ -2807,14 +2877,15 @@ def decision_margins(decision):
 
 
 def f64_neb(T, torch, kff, gp, images, kernel, jref, fam, log, card,
-            batched=False):
+            batched=False, phase="(p2)", so3=None):
     """(p2) One on-the-fly NEB of a float64 model on the card, counted:
     only the family's _f64 kernels and no plain version; converged in
     the JAX package's steps with its base/surrogate/fit counts and rows,
     and its barrier within F64_BARRIER_TOL.  On a mismatch the CPU
     float64 run of the port (the JAX package's run, tests/test_torch_neb.py)
     is repeated and the first dispatcher decision that differs is
-    printed with both margins.  Returns the counts."""
+    printed with both margins (so3: the descriptor's set_GPR settings of
+    that run).  Returns the counts."""
     what = f"{'batched ' if batched else ''}{kernel} NEB"
     decisions = []
     kff.reset_launches()
@@ -2824,13 +2895,13 @@ def f64_neb(T, torch, kff, gp, images, kernel, jref, fam, log, card,
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = counted(kff)
-    log(f"(p2) [{card}] float64 {what}: {wall:.2f} s, band energies "
+    log(f"{phase} [{card}] float64 {what}: {wall:.2f} s, band energies "
         f"{np.array2string(E, precision=7)} eV, {len(decisions)} "
         "dispatcher decisions")
     for key, ref_val in jref.items():
-        log(f"(p2) float64 {what} {key}: card {neb[key]}, JAX CPU f64 "
+        log(f"{phase} float64 {what} {key}: card {neb[key]}, JAX CPU f64 "
             f"{ref_val}")
-    log(f"(p2) float64 {what}: launches a step "
+    log(f"{phase} float64 {what}: launches a step "
         f"{per_k(counts, neb['nsteps'])}; launches "
         f"{json.dumps(nonzero(counts))}")
     check_f64_path(counts, [kname(b, F64) for b in fam], f"float64 {what}",
@@ -2839,12 +2910,13 @@ def f64_neb(T, torch, kff, gp, images, kernel, jref, fam, log, card,
         and abs(neb["barrier"] - jref["barrier"]) <= F64_BARRIER_TOL
     if not same:
         cpu = []
-        cgp, cimages = run_training(T, "cpu", torch.float64, kernel=kernel)
+        cgp, cimages = run_training(T, "cpu", torch.float64, kernel=kernel,
+                                    **(so3 or {}))
         with recorded_decisions(cpu):
             run_neb(T, cgp, cimages, batched=batched)
         first = next((i for i, (a, b) in enumerate(zip(decisions, cpu))
                       if a[0] != b[0]), None)
-        log(f"(p2) float64 {what}: the first dispatcher decision that "
+        log(f"{phase} float64 {what}: the first dispatcher decision that "
             f"differs from the CPU float64 run: "
             + ("none in the common length" if first is None else
                f"#{first}: card {decision_margins(decisions[first])}, CPU "
@@ -3122,6 +3194,148 @@ def run_f64_bench(T, torch, kff, K_ops, dev, log, card, query, errs):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# (q) descriptor widths above 32: every kernel, and the slice at d = 50
+# ---------------------------------------------------------------------------
+
+def width_checks(torch, kff, par, dev, log):
+    """(b)/(k2)/(p1) at the widths of WIDTHS: every entry point of every
+    mode (highest, bf16x4, bf16; the _f64 ones on float64 data) against
+    its plain version, on operands sorted by element and as packed, at a
+    request of 3 energy and 13 force points against training sets of 7 /
+    23 and 40 / 130 points (32 envs each); at RANGE_WIDTH the K1 tile
+    ranges over four virtual shards against kff_plain(tiles=) and, summed,
+    against the single launch bit for bit, and the K2/K3 stripes.  Limits
+    as everywhere: KERNEL_RTOL max|plain| in float32, F64_RTOL in
+    float64.  Returns {width: {kernel: largest max|kernel - plain| /
+    max|plain|}}."""
+    params, dparams = {"sigma": SIGMA, "l": L_SCALE}, {"sigma": 0.6,
+                                                       "sigma0": 1.7}
+    quiet = lambda msg: None   # noqa: E731 (one summary line a width)
+    rels = {}
+    for d in WIDTHS:
+        rels[d] = {}
+        e1, f1 = bench_data(torch, dev, m_e=3, m_f=13, d=d, seed=1)
+        for m_e, m_f in ((7, 23), (40, 130)):
+            e2, f2 = bench_data(torch, dev, m_e=m_e, m_f=m_f, d=d, seed=2)
+            for mode in (*PREC, F64):
+                sides = (e1, f1, e2, f2) if mode != F64 else (
+                    *to_f64(torch, e1, f1), *to_f64(torch, e2, f2))
+                for sort in (True, False):
+                    cases = (kernel_cases(kff, *sides, params, "rbf", mode,
+                                          sort)
+                             + kernel_cases(kff, *sides, dparams, "dot",
+                                            mode, sort))
+                    compare(torch, cases, f"d = {d}, {m_e} / {m_f} points",
+                            {}, quiet, rtol=F64_RTOL if mode == F64
+                            else KERNEL_RTOL,
+                            phase="(p1)" if mode == F64 else None,
+                            rels=rels[d])
+        for mode in (*PREC, F64):
+            got = {n: r for n, r in rels[d].items()
+                   if split_name(n)[1] == mode}
+            log(f"{'(p1)' if mode == F64 else '(b)' if mode == 'highest' else '(k2)'}"
+                f" d = {d} (operands {32 * -(-d // 32)} wide): the "
+                f"{len(got)} {mode} kernels within "
+                f"{F64_RTOL if mode == F64 else KERNEL_RTOL} max|plain| of "
+                f"their plain versions, sorted and packed; largest "
+                f"max|kernel - plain| / max|plain| {max(got.values()):.3e} "
+                f"({max(got, key=got.get)})")
+    mesh = par.make_mesh(N_SHARDS, [f"cuda:{i % torch.cuda.device_count()}"
+                                    for i in range(N_SHARDS)])
+    e2, f2 = bench_data(torch, dev, m_e=40, m_f=130, d=RANGE_WIDTH, seed=3)
+    for mode in (*PREC, F64):
+        e_, f_ = (e2, f2) if mode != F64 else to_f64(torch, e2, f2)
+        prec = "highest" if mode == F64 else mode
+        phase = "(p1)" if mode == F64 else "(l1)"
+        for kind, prm in (("rbf", params), ("dot", dparams)):
+            sharded_k1(torch, kff, par, mesh, f_, prm, kind, prec,
+                       f"d = {RANGE_WIDTH}", {}, log, True,
+                       rtol=F64_RTOL if mode == F64 else KERNEL_RTOL,
+                       phase=phase)
+            sharded_stripes(torch, kff, par, mesh, e_, f_, prm, kind, prec,
+                            f"d = {RANGE_WIDTH}", log, phase=phase)
+    return rels
+
+
+def run_wide(T, torch, kff, dev, log, card, errs, f64_errs):
+    """(q) the slice at d = 50 (SO3 at nmax 4, lmax 4), through the kernels
+    alone, each path counted: in float64 set_GPR and the on-the-fly NEB on
+    the _f64 kernels (the JAX package's run: steps, counts, barrier within
+    F64_BARRIER_TOL), then its kernels against their plain versions at its
+    shapes (into ``f64_errs``); in float32 "highest" set_GPR and the NEB
+    (converged within BARRIER_TOL of the JAX barrier), its kernels against
+    plain at its shapes (into ``errs``); once in "bf16x4" (recorded: converged, barrier,
+    steps; gated on its kernels alone and finite energies).  Returns the
+    launch counts by path."""
+    f64, f32 = torch.float64, torch.float32
+    paths = {}
+    kff.reset_launches()
+    t0 = time.time()
+    gp, images = run_training(T, dev, f64, **W50_SO3)
+    torch.cuda.synchronize()
+    paths["w50_f64_training"] = counted(kff)
+    width = gp._train_view()[1].x.shape[2]
+    theta = gp.kernel.parameters()
+    log(f"(q) [{card}] float64 set_GPR at nmax 4, lmax 4 (d = {width}): "
+        f"{time.time() - t0:.2f} s, theta = ({theta[0]:.10f}, "
+        f"{theta[1]:.10f}), JAX CPU f64 ({W50_THETA[0]:.10f}, "
+        f"{W50_THETA[1]:.10f}); launches "
+        f"{json.dumps(nonzero(paths['w50_f64_training']))}")
+    if width != 50:
+        raise AssertionError(f"the nmax 4 / lmax 4 descriptor is {width} "
+                             "wide, not 50")
+    check_f64_path(paths["w50_f64_training"],
+                   [kname(b, F64) for b in ("kff_tri_dual", "kef_rect_dual")],
+                   "float64 d = 50 training", RBF_F64)
+    paths["w50_f64_neb"] = f64_neb(T, torch, kff, gp, images, "RBF",
+                                   JAX_W50_NEB, RBF, log, card, phase="(q)",
+                                   so3=W50_SO3)
+    f64_path_shapes(torch, kff, gp, slice_request(gp, images[2], dev, f64),
+                    "float64 d = 50 NEB training set, image 2", f64_errs,
+                    log)
+    del gp
+    for mode in ("highest", "bf16x4"):
+        T.config.set_kff_precision(mode)
+        fam = [kname(b, mode) for b in RBF]
+        kff.reset_launches()
+        t0 = time.time()
+        gp, images = run_training(T, dev, f32, **W50_SO3)
+        neb, E = run_neb(T, gp, images)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        tag = "w50_neb" if mode == "highest" else f"w50_neb_{mode}"
+        paths[tag] = counts = counted(kff)
+        log(f"(q) [{card}] float32 {mode} set_GPR + on-the-fly NEB at d = "
+            f"50: {wall:.2f} s, converged {neb['converged']} in "
+            f"{neb['nsteps']} steps, barrier {neb['barrier']:.7f} eV (JAX "
+            f"CPU f64 {JAX_W50_NEB['barrier']:.7f}, off by "
+            f"{neb['barrier'] - JAX_W50_NEB['barrier']:+.2e}), "
+            f"base/surrogate/fits {neb['use_base']}/{neb['use_surrogate']}/"
+            f"{neb['fits']}, launches a step {per_k(counts, neb['nsteps'])};"
+            f" launches {json.dumps(nonzero(counts))}")
+        check_launches(counts, fam, f"float32 {mode} d = 50 NEB",
+                       absent=[n for n in NAMES + F64_NAMES if n not in fam]
+                       + ["kff_plain", "kef_plain"])
+        if not np.isfinite(E).all():
+            raise AssertionError(f"the {mode} d = 50 NEB gave non-finite "
+                                 "energies")
+        if mode == "highest":
+            if not neb["converged"] or abs(
+                    neb["barrier"] - JAX_W50_NEB["barrier"]) > BARRIER_TOL:
+                raise AssertionError(
+                    f"the float32 d = 50 NEB did not converge within "
+                    f"{BARRIER_TOL} eV of the JAX barrier")
+            te, tf, _, _ = gp._train_view()
+            compare(torch, kernel_cases(
+                kff, *slice_request(gp, images[2], dev, f32), te, tf,
+                gp.kernel.params()), "d = 50 NEB training set, image 2",
+                errs, log)
+        del gp
+    T.config.set_kff_precision("highest")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--alt-source", help="another revision's kernel "
@@ -3163,7 +3377,7 @@ def main(argv=None) -> int:
     dev, f32 = torch.device("cuda"), torch.float32
     log(f"(a) card: {card_line()}")
     t0 = time.time()
-    _, compiler_log = kff.build()
+    lib_path, compiler_log = kff.build()
     log(f"(a) kernel build: {time.time() - t0:.1f} s")
     if not compiler_log:
         log("(a) the library was built before this run: no ptxas lines")
@@ -3179,27 +3393,47 @@ def main(argv=None) -> int:
             f"{len(bodies.get('tri_mma', ()))}, rect_f64_kernel "
             f"{len(bodies.get('rect_f64', ()))}, tri_f64_kernel "
             f"{len(bodies.get('tri_f64', ()))}")
+
+        def both(names):
+            # the one-slice and the k-sliced kernel of each
+            return set(names) | {n + "/ksl" for n in names}
         if set(bodies) != {"rect", "tri", "rect_mma", "tri_mma", "rect_f64",
                            "tri_f64"} or \
-                bodies["rect"] != set(RECT) or \
-                bodies["tri"] != set(TRI) or \
-                bodies["rect_mma"] != set(MMA) or \
-                bodies["tri_mma"] != set(TRI_MMA) or \
+                bodies["rect"] != both(RECT) or \
+                bodies["tri"] != both(TRI) or \
+                bodies["rect_mma"] != both(MMA) or \
+                bodies["tri_mma"] != both(TRI_MMA) or \
                 bodies["rect_f64"] != set(RECT_F64) or \
                 bodies["tri_f64"] != set(TRI_F64) or \
                 "cov_kernel" in compiler_log:
-            raise AssertionError("the library does not hold 8 rect_kernel, "
-                                 "4 tri_kernel, 16 rect_mma_kernel, 8 "
-                                 "tri_mma_kernel, 8 rect_f64_kernel and 4 "
-                                 "tri_f64_kernel instantiations and no "
-                                 "cov_kernel")
-        for body in ("rect_mma", "tri_mma", "rect_f64", "tri_f64"):
+            raise AssertionError("the library does not hold 8 rect_kernel "
+                                 "and 8 rect_ks_kernel, 4 tri_kernel and 4 "
+                                 "tri_ks_kernel, 16 rect_mma_kernel and 16 "
+                                 "rect_mma_ks_kernel, 8 tri_mma_kernel and "
+                                 "8 tri_mma_ks_kernel, 8 rect_f64_kernel "
+                                 "and 4 tri_f64_kernel instantiations and "
+                                 "no cov_kernel")
+        for body in ("rect", "tri", "rect_mma", "tri_mma", "rect_f64",
+                     "tri_f64"):
             spills = {name: int(m.group(1)) for name, b, line in
                       ptxas_lines(compiler_log) if b == body
                       for m in [re.search(r"(\d+) bytes spill stores",
                                           line)] if m}
             log(f"(a) {body}_kernel spill stores (bytes): "
                 f"{json.dumps(spills)}")
+    # the float64 kernels' dot products on the FP64 tensor cores: the DMMA
+    # instructions of each in the library's SASS, beside its ptxas lines
+    dmma = sass_dmma(lib_path)
+    ptxas = {}
+    for name, body, line in ptxas_lines(compiler_log):
+        if body in ("rect_f64", "tri_f64"):
+            ptxas.setdefault(name, []).append(line.split(": ", 1)[-1])
+    for name in F64_NAMES:
+        log(f"(a) {name}: {dmma.get(name, 0)} DMMA instructions "
+            f"(cuobjdump -sass); ptxas: "
+            + ("; ".join(ptxas.get(name, [])) or "not built in this run"))
+    if set(dmma) != set(F64_NAMES) or not all(dmma.values()):
+        raise AssertionError("a float64 kernel holds no DMMA instruction")
 
     # (d) the main path, counted
     kff.reset_launches()
@@ -3981,10 +4215,37 @@ def main(argv=None) -> int:
                     "float64 MD training set, the last volume's request",
                     f64_errs, log, kinds=("rbf", "dot"))
     del md64_gp
+    # the range form of the _f64 K1 kernels: times and bounds at the slice,
+    # mid and bench shapes (its ranges are held to the single launch in
+    # (p1))
+    f64_range_at = {
+        tag: range_times(torch, kff, par, mesh, f_, p_, dp_, reps, preps,
+                         modes=(F64,))
+        for tag, f_, p_, dp_, reps, preps in (
+            ("slice", to_f64(torch, te, tf)[1], params, dparams, 20, 5),
+            ("mid", to_f64(torch, me, mf)[1], bparams, bdparams, 2, 1),
+            ("bench", to_f64(torch, be, bf)[1], bparams, bdparams, 1, 0))}
+    for tag, rt in f64_range_at.items():
+        for name, (ms, pms, bms, by, per, single) in rt.items():
+            log(f"(p1) [{card}] times {tag} {name}: shard 0 of {N_SHARDS} "
+                f"{ms:.4f} ms, plain "
+                f"{'not timed' if pms is None else f'{pms:.4f} ms'}, bound "
+                f"{bms:.4g} ms ({by}); per shard "
+                f"{[round(t, 4) for t in per]} ms, single launch "
+                f"{single:.4f} ms")
     log(f"(p) float64 on the card: {time.time() - t_p:.1f} s")
 
+    # (q) descriptor widths above 32 (d = 33, 64, 147) in every kernel of
+    # every mode, then the slice at d = 50 through the kernels alone
+    t_q = time.time()
+    width_rels = width_checks(torch, kff, par, dev, log)
+    path_launches.update(run_wide(T, torch, kff, dev, log, card, errs,
+                                  f64_errs))
+    log(f"(q) widths above 32 on the card: {time.time() - t_q:.1f} s")
+
     def range_cell(name, tag):
-        ms, pms, bms, by, per, single = range_at[tag][name]
+        ms, pms, bms, by, per, single = (
+            f64_range_at if name.endswith("_" + F64) else range_at)[tag][name]
         return dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                     per_shard_ms=per, single_launch_ms=single)
 
@@ -4029,6 +4290,22 @@ def main(argv=None) -> int:
                  "bound_by": f64_times[name][3], "library_ms": None,
                  "mid": f64_at["mid"][name], "bench": f64_at["bench"][name]}
                 for name in F64_NAMES]
+    kernels += [{"name": name, "route": "cuda", "source": source_of(name),
+                 "replaces": RANGE_REPLACES,
+                 "launches": sum(c[name] for c in path_launches.values()),
+                 "launches_by_path": {p: c[name]
+                                      for p, c in path_launches.items()},
+                 "max_abs_err": f64_errs.get(name), "library_ms": None,
+                 **range_cell(name, "slice"), "mid": range_cell(name, "mid"),
+                 "bench": range_cell(name, "bench")}
+                for name in F64_RANGE_NAMES]
+    # the largest max|kernel - plain| / max|plain| of each kernel at the
+    # widths above 32
+    for k in kernels:
+        base = k["name"]
+        if base in width_rels[WIDTHS[0]]:
+            k["width_rel_err"] = {str(d): width_rels[d][base]
+                                  for d in WIDTHS}
     log(f"whole run: {time.time() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -6,8 +6,11 @@
 //   kff_tri.cu      tri_kernel: K1 in highest (a TMA ring)
 //   kff_rect_mma.cu rect_mma_kernel: K2 and K3 in the bf16 modes
 //   kff_tri_mma.cu  tri_mma_kernel: K1 in the bf16 modes
+//   kff_*_ks.cu     rect_ks_kernel, tri_ks_kernel, rect_mma_ks_kernel,
+//                   tri_mma_ks_kernel: the same four for operands wider
+//                   than one k-slice of 32 (entry points <name>_ks)
 //   kff_f64.cu      tri_f64_kernel, rect_f64_kernel: K1, K2 and K3 in
-//                   float64
+//                   float64, on the FP64 tensor cores
 //   kff_common.cuh  this file: the operands and the arithmetic every kernel
 //                   computes, the tile and chunk geometry, the kernel
 //                   families and coefficient sets, the per-pair powers, the
@@ -16,6 +19,7 @@
 //                   shared-memory set-up of the ring kernels
 //   kff_tma.cuh     mbarriers and the tensor maps the TMA reads through
 //   kff_mma.cuh     the tensor-core path of the two mode kernels
+//   kff_mma_ks.cuh  its k-slice forms, for the two mode *_ks kernels
 // Each source keeps its own kernels, loop bodies and extern "C" entry
 // points.
 //
@@ -42,11 +46,13 @@
 //
 // Operands (built once per block side by ops/kff.py, so every block of one
 // training covariance reads the same rounded values):
-//   X  (4, N, 32) f32 (highest), or its bf16 parts (P, 4, N, 32): P = 2,
+//   X  (4, N, dp) f32 (highest), or its bf16 parts (P, 4, N, dp): P = 2,
 //      [hi; lo] (bf16x4), or P = 1, [bf16(X)] (bf16).  Rows [u; Jt_x;
 //      Jt_y; Jt_z] per environment, with u = x/|x| and Jt = J - (J.u) u;
-//      descriptor width zero-padded to 32.  The energy side has one row
-//      per environment, (N, 32) or (P, N, 32).
+//      descriptor width zero-padded to dp, a multiple of DP = 32 (any
+//      width: d = nmax (nmax + 1) / 2 (lmax + 1) is 30 at nmax 3, lmax 4,
+//      50 at 4 / 4, 147 at 6 / 6).  The energy side has one row per
+//      environment, (N, dp) or (P, N, dp).
 //   re (2, N)     f32: [rinv or weight, element id]; 0 weight = padding
 // Environments of point p are rows p*B .. p*B+B-1.  For one env pair
 // (a in lhs point p, b in rhs point q):
@@ -76,6 +82,18 @@
 // a skipped pair is one whose every weight is zero, which the assembly
 // never adds.
 //
+// The width: every kernel stages and multiplies the operand rows one k-slice
+// of DP = 32 values at a time (the unit of its shared-memory stages and
+// tensor-map boxes), in order, ns = dp / DP slices a chunk pair.  The dot
+// products of a chunk pair stay in registers across its slices, and the
+// coefficients and the assembly run once, after the last one.  The float32
+// families keep two kernels each, in translation units of their own: the
+// one-slice kernel, for dp = 32, whose text (and translation unit) is what
+// it was before the width was free, so that its outputs and its time are
+// too, and the *_ks_kernel, for any dp, which adds the slice loop
+// (kff_rect_ks.cu says why the two are apart).  The float64 kernels have
+// the loop in their one body.
+//
 // The order of the sums (the same in every kernel of a mode, so that the
 // mode kernels give one bit pattern whatever skips): a thread owns the
 // 2 x 2 env micro-tile of one point pair in each chunk pair (lhs envs
@@ -97,7 +115,9 @@
 // range (k0 = 0, nk = all tiles) is the single-card call.
 //
 // Every entry point of the library: (X1, re1, m1, B1, X2, re2, m2, B2,
-// out, outd, sigma2, gamma, zeta, k0, nk, ldo, trans, stream), with re,
+// out, outd, sigma2, gamma, zeta, k0, nk, ldo, trans, stream) for operands
+// of width DP, and <name>_ks: the same with the operands' padded width dp
+// (a multiple of DP) before the stream; re,
 // out, sigma2 and gamma float (double in the _f64 entry points).  K_FF: out
 // (3 m1, 3 m2); K_EF: out (m1, 3 m2) from energy operands (U1, w1 =
 // [valid/count, element]) against force operands; ldo is the leading
@@ -118,7 +138,8 @@
 
 namespace {
 
-constexpr int DP = 32;        // padded descriptor width
+constexpr int DP = 32;        // the k-slice: descriptor values staged and
+                              // multiplied at a time (dp / DP a row)
 constexpr int TP = 8;         // points per tile side
 constexpr int CB = 4;         // envs per point per chunk
 constexpr int NE = TP * CB;   // envs per chunk per side
@@ -240,6 +261,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
 
 inline int tiles(int m) { return (m + TP - 1) / TP; }
 
+// The k-slices of an operand width dp: dp / DP, or 0 for a width the
+// kernels do not take (not a positive multiple of DP).
+inline int slices(int dp) { return dp > 0 && dp % DP == 0 ? dp / DP : 0; }
+
 // Chunk ranges in dynamic shared memory: 8 bytes a chunk, up to 2048
 // chunks on the two sides of a block.
 constexpr size_t kRangeBytes = 16384;
@@ -262,11 +287,16 @@ cudaError_t smem_init(Kernel kernel, size_t bytes) {
 
 // The shared-memory limits of each source's ring kernels on the current
 // device (defined beside the kernels; kff_rect_init, in kff_rect.cu, calls
-// them all).  Each returns the first CUDA error.
+// the first five, kff_ks_init, in kff_rect_ks.cu, the other four).  Each
+// returns the first CUDA error.
 namespace kff {
 cudaError_t rect_highest_init();
 cudaError_t tri_highest_init();
 cudaError_t rect_mma_init();
 cudaError_t tri_mma_init();
 cudaError_t f64_init();
+cudaError_t rect_ks_init();
+cudaError_t tri_ks_init();
+cudaError_t rect_mma_ks_init();
+cudaError_t tri_mma_ks_init();
 }  // namespace kff

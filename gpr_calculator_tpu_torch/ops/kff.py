@@ -5,8 +5,12 @@ Port of the JAX package's ``ops/kff_pallas.py``.  Each block side is
 first turned into matmul operands (``force_operand``/``energy_operand``):
 
     u  = x / |x|,   Jt_u = J_u - (J_u . u) u    (per environment)
-    X  = [u; Jt_x; Jt_y; Jt_z]                  (4, N, DP), DP = 32
+    X  = [u; Jt_x; Jt_y; Jt_z]                  (4, N, dp)
     re = [rinv, element id]                      (2, N)
+
+with the descriptor width d zero-padded to dp, the next multiple of DP =
+32: any width (d = 30 at nmax 3 / lmax 4, 50 at 4 / 4, 147 at 6 / 6).
+The kernels take it at run time, one k-slice of DP values at a time.
 
 which reduces the reference's force-force formula (rbf_kernel.cpp:342-473)
 to c = u1.u2, p1_u = Jt1_u.u2, p2_v = u1.Jt2_v, m_uv = Jt1_u.Jt2_v and
@@ -34,11 +38,11 @@ Matmul precision (``mm_precision``, default ``config.kff_precision()``;
 the JAX package's ``_lhs_rhs``, kff_pallas.py:394-436).  For float32
 data the operand rows are rounded once, before lane padding:
 
-    highest  X itself, float32 (4, N, DP)
-    bf16x4   bf16 parts (2, 4, N, DP): hi = the top 16 bits of X (an
+    highest  X itself, float32 (4, N, dp)
+    bf16x4   bf16 parts (2, 4, N, dp): hi = the top 16 bits of X (an
              integer mask, exactly bf16), lo = bf16(X - hi), rounded to
              nearest even
-    bf16     bf16 parts (1, 4, N, DP): bf16(X)
+    bf16     bf16 parts (1, 4, N, dp): bf16(X)
 
 The parts tensor is the one operand object of its side: the kernels read
 the bf16 parts and form hi.hi + hi.lo + lo.hi + lo.lo themselves (bf16
@@ -68,11 +72,15 @@ each also with ``_bf16x4`` and ``_bf16`` for the modes, and with
 the JAX package's default x64 mode) are built with nvcc at first use --
 every ``csrc/*.cu`` compiled on its own, all at once, and linked into one
 library -- into the package's git-ignored ``build/`` directory and bound
-with ctypes.  ``launches`` counts each kernel launch, ``plain_calls``
-each call of ``kff_plain`` / ``kef_plain``.
+with ctypes.  Operands wider than DP launch the ``<name>_ks`` entry
+points, which take the width: the k-slice kernels of ``csrc/kff_*_ks.cu``
+(the one-slice kernels' sources stay as they were), and the float64
+kernels, which take any width.  ``launches`` counts each kernel launch
+(a ``_ks`` one under its kernel's name), ``plain_calls`` each call of
+``kff_plain`` / ``kef_plain``.
 The ``highest`` K1 kernels read their operand through a tensor map of its
-k-major copy (``tri_operand``, ~49 MB at 3000 points of 32 envs), which
-the wrapper builds once per operand tensor and keeps on it.
+k-major copy (``tri_operand``, ~49 MB at 3000 points of 32 envs and dp =
+32), which the wrapper builds once per operand tensor and keeps on it.
 ``out=`` (and ``outd=``, the dK/dgamma plane of a dual pass) writes the
 block into a caller's 2-D view (float32, or float64 for float64
 operands) with unit column stride -- a slice of a larger buffer -- and
@@ -108,7 +116,7 @@ import torch
 from .. import config
 from ..native import BUILD_DIR
 
-DP = 32                  # padded descriptor width of the operand rows
+DP = 32                  # the k-slice: operand rows are padded to a multiple
 _PAIR_BUDGET = 2 ** 24   # env pairs per chunk of the plain versions
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 TP = 8                   # points per tile side (csrc/kff_common.cuh)
@@ -116,7 +124,7 @@ CB = 4                   # envs per point in a K_FF chunk (csrc/kff_common.cuh)
 # lhs points per tile of the mode K2 kernels (csrc/kff_rect_mma.cu: 8
 # groups of 4 energy points); the mode K3 kernels take TP
 TP_EF_MMA = 32
-TROWS = 4 * DP + 2       # rows of the k-major copy K1 reads (tri_operand)
+TROWS = 4 * DP + 2       # rows a k-slice of the copy K1 reads (tri_operand)
 _MAX_POINTS = 65535 * TP  # grid.y limit at TP points per tile
 _HI_MASK = -65536        # 0xFFFF0000 as int32: sign, exponent, 7 bits
 # sides of this many envs are sorted by element.  On an NVIDIA H100 80GB
@@ -146,9 +154,13 @@ def kernel_name(base: str, mode: str) -> str:
     return base if mode == "highest" else f"{base}_{mode}"
 
 
-# the library's entry points, and kernel name -> launches since the last
-# reset_launches() (a range launch counts under its ``_range`` name only)
+# the library's entry points (operands of width DP), those of any width
+# (``<name>_ks``: the kernels of more than one k-slice of DP, and the
+# float64 kernels at any width), and kernel name -> launches since the last
+# reset_launches() (a range launch counts under its ``_range`` name only;
+# a ``_ks`` launch under its kernel's name)
 _ENTRIES = tuple(kernel_name(b, m) for m in KERNEL_MODES for b in BASES)
+_KS_ENTRIES = tuple(name + "_ks" for name in _ENTRIES)
 launches = {kernel_name(b, m): 0 for m in KERNEL_MODES
             for b in BASES + RANGE_BASES}
 # calls of the plain versions K_FF / K_EF since the last reset_launches():
@@ -227,8 +239,9 @@ def force_operands(f, mm_precision: str | None = None,
     [u; Jt of columns 3g..3g+2] a group of three cartesian columns of
     f.dxdr -- one group for a force point, three (the forces, then the
     strain rows xx, yy, zz and xy, xz, yz) for the 9 columns of a stress
-    request -- each (4, N, DP) in the data's dtype, or its bf16 parts
-    (P, 4, N, DP) for float32 data in a bf16 mode.  K_FF and K_EF are
+    request -- each (4, N, dp) in the data's dtype, or its bf16 parts
+    (P, 4, N, dp) for float32 data in a bf16 mode (dp: the width d padded
+    to a multiple of DP).  K_FF and K_EF are
     linear in a side's Jt rows, so each group is a side of its own for
     the kernels.  sort: each point's envs ordered by element, padding
     last, alike in every group (see the module docstring); None sorts
@@ -265,8 +278,8 @@ def force_operands(f, mm_precision: str | None = None,
 def force_operand(f, mm_precision: str | None = None,
                   sort: bool | None = None):
     """(X, re (2, N)) for a ForceData side of three cartesian columns, N
-    = m * B: X (4, N, DP) in the data's dtype, or its bf16 parts (P, 4,
-    N, DP) for float32 data in a bf16 mode (``force_operands``; a side
+    = m * B: X (4, N, dp) in the data's dtype, or its bf16 parts (P, 4,
+    N, dp) for float32 data in a bf16 mode (``force_operands``; a side
     with strain rows has one operand per group of three columns)."""
     Xs, re = force_operands(f, mm_precision, sort)
     if len(Xs) != 1:
@@ -277,8 +290,8 @@ def force_operand(f, mm_precision: str | None = None,
 
 def energy_operand(e, mm_precision: str | None = None,
                    sort: bool | None = None):
-    """(U (N, DP), w (2, N)) for an EnergyData side: unit descriptors (or
-    their bf16 parts (P, N, DP), as in ``force_operand``) and [valid /
+    """(U (N, dp), w (2, N)) for an EnergyData side: unit descriptors (or
+    their bf16 parts (P, N, dp), as in ``force_operand``) and [valid /
     count, element id], N = m * A; envs sorted as in ``force_operand``."""
     mode = config.kff_precision(mm_precision)
     m, A, d = e.x.shape
@@ -299,17 +312,20 @@ def energy_operand(e, mm_precision: str | None = None,
 
 
 def tri_operand(X, re, B: int):
-    """The k-major copy of a force operand that the ``highest`` K1 kernels
-    read through a tensor map: (TROWS, m, Bp) float32 -- rows c DP + k hold
-    X[c, p B + e, k] of point p, env e; the last two rows the weight and
-    the element -- with Bp = B rounded up to the CB envs of a chunk and
-    the envs past B zero.  One box of it (CB envs x TP points x TROWS rows)
-    is one side's chunk in the kernel's shared-memory layout."""
-    m = X.shape[1] // B
-    rows = torch.cat([
-        X.reshape(4, m, B, DP).permute(0, 3, 1, 2).reshape(4 * DP, m, B),
-        re.reshape(2, m, B).to(X.dtype)])
-    return torch.nn.functional.pad(rows, (0, -(-B // CB) * CB - B))
+    """The k-major copy of a force operand (4, N, dp) that the ``highest``
+    K1 kernels read through a tensor map: (ns TROWS, m, Bp) float32, one
+    block of TROWS rows for each of the ns = dp / DP k-slices -- rows s
+    TROWS + c DP + k hold X[c, p B + e, s DP + k] of point p, env e; the
+    last two rows of the block the weight and the element -- with Bp = B
+    rounded up to the CB envs of a chunk and the envs past B zero.  One box
+    of it (CB envs x TP points x TROWS rows) is one side's chunk slice in
+    the kernel's shared-memory layout; at dp = DP the copy is one block."""
+    m, ns = X.shape[1] // B, X.shape[-1] // DP
+    rows = X.reshape(4, m, B, ns, DP).permute(3, 0, 4, 1, 2)
+    meta = re.reshape(1, 2, m, B).to(X.dtype).expand(ns, 2, m, B)
+    rows = torch.cat([rows.reshape(ns, 4 * DP, m, B), meta], dim=1)
+    return torch.nn.functional.pad(rows.reshape(ns * TROWS, m, B),
+                                   (0, -(-B // CB) * CB - B))
 
 
 def _tri_copy(X, re, B: int):
@@ -402,16 +418,19 @@ def _held(re, B: int, group: int, tile: int, elements):
 def mma_pairs(re1, B1: int, re2, B2: int, energy_lhs: bool = False,
               triangle: bool = False):
     """What a launch of a mode K3 (or, ``energy_lhs``, K2) kernel on
-    rect_mma_kernel stages and multiplies: (chunk pairs staged, all chunk
-    pairs of its grid, warp products multiplied, all warp products).  Its
+    rect_mma_kernel, or of a float64 kernel (rect_f64_kernel,
+    tri_f64_kernel: the same tiles and warp products), stages and
+    multiplies: (chunk pairs staged, all chunk pairs of its grid, warp
+    products multiplied, all warp products), each k-slice of a staged pair
+    counted once.  Its
     chunks are CB envs of TP lhs points (K2: TP_EF_MMA energy points) and
     of TP rhs points; a chunk pair is staged when its element ranges
     intersect.  Inside it a warp multiplies one lhs group (4 points x CB
     envs) by each of its n-tiles (2 rhs points x CB envs), and skips a
     product in which no env pair carries a weight and shares an element
-    (the lanes' vote).  triangle: a mode K1 launch on tri_mma_kernel over
-    one operand (re2 is re1), whose grid holds the upper-triangle tile
-    pairs I <= J alone."""
+    (the lanes' vote).  triangle: a mode K1 launch on tri_mma_kernel (or
+    tri_f64_kernel) over one operand (re2 is re1), whose grid holds the
+    upper-triangle tile pairs I <= J alone."""
     tile1 = TP_EF_MMA if energy_lhs else TP
     c1 = chunk_ranges(re1, B1, tile1, CB)
     c2 = chunk_ranges(re2, B2, TP, CB)
@@ -774,27 +793,31 @@ _READY = set()  # device indices whose shared-memory limits are set
 def load(path) -> dict:
     """Load a library built from ``csrc/`` (or from another revision's
     sources with its entry points): {entry-point name: bound ctypes
-    function}, with ``kff_empty``, ``kff_rect_init`` and ``kff_tri_rows``
+    function}, the ``<name>_ks`` entry points of any width and
+    ``kff_empty``, ``kff_rect_init``, ``kff_ks_init`` and ``kff_tri_rows``
     where the library has them (a library with ``kff_tri_rows`` takes the
-    k-major copy, ``tri_operand``, as X2 of its highest K1 entry
-    points)."""
+    k-major copy, ``tri_operand``, as X2 of its highest K1 entry points; a
+    library without the ``_ks`` ones takes operands of width DP alone)."""
     lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     LL, D = ctypes.c_longlong, ctypes.c_double
     fns = {}
     # every entry point: (X1, re1, m1, B1, X2, re2, m2, B2, out, outd,
     # sigma2, second scalar, zeta, first tile, tile count, leading
-    # dimension of out, transposed store, stream); the scalars are double
-    # in the float64 kernels
-    for name in _ENTRIES:
+    # dimension of out, transposed store, [the width (_ks),] stream); the
+    # scalars are double in the float64 kernels
+    for name in _ENTRIES + _KS_ENTRIES:
+        ks = name in _KS_ENTRIES
+        if ks and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
-        S = D if name.endswith("_" + F64) else F
+        S = D if name.removesuffix("_ks").endswith("_" + F64) else F
         fn.argtypes = [P, P, I, I, P, P, I, I, P, P, S, S, I, LL, LL, LL, I,
-                       P]
+                       *([I] if ks else []), P]
         fn.restype = I
         fns[name] = fn
     for name, argtypes in (("kff_empty", [P]), ("kff_rect_init", []),
-                           ("kff_tri_rows", [])):
+                           ("kff_ks_init", []), ("kff_tri_rows", [])):
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, I
@@ -817,13 +840,14 @@ def _lib() -> dict:
 
 
 def _init_device(index: int) -> None:
-    """The highest kernels' shared-memory limits on card
-    ``index``: once per card, before its first launch."""
-    with torch.cuda.device(index):
-        rc = _FN["kff_rect_init"]()
-    if rc != 0:
-        raise RuntimeError(f"kff_rect_init failed on cuda:{index}: CUDA "
-                           f"error {rc}")
+    """The ring kernels' shared-memory limits on card ``index``: once per
+    card, before its first launch."""
+    for init in ("kff_rect_init", "kff_ks_init"):
+        with torch.cuda.device(index):
+            rc = _FN[init]()
+        if rc != 0:
+            raise RuntimeError(f"{init} failed on cuda:{index}: CUDA error "
+                               f"{rc}")
     _READY.add(index)
 
 
@@ -866,12 +890,17 @@ def _check_cuda(zeta: int, *tensors):
 
 
 def _check_side(X, re, B: int, comps: int, mode: str):
+    """One side's operand for the kernels of ``mode``: (comps, N, dp), or
+    its bf16 parts, with dp a positive multiple of DP (any descriptor
+    width, padded by ``_pad_lanes``), and its (2, N) metadata."""
     parts = X.dim() - 2 - (comps > 1)
     rows = X.shape[-3] if comps > 1 else 1
-    if (rows != comps or X.shape[-1] != DP
+    dp = X.shape[-1]
+    if (rows != comps or dp < DP or dp % DP
             or parts != (mode not in ("highest", F64))):
         raise ValueError(f"operand shape {tuple(X.shape)} is not "
-                         f"({comps}, N, {DP}) in mode {mode}")
+                         f"({comps}, N, dp) with dp a multiple of {DP} in "
+                         f"mode {mode}")
     N = X.shape[-2]
     if re.dtype != _out_dtype(mode):
         raise TypeError(f"operand metadata must be {_out_dtype(mode)}, got "
@@ -880,6 +909,13 @@ def _check_side(X, re, B: int, comps: int, mode: str):
         raise ValueError("operand rows do not match the env count")
     if N // B > _MAX_POINTS:
         raise ValueError("too many points for one kernel launch")
+
+
+def _check_widths(X1, X2):
+    """The two sides of one block: of one padded width."""
+    if X1.shape[-1] != X2.shape[-1]:
+        raise ValueError(f"operand widths {X1.shape[-1]} and "
+                         f"{X2.shape[-1]} differ")
 
 
 def _mode(mm_precision, *ops) -> str:
@@ -898,26 +934,29 @@ def _mode(mm_precision, *ops) -> str:
 
 
 def _launch(base, mode, device, *args, k0=0, nk=0, ldo=0, trans=False,
-            ranged=False):
+            ranged=False, dp=DP):
     """Launch entry point ``base`` in ``mode`` on the device's current
     stream and count it; (k0, nk) is K1's tile range (unused by K2 and
     K3), counted under the ``_range`` name when ``ranged``; ldo is the
-    leading dimension of the output, trans the transposed store of K2."""
+    leading dimension of the output, trans the transposed store of K2, dp
+    the operands' width: the ``_ks`` entry point above DP."""
     name = kernel_name(base, mode)
-    fn = _FN.get(name) or _lib()[name]
+    entry = name if dp == DP else name + "_ks"
+    fn = _FN.get(entry) or _lib()[entry]
+    width = () if dp == DP else (dp,)
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
     if index not in _READY:
         _init_device(index)
     if index == current:
-        rc = fn(*args, k0, nk, ldo, int(trans),
+        rc = fn(*args, k0, nk, ldo, int(trans), *width,
                 torch.cuda.current_stream(device).cuda_stream)
     else:
         with torch.cuda.device(device):
-            rc = fn(*args, k0, nk, ldo, int(trans),
+            rc = fn(*args, k0, nk, ldo, int(trans), *width,
                     torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     launches[kernel_name(base + "_range", mode) if ranged else name] += 1
 
 
@@ -1011,6 +1050,7 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
     _check_cuda(zeta, X1, re1, X2, re2)
     _check_side(X1, re1, B1, 4, mode)
     _check_side(X2, re2, B2, 4, mode)
+    _check_widths(X1, X2)
     m1, m2 = X1.shape[-2] // B1, X2.shape[-2] // B2
     if symmetric and (X1.data_ptr() != X2.data_ptr() or B1 != B2):
         raise ValueError("symmetric K_FF needs one operand set")
@@ -1034,7 +1074,8 @@ def kff_from_ops(X1, re1, B1: int, X2, re2, B2: int, params, zeta: int,
                 B1, rhs.data_ptr(), re_rhs.data_ptr(), m2, B2,
                 out.data_ptr(), outd.data_ptr(), sigma2,
                 0.0 if kind == "dot" else p2, zeta, k0=k0, nk=nk,
-                ldo=out.stride(0), ranged=tiles is not None)
+                ldo=out.stride(0), ranged=tiles is not None,
+                dp=X1.shape[-1])
     return (out, outd) if dual else out
 
 
@@ -1072,6 +1113,7 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
     _check_cuda(zeta, U1, w1, X2, re2)
     _check_side(U1, w1, A1, 1, mode)
     _check_side(X2, re2, B2, 4, mode)
+    _check_widths(U1, X2)
     if given:
         planes = _outputs(out, outd, *shape, dual, False, U1,
                           _out_dtype(mode))
@@ -1086,5 +1128,5 @@ def kef_from_ops(U1, w1, A1: int, X2, re2, B2: int, params, zeta: int,
         out = torch.empty(shape, dtype=_out_dtype(mode), device=U1.device)
         outd = torch.empty_like(out) if dual else out
     _launch(base, mode, U1.device, *args, out.data_ptr(), outd.data_ptr(),
-            *scalars, ldo=out.stride(0), trans=transpose)
+            *scalars, ldo=out.stride(0), trans=transpose, dp=U1.shape[-1])
     return (out, outd) if dual else out

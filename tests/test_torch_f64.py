@@ -57,7 +57,7 @@ def routed(monkeypatch):
                         lambda zeta, *t: kff._check_dtypes(*t))
 
     def launch(base, mode, device, *args, k0=0, nk=0, ldo=0, trans=False,
-               ranged=False):
+               ranged=False, dp=kff.DP):
         name = kff.kernel_name(base, mode)
         calls.append((kff.kernel_name(base + "_range", mode) if ranged
                       else name, name))
