@@ -1,0 +1,6 @@
+"""The share of the traced window in which no operation ran on the
+device, %."""
+
+
+def read(run):
+    return None if run.trace is None else run.trace.idle_pct()
