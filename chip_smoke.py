@@ -3357,8 +3357,13 @@ def main(argv=None) -> int:
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 1
     import gpr_calculator_tpu_torch as T
+    from gpr_calculator_tpu_torch import utils_profiling
     from gpr_calculator_tpu_torch.ops import kff
     from gpr_calculator_tpu_torch.ops import kernels as K_ops
+
+    # the (n1) and (p3) lines print refit_stats' ms, which are summed
+    # while the span recorder is on
+    utils_profiling.enable()
 
     def log(msg):
         print(msg, flush=True)

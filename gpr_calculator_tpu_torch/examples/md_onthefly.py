@@ -28,7 +28,7 @@ import time
 
 import numpy as np
 
-from gpr_calculator_tpu_torch import EMT, GP, GPR
+from gpr_calculator_tpu_torch import EMT, GP, GPR, utils_profiling
 from gpr_calculator_tpu_torch.atoms import Atoms
 from gpr_calculator_tpu_torch.md import Langevin, maxwell_boltzmann_velocities
 
@@ -67,41 +67,48 @@ def run(steps_per_volume=400, natoms=8, temp_K=800.0, noise_e=2e-3,
         s = a0.copy()
         s.positions = s.positions + 0.08 * rng.randn(natoms, 3)
         seeds.append(s)
-    gp = GP.set_GPR(seeds, base, noise_e=noise_e, noise_f=noise_f,
-                    nmax=2, lmax=2, rcut=4.5, log_file=log_file,
-                    device=device, dtype=dtype)
-    calc = GPR(base=base, ff=gp, save=False, freq=freq, opt_freq=opt_freq)
-    calc.verbose = verbose
+    # refit_stats sums the refits' ms while the span recorder is on
+    was_on = utils_profiling.enabled()
+    utils_profiling.enable()
+    try:
+        gp = GP.set_GPR(seeds, base, noise_e=noise_e, noise_f=noise_f,
+                        nmax=2, lmax=2, rcut=4.5, log_file=log_file,
+                        device=device, dtype=dtype)
+        calc = GPR(base=base, ff=gp, save=False, freq=freq, opt_freq=opt_freq)
+        calc.verbose = verbose
 
-    t0 = time.time()
-    volumes, md_steps = 0, 0
-    cycle = 0
-    scales = list(scales)
-    while gp.N_energy < target_structures:
-        if max_volumes is not None and volumes >= max_volumes:
-            break
-        scale = scales[volumes % len(scales)] ** (1.0 + 0.25 * cycle)
-        atoms = a0.copy()
-        atoms.set_cell(np.asarray(a0.cell) * scale)
-        atoms.set_positions(a0.positions * scale)
-        atoms.positions = atoms.positions + 0.05 * rng.randn(natoms, 3)
-        atoms.calc = calc
-        maxwell_boltzmann_velocities(atoms, temp_K, rng=rng)
-        md = Langevin(atoms, timestep_fs=2.0, temperature_K=temp_K,
-                      friction=0.05, rng=rng)
-        md.run(steps_per_volume)
-        md_steps += md.nsteps
-        volumes += 1
-        if volumes % len(scales) == 0:
-            cycle += 1
-        print(f"# volume {volumes} (scale {scale:.4f}): "
-              f"N_energy={gp.N_energy} N_forces={gp.N_forces} "
-              f"rows={gp.N_energy + 3 * gp.N_forces} "
-              f"base={gp.use_base} surrogate={gp.use_surrogate} "
-              f"fits={gp.fits}", file=sys.stderr, flush=True)
-    wall = time.time() - t0
+        t0 = time.time()
+        volumes, md_steps = 0, 0
+        cycle = 0
+        scales = list(scales)
+        while gp.N_energy < target_structures:
+            if max_volumes is not None and volumes >= max_volumes:
+                break
+            scale = scales[volumes % len(scales)] ** (1.0 + 0.25 * cycle)
+            atoms = a0.copy()
+            atoms.set_cell(np.asarray(a0.cell) * scale)
+            atoms.set_positions(a0.positions * scale)
+            atoms.positions = atoms.positions + 0.05 * rng.randn(natoms, 3)
+            atoms.calc = calc
+            maxwell_boltzmann_velocities(atoms, temp_K, rng=rng)
+            md = Langevin(atoms, timestep_fs=2.0, temperature_K=temp_K,
+                          friction=0.05, rng=rng)
+            md.run(steps_per_volume)
+            md_steps += md.nsteps
+            volumes += 1
+            if volumes % len(scales) == 0:
+                cycle += 1
+            print(f"# volume {volumes} (scale {scale:.4f}): "
+                  f"N_energy={gp.N_energy} N_forces={gp.N_forces} "
+                  f"rows={gp.N_energy + 3 * gp.N_forces} "
+                  f"base={gp.use_base} surrogate={gp.use_surrogate} "
+                  f"fits={gp.fits}", file=sys.stderr, flush=True)
+        wall = time.time() - t0
 
-    rs = dict(gp.refit_stats)
+        rs = dict(gp.refit_stats)
+    finally:
+        if not was_on:
+            utils_profiling.disable()
     rec = {
         "workload": (f"on-the-fly Langevin MD/EOS, fcc Cu {natoms} atoms,"
                      f" {temp_K:.0f} K, volume sweep"),

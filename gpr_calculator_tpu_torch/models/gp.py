@@ -29,15 +29,15 @@ from __future__ import annotations
 import json
 import logging
 import math
+import itertools
 import os
-import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 from scipy.optimize import minimize
 
-from .. import config
+from .. import config, utils_profiling
 from ..atoms.atoms import ATOMIC_NUMBERS
 from ..ops import kernels as K_ops
 from ..ops import linalg
@@ -277,42 +277,45 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
     if trace not in ("exact", "hutch"):
         raise ValueError(f"trace must be 'exact' or 'hutch', got {trace!r}")
     f64 = torch.float64
-    nz = _noise_diag(e, f, noise_e, noise_f).to(f64)
-    K = Kk.to(f64)
-    del Kk
-    K.diagonal().add_(nz)
-    L, info = _chol_mesh(K, mesh, chol_mode)
-    n = K.shape[0]
-    del K
-    n_theta = 3 if noise_opt else 2
-    if info != 0:
-        return (torch.tensor(math.inf, dtype=f64),
-                torch.zeros(n_theta, dtype=f64))
-    y = y.to(f64)
-    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
-    n_real = e.nreal + 3 * f.nreal
-    ya = torch.dot(y, alpha)
-    nll = (0.5 * ya + torch.log(L.diagonal()).sum()
-           + 0.5 * n_real * math.log(2 * math.pi))
+    with utils_profiling.span("nll.factor"):
+        nz = _noise_diag(e, f, noise_e, noise_f).to(f64)
+        K = Kk.to(f64)
+        del Kk
+        K.diagonal().add_(nz)
+        L, info = _chol_mesh(K, mesh, chol_mode)
+        n = K.shape[0]
+        del K
+        n_theta = 3 if noise_opt else 2
+        if info != 0:
+            return (torch.tensor(math.inf, dtype=f64),
+                    torch.zeros(n_theta, dtype=f64))
+        y = y.to(f64)
+        alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+        n_real = e.nreal + 3 * f.nreal
+        ya = torch.dot(y, alpha)
+        nll = (0.5 * ya + torch.log(L.diagonal()).sum()
+               + 0.5 * n_real * math.log(2 * math.pi))
 
-    traces = _Traces(L, trace == "hutch", n_probe, probes)
-    del L
-    g_second = second_grad(traces, alpha)
-    # tr(Kinv Kk) = n - tr(Kinv Nz); a^T Kk a = a^T y - a^T Nz a
-    # (padding rows cancel through the unit noise placed on them)
-    tr_kk = n - traces.of_diag(nz)
-    aKka = ya - torch.dot(nz * alpha, alpha)
-    g_sigma = (tr_kk - aKka) / sigma
-    grads = [g_sigma, g_second]
-    if noise_opt:
-        valid_e = (torch.arange(e.m, device=y.device) < e.nreal).to(f64)
-        valid_f = (torch.arange(f.m, device=y.device)
-                   < f.nreal).to(f64).repeat_interleave(3)
-        dnz = torch.cat([valid_e * (2.0 * noise_e),
-                         valid_f * (2.0 * float(f_coef) ** 2 * noise_e)])
-        grads.append(0.5 * (traces.of_diag(dnz)
-                            - torch.dot(alpha * alpha, dnz)))
-    return nll, torch.stack(grads)
+    with utils_profiling.span("nll.traces"):
+        traces = _Traces(L, trace == "hutch", n_probe, probes)
+        del L
+        g_second = second_grad(traces, alpha)
+        # tr(Kinv Kk) = n - tr(Kinv Nz); a^T Kk a = a^T y - a^T Nz a
+        # (padding rows cancel through the unit noise placed on them)
+        tr_kk = n - traces.of_diag(nz)
+        aKka = ya - torch.dot(nz * alpha, alpha)
+        g_sigma = (tr_kk - aKka) / sigma
+        grads = [g_sigma, g_second]
+        if noise_opt:
+            valid_e = (torch.arange(e.m, device=y.device)
+                       < e.nreal).to(f64)
+            valid_f = (torch.arange(f.m, device=y.device)
+                       < f.nreal).to(f64).repeat_interleave(3)
+            dnz = torch.cat([valid_e * (2.0 * noise_e),
+                             valid_f * (2.0 * float(f_coef) ** 2 * noise_e)])
+            grads.append(0.5 * (traces.of_diag(dnz)
+                                - torch.dot(alpha * alpha, dnz)))
+        return nll, torch.stack(grads)
 
 
 def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
@@ -332,8 +335,9 @@ def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
     kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
                                         noise_opt)
     params = _params_from_theta("rbf", kp)
-    Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain, mesh=mesh,
-                               dtype=torch.float64)
+    with utils_profiling.span("nll.k_self_dual"):
+        Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain,
+                                   mesh=mesh, dtype=torch.float64)
 
     def g_l(traces, alpha):
         g_gamma = 0.5 * (traces.of(Kd) - torch.dot(alpha, Kd @ alpha))
@@ -408,20 +412,22 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
     cols: the packed training column of each row of L when the factor is
     in another order (after incremental appends, ``GP._factor_cols``);
     alpha stays in packed order."""
-    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh,
-                       train_ops=train_ops, dtype=alpha.dtype)
-    # alpha is float64 on every device (``_factorize``): the weights are
-    # large and cancel in this product, and K_EE, whose rounding to
-    # float32 they amplify most, stays in float64 (k_block's dtype)
-    mean = Kt @ alpha
+    with utils_profiling.span("predict.block"):
+        Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh,
+                           train_ops=train_ops, dtype=alpha.dtype)
+        # alpha is float64 on every device (``_factorize``): the weights
+        # are large and cancel in this product, and K_EE, whose rounding
+        # to float32 they amplify most, stays in float64 (k_block's dtype)
+        mean = Kt @ alpha
     if not return_std:
         return mean, None
-    dt = L.dtype
-    diag = _prior(pe, pf, params, zeta, kind, dt)
-    KtT = Kt.T if cols is None else Kt.T.index_select(0, cols)
-    V = torch.linalg.solve_triangular(L, KtT.to(dt), upper=False)
-    var = torch.clamp(diag - (V * V).sum(dim=0), min=0.0)
-    return mean, torch.sqrt(var)
+    with utils_profiling.span("predict.solve"):
+        dt = L.dtype
+        diag = _prior(pe, pf, params, zeta, kind, dt)
+        KtT = Kt.T if cols is None else Kt.T.index_select(0, cols)
+        V = torch.linalg.solve_triangular(L, KtT.to(dt), upper=False)
+        var = torch.clamp(diag - (V * V).sum(dim=0), min=0.0)
+        return mean, torch.sqrt(var)
 
 
 # ---------------------------------------------------------------------------
@@ -697,9 +703,11 @@ class GP:
         # "groups": [(kE, kF), ...]}; None forces the next fit to
         # refactorise
         self._inc = None
-        # the factorisation step of fit() by path: counts and wall ms
-        self.refit_stats = {"full": 0, "incremental": 0,
-                            "full_ms": 0.0, "incremental_ms": 0.0}
+        # the factorisation step of fit() by path: counts, and ms while
+        # the span recorder is on (``refit_stats``)
+        self._refit_stats = {"full": 0, "incremental": 0,
+                             "full_ms": 0.0, "incremental_ms": 0.0}
+        self._refit_marks = []       # (path, span, device marks) unread
 
         self.fits = 0
         self.use_base = 0
@@ -968,18 +976,22 @@ class GP:
         return theta0, bounds, noise_opt
 
     def _objective(self, e, f, y, noise_opt: bool, show: bool = False,
-                   trace: str = "exact"):
+                   trace: str = "exact", first: int = 0):
         """theta -> (NLL, gradient) as float and float64 array for
         L-BFGS-B; a non-finite NLL (K not positive definite) gives
-        (inf, zeros), gp.py:1163-1164 of the JAX package."""
+        (inf, zeros), gp.py:1163-1164 of the JAX package.  Each call is
+        an ``nll.eval`` span carrying its index within the fit, counted
+        from ``first``."""
         nll_fn = self._nll_fn(trace)
         noise_fixed = (self.noise_e, self.noise_f)
+        index = itertools.count(first)
 
         def obj(theta):
-            nll, grad = nll_fn(theta, e, f, y, noise_fixed,
-                               float(self.f_coef), noise_opt)
-            nll = float(nll)
-            grad = grad.detach().cpu().numpy().astype(float)
+            with utils_profiling.span("nll.eval", n=next(index)):
+                nll, grad = nll_fn(theta, e, f, y, noise_fixed,
+                                   float(self.f_coef), noise_opt)
+                nll = float(nll)
+                grad = grad.detach().cpu().numpy().astype(float)
             if not np.isfinite(nll):
                 return np.inf, np.zeros_like(grad)
             if show:
@@ -1025,6 +1037,34 @@ class GP:
         res = self._minimize(fun, theta0, bounds, maxiter)
         return res.x, res.fun
 
+    @property
+    def refit_stats(self):
+        """fit()'s factorisation step by path: the counts ("full",
+        "incremental") and, summed over the fits made while the span
+        recorder was on (``utils_profiling.enable()``), its ms
+        ("full_ms", "incremental_ms"): from the ``fit.factorize`` span's
+        start to the end of the work launched in it, on the card the
+        device's finish, which is waited for here, not in the fit."""
+        for path, sp, marks in self._refit_marks:
+            if marks[0] is None:
+                ms = (sp.end_ns - sp.start_ns) * 1e-6
+            else:
+                marks[1].synchronize()
+                ms = marks[0].elapsed_time(marks[1])
+            self._refit_stats[path + "_ms"] += ms
+        self._refit_marks.clear()
+        return self._refit_stats
+
+    def _lbfgs(self, fun, theta0, bounds, maxiter: int):
+        """``_minimize`` as the span ``fit.lbfgs``, its evaluation and
+        iteration counts added to the counters ``lbfgs.nfev`` /
+        ``lbfgs.nit``."""
+        with utils_profiling.span("fit.lbfgs"):
+            res = self._minimize(fun, theta0, bounds, maxiter)
+        utils_profiling.count("lbfgs.nfev", getattr(res, "nfev", 0))
+        utils_profiling.count("lbfgs.nit", getattr(res, "nit", 0))
+        return res
+
     def fit(self, TrainData=None, show: bool = True, opt: bool = True,
             maxiter: int = 10):
         """opt=True: optimise the kernel's (sigma, l) or (sigma, sigma0)
@@ -1037,61 +1077,70 @@ class GP:
         is run once more with the exact trace, and logged.
         opt=False: extend the factor of the last fit by the rows appended
         since (``_try_incremental_fit``), or refactorise where it cannot.
-        ``refit_stats`` counts each path with the wall milliseconds of
-        its factorisation step (on the card up to the device's finish)."""
-        if TrainData is not None:
-            self.set_train_pts(TrainData)
-        if show:
-            print(self)
-        e, f = self._pack(self.N_energy, self.N_forces)
-        y = self._y_vector(e, f, self.N_energy, self.N_forces)
-        if opt:
-            print(f"Update GP model => {self.N_queue}/{maxiter}")
-            theta0, bounds, noise_opt = self._theta()
-            trace = self._gated_trace_mode(e, f, y, theta0, noise_opt)
-            res = self._minimize(self._objective(e, f, y, noise_opt, show,
-                                                 trace), theta0, bounds,
-                                 maxiter)
-            if trace == "hutch" and res.status == 2:
-                self.logging.info(
-                    "L-BFGS-B with the Hutchinson trace ended in %r: "
-                    "rerun with the exact trace", str(res.message))
-                trace = "exact"
-                res = self._minimize(self._objective(e, f, y, noise_opt,
-                                                     show), theta0, bounds,
-                                     maxiter)
-            self._nll_trace_used = trace
-            params = res.x
-            if noise_opt:
-                self.kernel.update(params[:-1])
-                self.noise_e = float(params[-1])
-                self.noise_f = float(self.f_coef * params[-1])
-            else:
-                self.kernel.update(params)
-        t0 = time.perf_counter()
-        if not opt and self._try_incremental_fit(e, f):
-            path = "incremental"
-            self.logging.info("Cholesky rank-update complete")
-        else:
-            try:
-                L, alpha = _factorize(e, f, y, self.kernel.params(),
-                                      self.noise_e, self.noise_f,
-                                      self.kernel.zeta, self.kernel.kind,
-                                      mesh=self._mesh_arg(),
-                                      chol_mode=self._chol_mode(e, f))
-            except FloatingPointError as exc:
-                self.logging.error(str(exc))
-                raise
-            self._record_full_factor(e, f, self.N_energy, self.N_forces, L,
-                                     alpha)
-            path = "full"
-            self.logging.info("Cholesky decomposition complete")
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.refit_stats[path] += 1
-        self.refit_stats[path + "_ms"] += (time.perf_counter() - t0) * 1e3
-        self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
-        self.fits += 1
+        ``refit_stats`` counts each path.  The fit is the span ``fit``,
+        its steps ``fit.pack``, ``fit.gate``, ``fit.lbfgs`` and
+        ``fit.factorize`` (``utils_profiling``)."""
+        with utils_profiling.span("fit"):
+            if TrainData is not None:
+                self.set_train_pts(TrainData)
+            if show:
+                print(self)
+            with utils_profiling.span("fit.pack"):
+                e, f = self._pack(self.N_energy, self.N_forces)
+                y = self._y_vector(e, f, self.N_energy, self.N_forces)
+            if opt:
+                print(f"Update GP model => {self.N_queue}/{maxiter}")
+                theta0, bounds, noise_opt = self._theta()
+                with utils_profiling.span("fit.gate"):
+                    trace = self._gated_trace_mode(e, f, y, theta0,
+                                                   noise_opt)
+                res = self._lbfgs(self._objective(e, f, y, noise_opt, show,
+                                                  trace), theta0, bounds,
+                                  maxiter)
+                if trace == "hutch" and res.status == 2:
+                    self.logging.info(
+                        "L-BFGS-B with the Hutchinson trace ended in %r: "
+                        "rerun with the exact trace", str(res.message))
+                    trace = "exact"
+                    res = self._lbfgs(self._objective(
+                        e, f, y, noise_opt, show,
+                        first=getattr(res, "nfev", 0)), theta0, bounds,
+                        maxiter)
+                self._nll_trace_used = trace
+                params = res.x
+                if noise_opt:
+                    self.kernel.update(params[:-1])
+                    self.noise_e = float(params[-1])
+                    self.noise_f = float(self.f_coef * params[-1])
+                else:
+                    self.kernel.update(params)
+            with utils_profiling.span("fit.factorize") as sp:
+                marks = [utils_profiling.device_mark(self.device)] \
+                    if sp else None
+                if not opt and self._try_incremental_fit(e, f):
+                    path = "incremental"
+                    self.logging.info("Cholesky rank-update complete")
+                else:
+                    try:
+                        L, alpha = _factorize(
+                            e, f, y, self.kernel.params(), self.noise_e,
+                            self.noise_f, self.kernel.zeta,
+                            self.kernel.kind, mesh=self._mesh_arg(),
+                            chol_mode=self._chol_mode(e, f))
+                    except FloatingPointError as exc:
+                        self.logging.error(str(exc))
+                        raise
+                    self._record_full_factor(e, f, self.N_energy,
+                                             self.N_forces, L, alpha)
+                    path = "full"
+                    self.logging.info("Cholesky decomposition complete")
+                if sp:
+                    marks.append(utils_profiling.device_mark(self.device))
+            self._refit_stats[path] += 1
+            if sp:
+                self._refit_marks.append((path, sp, marks))
+            self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
+            self.fits += 1
 
     def set_K_inv(self):
         """API parity (gaussianprocess.py:128-131): the reference forms
@@ -1237,13 +1286,17 @@ class GP:
             self._serve_ops = kept
         return kept[1]
 
+    def _serve_device(self, pe, pf, te, tf, return_std):
+        """(mean, std or None) of the packed points, on the device."""
+        return _predict_packed(pe, pf, te, tf, self.kernel.params(),
+                               self.alpha_, self.L_, self.kernel.zeta,
+                               return_std, self.kernel.kind,
+                               mesh=self._mesh_arg(),
+                               train_ops=self._train_operands(),
+                               cols=self._factor_cols)
+
     def _serve(self, pe, pf, te, tf, return_std):
-        mean, std = _predict_packed(pe, pf, te, tf, self.kernel.params(),
-                                    self.alpha_, self.L_, self.kernel.zeta,
-                                    return_std, self.kernel.kind,
-                                    mesh=self._mesh_arg(),
-                                    train_ops=self._train_operands(),
-                                    cols=self._factor_cols)
+        mean, std = self._serve_device(pe, pf, te, tf, return_std)
         mean = mean.cpu().numpy()
         return mean, None if std is None else std.cpu().numpy()
 
@@ -1383,19 +1436,32 @@ class GP:
                 "stress=True needs a stress-enabled descriptor: construct "
                 "SO3(..., stress=True) so the rdxdr strain rows are "
                 "computed")
-        descs = self.descriptor.calculate_many_device(
-            strucs, device=self.device, dtype=torch.float64,
-            pair_budget=math.inf)
-        for d in descs:
-            for key in ("x", "dxdr", "rdxdr"):
-                if d[key] is not None:
-                    d[key] = d[key].to(self.dtype)
-        te, tf, _, _ = self._train_view()
-        pe, pf, sels = _pack_structures(strucs, descs, stress)
-        mean, std = self._serve(pe, pf, te, tf, return_std)
-        ncart = pf.ncart
+        with utils_profiling.span("serve", n=len(strucs)):
+            utils_profiling.count("serve.requests")
+            with utils_profiling.span("descriptor"):
+                descs = self.descriptor.calculate_many_device(
+                    strucs, device=self.device, dtype=torch.float64,
+                    pair_budget=math.inf)
+                for d in descs:
+                    for key in ("x", "dxdr", "rdxdr"):
+                        if d[key] is not None:
+                            d[key] = d[key].to(self.dtype)
+            te, tf, _, _ = self._train_view()
+            with utils_profiling.span("pack"):
+                pe, pf, sels = _pack_structures(strucs, descs, stress)
+            with utils_profiling.span("predict"):
+                mean, std = self._serve_device(pe, pf, te, tf, return_std)
+            with utils_profiling.span("host_out"):
+                mean = mean.cpu().numpy()
+                std = None if std is None else std.cpu().numpy()
+                return self._assemble(strucs, sels, mean, std, pe.m,
+                                      pf.ncart, stress)
+
+    def _assemble(self, strucs, sels, mean, std, f_off, ncart, stress):
+        """``_serve_structures``' answers from the host copies of the
+        served rows: per structure (E, F, S[, E_std, F_std]), the energy
+        rows first, the force rows of each structure from f_off on."""
         out = []
-        f_off = pe.m
         for k, (struc, ids) in enumerate(zip(strucs, sels)):
             natoms = len(struc)
             rows = slice(f_off, f_off + ncart * len(ids))
@@ -1423,7 +1489,7 @@ class GP:
                     # the base calculators give ASE Voigt (xx, yy, zz, yz,
                     # xz, xy); the strain rows are (xx, yy, zz, xy, xz, yz)
                     S = S + np.asarray(s_off)[..., [0, 1, 2, 5, 4, 3]]
-            if not return_std:
+            if std is None:
                 out.append((E, F, S))
                 continue
             F_std = np.zeros((natoms, 3))

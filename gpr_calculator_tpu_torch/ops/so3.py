@@ -26,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, utils_profiling
 from ..atoms.atoms import CHEMICAL_SYMBOLS
 from .bessel import scaled_in
 from .sph import ylm_all_ri, ylm_gradients_ri
@@ -407,8 +407,10 @@ class SO3:
         """
         dev = config.device() if device is None else torch.device(device)
         dt = config.dtype(dev) if dtype is None else dtype
-        prep = self._prep_structure(atoms, atom_ids)
-        x, dxdr, rdxdr, _, _ = self._core([prep], dev, dt)
+        with utils_profiling.span("descriptor.prep"):
+            prep = self._prep_structure(atoms, atom_ids)
+        with utils_profiling.span("descriptor.core"):
+            x, dxdr, rdxdr, _, _ = self._core([prep], dev, dt)
         return self._device_dict(prep, x, dxdr, rdxdr)
 
     def _device_dict(self, prep, x, dxdr, rdxdr):
@@ -479,7 +481,10 @@ class SO3:
         dt = config.dtype(dev) if dtype is None else dtype
         if pair_budget is None:
             pair_budget = self.default_pair_budget(dev)
-        preps = [self._prep_structure(atoms) for atoms in atoms_list]
+        preps = []
+        for atoms in atoms_list:
+            with utils_profiling.span("descriptor.prep"):
+                preps.append(self._prep_structure(atoms))
         groups, cur, cur_pairs = [], [], 0
         for i, p in enumerate(preps):
             npairs = len(p["pair_seq"])
@@ -492,7 +497,9 @@ class SO3:
             groups.append(cur)
         for grp in groups:
             ps = [preps[i] for i in grp]
-            yield (grp, ps) + self._core(ps, dev, dt)
+            with utils_profiling.span("descriptor.core"):
+                out = self._core(ps, dev, dt)
+            yield (grp, ps) + out
 
     def calculate_many_device(self, atoms_list, dtype=None, pair_budget=None,
                               device=None):

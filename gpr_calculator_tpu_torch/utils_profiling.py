@@ -1,52 +1,197 @@
-"""Tracing / profiling helpers (the JAX package's ``utils_profiling.py``).
+"""Tracing / profiling: the port's span recorder and ``torch.profiler``
+traces (the JAX package's ``utils_profiling.py``).
 
 The reference's observability is per-rank cProfile dumps
 (examples/test_mpi.py:10-11,32-37) and ad-hoc wall-clock prints.  Here:
-structured phase timers plus optional ``torch.profiler`` traces of the
-host and, where a card is present, the device.
+
+- a span recorder, off by default (``enable()`` / ``disable()``).  The
+  program opens a span at each layer boundary (``with span("predict"):``)
+  and bumps a counter where it learns a count (``count("lbfgs.nfev",
+  res.nfev)``).  Off, ``span`` checks one flag and returns a shared no-op
+  context: no clock read, no allocation, no record.  On, a span keeps a
+  ``Record`` (name, start_ns, end_ns, depth, id, n) in a buffer of the
+  last ``CAP`` records and, while a ``torch.profiler`` profile is open,
+  opens ``torch.profiler.record_function(name)``, so its trace shows the
+  program's layers above the device operations.
+  Its clock is ``time.time_ns`` (Unix-epoch ns), the clock of the kineto
+  events' ``start_ns()`` that ``torch.profiler`` gives for host and
+  device operations alike, so a span and the device operations it
+  launched compare directly.  A span never synchronises: a layer's device
+  time comes from the device trace.  Spans nested in one another share
+  the outermost one's id (one a served call, one a fit); ``n`` is a
+  number the span carries (structures served, an evaluation's index).
+  A counter is a plain integer in ``counters``; each bump is also kept
+  as a record whose start and end are the moment of the bump and whose
+  ``n`` is the amount added.
+- ``device_trace``: a ``torch.profiler`` Chrome trace of a block.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
-import json
+import json as _json
 import os
 import time
-from collections import defaultdict
-from typing import Dict, Optional
+from typing import NamedTuple, Optional
+
+import torch
+
+# the last CAP records are kept: a 30 s window of served requests makes
+# ~15 000 of them
+CAP = 1 << 17
+clock = time.time_ns
 
 
-class PhaseTimer:
-    """Accumulating wall-clock phase timer.
+class Record(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    depth: int
+    id: int
+    n: Optional[int]
 
-    with timer.phase("descriptor"): ...
-    print(timer.report())
-    """
 
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+_profiling = torch._C._autograd._profiler_enabled
+_on = False
+_records: collections.deque = collections.deque(maxlen=CAP)
+_stack: list = []
+_last_id = 0
+counters: dict = {}
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
 
-    def report(self) -> str:
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        out = []
-        for name, tot in rows:
-            n = self.counts[name]
-            out.append(f"{name:<24s} {tot:10.3f}s  x{n:<6d} "
-                       f"{tot / n * 1e3:9.2f} ms/call")
-        return "\n".join(out)
+def enable():
+    """Switch the recorder on."""
+    global _on
+    _on = True
 
-    def json(self) -> str:
-        return json.dumps({k: {"total_s": v, "calls": self.counts[k]}
-                           for k, v in self.totals.items()})
+
+def disable():
+    """Switch the recorder off (what it recorded stays)."""
+    global _on
+    _on = False
+
+
+def enabled() -> bool:
+    return _on
+
+
+def clear():
+    """Forget every record and counter."""
+    _records.clear()
+    counters.clear()
+
+
+def records() -> list:
+    """The kept records, oldest first."""
+    return list(_records)
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "n", "start_ns", "end_ns", "depth", "id", "_rf")
+
+    def __init__(self, name, n):
+        self.name, self.n = name, n
+
+    def __enter__(self):
+        global _last_id
+        if _stack:
+            self.id = _stack[-1].id
+        else:
+            _last_id += 1
+            self.id = _last_id
+        self.depth = len(_stack)
+        _stack.append(self)
+        # a record_function costs ~9 us: opened only where a profiler
+        # records it
+        self._rf = torch.profiler.record_function(self.name) \
+            if _profiling() else None
+        if self._rf is not None:
+            self._rf.__enter__()
+        self.start_ns = clock()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = clock()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        _stack.pop()
+        _records.append(Record(self.name, self.start_ns, self.end_ns,
+                               self.depth, self.id, self.n))
+        return False
+
+
+def span(name: str, n: Optional[int] = None):
+    """A context that records the block as span ``name`` when the
+    recorder is on; ``with span(...) as s`` gives the span (its
+    ``start_ns`` / ``end_ns`` once closed), or None when off."""
+    if not _on:
+        return _OFF
+    return _Span(name, n)
+
+
+def count(name: str, n: int = 1):
+    """Add n to counter ``name`` when the recorder is on."""
+    if not _on:
+        return
+    counters[name] = counters.get(name, 0) + n
+    t = clock()
+    _records.append(Record(name, t, t, len(_stack),
+                           _stack[-1].id if _stack else 0, n))
+
+
+def device_mark(device):
+    """A timing CUDA event recorded now on ``device``'s current stream, or
+    None on the CPU: with another, ``elapsed_time`` reads the device time
+    between them once the later one is waited for.  Recording it does not
+    wait."""
+    if torch.device(device).type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def summary() -> dict:
+    """By span name, calls, total ms and ms a call over the kept records;
+    the counters beside them."""
+    calls = collections.Counter()
+    total = collections.defaultdict(int)
+    for r in _records:
+        if r.name not in counters:
+            calls[r.name] += 1
+            total[r.name] += r.end_ns - r.start_ns
+    spans = {k: {"calls": c, "total_ms": total[k] * 1e-6,
+                 "ms_per_call": total[k] * 1e-6 / c}
+             for k, c in calls.items()}
+    return {"spans": spans, "counters": dict(counters)}
+
+
+def report() -> str:
+    """The summary as a table, the longest total first."""
+    s = summary()
+    rows = sorted(s["spans"].items(), key=lambda kv: -kv[1]["total_ms"])
+    out = [f"{name:<24s} {v['total_ms']:12.3f} ms  x{v['calls']:<7d} "
+           f"{v['ms_per_call']:10.3f} ms/call" for name, v in rows]
+    out += [f"{name:<24s} {v:d}" for name, v in sorted(s["counters"].items())]
+    return "\n".join(out)
+
+
+def json() -> str:
+    """The summary as JSON."""
+    return _json.dumps(summary())
 
 
 @contextlib.contextmanager
@@ -55,11 +200,11 @@ def device_trace(logdir: Optional[str] = None):
     CUDA activity when a card is present), written to ``logdir`` as a
     Chrome trace (open in chrome://tracing or Perfetto) when the block
     ends; logdir None traces nothing.  Yields the profiler (None when
-    off), whose ``key_averages()`` sums the time by operation."""
+    off), whose ``key_averages()`` sums the time by operation.  With the
+    recorder on, the program's spans show in it above the operations."""
     if logdir is None:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

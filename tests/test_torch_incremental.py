@@ -15,7 +15,7 @@ import torch
 import gpr_calculator_tpu as J
 import gpr_calculator_tpu_torch as T
 from gpr_calculator_tpu.ops.linalg import chol_append_buf
-from gpr_calculator_tpu_torch import config
+from gpr_calculator_tpu_torch import config, utils_profiling
 from gpr_calculator_tpu_torch.models.gp import GP
 from gpr_calculator_tpu_torch.ops import linalg
 
@@ -188,7 +188,13 @@ def _same(a, b, tols=(E_TOL, E_TOL, STD_TOL, STD_TOL)):
 
 @pytest.fixture(scope="module")
 def grown():
-    return {k: _grown(T, k) for k in KERNELS}
+    # refit_stats sums the refits' ms while the span recorder is on
+    utils_profiling.enable()
+    try:
+        return {k: _grown(T, k) for k in KERNELS}
+    finally:
+        utils_profiling.disable()
+        utils_profiling.clear()
 
 
 @pytest.mark.parametrize("kernel", list(KERNELS))

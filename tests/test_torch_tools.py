@@ -1,7 +1,7 @@
 """The port's host tools on the CPU: ``analysis`` (the dispatch-log
 parser and figures) on a captured port NEB log and on the cases of
-tests/test_analysis.py, ``utils_profiling`` (``PhaseTimer``,
-``device_trace`` over ``torch.profiler``), ``neb.plot_path`` /
+tests/test_analysis.py, ``utils_profiling`` (the span recorder's
+summary, ``device_trace`` over ``torch.profiler``), ``neb.plot_path`` /
 ``plot_progress`` from that NEB's trajectory, and ``utils``' metrics and
 point-list converters against the JAX package's."""
 import contextlib
@@ -19,7 +19,8 @@ from gpr_calculator_tpu_torch.analysis import (parse_log, plot_convergence,
                                                plot_energy_scatter)
 from gpr_calculator_tpu_torch.dispatch import DispatchPolicy
 from gpr_calculator_tpu_torch.neb import plot_path, plot_progress
-from gpr_calculator_tpu_torch.utils_profiling import PhaseTimer, device_trace
+from gpr_calculator_tpu_torch import utils_profiling
+from gpr_calculator_tpu_torch.utils_profiling import device_trace
 
 from test_torch_kff import _on_cpu  # noqa: F401 (fixture)
 
@@ -136,14 +137,28 @@ def test_plot_path_and_plot_progress(neb_run):
 
 
 def test_phase_timer():
-    t = PhaseTimer()
-    for _ in range(3):
-        with t.phase("a"):
-            pass
-    with t.phase("b"):
-        sum(range(1000))
-    assert t.counts == {"a": 3, "b": 1}
-    assert "a" in t.report() and '"calls": 3' in t.json()
+    """The span recorder's summary: calls, total and ms a call by span
+    name, and the counters, as a table and as JSON."""
+    utils_profiling.clear()
+    utils_profiling.enable()
+    try:
+        for _ in range(3):
+            with utils_profiling.span("a"):
+                pass
+        with utils_profiling.span("b"):
+            sum(range(1000))
+        utils_profiling.count("c", 5)
+    finally:
+        utils_profiling.disable()
+    s, text, js = (utils_profiling.summary(), utils_profiling.report(),
+                   utils_profiling.json())
+    utils_profiling.clear()
+    assert {k: v["calls"] for k, v in s["spans"].items()} == {"a": 3, "b": 1}
+    assert s["counters"] == {"c": 5}
+    a = s["spans"]["a"]
+    assert a["ms_per_call"] == pytest.approx(a["total_ms"] / 3)
+    assert [line.split()[0] for line in text.splitlines()][-1] == "c"
+    assert '"calls": 3' in js and '"c": 5' in js
 
 
 def test_device_trace(tmp_path):
