@@ -11,11 +11,19 @@ of .cu/.cuh files, or one .cu file such as an older csrc/kff.cu) in turns,
 at d = 30;
 --alt-root OTHER_CHECKOUT  times one slice request's _predict_packed and
 one bench NLL+gradient of each kernel family of this checkout and of
-another in turns.
+another in turns;
+--descriptor  builds the library and runs phase (s) alone.
 
 Builds the CUDA kernels from csrc/ and drives the port's main paths,
 each with the launch counts reset just before and read just after, for
 Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
+  (s) the SO(3) descriptor kernels (csrc/so3.cu) against the plain
+      _so3_core on the card, float64, at the served structure (also
+      with strain rows) and at a band of 5 of (m3)'s 65-atom slabs: x,
+      dxdr and the strain rows (1e-12 of max|plain|),
+      the launches a call, the kernels' device time (torch.profiler)
+      beside their bound and the plain chain's time (CUDA events), and
+      the host time of a whole call of each;
   (d) the serving slice: an RBF GP trained at fixed hyperparameters on
       three NEB images, served through the GPR calculator, which answers
       from the surrogate or calls EMT and refits;
@@ -284,6 +292,9 @@ BASES = {
 # are on no path of the JAX package or of the port)
 RBF = ("kff_tri", "kff_tri_dual", "kef_rect", "kef_rect_dual", "kff_rect")
 DOT = ("kff_tri_dot", "kef_rect_dot", "kff_rect_dot")
+# the descriptor kernels (csrc/so3.cu): every path that serves or ingests
+# structures runs them
+SO3_KERNELS = ("so3_pair", "so3_centre")
 CSRC = "gpr_calculator_tpu_torch/csrc/"
 # the tile-range form of the K1 kernels (the mesh-sharded training build)
 K1_BASES = [b for b in BASES if b.startswith("kff_tri")]
@@ -659,10 +670,10 @@ def run_incremental(T, torch, kff, dev, dtype, query, log, card,
                             reps)
             t_buf = host_ms(torch, in_place, reps)
             del buf
-            kff.reset_launches()
+            reset_counts(kff)
             gp.fit(opt=False, show=False)
             torch.cuda.synchronize()
-            out[(mode, kE + 3 * kF)] = dict(kff.launches)
+            out[(mode, kE + 3 * kF)] = launched(kff)
             rs, rf = gp.refit_stats, ref.refit_stats
             log(f"(n1) [{card}] {tag}: the append (blocks, chol_append, "
                 f"L_c's diagonal read, chol_solve) {t_app[1]:.3f} ms against "
@@ -674,7 +685,7 @@ def run_incremental(T, torch, kff, dev, dtype, query, log, card,
                 f"{rs['incremental_ms']:.3f} ms incremental, the model's "
                 f"first {rs['full_ms']:.3f} ms full, the reference's "
                 f"{rf['full_ms']:.3f} ms full; launches "
-                f"{json.dumps(nonzero(kff.launches))}")
+                f"{json.dumps(nonzero(launched(kff)))}")
             if rs["incremental"] != 1 or rs["full"] != 1:
                 raise AssertionError(f"(n1) {tag}: refit_stats {rs}")
             te, tf, _, _ = gp._train_view()
@@ -722,7 +733,7 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
             return super().run(n)
 
     orig, ex.Langevin = ex.Langevin, Kept
-    kff.reset_launches()
+    reset_counts(kff)
     K_ops.reset_operand_builds()
     try:
         rec, gp = ex.run(steps_per_volume=steps, max_volumes=volumes,
@@ -810,12 +821,12 @@ def run_neb_opt_freq(T, torch, kff, dev, dtype, log, barrier):
     incremental refit, the barrier within BARRIER_TOL of (i)'s
     ``barrier``.  Returns the launch counts."""
     gp, images = run_training(T, dev, dtype)
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.time()
     calc = T.GPR(base=T.EMT(), ff=gp, save=False, opt_freq=NEB_OPT_FREQ)
     band = T.neb_calc(images, calc, fmax=0.05, steps=150)
     torch.cuda.synchronize()
-    launches = dict(kff.launches)
+    launches = launched(kff)
     E = np.asarray(band.energies, float)
     bar = float(E.max() - E[0])
     log(f"(n3) NEB with opt_freq={NEB_OPT_FREQ}: {time.time() - t0:.2f} s, "
@@ -1175,10 +1186,23 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
+def launched(kff):
+    """The launch counts of the K1-K3 kernels and of the descriptor
+    kernels (csrc/so3.cu, ``SO3``) since the last ``reset_counts``."""
+    from gpr_calculator_tpu_torch.ops import so3
+    return {**kff.launches, **so3.launches}
+
+
+def reset_counts(kff):
+    from gpr_calculator_tpu_torch.ops import so3
+    kff.reset_launches()
+    so3.reset_launches()
+
+
 def counted(kff):
-    """The launch counts and the plain versions' calls since the last
-    ``kff.reset_launches()``."""
-    return {**kff.launches, **kff.plain_calls}
+    """``launched`` and the plain versions' calls since the last
+    ``reset_counts``."""
+    return {**launched(kff), **kff.plain_calls}
 
 
 def check_launches(counts, names, path, absent=()):
@@ -1657,10 +1681,11 @@ def band_vs_serial(torch, T, kff, K_ops, gp, band, tag, log, card):
     it)."""
     natoms = len(band[0])
     so3 = gp.descriptor
-    kff.reset_launches()
+    reset_counts(kff)
     batch = gp.predict_structures(band, return_std=True)
     torch.cuda.synchronize()
-    launches = dict(kff.launches)
+    launches = launched(kff)
+    check_launches(launches, SO3_KERNELS, f"(m1) {tag} batched band")
 
     def batched():
         return gp.predict_structures(band, return_std=True)
@@ -1701,12 +1726,12 @@ def band_vs_serial(torch, T, kff, K_ops, gp, band, tag, log, card):
         band_gate(band_diffs(first, f64, natoms), natoms, 0.1,
                   f"{form} vs CPU float64, end to end", log, f"(m1) {tag}")
     for form, fn in forms.items():
-        kff.reset_launches()
+        reset_counts(kff)
         K_ops.reset_operand_builds()
         fn()
         torch.cuda.synchronize()
         builds = dict(K_ops.operand_builds)
-        log(f"(m1) {tag} {form}: launches {json.dumps(nonzero(kff.launches))}"
+        log(f"(m1) {tag} {form}: launches {json.dumps(nonzero(launched(kff)))}"
             f", operand builds {json.dumps(builds)}")
         if form == "batched" and builds != {"query": 1, "train": 0}:
             raise AssertionError("a batched band must build one query side "
@@ -1768,7 +1793,8 @@ def card_f64_copy(T, torch, kff, K_ops, gp):
                                 dtype=torch.float64, log_file=None)
     serve, (e, f) = plain_serve(torch, kff, K_ops, ref)
     ref._fit_snapshot = (e, f, ref.N_energy, ref.N_forces)
-    ref._serve = serve
+    # every served path (_serve, _serve_structures) goes through it
+    ref._serve_device = serve
     return ref
 
 
@@ -1778,7 +1804,7 @@ def plain_serve(torch, kff, K_ops, ref):
     plain K, a float64 Cholesky factor and weights; serve(pe, pf, te, tf,
     return_std) takes the served block of float64 descriptors from the
     plain versions against (te, tf) = (e, f), with _predict_packed's mean
-    and variance."""
+    and std, on the device (``GP._serve_device``'s form)."""
     from gpr_calculator_tpu_torch.models.gp import _noise_diag
     e, f = ref._pack(ref.N_energy, ref.N_forces)
     y = ref._y_vector(e, f, ref.N_energy, ref.N_forces)
@@ -1792,15 +1818,14 @@ def plain_serve(torch, kff, K_ops, ref):
 
     def serve(pe, pf, te, tf, return_std):
         Kt = plain_block(torch, kff, pe, pf, te, tf, params, zeta, kind)
-        mean = (Kt @ alpha).cpu().numpy()
+        mean = Kt @ alpha
         if not return_std:
             return mean, None
         diag = torch.cat([K_ops.diag_energy(pe, params, zeta, kind),
                           K_ops.diag_force(pf, params, zeta,
                                            kind).reshape(-1)])
         V = torch.linalg.solve_triangular(L, Kt.T, upper=False)
-        return mean, torch.clamp(diag - (V * V).sum(0), min=0.0) \
-            .sqrt().cpu().numpy()
+        return mean, torch.clamp(diag - (V * V).sum(0), min=0.0).sqrt()
     return serve, (e, f)
 
 
@@ -1926,6 +1951,169 @@ def many_vs_one(torch, so3, strucs, one, dev, pair_budget, log):
                                  "calculate's")
 
 
+def so3_ptxas(compiler_log):
+    """(kernel, ptxas resource line) of each so3_pair_kernel /
+    so3_centre_kernel instantiation (float, double) in the build log."""
+    name = None
+    for line in compiler_log.splitlines():
+        m = re.search(r"(so3_(?:pair|centre)_kernel)I([fd])E", line)
+        if m:
+            name = f"{m.group(1)}<{dict(f='float', d='double')[m.group(2)]}>"
+        elif "Compiling entry function" in line:
+            name = None
+        elif name and ("registers" in line or "spill" in line):
+            yield name, line.strip()
+
+
+def so3_work(so3, preps):
+    """(FP64 operations, bytes) one descriptor call needs for ``preps``:
+    per pair and quadrature node the pair Gaussian and z (8), the
+    recurrence steps these z need (upward: 3 a step over lmax - 1 steps
+    from the closed forms' 20; Miller: 3 a step over 2 lmax + 42, 2 a
+    normalised order), db (3 an order) and E b, d(E b)/dr (6 an order);
+    the quadrature sums (2 an FMA, I and dI/dr); the Y_lm and gradients
+    (~40 an (l, m)); c_tot (4 an (n, l, m) a pair), x (4 an (l, m) a
+    coefficient); G and H (4 an (n, l, m) and component a pair), dP (10
+    an entry) and the row sums; with strain rows 10 an entry of each
+    pair's 3 x 3 x ncoef more.  A transcendental counts 1.  Bytes: the
+    two uploads read once (with strain rows Ri, Rj and a scale a row
+    more), x, dxdr and the strain rows written once."""
+    nmax, lmax, nq = so3.nmax, so3.lmax, len(so3._q)
+    L1, LM = lmax + 1, (lmax + 1) * (lmax + 2) // 2
+    ops = 0.0
+    for p in preps:
+        r = np.linalg.norm(p["rij"], axis=1)
+        z = 2.0 * so3.alpha * r[:, None] * so3._q[None, :]
+        up = z >= 2 * lmax + 2
+        steps = np.where(up, 20 + 3 * max(lmax - 1, 0),
+                         3 * (2 * lmax + 42) + 2 * L1)
+        ops += float(steps.sum()) + z.size * (8 + 9 * L1)
+        P = len(r)
+        ops += P * (2 * 2 * nmax * L1 * nq + 40 * LM)
+        ops += P * 4 * nmax * LM + p["natoms"] * so3.ncoef * 4 * (lmax + 1)
+        ops += P * (4 * 4 * nmax * LM + 10 * 3 * so3.ncoef)
+        ops += p["nseq"] * 3 * so3.ncoef
+        if so3.stress:
+            ops += P * 10 * 9 * so3.ncoef
+    P = sum(len(p["rij"]) for p in preps)
+    natoms = sum(p["natoms"] for p in preps)
+    nseq = sum(p["nseq"] for p in preps)
+    rows = nseq + len(preps)
+    nbytes = 8 * (2 * P + 5 * natoms + 1 + 4 * P + nq * (1 + nmax)
+                  + natoms * so3.ncoef + rows * 3 * so3.ncoef)
+    if so3.stress:
+        nbytes += 8 * (6 * P + rows + rows * 9 * so3.ncoef)
+    return ops, nbytes
+
+
+def run_descriptor(T, torch, dev, log, card, compiler_log=""):
+    """(s): the descriptor kernels against the plain ``_so3_core`` on the
+    card, float64, at the served structure (the slice's 13-atom image),
+    at it with strain rows (``stress=True``, as (o1) serves) and at a
+    band of 5 of (m3)'s 65-atom slabs (one call): errors of x, dxdr and
+    the strain rows, the launches a ``_core`` call (at most 4), the
+    kernels' device time (the sum of their device durations in a
+    torch.profiler trace of 50 calls, and each kernel's share) beside
+    their bound (operations at the FP64 peak, 67 TFLOP/s, bytes at 3.35
+    TB/s) and the plain chain's time (CUDA events over 10 calls, its
+    ~1000 launches enqueued by the host), its device time and launches,
+    and the host time of a whole call of each (prep, upload, launches,
+    to a synchronise).  Returns the rows, one a shape."""
+    from torch.profiler import ProfilerActivity, profile
+    from gpr_calculator_tpu_torch.ops import so3 as so3_mod
+    for name, line in so3_ptxas(compiler_log):
+        log(f"(s) ptxas {name}: {line}")
+    served = T.au_on_al100_images()[1:2]
+    f64 = torch.float64
+    shapes = {"served": (T.SO3(nmax=3, lmax=4, rcut=5.0), served),
+              "served_stress": (T.SO3(nmax=3, lmax=4, rcut=5.0, stress=True),
+                                served),
+              "ingest5": (T.SO3(nmax=3, lmax=4, rcut=5.0),
+                          ingest_set(T, np.random.RandomState(11))[0][:5])}
+
+    def traced(fn, reps):
+        """(device ms of kernels a call, kernels a call, device ms a call
+        of each of the two descriptor kernels)."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [(ev.name(), ev.duration_ns()) for ev in
+               prof.profiler.kineto_results.events()
+               if ev.device_type().name == "CUDA"
+               and not ev.name().startswith(("Memcpy", "Memset"))]
+        each = {k: 1e-6 * sum(ns for n, ns in evs if f"{k}_kernel" in n)
+                / reps for k in SO3_KERNELS}
+        return 1e-6 * sum(ns for _, ns in evs) / reps, len(evs) / reps, each
+
+    rows = []
+    for tag, (so3, strucs) in shapes.items():
+        preps = [so3._prep_structure(a) for a in strucs]
+        so3_mod.reset_launches()
+        got = so3._core(preps, dev, f64)
+        torch.cuda.synchronize()
+        launches = sum(so3_mod.launches.values())
+        ref = so3._core_plain(preps, dev, f64)
+        errs = {}
+        for key, g, r in zip(("x", "dxdr", "rdxdr"), got[:3], ref[:3]):
+            if r is None:
+                continue
+            err = (g - r).abs().max().item()
+            scale = r.abs().max().item()
+            errs[key] = err / scale
+            if err > 1e-12 * scale:
+                raise AssertionError(f"(s) {tag}: the kernels' {key} is "
+                                     f"{err / scale:.3e} of max|plain| off")
+        if launches > 4:
+            raise AssertionError(f"(s) {tag}: {launches} launches a call")
+        again = so3._core(preps, dev, f64)
+        if not all(torch.equal(a, b) for a, b in zip(got[:3], again[:3])
+                   if a is not None):
+            raise AssertionError(f"(s) {tag}: two calls differ")
+        kern_ms, kern_n, each_ms = traced(
+            lambda: so3._core(preps, dev, f64), 50)
+        plain_dev_ms, plain_n, _ = traced(
+            lambda: so3._core_plain(preps, dev, f64), 3)
+        plain_ms = cuda_ms(torch, lambda: so3._core_plain(preps, dev, f64),
+                           10)
+        host_k = host_ms(torch, lambda: so3._core(preps, dev, f64), 50)
+        host_p = host_ms(torch, lambda: so3._core_plain(preps, dev, f64),
+                         10)
+        ops, nbytes = so3_work(so3, preps)
+        bound_ms = 1e3 * max(ops / 67e12, nbytes / 3.35e12)
+        pairs = sum(len(p["rij"]) for p in preps)
+        row = {"kernel": "so3_pair + so3_centre", "shape": tag,
+               "pairs": pairs, "kernel_ms": kern_ms,
+               "kernel_ms_each": each_ms,
+               "kernels_a_call": kern_n, "launches_counted": launches,
+               "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
+               "plain_kernels_a_call": plain_n,
+               "host_ms_kernels": host_k[1], "host_ms_plain": host_p[1],
+               "bound_ms": bound_ms,
+               "bound_by": "ops" if ops / 67e12 >= nbytes / 3.35e12
+               else "bytes",
+               "share_of_bound": bound_ms / kern_ms, "ops": ops,
+               "bytes": nbytes, "err": errs, "card": card}
+        log(f"(s) descriptor kernels, {tag} ({pairs} pairs): device "
+            f"{kern_ms:.4f} ms a call in {kern_n:.1f} kernels ({launches} "
+            f"counted launches; so3_pair {each_ms['so3_pair']:.4f} ms, "
+            f"so3_centre {each_ms['so3_centre']:.4f} ms), bound "
+            f"{bound_ms:.5f} ms ({row['bound_by']}"
+            f"; {ops:.3e} FP64 ops, {nbytes} B) = "
+            f"{100 * bound_ms / kern_ms:.2f} %; plain chain {plain_ms:.3f} "
+            f"ms (events), device {plain_dev_ms:.4f} ms in {plain_n:.0f} "
+            f"kernels; host a call kernels {host_k[1]:.3f} ms (min "
+            f"{host_k[0]:.3f}), plain {host_p[1]:.3f} ms; err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" of max|plain| (limit 1e-12); bit for bit on a repeat; "
+            f"{card}")
+        rows.append(row)
+    log(json.dumps({"descriptor_kernels": rows}))
+    return rows
+
+
 def run_ingest(T, torch, kff, K_ops, dev, log, card):
     """(m3): N_INGEST labelled slabs saved by a model built one structure
     at a time, GP.load on the card (one batched float64 ingest), the
@@ -1981,12 +2169,12 @@ def run_ingest(T, torch, kff, K_ops, dev, log, card):
         jf, db = os.path.join(tmp, "ingest.json"), os.path.join(tmp,
                                                               "ingest.db")
         sgp.save(jf, db, verbose=False)
-        kff.reset_launches()
+        reset_counts(kff)
         t0 = time.time()
         lgp = T.GP.load(jf, device=dev, dtype=f32, log_file=None)
         lgp.fit(opt=False, show=False)
         torch.cuda.synchronize()
-        launches = dict(kff.launches)
+        launches = launched(kff)
         log(f"(m3) GP.load + fit(opt=False): {time.time() - t0:.2f} s, "
             f"N_energy={lgp.N_energy} N_forces={lgp.N_forces}; launches "
             f"{json.dumps(nonzero(launches))}")
@@ -2450,16 +2638,17 @@ def run_stress(T, torch, kff, dev, log, card, slice_gp, slice_image):
         calc.verbose = False
         calc.freeze()
         calcs.append(calc)
-    kff.reset_launches()
+    reset_counts(kff)
     served = [gp.predict_structure(a, stress=True, return_std=True)
               for a in probes]
     calcs[0].calculate(probes[0].copy(), ["energy", "forces", "stress"])
     torch.cuda.synchronize()
-    launches = dict(kff.launches)
+    launches = launched(kff)
     n_req = len(probes) + 1
     log(f"(o1) launches in {n_req} stress requests: "
         f"{json.dumps(nonzero(launches))}")
-    check_launches(launches, ("kef_rect", "kff_rect"), "stress",
+    check_launches(launches, ("kef_rect", "kff_rect", *SO3_KERNELS),
+                   "stress",
                    absent=[n for n in NAMES
                            if n not in ("kef_rect", "kff_rect")])
     if launches["kff_rect"] != 3 * n_req or \
@@ -2545,7 +2734,7 @@ def run_hutch(T, torch, kff, dev, log, card):
     probes = {p: _probe_block(n, p, dev) for p in (64, 1024)}
     cases = (("RBF", _nll_rbf_analytic, (2.0, 1.0)),
              ("Dot", _nll_dot_analytic, (2.0, 2.0)))
-    launches = {k: 0 for k in kff.launches}
+    launches = {k: 0 for k in launched(kff)}
     for mode in ("highest", "bf16x4"):
         T.config.set_kff_precision(mode)
         for label, fn, th in cases:
@@ -2553,11 +2742,11 @@ def run_hutch(T, torch, kff, dev, log, card):
             kw = {"exact": {}, "hutch": dict(trace="hutch", probes=probes[64])}
             out, ms, peak = {}, {}, {}
             for trace in ("exact", "hutch"):
-                kff.reset_launches()
+                reset_counts(kff)
                 out[trace] = fn(*args, **kw[trace])
                 torch.cuda.synchronize()
                 if trace == "hutch":
-                    for k, v in kff.launches.items():
+                    for k, v in launched(kff).items():
                         launches[k] += v
                 ms[trace] = cuda_ms(torch, lambda: fn(*args, **kw[trace]), 3)
                 torch.cuda.synchronize()
@@ -2596,12 +2785,12 @@ def run_hutch(T, torch, kff, dev, log, card):
     T.config.set_kff_precision("highest")
     gp = bench_gp(T, dev, f32, bench_points(torch, dev, 1000, 3000, 0))
     gp.trace = "auto"
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.perf_counter()
     gp.fit(opt=True, show=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for k, v in kff.launches.items():
+    for k, v in launched(kff).items():
         launches[k] += v
     verdict = gp._trace_gate[1] if gp._trace_gate else None
     log(f"(o2) [{card}] fit(trace='auto') at n = {n}: the gate at theta0 "
@@ -2642,10 +2831,10 @@ def run_sparsify_cov(T, torch, kff, dev, log, card, slice_gp, images):
         gp.remove_train_pts = record
         removed[tag] = ([], [])
         models[tag] = gp
-    kff.reset_launches()
+    reset_counts(kff)
     models["card"].sparsify()
     torch.cuda.synchronize()
-    sp_launches = dict(kff.launches)
+    sp_launches = launched(kff)
     models["CPU f64"].sparsify()
     log(f"(o3) sparsify of the slice model ({state['N_energy']} E + "
         f"{state['N_forces']} F): removed (energy, force) ids card "
@@ -2663,10 +2852,10 @@ def run_sparsify_cov(T, torch, kff, dev, log, card, slice_gp, images):
             set(image.fixed_indices())]
     X = {"energy": [(d["x"], ele)],
          "force": _group_force_points(d, ele, free)}
-    kff.reset_launches()
+    reset_counts(kff)
     mean, cov = gp.predict(X, return_cov=True)
     torch.cuda.synchronize()
-    cov_launches = dict(kff.launches)
+    cov_launches = launched(kff)
     _, std = gp.predict(X, return_std=True)
     sq = np.sqrt(np.clip(np.diag(cov), 0.0, None))
     err = float(np.abs(sq - std).max())
@@ -2888,7 +3077,7 @@ def f64_neb(T, torch, kff, gp, images, kernel, jref, fam, log, card,
     that run).  Returns the counts."""
     what = f"{'batched ' if batched else ''}{kernel} NEB"
     decisions = []
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.time()
     with recorded_decisions(decisions):
         neb, E = run_neb(T, gp, images, batched=batched)
@@ -2904,8 +3093,8 @@ def f64_neb(T, torch, kff, gp, images, kernel, jref, fam, log, card,
     log(f"{phase} float64 {what}: launches a step "
         f"{per_k(counts, neb['nsteps'])}; launches "
         f"{json.dumps(nonzero(counts))}")
-    check_f64_path(counts, [kname(b, F64) for b in fam], f"float64 {what}",
-                   [kname(b, F64) for b in fam])
+    check_f64_path(counts, [kname(b, F64) for b in fam] + list(SO3_KERNELS),
+                   f"float64 {what}", [kname(b, F64) for b in fam])
     same = all(neb[k] == v for k, v in jref.items() if k != "barrier") \
         and abs(neb["barrier"] - jref["barrier"]) <= F64_BARRIER_TOL
     if not same:
@@ -3000,7 +3189,7 @@ def run_f64_paths(T, torch, kff, dev, log, card, errs):
             ("Dot", DOT_THETA0, DOT_THETA, JAX_DOT_NEB, DOT,
              ("kff_tri_dot", "kef_rect_dot"))):
         tag = "f64_" if kernel == "RBF" else "f64_dot_"
-        kff.reset_launches()
+        reset_counts(kff)
         t0 = time.time()
         gp, images = run_training(T, dev, f64, kernel=kernel)
         torch.cuda.synchronize()
@@ -3012,7 +3201,8 @@ def run_f64_paths(T, torch, kff, dev, log, card, errs):
             f"{jtheta[1]:.10f}), relative diff ({theta[0] / jtheta[0] - 1:.2e}"
             f", {theta[1] / jtheta[1] - 1:.2e}); launches "
             f"{json.dumps(nonzero(paths[tag + 'training']))}")
-        check_f64_path(paths[tag + "training"], [kname(b, F64) for b in train],
+        check_f64_path(paths[tag + "training"],
+                       [kname(b, F64) for b in train] + list(SO3_KERNELS),
                        f"float64 {kernel} training",
                        [kname(b, F64) for b in fam])
         ref = cpu_f64_copy(T, gp, fit=False)
@@ -3079,7 +3269,7 @@ def run_f64_bench(T, torch, kff, K_ops, dev, log, card, query, errs):
             ("Dot", _nll_dot_analytic, (2.0, 2.0),
              ("kff_tri_dot", "kef_rect_dot"))):
         tail = ((0.01, 0.1), 10.0, 2, False)
-        kff.reset_launches()
+        reset_counts(kff)
         (nll, g), gib = cuda_peak(torch, lambda: fn(theta, be, bf, y, *tail))
         paths[f"f64_bench_{label.lower()}_nll"] = counts = counted(kff)
         check_f64_path(counts, [kname(b, F64) for b in train],
@@ -3125,7 +3315,7 @@ def run_f64_bench(T, torch, kff, K_ops, dev, log, card, query, errs):
                                  "the plain float64 build's")
     noise = (0.01 * 1e-5, 0.1 * 1e-5)   # served_off takes a tenth of it
     gp = bench_gp(T, dev, f64, bench_points(torch, dev, be.m, bf.m, seed=0))
-    kff.reset_launches()
+    reset_counts(kff)
     _, gib = cuda_peak(torch, lambda: gp.fit(opt=False, show=False))
     paths["f64_bench_factorize"] = counts = counted(kff)
     check_f64_path(counts, [kname(b, F64) for b in ("kff_tri", "kef_rect")],
@@ -3138,7 +3328,7 @@ def run_f64_bench(T, torch, kff, K_ops, dev, log, card, query, errs):
         f"points): {ms:.3f} ms, the fit's peak {gib:.3f} GiB")
     for step in ("factorised", "appended"):
         te, tf, _, _ = gp._train_view()
-        kff.reset_launches()
+        reset_counts(kff)
         served, gib = cuda_peak(torch, lambda: gp._serve(pe, pf, te, tf,
                                                          True))
         counts = counted(kff)
@@ -3147,7 +3337,8 @@ def run_f64_bench(T, torch, kff, K_ops, dev, log, card, query, errs):
                        f"float64 bench request ({step})", RBF_F64)
         t = host_ms(torch, lambda: gp._serve(pe, pf, te, tf, True), 5)
         serve, ref = plain_serve(torch, kff, K_ops, gp)
-        offs = served_off(served, serve(pe, pf, *ref, True), pe.m, natoms,
+        offs = served_off(served, [t.cpu().numpy() for t in
+                                   serve(pe, pf, *ref, True)], pe.m, natoms,
                           noise)
         log(f"(p3) [{card}] bench request ({step}, {te.m} E + {tf.m} F): "
             f"{t[1]:.3f} ms (median of 5, host clock), peak {gib:.3f} GiB; "
@@ -3165,7 +3356,7 @@ def run_f64_bench(T, torch, kff, K_ops, dev, log, card, query, errs):
             break
         gp.set_train_pts(bench_points(torch, dev, *APPENDS[0], seed=2),
                          mode="a+")
-        kff.reset_launches()
+        reset_counts(kff)
         _, gib = cuda_peak(torch, lambda: gp.fit(opt=False, show=False))
         paths["f64_incremental"] = counts = counted(kff)
         names = [kname(b, F64) for b in ("kef_rect", "kff_rect", "kff_tri")]
@@ -3270,7 +3461,7 @@ def run_wide(T, torch, kff, dev, log, card, errs, f64_errs):
     launch counts by path."""
     f64, f32 = torch.float64, torch.float32
     paths = {}
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.time()
     gp, images = run_training(T, dev, f64, **W50_SO3)
     torch.cuda.synchronize()
@@ -3286,7 +3477,8 @@ def run_wide(T, torch, kff, dev, log, card, errs, f64_errs):
         raise AssertionError(f"the nmax 4 / lmax 4 descriptor is {width} "
                              "wide, not 50")
     check_f64_path(paths["w50_f64_training"],
-                   [kname(b, F64) for b in ("kff_tri_dual", "kef_rect_dual")],
+                   [kname(b, F64) for b in ("kff_tri_dual", "kef_rect_dual")]
+                   + list(SO3_KERNELS),
                    "float64 d = 50 training", RBF_F64)
     paths["w50_f64_neb"] = f64_neb(T, torch, kff, gp, images, "RBF",
                                    JAX_W50_NEB, RBF, log, card, phase="(q)",
@@ -3298,7 +3490,7 @@ def run_wide(T, torch, kff, dev, log, card, errs, f64_errs):
     for mode in ("highest", "bf16x4"):
         T.config.set_kff_precision(mode)
         fam = [kname(b, mode) for b in RBF]
-        kff.reset_launches()
+        reset_counts(kff)
         t0 = time.time()
         gp, images = run_training(T, dev, f32, **W50_SO3)
         neb, E = run_neb(T, gp, images)
@@ -3314,7 +3506,8 @@ def run_wide(T, torch, kff, dev, log, card, errs, f64_errs):
             f"base/surrogate/fits {neb['use_base']}/{neb['use_surrogate']}/"
             f"{neb['fits']}, launches a step {per_k(counts, neb['nsteps'])};"
             f" launches {json.dumps(nonzero(counts))}")
-        check_launches(counts, fam, f"float32 {mode} d = 50 NEB",
+        check_launches(counts, fam + list(SO3_KERNELS),
+                       f"float32 {mode} d = 50 NEB",
                        absent=[n for n in NAMES + F64_NAMES if n not in fam]
                        + ["kff_plain", "kef_plain"])
         if not np.isfinite(E).all():
@@ -3348,6 +3541,9 @@ def main(argv=None) -> int:
     ap.add_argument("--predict-packed", action="store_true",
                     help="time one slice request's _predict_packed and the "
                     "bench NLLs, and stop")
+    ap.add_argument("--descriptor", action="store_true",
+                    help="build the library, run phase (s) (the SO(3) "
+                    "descriptor kernels against the plain chain) and stop")
     ap.add_argument("--package-root", help="import the package from here")
     args = ap.parse_args(argv)
     if args.package_root:
@@ -3384,6 +3580,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     lib_path, compiler_log = kff.build()
     log(f"(a) kernel build: {time.time() - t0:.1f} s")
+    if args.descriptor:
+        run_descriptor(T, torch, dev, log, card_line(), compiler_log)
+        return 0
     if not compiler_log:
         log("(a) the library was built before this run: no ptxas lines")
     bodies = {}
@@ -3440,12 +3639,15 @@ def main(argv=None) -> int:
     if set(dmma) != set(F64_NAMES) or not all(dmma.values()):
         raise AssertionError("a float64 kernel holds no DMMA instruction")
 
+    # (s) the descriptor kernels against the plain chain
+    so3_rows = run_descriptor(T, torch, dev, log, card_line(), compiler_log)
+
     # (d) the main path, counted
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.time()
     gp, images, served = run_slice(T, dev, f32, log)
     torch.cuda.synchronize()
-    main_launches = dict(kff.launches)
+    main_launches = launched(kff)
     log(f"(d) slice: {len(served)} requests in {time.time() - t0:.2f} s; "
         f"use_base={gp.use_base} use_surrogate={gp.use_surrogate} "
         f"fits={gp.fits} N_energy={gp.N_energy} N_forces={gp.N_forces}")
@@ -3463,15 +3665,15 @@ def main(argv=None) -> int:
 
     # (f) every kernel of the serving slice ran on it
     log(f"(f) launches on the slice: {json.dumps(nonzero(main_launches))}")
-    check_launches(main_launches, ("kff_tri", "kef_rect", "kff_rect"),
-                   "slice", absent=DOT)
+    check_launches(main_launches, ("kff_tri", "kef_rect", "kff_rect",
+                                   *SO3_KERNELS), "slice", absent=DOT)
 
     # (h) training on the card, counted
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.time()
     tgp, timages = run_training(T, dev, f32)
     torch.cuda.synchronize()
-    train_launches = dict(kff.launches)
+    train_launches = launched(kff)
     theta = tgp.kernel.parameters()
     log(f"(h) set_GPR: {time.time() - t0:.2f} s, N_energy={tgp.N_energy} "
         f"N_forces={tgp.N_forces}; theta = ({theta[0]:.8f}, "
@@ -3479,25 +3681,25 @@ def main(argv=None) -> int:
         f"relative diff ({theta[0] / SIGMA - 1:.2e}, "
         f"{theta[1] / L_SCALE - 1:.2e})")
     log(f"(h) launches in set_GPR: {json.dumps(nonzero(train_launches))}")
-    check_launches(train_launches, ("kff_tri_dual", "kef_rect_dual"),
-                   "training", absent=DOT)
+    check_launches(train_launches, ("kff_tri_dual", "kef_rect_dual",
+                                    *SO3_KERNELS), "training", absent=DOT)
     tref = cpu_f64_copy(T, tgp, fit=False)
     for tag, th in (("theta0", THETA0), ("JAX theta*", (SIGMA, L_SCALE))):
         nll_vs_f64(tgp, tref, th, tag, log)
 
     # (i) the on-the-fly NEB on the card from the card-trained model
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.time()
     neb, E = run_neb(T, tgp, timages)
     torch.cuda.synchronize()
-    neb_launches = dict(kff.launches)
+    neb_launches = launched(kff)
     neb["wall_s"] = time.time() - t0
     log(f"(i) NEB: {time.time() - t0:.2f} s, band energies "
         f"{np.array2string(E, precision=6)} eV")
     for key, ref_val in JAX_NEB.items():
         log(f"(i) {key}: card {neb[key]}, JAX CPU f64 {ref_val}")
     log(f"(i) launches in the NEB: {json.dumps(nonzero(neb_launches))}")
-    check_launches(neb_launches, RBF, "NEB", absent=DOT)
+    check_launches(neb_launches, (*RBF, *SO3_KERNELS), "NEB", absent=DOT)
     if not neb["converged"] or \
             abs(neb["barrier"] - JAX_NEB["barrier"]) > BARRIER_TOL:
         raise AssertionError(f"the card NEB did not converge to the JAX "
@@ -3505,11 +3707,11 @@ def main(argv=None) -> int:
 
     # (j) the Dot kernel: training, NLL against float64, the NEB and a
     # re-serve of its final model, each counted
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.time()
     dgp, dimages = run_training(T, dev, f32, kernel="Dot")
     torch.cuda.synchronize()
-    dot_train_launches = dict(kff.launches)
+    dot_train_launches = launched(kff)
     theta = dgp.kernel.parameters()
     log(f"(j) set_GPR(kernel='Dot'): {time.time() - t0:.2f} s, "
         f"N_energy={dgp.N_energy} N_forces={dgp.N_forces}; (sigma, sigma0)"
@@ -3519,8 +3721,9 @@ def main(argv=None) -> int:
         f"{theta[1] / DOT_THETA[1] - 1:.2e})")
     log(f"(j) launches in set_GPR(kernel='Dot'): "
         f"{json.dumps(nonzero(dot_train_launches))}")
-    check_launches(dot_train_launches, ("kff_tri_dot", "kef_rect_dot"),
-                   "Dot training", absent=RBF)
+    check_launches(dot_train_launches, ("kff_tri_dot", "kef_rect_dot",
+                                        *SO3_KERNELS), "Dot training",
+                   absent=RBF)
     dref = cpu_f64_copy(T, dgp, fit=False)
     for tag, th in (("theta0", DOT_THETA0), ("JAX theta*", DOT_THETA)):
         nll64, g64 = nll_vs_f64(dgp, dref, th, tag, log, phase="(j)")
@@ -3531,11 +3734,11 @@ def main(argv=None) -> int:
             f"dNLL/dsigma {gs_ee:.6g} vs f64 {g64[0]:.6g} "
             f"({abs(gs_ee - g64[0]) / np.linalg.norm(g64):.3e} of |g|) "
             "(recorded, not a gate)")
-    kff.reset_launches()
+    reset_counts(kff)
     t0 = time.time()
     dneb, E = run_neb(T, dgp, dimages)
     torch.cuda.synchronize()
-    dot_neb_launches = dict(kff.launches)
+    dot_neb_launches = launched(kff)
     dneb["wall_s"] = time.time() - t0
     log(f"(j) Dot NEB: {time.time() - t0:.2f} s, band energies "
         f"{np.array2string(E, precision=6)} eV")
@@ -3543,7 +3746,8 @@ def main(argv=None) -> int:
         log(f"(j) {key}: card {dneb[key]}, JAX CPU f64 {ref_val}")
     log("(j) launches in the Dot NEB: "
         f"{json.dumps(nonzero(dot_neb_launches))}")
-    check_launches(dot_neb_launches, DOT, "Dot NEB", absent=RBF)
+    check_launches(dot_neb_launches, (*DOT, *SO3_KERNELS), "Dot NEB",
+                   absent=RBF)
     if not dneb["converged"] or \
             abs(dneb["barrier"] - JAX_DOT_NEB["barrier"]) > BARRIER_TOL:
         raise AssertionError(f"the card Dot NEB did not converge to the JAX "
@@ -3572,13 +3776,13 @@ def main(argv=None) -> int:
             ("RBF", JAX_BATCHED_NEB, (neb, neb_launches), RBF),
             ("Dot", JAX_BATCHED_DOT_NEB, (dneb, dot_neb_launches), DOT)):
         bgp, bimages = run_training(T, dev, f32, kernel=kernel)
-        kff.reset_launches()
+        reset_counts(kff)
         t0 = time.time()
         bneb, E = run_neb(T, bgp, bimages, batched=True)
         torch.cuda.synchronize()
         bneb["wall_s"] = time.time() - t0
         batched_models[kernel] = (bgp, bimages)
-        blaunches = dict(kff.launches)
+        blaunches = launched(kff)
         path_launches["batched_neb" if kernel == "RBF"
                       else "batched_dot_neb"] = blaunches
         log(f"(m2) [{card}] batched {kernel} NEB: band energies "
@@ -3593,7 +3797,8 @@ def main(argv=None) -> int:
         log(f"(m2) batched {kernel} launches a step {per_step}, serial "
             f"{per_k(serial[1], serial[0]['nsteps'])}; launches "
             f"{json.dumps(nonzero(blaunches))}")
-        check_launches(blaunches, fam, f"batched {kernel} NEB",
+        check_launches(blaunches, (*fam, *SO3_KERNELS),
+                       f"batched {kernel} NEB",
                        absent=DOT if kernel == "RBF" else RBF)
         if not bneb["converged"] or bneb["nsteps"] > 150 or \
                 abs(bneb["barrier"] - jref["barrier"]) > BARRIER_TOL:
@@ -3603,8 +3808,9 @@ def main(argv=None) -> int:
     # (m3) the batched ingest at 100 structures, GP.load on the card
     path_launches["ingest"], lgp, ingest_band = run_ingest(
         T, torch, kff, K_ops, dev, log, card)
-    check_launches(path_launches["ingest"], ("kff_tri", "kef_rect"),
-                   "ingest", absent=DOT)
+    check_launches(path_launches["ingest"], ("kff_tri", "kef_rect",
+                                             *SO3_KERNELS), "ingest",
+                   absent=DOT)
 
     # (n1) the incremental refit at the bench shape, in highest and
     # bf16x4: K2 and K3 on the cross block, one K1 on the new rows alone
@@ -3627,12 +3833,13 @@ def main(argv=None) -> int:
     # (n2) the on-the-fly MD/EOS example at full width
     path_launches["md"], md_gp, md_last = run_md(T, torch, kff, K_ops, dev,
                                                  f32, log, card)
-    check_launches(path_launches["md"], RBF, "MD", absent=DOT)
+    check_launches(path_launches["md"], (*RBF, *SO3_KERNELS), "MD",
+                   absent=DOT)
     # (n3) the serial NEB with opt_freq, against (i)'s barrier
     path_launches["neb_opt_freq"] = run_neb_opt_freq(
         T, torch, kff, dev, f32, log, neb["barrier"])
-    check_launches(path_launches["neb_opt_freq"], RBF, "opt_freq NEB",
-                   absent=DOT)
+    check_launches(path_launches["neb_opt_freq"], (*RBF, *SO3_KERNELS),
+                   "opt_freq NEB", absent=DOT)
 
     # (o1) stress serving on the card, counted; (o2) the Hutchinson trace
     # at the bench shape; (o3) sparsify and the predictive covariance
@@ -3658,20 +3865,21 @@ def main(argv=None) -> int:
         fam = RBF if kernel == "RBF" else DOT
         names = [kname(b, mode) for b in fam]
         tag = f"{mode}{'_dot' if kernel == 'Dot' else ''}"
-        kff.reset_launches()
+        reset_counts(kff)
         t0 = time.time()
         mgp, mimages = run_training(T, dev, f32, kernel=kernel)
         torch.cuda.synchronize()
-        path_launches[f"{tag}_training"] = dict(kff.launches)
+        path_launches[f"{tag}_training"] = launched(kff)
         theta = mgp.kernel.parameters()
         log(f"(k1) {mode} set_GPR(kernel={kernel!r}): {time.time() - t0:.2f}"
             f" s, N_energy={mgp.N_energy} N_forces={mgp.N_forces}; theta = "
             f"({theta[0]:.8f}, {theta[1]:.8f})")
         log(f"(k1) {mode} launches in set_GPR(kernel={kernel!r}): "
-            f"{json.dumps(nonzero(kff.launches))}")
+            f"{json.dumps(nonzero(launched(kff)))}")
         train = (("kff_tri_dual", "kef_rect_dual") if kernel == "RBF"
                  else ("kff_tri_dot", "kef_rect_dot"))
-        check_launches(kff.launches, [kname(b, mode) for b in train],
+        check_launches(launched(kff), [kname(b, mode) for b in train]
+                       + list(SO3_KERNELS),
                        f"{mode} {kernel} training",
                        absent=[n for n in NAMES if n not in names])
         if not np.all(np.isfinite(theta)):
@@ -3683,7 +3891,7 @@ def main(argv=None) -> int:
             for ttag, th in (("theta0", th0), ("JAX theta*", jth)):
                 nll_vs_f64(mgp, ref, th, ttag, log, phase=f"(k1) {mode}",
                            gate=False)
-        kff.reset_launches()
+        reset_counts(kff)
         t0 = time.time()
         try:
             mneb, E = run_neb(T, mgp, mimages)
@@ -3701,7 +3909,7 @@ def main(argv=None) -> int:
                 f"{mgp.fits}, N_energy={mgp.N_energy} N_forces="
                 f"{mgp.N_forces}: {err} (recorded, not a gate)")
         torch.cuda.synchronize()
-        path_launches[f"{tag}_neb"] = dict(kff.launches)
+        path_launches[f"{tag}_neb"] = launched(kff)
         jax_neb = JAX_NEB if kernel == "RBF" else JAX_DOT_NEB
         if mneb is not None:
             log(f"(k1) {mode} {kernel} NEB: {time.time() - t0:.2f} s, band "
@@ -3710,8 +3918,9 @@ def main(argv=None) -> int:
                 log(f"(k1) {mode} {kernel} {key}: card {mneb[key]}, JAX CPU "
                     f"f64 {ref_val}")
         log(f"(k1) {mode} launches in the {kernel} NEB: "
-            f"{json.dumps(nonzero(kff.launches))}")
-        check_launches(kff.launches, names, f"{mode} {kernel} NEB",
+            f"{json.dumps(nonzero(launched(kff)))}")
+        check_launches(launched(kff), names + list(SO3_KERNELS),
+                       f"{mode} {kernel} NEB",
                        absent=[n for n in NAMES if n not in names])
         if not np.all(np.isfinite(E)):
             raise AssertionError(f"non-finite band energies or training "
@@ -4123,24 +4332,24 @@ def main(argv=None) -> int:
     # forced: GP(mesh=), set_GPR, the on-the-fly NEB, each counted
     builds = par.sharded_kernels.builds
     T.config.set_sharded_gate("off")
-    kff.reset_launches()
+    reset_counts(kff)
     par.sharded_kernels.reset_builds()
     t0 = time.time()
     sgp, simages = run_training(T, dev, f32, mesh=mesh)
     torch.cuda.synchronize()
-    path_launches["mesh_training"] = dict(kff.launches)
+    path_launches["mesh_training"] = launched(kff)
     theta = sgp.kernel.parameters()
     log(f"(l3) set_GPR(mesh=): {time.time() - t0:.2f} s, N_energy="
         f"{sgp.N_energy} N_forces={sgp.N_forces}; theta = ({theta[0]:.8f}, "
         f"{theta[1]:.8f}), JAX CPU f64 ({SIGMA:.8f}, {L_SCALE:.8f}); "
         f"sharded builds {json.dumps(builds)}")
-    log(f"(l3) launches in set_GPR(mesh=): {json.dumps(nonzero(kff.launches))}")
+    log(f"(l3) launches in set_GPR(mesh=): {json.dumps(nonzero(launched(kff)))}")
 
     def check_mesh_path(on_path, path):
         """Only ``on_path`` ran, and every sharded training build took
         the range form: one launch per shard that owns a tile (3 or 4 of
         the 4 shards here, the smallest training set having 3 tiles)."""
-        check_launches(kff.launches, on_path, path,
+        check_launches(launched(kff), on_path, path,
                        absent=[n for n in NAMES + RANGE_NAMES
                                if n not in on_path])
         ranged = sum(kff.launches[n] for n in RANGE_NAMES)
@@ -4150,21 +4359,22 @@ def main(argv=None) -> int:
                                  f"{builds['self_blocks']} sharded builds "
                                  f"on the {path} path")
     check_mesh_path(("kff_tri_range", "kff_tri_dual_range", "kef_rect",
-                     "kef_rect_dual", "kff_rect"), "mesh training")
-    kff.reset_launches()
+                     "kef_rect_dual", "kff_rect", *SO3_KERNELS),
+                    "mesh training")
+    reset_counts(kff)
     par.sharded_kernels.reset_builds()
     t0 = time.time()
     sneb, E = run_neb(T, sgp, simages)
     torch.cuda.synchronize()
-    path_launches["mesh_neb"] = dict(kff.launches)
+    path_launches["mesh_neb"] = launched(kff)
     log(f"(l3) NEB with GP(mesh=): {time.time() - t0:.2f} s, band energies "
         f"{np.array2string(E, precision=6)} eV; sharded builds "
         f"{json.dumps(builds)}")
     for key, ref_val in JAX_NEB.items():
         log(f"(l3) {key}: card {sneb[key]}, JAX CPU f64 {ref_val}")
-    log(f"(l3) launches in the NEB: {json.dumps(nonzero(kff.launches))}")
+    log(f"(l3) launches in the NEB: {json.dumps(nonzero(launched(kff)))}")
     check_mesh_path(("kff_tri_range", "kff_tri_dual_range", "kef_rect",
-                     "kef_rect_dual", "kff_rect"), "mesh NEB")
+                     "kef_rect_dual", "kff_rect", *SO3_KERNELS), "mesh NEB")
     if builds["k_block"] <= 0:
         raise AssertionError("no served block took the sharded route")
     if not sneb["converged"] or \
@@ -4213,7 +4423,8 @@ def main(argv=None) -> int:
     path_launches["f64_md"], md64_gp, md64_last = run_md(
         T, torch, kff, K_ops, dev, f64, log, card, steps=F64_MD_STEPS,
         phase="(p4)", tol=F64_MD_TOL)
-    check_f64_path(path_launches["f64_md"], RBF_F64, "float64 MD", RBF_F64)
+    check_f64_path(path_launches["f64_md"], (*RBF_F64, *SO3_KERNELS),
+                   "float64 MD", RBF_F64)
     # the MD path's shapes (d = 9, 8 envs a point), both families
     f64_path_shapes(torch, kff, md64_gp,
                     slice_request(md64_gp, md64_last, dev, f64),
@@ -4304,6 +4515,29 @@ def main(argv=None) -> int:
                  **range_cell(name, "slice"), "mid": range_cell(name, "mid"),
                  "bench": range_cell(name, "bench")}
                 for name in F64_RANGE_NAMES]
+    # the descriptor kernels: launches on every path above; times, bound
+    # (of the two kernels of a call together) and errors from (s), at its
+    # shapes (ms and the plain chain's: the served structure)
+    so3_at = {r["shape"]: r for r in so3_rows}
+    kernels += [{"name": name, "route": "cuda", "source": CSRC + "so3.cu",
+                 "replaces": "no TPU kernel: the plain chain "
+                 "gpr_calculator_tpu_torch/ops/so3.py:_so3_core",
+                 "launches": sum(c[name] for c in path_launches.values()),
+                 "launches_by_path": {p: c[name]
+                                      for p, c in path_launches.items()},
+                 "max_rel_err": max(v for r in so3_rows
+                                    for v in r["err"].values()),
+                 "ms": so3_at["served"]["kernel_ms_each"][name],
+                 "plain_ms": so3_at["served"]["plain_ms"],
+                 "bound_ms_both": so3_at["served"]["bound_ms"],
+                 "bound_by": so3_at["served"]["bound_by"], "library_ms": None,
+                 "by_shape": {tag: {"ms": r["kernel_ms_each"][name],
+                                    "ms_both": r["kernel_ms"],
+                                    "plain_ms": r["plain_ms"],
+                                    "bound_ms_both": r["bound_ms"],
+                                    "err": r["err"]}
+                              for tag, r in so3_at.items()}}
+                for name in SO3_KERNELS]
     # the largest max|kernel - plain| / max|plain| of each kernel at the
     # widths above 32
     for k in kernels:

@@ -794,7 +794,8 @@ def load(path) -> dict:
     """Load a library built from ``csrc/`` (or from another revision's
     sources with its entry points): {entry-point name: bound ctypes
     function}, the ``<name>_ks`` entry points of any width and
-    ``kff_empty``, ``kff_rect_init``, ``kff_ks_init`` and ``kff_tri_rows``
+    ``kff_empty``, ``kff_rect_init``, ``kff_ks_init``, ``kff_tri_rows`` and
+    the SO(3) descriptor's ``so3_init``, ``so3_core_f32``, ``so3_core_f64``
     where the library has them (a library with ``kff_tri_rows`` takes the
     k-major copy, ``tri_operand``, as X2 of its highest K1 entry points; a
     library without the ``_ks`` ones takes operands of width DP alone)."""
@@ -816,8 +817,13 @@ def load(path) -> dict:
                        *([I] if ks else []), P]
         fn.restype = I
         fns[name] = fn
+    # the SO(3) descriptor's core (csrc/so3.cu): 4 index, 7 input and 5
+    # output or scratch pointers, 7 shapes and flags, rcut, alpha, stream
+    so3 = [P] * 16 + [I] * 7 + [D, D, P]
     for name, argtypes in (("kff_empty", [P]), ("kff_rect_init", []),
-                           ("kff_ks_init", []), ("kff_tri_rows", [])):
+                           ("kff_ks_init", []), ("kff_tri_rows", []),
+                           ("so3_init", []), ("so3_core_f32", so3),
+                           ("so3_core_f64", so3)):
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, I
@@ -840,15 +846,27 @@ def _lib() -> dict:
 
 
 def _init_device(index: int) -> None:
-    """The ring kernels' shared-memory limits on card ``index``: once per
-    card, before its first launch."""
-    for init in ("kff_rect_init", "kff_ks_init"):
+    """The ring kernels' and the SO(3) descriptor kernels' shared-memory
+    limits on card ``index``: once per card, before its first launch."""
+    for init in ("kff_rect_init", "kff_ks_init", "so3_init"):
         with torch.cuda.device(index):
             rc = _FN[init]()
         if rc != 0:
             raise RuntimeError(f"{init} failed on cuda:{index}: CUDA error "
                                f"{rc}")
     _READY.add(index)
+
+
+def entry_point(name: str, device):
+    """The package library's entry point ``name``, with ``device``'s
+    shared-memory limits set (``_init_device``) before its first launch
+    there."""
+    fn = _FN.get(name) or _lib()[name]
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    if index not in _READY:
+        _init_device(index)
+    return fn
 
 
 def launch_empty(device) -> None:
@@ -942,12 +960,10 @@ def _launch(base, mode, device, *args, k0=0, nk=0, ldo=0, trans=False,
     the operands' width: the ``_ks`` entry point above DP."""
     name = kernel_name(base, mode)
     entry = name if dp == DP else name + "_ks"
-    fn = _FN.get(entry) or _lib()[entry]
+    fn = entry_point(entry, device)
     width = () if dp == DP else (dp,)
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
-    if index not in _READY:
-        _init_device(index)
     if index == current:
         rc = fn(*args, k0, nk, ldo, int(trans), *width,
                 torch.cuda.current_stream(device).cuda_stream)

@@ -10,7 +10,11 @@ package's ``ops/so3.py`` (reference: gpr_calc/SO3.py).
 The radial integral is Gauss-Chebyshev quadrature of the scaled Bessel
 integrand (ops/bessel.py); Y_lm are real (re, im) pairs (ops/sph.py).
 Everything after the host-built neighbour list runs on the tensors'
-device.  Outputs follow the reference dict contract:
+device: on a card in the two launches of the descriptor kernels
+(csrc/so3.cu, built into ops/kff.py's library), fed by ``kernel_inputs``
+in one int64 and one float upload; on the CPU in ``_so3_core``, the
+plain version the card tests hold the kernels to.  Outputs follow the
+reference dict contract:
   {'x': (natoms, ncoef), 'dxdr': (nseq, ncoef, 3), 'rdxdr': (nseq,
    ncoef, 3, 3) or None, 'elements': [str], 'seq': (nseq, 2)}
 with dxdr[s] = dP(centre i_s)/dr_{j_s} and the (i, i) rows carrying
@@ -28,6 +32,7 @@ import torch
 
 from .. import config, utils_profiling
 from ..atoms.atoms import CHEMICAL_SYMBOLS
+from . import kff
 from .bessel import scaled_in
 from .sph import ylm_all_ri, ylm_gradients_ri
 
@@ -84,13 +89,26 @@ CUTOFFS = {"cosine": cosine_cutoff}
 # the batched ingest's pairs per core call: the JAX package's flat budget
 # on the CPU; on a card MEMORY_SHARE of the free memory over the measured
 # float64 bytes per pair (SO3.bytes_per_pair, from a probe of PROBE_PAIRS
-# pairs).  nmax 3, lmax 4: 32 986 bytes a pair measured (NVIDIA H100 80GB
-# HBM3, 700.00 W; PERF.md), ~25 KB by the shapes of the (P, nmax, lmax+1,
-# 2 lmax+1, 3) dc planes and their temporaries; half of that card's free
-# memory holds ~1.27 million pairs, the ingest of 100 65-atom slabs 0.18.
+# pairs).  nmax 3, lmax 4, on the descriptor kernels: 2 000 bytes a pair
+# measured, 4 344 with strain rows (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md), as the shapes give them: the pair record's 150 doubles and a
+# dxdr row of 90 a pair (3 x 90 more with strain rows); half of that
+# card's free memory holds ~21 million pairs, the ingest of 100 65-atom
+# slabs 0.008 of them.
 CPU_PAIR_BUDGET = 262144
 PROBE_PAIRS = 4096
 MEMORY_SHARE = 0.5
+
+
+# launches of the descriptor kernels (csrc/so3.cu) since the last
+# reset_launches(): so3_pair_kernel (one a call with pairs) and
+# so3_centre_kernel (one a call)
+launches = {"so3_pair": 0, "so3_centre": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
 
 
 def _segment_sum(vals, seg, nseg):
@@ -211,6 +229,97 @@ def _so3_core(rij, weights, pair_center, pair_seq, self_seq, self_ids,
                         pair_center, natoms + 1)[:natoms]
     return x, dxdr, pstress.index_put((self_seq,), rdPi[self_ids],
                                       accumulate=True)
+
+
+def kernel_inputs(preps, q, G0, stress: bool):
+    """The descriptor kernels' inputs for one ``_core`` call over the
+    prepared structures ``preps``: (ints, flts, fields, ao, ro).  ``fields``
+    maps each input to its (offset, length) in ``ints`` (int64) or ``flts``
+    (float64):
+      perm  the pairs sorted stably by centre atom: each centre's pairs in
+            ascending pair order, the order in which ``_segment_sum`` adds
+            them;
+      poff  (natoms + 1) each centre's pairs perm[poff[a]:poff[a + 1]];
+      prow  each pair's output row, -1 for a pair whose centre lies outside
+            an ``atom_ids`` selection (the plain version's spare row);
+      rows  four arrays of natoms: each centre's first and end output row
+            (its seq rows are contiguous), its self row and the zero pad row
+            its block writes (that of its structure for the structure's
+            first atom), -1 for none;
+      rij, w, with ``stress`` Ri and Rj (P, 3) and each atom's -1 / volume
+            (``scale``), then the quadrature's q and G0.
+    ao: atom offsets of the structures; ro: their output row offsets --
+    structure k's seq rows from ro[k], its zero pad row at ro[k + 1] - 1,
+    ``calculate_device``'s layout."""
+    ao = np.cumsum([0] + [p["natoms"] for p in preps])
+    so = np.cumsum([0] + [p["nseq"] for p in preps])
+    ro = so + np.arange(len(so))
+    natoms = int(ao[-1])
+    centre = np.concatenate([p["pair_center"] + ao[k]
+                             for k, p in enumerate(preps)]).astype(np.int64)
+    prow = np.concatenate([np.where(p["pair_seq"] < 0, -1,
+                                    p["pair_seq"] + ro[k])
+                           for k, p in enumerate(preps)])
+    seq_centre = np.concatenate([p["seq"][:, 0] + ao[k]
+                                 for k, p in enumerate(preps)])
+    if np.any(np.diff(seq_centre) < 0):
+        raise ValueError("the seq rows must be sorted by centre atom")
+    atoms = np.arange(natoms)
+    struc = np.repeat(np.arange(len(preps)), np.diff(ao))
+    self_row = np.full(natoms, -1, np.int64)
+    self_row[np.concatenate([p["self_ids"] + ao[k]
+                             for k, p in enumerate(preps)])] = \
+        np.concatenate([p["self_seq"] + ro[k] for k, p in enumerate(preps)])
+    pad_row = np.full(natoms, -1, np.int64)
+    pad_row[ao[:-1]] = ro[1:] - 1
+    ints = {"perm": np.argsort(centre, kind="stable"),
+            "poff": np.r_[0, np.cumsum(np.bincount(centre,
+                                                   minlength=natoms))],
+            "prow": prow,
+            "rows": np.concatenate([
+                np.searchsorted(seq_centre, atoms) + struc,
+                np.searchsorted(seq_centre, atoms, side="right") + struc,
+                self_row, pad_row])}
+    flts = {"rij": np.concatenate([p["rij"] for p in preps]).ravel(),
+            "w": np.concatenate([p["w"] for p in preps])}
+    if stress:
+        flts.update(
+            Ri=np.concatenate([p["Ri"] for p in preps]).ravel(),
+            Rj=np.concatenate([p["Rj"] for p in preps]).ravel(),
+            scale=np.repeat([-1.0 / p["volume"] for p in preps],
+                            np.diff(ao)))
+    flts.update(q=np.asarray(q, float), G0=np.asarray(G0, float).ravel())
+    fields = {}
+    for parts in (ints, flts):
+        off = 0
+        for name, a in parts.items():
+            fields[name] = (off, len(a))
+            off += len(a)
+    return (np.concatenate(list(ints.values())).astype(np.int64),
+            np.concatenate(list(flts.values())).astype(np.float64),
+            fields, ao, ro)
+
+
+def _upload(a, dtype, dev):
+    """``a`` as ``dtype`` in one pinned host buffer, copied to ``dev``
+    without waiting (the caching host allocator keeps the buffer until the
+    copy is done)."""
+    buf = torch.empty(len(a), dtype=dtype, pin_memory=True)
+    buf.numpy()[:] = a
+    return buf.to(dev, non_blocking=True)
+
+
+def _with_pad_rows(t, so):
+    """(nseq, ...) rows of the structures with seq offsets ``so`` -> each
+    structure's rows followed by a zero row, ``kernel_inputs``' output
+    layout."""
+    if t is None:
+        return None
+    ns = len(so) - 1
+    at = np.arange(int(so[-1])) + np.repeat(np.arange(ns), np.diff(so))
+    out = t.new_zeros((t.shape[0] + ns,) + t.shape[1:])
+    out[torch.as_tensor(at, device=t.device)] = t
+    return out
 
 
 class SO3:
@@ -348,13 +457,21 @@ class SO3:
         return prep
 
     def _core(self, preps, dev, dt):
-        """One ``_so3_core`` call over the concatenated pairs of the
-        prepared structures ``preps``: the batch axis is the pair and seq
-        lists with per-structure atom and seq-row offsets, which the
-        core's segment sums handle as they are.  Returns (x (natoms_tot,
-        ncoef), dxdr (nseq_tot, ncoef, 3) or None, rdxdr (nseq_tot,
-        ncoef, 3, 3) or None -- each structure's rows scaled by -1 / its
-        volume --, atom offsets, seq offsets)."""
+        """The descriptors of the prepared structures ``preps`` in one
+        call over their concatenated pairs, with per-structure atom and
+        seq-row offsets: on a card the descriptor kernels
+        (``_core_kernels``), elsewhere ``_so3_core``.  Returns (x
+        (natoms_tot, ncoef), dxdr (rows, ncoef, 3) or None, rdxdr (rows,
+        ncoef, 3, 3) or None -- each structure's strain rows scaled by -1 /
+        its volume --, atom offsets ao, row offsets ro): structure k's
+        rows are [ro[k], ro[k + 1]), the last of them a zero pad row."""
+        if dev.type == "cuda":
+            return self._core_kernels(preps, dev, dt)
+        return self._core_plain(preps, dev, dt)
+
+    def _core_plain(self, preps, dev, dt):
+        """``_core`` by ``_so3_core`` on any device: the CPU path, and the
+        yardstick of the kernels on a card."""
         ao = np.cumsum([0] + [p["natoms"] for p in preps])
         so = np.cumsum([0] + [p["nseq"] for p in preps])
         natoms, nseq = int(ao[-1]), int(so[-1])
@@ -392,7 +509,60 @@ class SO3:
             scale = np.repeat([-1.0 / p["volume"] for p in preps],
                               [p["nseq"] for p in preps])
             pstress = pstress * flt(scale)[:, None, None, None]
-        return x, dxdr, pstress, ao, so
+        return (x, _with_pad_rows(dxdr, so), _with_pad_rows(pstress, so),
+                ao, so + np.arange(len(so)))
+
+    def _core_kernels(self, preps, dev, dt):
+        """``_core`` on a card: the two launches of csrc/so3.cu
+        (so3_pair_kernel, so3_centre_kernel) on ``kernel_inputs``, each
+        of its two buffers copied up once, the outputs written straight
+        into ``_core``'s layout.  float32 and float64; anything else
+        raises, as does a failed launch."""
+        if dt not in (torch.float32, torch.float64):
+            raise TypeError(f"the descriptor kernels take float32 or "
+                            f"float64, got {dt}")
+        ints, flts, fields, ao, ro = kernel_inputs(
+            preps, self._q, self._G0, self.stress)
+        ints, flts = _upload(ints, torch.int64, dev), _upload(flts, dt, dev)
+        P, natoms, nrows = fields["prow"][1], int(ao[-1]), int(ro[-1])
+        deriv, stress, ncoef = self.derivative, self.stress, self.ncoef
+        L1 = self.lmax + 1
+        NL, LM = self.nmax * L1, L1 * (L1 + 1) // 2
+        rlen = 2 * NL + 8 * LM if deriv else NL + 2 * LM
+
+        def new(*shape):
+            return torch.empty(shape, dtype=dt, device=dev)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        def field(buf, name):
+            if name not in fields:
+                return None
+            return buf.data_ptr() + fields[name][0] * buf.element_size()
+
+        x = new(natoms, ncoef)
+        dxdr = new(nrows, ncoef, 3) if deriv else None
+        rdxdr = new(nrows, ncoef, 3, 3) if stress else None
+        rec = new(P * rlen)
+        rdpi = new(natoms * ncoef * 9) if stress else None
+        name = "so3_core_f64" if dt == torch.float64 else "so3_core_f32"
+        fn = kff.entry_point(name, dev)
+        with torch.cuda.device(dev):
+            rc = fn(*(field(ints, k) for k in ("perm", "poff", "prow",
+                                               "rows")),
+                    *(field(flts, k) for k in ("rij", "w", "Ri", "Rj",
+                                               "scale", "q", "G0")),
+                    ptr(rec), ptr(rdpi), ptr(x), ptr(dxdr), ptr(rdxdr), P,
+                    natoms, len(self._q), self.nmax, self.lmax, int(deriv),
+                    int(stress), self.rcut, self.alpha,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        launches["so3_pair"] += int(P > 0)
+        launches["so3_centre"] += 1
+        utils_profiling.count("descriptor.kernel")
+        return x, dxdr, rdxdr, ao, ro
 
     def calculate_device(self, atoms, atom_ids=None, device=None,
                          dtype=None):
@@ -414,20 +584,18 @@ class SO3:
         return self._device_dict(prep, x, dxdr, rdxdr)
 
     def _device_dict(self, prep, x, dxdr, rdxdr):
-        """calculate_device's dict of one structure, dxdr and rdxdr given
-        without their zero pad row."""
-        def padded(t):
-            return None if t is None else torch.cat(
-                [t, t.new_zeros((1,) + t.shape[1:])])
-        return {"x": x, "dxdr": padded(dxdr), "rdxdr": padded(rdxdr),
+        """calculate_device's dict of one structure, dxdr and rdxdr with
+        their zero pad row (``_core``'s rows of the structure)."""
+        return {"x": x, "dxdr": dxdr, "rdxdr": rdxdr,
                 "elements": prep["elements"],
                 "seq": prep["seq"] if self.derivative else None,
                 "nseq": prep["nseq"]}
 
     def bytes_per_pair(self, device) -> float:
-        """Peak device bytes per pair of one float64 ``_so3_core`` call
-        with derivatives (and strain rows where the descriptor has them),
-        measured once per descriptor and card: the
+        """Peak device bytes per pair of one float64 ``_core`` call on the
+        card (the descriptor kernels) with derivatives (and strain rows
+        where the descriptor has them), measured once per descriptor and
+        card: the
         call's ``torch.cuda.max_memory_allocated`` above what was
         allocated before it, over its pairs (this resets the card's peak
         memory statistics).  The probe has PROBE_PAIRS pairs around
@@ -441,13 +609,15 @@ class SO3:
             u = rng.normal(size=(P, 3))
             rij = u / np.linalg.norm(u, axis=1)[:, None] \
                 * rng.uniform(1.0, self.rcut, (P, 1))
-            centre = np.arange(P) % natoms
+            # a centre's 32 pair rows, then its self row
+            centre = np.repeat(np.arange(natoms), 32)
+            slot = np.tile(np.arange(33), natoms)
             prep = {"rij": rij, "w": np.ones(P), "pair_center": centre,
-                    "pair_seq": np.arange(P),
-                    "self_seq": P + np.arange(natoms),
+                    "pair_seq": np.flatnonzero(slot < 32),
+                    "self_seq": np.flatnonzero(slot == 32),
                     "self_ids": np.arange(natoms),
-                    "seq": np.stack([np.r_[centre, np.arange(natoms)],
-                                     np.zeros(P + natoms, int)], axis=1),
+                    "seq": np.stack([np.repeat(np.arange(natoms), 33),
+                                     slot], axis=1),
                     "nseq": P + natoms, "natoms": natoms,
                     "Ri": np.zeros((P, 3)), "Rj": rij, "volume": 1.0}
             torch.cuda.synchronize(dev)
@@ -461,7 +631,7 @@ class SO3:
         return self._pair_bytes[key]
 
     def default_pair_budget(self, device) -> int:
-        """Pairs per ``_so3_core`` call of the batched ingest.  On the
+        """Pairs per ``_core`` call of the batched ingest.  On the
         CPU the JAX package's flat 262 144.  On a card, the float64
         ``bytes_per_pair`` against MEMORY_SHARE of the free memory
         (``torch.cuda.mem_get_info``); the first call on a card runs the
@@ -476,7 +646,7 @@ class SO3:
     def _groups(self, atoms_list, pair_budget, device, dtype):
         """Greedy grouping under the pair budget (at least one structure
         a group), one ``_core`` call a group: yields (indices, preps, x,
-        dxdr, rdxdr, atom offsets, seq offsets)."""
+        dxdr, rdxdr, atom offsets, row offsets)."""
         dev = config.device() if device is None else torch.device(device)
         dt = config.dtype(dev) if dtype is None else dtype
         if pair_budget is None:
@@ -503,17 +673,17 @@ class SO3:
 
     def calculate_many_device(self, atoms_list, dtype=None, pair_budget=None,
                               device=None):
-        """``calculate_device`` of many structures, one ``_so3_core`` call
-        per group of structures under ``pair_budget`` pairs (default
+        """``calculate_device`` of many structures, one ``_core`` call per
+        group of structures under ``pair_budget`` pairs (default
         ``default_pair_budget``): a list of dicts in calculate_device's
-        form, one per structure, each x and dxdr a slice of its group's
-        (dxdr with its zero pad row appended).  ``pair_budget=math.inf``
+        form, one per structure, each x and dxdr (with its zero pad row) a
+        slice of its group's.  ``pair_budget=math.inf``
         makes one group of them all, without the probe."""
         out = [None] * len(atoms_list)
-        for grp, ps, x, dxdr, rdxdr, ao, so in self._groups(
+        for grp, ps, x, dxdr, rdxdr, ao, ro in self._groups(
                 atoms_list, pair_budget, device, dtype):
             for k, (i, p) in enumerate(zip(grp, ps)):
-                rows = slice(so[k], so[k + 1])
+                rows = slice(ro[k], ro[k + 1])
                 out[i] = self._device_dict(
                     p, x[ao[k]:ao[k + 1]],
                     None if dxdr is None else dxdr[rows],
@@ -526,13 +696,13 @@ class SO3:
         ``SO3.calculate_many``): as ``calculate_many_device``, returned as
         host dicts in :meth:`calculate`'s form, copied once a group."""
         out = [None] * len(atoms_list)
-        for grp, ps, x, dxdr, rdxdr, ao, so in self._groups(
+        for grp, ps, x, dxdr, rdxdr, ao, ro in self._groups(
                 atoms_list, pair_budget, device, dtype):
             x = x.cpu().numpy()
             dxdr, rdxdr = (None if t is None else t.cpu().numpy()
                            for t in (dxdr, rdxdr))
             for k, (i, p) in enumerate(zip(grp, ps)):
-                rows = slice(so[k], so[k + 1])
+                rows = slice(ro[k], ro[k + 1] - 1)
                 out[i] = {"x": x[ao[k]:ao[k + 1]],
                           "dxdr": None if dxdr is None else dxdr[rows],
                           "rdxdr": None if rdxdr is None else rdxdr[rows],
