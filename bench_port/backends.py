@@ -69,7 +69,8 @@ class Port:
 
 
 class Reference:
-    """The plain reference in the program's place, at ``prec``."""
+    """The plain reference in the program's place, at ``prec``, with the
+    system's kernel family."""
 
     def __init__(self, system, prec="tf32"):
         self.system, self.geo, self.prec = system, system.geo, prec
@@ -84,10 +85,11 @@ class Reference:
             self._theta = np.array(theta, float)
         if opt:
             self._theta, evals = rgp.fit(self.data, self._theta, s.bounds,
-                                         s.noise, s.zeta, maxiter=maxiter)
+                                         s.noise, s.zeta, s.family,
+                                         maxiter=maxiter)
             self.evals.append(evals)
         self.L, self.a = rgp.factorize(self.data, self._theta, s.noise,
-                                       s.zeta)
+                                       s.zeta, s.family)
 
     def theta(self):
         return self._theta.copy()
@@ -104,7 +106,7 @@ class Reference:
         a = self.a if alpha is None else torch.as_tensor(
             alpha, dtype=torch.float64, device=self.a.device)
         mean, std = rgp.predict(q, self.data, self.L, a, self._theta,
-                                s.zeta)
+                                s.zeta, s.family)
         mean, std = mean.cpu().numpy(), std.cpu().numpy()
         n = len(geo.numbers)
         return (float(mean[0]) * n, mean[1:].reshape(-1, 3), float(std[0]),

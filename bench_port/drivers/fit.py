@@ -61,17 +61,18 @@ def release(st):
 
 
 def check(run, st, system):
-    """The reference's own L-BFGS-B from theta0, with the same cap
-    (float64 blocks and
+    """The reference's own L-BFGS-B from theta0, with the same cap and the
+    configuration's kernel family (float64 blocks and
     linear algebra): the NLL and gradient at theta0 against the window's
     last fit's first evaluation, theta* against the program's, and the
     weights at the program's theta* against the program's."""
     data = system.ref_data("f64")
     theta, evals = rgp.fit(data, st.theta0, system.bounds, system.noise,
-                           system.zeta, maxiter=st.maxiter)
+                           system.zeta, system.family, maxiter=st.maxiter)
     _, nll0, g0 = evals[0]
     _, nll_p, g_p = st.first_eval
-    _, alpha = rgp.factorize(data, st.theta, system.noise, system.zeta)
+    _, alpha = rgp.factorize(data, st.theta, system.noise, system.zeta,
+                             system.family)
     alpha = alpha.cpu().numpy()
     # weights of another number of rows answer another training set
     a_rel = (float(np.max(np.abs(st.alpha - alpha)) / np.max(np.abs(alpha)))

@@ -3,11 +3,16 @@ inputs from the seed and hands the same inputs to the program
 (``port_model``) and to the reference (``ref_data``).  What the kinds
 share is here: the served system (the configuration's ``system``: its
 images and the fixed part of its structures), the kernel, noise,
-precision and descriptor, and the program's GP before its training set."""
+precision and descriptor, and the program's GP before its training set.
+
+The kernel's family is the configuration's ``kernel.name``, "RBF" or
+"Dot" (the upstream's class names), RBF where it names none; everything
+that builds or checks a covariance takes it from here (``family``)."""
 import numpy as np
 import torch
 
 from ..reference import slab
+from ..reference.kernels import FAMILIES
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -35,6 +40,10 @@ class Base:
             served["n_images"])
         self.images, self.geo = images, Geometry(numbers, cell, pbc, fixed)
         k = cfg["kernel"]
+        self.family = k.get("name", "RBF")
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown kernel family {self.family!r}; "
+                             f"one of {FAMILIES}")
         self.theta0, self.bounds, self.zeta = (
             list(k["theta0"]), [list(b) for b in k["bounds"]], k["zeta"])
         self.noise = (cfg["noise"]["noise_e"], cfg["noise"]["noise_f"])
@@ -48,9 +57,11 @@ class Base:
         return port.SO3(nmax=nmax, lmax=lmax, rcut=rcut, alpha=alpha)
 
     def new_gp(self, port, log_file):
-        """The program's GP at theta0, with no training set."""
-        return port.GP(kernel=port.RBF(para=self.theta0, bounds=self.bounds,
-                                       zeta=self.zeta),
+        """The program's GP of the family at theta0, with no training
+        set."""
+        kernel = {"RBF": port.RBF, "Dot": port.Dot}[self.family]
+        return port.GP(kernel=kernel(para=self.theta0, bounds=self.bounds,
+                                     zeta=self.zeta),
                        descriptor=self.descriptor(port),
                        noise_e=self.noise[0], noise_f=self.noise[1],
                        log_file=log_file, device=self.device,

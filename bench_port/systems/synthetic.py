@@ -58,5 +58,6 @@ class System(Base):
 
     def work_inputs(self):
         """What the work counts read: each side's env elements (all envs
-        valid) and the width."""
-        return {"e_ele": self.ee, "f_ele": self.fe, "d": self.ex.shape[2]}
+        valid), the width and the kernel's family."""
+        return {"e_ele": self.ee, "f_ele": self.fe, "d": self.ex.shape[2],
+                "family": self.family}

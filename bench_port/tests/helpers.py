@@ -2,10 +2,12 @@
 configuration, traffic and limit files with the sizes cut (the synthetic
 training set to 12 E + 30 F points of 6 envs; few requests, a short
 sample) and the program on the CPU (its plain versions in place of the
-card's kernels)."""
+card's kernels).  ``family="Dot"`` runs a cell's Dot variant: its
+configuration with the Dot kernel at the program's defaults."""
 from __future__ import annotations
 
 import copy
+import functools
 import time
 
 from bench_port import harness
@@ -20,9 +22,16 @@ TINY_LIMITS = {"bench10k.fit": {"nll0_rel": 2e-7, "grad0_rel": 1e-6,
                                 "theta_rel": 4e-6, "alpha_rel": 2e-5}}
 
 
-def tiny_spec(bench, workload):
+# The Dot kernel of gpr_calculator_tpu_torch's models/kernels.py defaults.
+DOT_KERNEL = {"name": "Dot", "zeta": 3, "theta0": [1.0, 1.0],
+              "bounds": [[0.01, 50.0], [0.01, 10.0]]}
+
+
+def tiny_spec(bench, workload, family=None):
     cell, cfg, traffic, limits = _CELL_SPEC(bench, workload)
     cfg, traffic = copy.deepcopy(cfg), dict(traffic)
+    if family == "Dot":
+        cfg["kernel"] = dict(DOT_KERNEL)
     if cfg["kind"] == "synthetic":
         cfg["data"].update(m_e=12, m_f=30, envs=6)
     if traffic["kind"] == "serve":
@@ -32,10 +41,12 @@ def tiny_spec(bench, workload):
 
 
 def run_tiny(monkeypatch, workload, seed=7, seconds=0.5, trace=False,
-             backend=None):
-    """One run of a tiny cell on the CPU: the result dict."""
+             backend=None, family=None):
+    """One run of a tiny cell (its ``family`` variant) on the CPU: the
+    result dict."""
     from gpr_calculator_tpu_torch import config
-    monkeypatch.setattr(harness, "cell_spec", tiny_spec)
+    monkeypatch.setattr(harness, "cell_spec",
+                        functools.partial(tiny_spec, family=family))
     monkeypatch.setattr(config, "_DEVICE", None)
     config.set_device("cpu")
     return harness.run_cell(harness.benchmark(), workload, seed, seconds,

@@ -1,9 +1,11 @@
 """CPU tests of the benchmark: every cell's traffic and a whole run at a
-tiny size with the program's plain versions, the result's keys, the
-control and the planted faults coming out not correct, and the module
-checks (no JAX, a reference that imports nothing of the program)."""
+tiny size with the program's plain versions, also as the cell's Dot
+variant, the result's keys, the control and the planted faults coming
+out not correct, and the module checks (no JAX, a reference that imports
+nothing of the program)."""
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import os
@@ -22,6 +24,9 @@ from bench_port.tests.helpers import TINY_LIMITS, run_tiny
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = harness.benchmark()
 CELLS = [c["name"] for c in BENCH["workloads"]]
+# every cell as it is (None: the configuration's family) and its Dot variant
+VARIANTS = [(w, f) for w in CELLS for f in (None, "Dot")]
+VARIANT_IDS = [w if f is None else f"{w}-{f}" for w, f in VARIANTS]
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
@@ -33,9 +38,9 @@ def _threads():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("workload", CELLS)
-def test_tiny_run_is_correct(monkeypatch, workload):
-    r = run_tiny(monkeypatch, workload)
+@pytest.mark.parametrize("workload,family", VARIANTS, ids=VARIANT_IDS)
+def test_tiny_run_is_correct(monkeypatch, workload, family):
+    r = run_tiny(monkeypatch, workload, family=family)
     assert list(r) == KEYS
     assert r["correct"], r["checks"]
     assert r["attempted"] >= 1 and r["failed"] == 0
@@ -62,11 +67,13 @@ def test_tiny_traced_run_reads_spans(monkeypatch, workload):
     assert spans <= set(r["metrics"])
 
 
-@pytest.mark.parametrize("workload", CELLS)
-def test_control_is_not_correct(monkeypatch, workload):
-    """The reference in TF32 in the program's place."""
+@pytest.mark.parametrize("workload,family", VARIANTS, ids=VARIANT_IDS)
+def test_control_is_not_correct(monkeypatch, workload, family):
+    """The reference in TF32, with the configuration's family, in the
+    program's place."""
     r = run_tiny(monkeypatch, workload,
-                 backend=functools.partial(Reference, prec="tf32"))
+                 backend=functools.partial(Reference, prec="tf32"),
+                 family=family)
     assert not r["correct"], r["checks"]
 
 
@@ -108,15 +115,31 @@ class _HalfBatch(Port):
         gp.set_train_pts(keep)
 
 
-FAULTS = [("auAl13.serve", _AlteredAnswer), ("auAl13.serve", _StateUnchanged),
-          ("bench10k.serve", _AlteredAnswer), ("bench10k.serve", _HalfBatch),
-          ("bench10k.fit", _StateUnchanged), ("bench10k.fit", _HalfBatch)]
+class _WrongFamily(Port):
+    """The program's GP built with the RBF kernel where the configuration
+    names the Dot kernel (theta0, bounds and zeta as it states them)."""
+
+    def __init__(self, system, *args, **kwargs):
+        assert system.family == "Dot"
+        wrong = copy.copy(system)
+        wrong.family = "RBF"
+        super().__init__(wrong, *args, **kwargs)
+        assert self.gp.kernel.name == "RBF"
 
 
-@pytest.mark.parametrize("workload,fault", FAULTS,
-                         ids=[f"{w}-{f.__name__}" for w, f in FAULTS])
-def test_fault_is_not_correct(monkeypatch, workload, fault):
-    r = run_tiny(monkeypatch, workload, backend=fault)
+FAULTS = [("auAl13.serve", _AlteredAnswer, None),
+          ("auAl13.serve", _StateUnchanged, None),
+          ("bench10k.serve", _AlteredAnswer, None),
+          ("bench10k.serve", _HalfBatch, None),
+          ("bench10k.fit", _StateUnchanged, None),
+          ("bench10k.fit", _HalfBatch, None)] + [
+    (w, _WrongFamily, "Dot") for w in CELLS]
+
+
+@pytest.mark.parametrize("workload,fault,family", FAULTS,
+                         ids=[f"{w}-{f.__name__}" for w, f, _ in FAULTS])
+def test_fault_is_not_correct(monkeypatch, workload, fault, family):
+    r = run_tiny(monkeypatch, workload, backend=fault, family=family)
     assert not r["correct"], r["checks"]
 
 
