@@ -3,7 +3,8 @@ configuration, traffic and limit files with the sizes cut (the synthetic
 training set to 12 E + 30 F points of 6 envs; few requests, a short
 sample) and the program on the CPU (its plain versions in place of the
 card's kernels).  ``family="Dot"`` runs a cell's Dot variant: its
-configuration with the Dot kernel at the program's defaults."""
+configuration with the Dot kernel at the program's defaults;
+``draw_seed`` fixes a synthetic configuration's draw (``data.draw_seed``)."""
 from __future__ import annotations
 
 import copy
@@ -27,13 +28,15 @@ DOT_KERNEL = {"name": "Dot", "zeta": 3, "theta0": [1.0, 1.0],
               "bounds": [[0.01, 50.0], [0.01, 10.0]]}
 
 
-def tiny_spec(bench, workload, family=None):
+def tiny_spec(bench, workload, family=None, draw_seed=None):
     cell, cfg, traffic, limits = _CELL_SPEC(bench, workload)
     cfg, traffic = copy.deepcopy(cfg), dict(traffic)
     if family == "Dot":
         cfg["kernel"] = dict(DOT_KERNEL)
     if cfg["kind"] == "synthetic":
         cfg["data"].update(m_e=12, m_f=30, envs=6)
+        if draw_seed is not None:
+            cfg["data"]["draw_seed"] = draw_seed
     if traffic["kind"] == "serve":
         traffic.update(sample=3, max_requests=400, warmup=1,
                        trace_requests=3)
@@ -41,12 +44,13 @@ def tiny_spec(bench, workload, family=None):
 
 
 def run_tiny(monkeypatch, workload, seed=7, seconds=0.5, trace=False,
-             backend=None, family=None):
-    """One run of a tiny cell (its ``family`` variant) on the CPU: the
-    result dict."""
+             backend=None, family=None, draw_seed=None):
+    """One run of a tiny cell (its ``family`` variant, its draw fixed by
+    ``draw_seed``) on the CPU: the result dict."""
     from gpr_calculator_tpu_torch import config
     monkeypatch.setattr(harness, "cell_spec",
-                        functools.partial(tiny_spec, family=family))
+                        functools.partial(tiny_spec, family=family,
+                                          draw_seed=draw_seed))
     monkeypatch.setattr(config, "_DEVICE", None)
     config.set_device("cpu")
     return harness.run_cell(harness.benchmark(), workload, seed, seconds,

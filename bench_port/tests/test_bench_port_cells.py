@@ -1,8 +1,9 @@
 """CPU tests of the benchmark: every cell's traffic and a whole run at a
 tiny size with the program's plain versions, also as the cell's Dot
-variant, the result's keys, the control and the planted faults coming
-out not correct, and the module checks (no JAX, a reference that imports
-nothing of the program)."""
+variant and, for a fit cell, with its draw fixed (``data.draw_seed``),
+the result's keys, the control and the planted faults coming out not
+correct, the synthetic draws, and the module checks (no JAX, a reference
+that imports nothing of the program)."""
 from __future__ import annotations
 
 import copy
@@ -19,14 +20,22 @@ import torch
 
 from bench_port import harness
 from bench_port.backends import Port, Reference
-from bench_port.tests.helpers import TINY_LIMITS, run_tiny
+from bench_port.drivers import fit
+from bench_port.systems import synthetic
+from bench_port.tests.helpers import TINY_LIMITS, run_tiny, tiny_spec
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = harness.benchmark()
 CELLS = [c["name"] for c in BENCH["workloads"]]
-# every cell as it is (None: the configuration's family) and its Dot variant
-VARIANTS = [(w, f) for w in CELLS for f in (None, "Dot")]
-VARIANT_IDS = [w if f is None else f"{w}-{f}" for w, f in VARIANTS]
+FIT_CELLS = [w for w in CELLS if harness.cell_spec(BENCH, w)[2]["kind"]
+             == "fit"]
+# every cell as it is (None: the configuration's family) and its Dot
+# variant; each fit cell also with its draw fixed (draw_seed 0)
+VARIANTS = [(w, f, None) for w in CELLS for f in (None, "Dot")] + [
+    (w, f, 0) for w in FIT_CELLS for f in (None, "Dot")]
+VARIANT_IDS = ["-".join([w] + ([f] if f else [])
+                        + ([f"draw{d}"] if d is not None else []))
+               for w, f, d in VARIANTS]
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
@@ -38,9 +47,10 @@ def _threads():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("workload,family", VARIANTS, ids=VARIANT_IDS)
-def test_tiny_run_is_correct(monkeypatch, workload, family):
-    r = run_tiny(monkeypatch, workload, family=family)
+@pytest.mark.parametrize("workload,family,draw_seed", VARIANTS,
+                         ids=VARIANT_IDS)
+def test_tiny_run_is_correct(monkeypatch, workload, family, draw_seed):
+    r = run_tiny(monkeypatch, workload, family=family, draw_seed=draw_seed)
     assert list(r) == KEYS
     assert r["correct"], r["checks"]
     assert r["attempted"] >= 1 and r["failed"] == 0
@@ -67,13 +77,14 @@ def test_tiny_traced_run_reads_spans(monkeypatch, workload):
     assert spans <= set(r["metrics"])
 
 
-@pytest.mark.parametrize("workload,family", VARIANTS, ids=VARIANT_IDS)
-def test_control_is_not_correct(monkeypatch, workload, family):
+@pytest.mark.parametrize("workload,family,draw_seed", VARIANTS,
+                         ids=VARIANT_IDS)
+def test_control_is_not_correct(monkeypatch, workload, family, draw_seed):
     """The reference in TF32, with the configuration's family, in the
     program's place."""
     r = run_tiny(monkeypatch, workload,
                  backend=functools.partial(Reference, prec="tf32"),
-                 family=family)
+                 family=family, draw_seed=draw_seed)
     assert not r["correct"], r["checks"]
 
 
@@ -127,20 +138,144 @@ class _WrongFamily(Port):
         assert self.gp.kernel.name == "RBF"
 
 
-FAULTS = [("auAl13.serve", _AlteredAnswer, None),
-          ("auAl13.serve", _StateUnchanged, None),
-          ("bench10k.serve", _AlteredAnswer, None),
-          ("bench10k.serve", _HalfBatch, None),
-          ("bench10k.fit", _StateUnchanged, None),
-          ("bench10k.fit", _HalfBatch, None)] + [
-    (w, _WrongFamily, "Dot") for w in CELLS]
+FAULTS = [("auAl13.serve", _AlteredAnswer, None, None),
+          ("auAl13.serve", _StateUnchanged, None, None),
+          ("bench10k.serve", _AlteredAnswer, None, None),
+          ("bench10k.serve", _HalfBatch, None, None),
+          ("bench10k.fit", _StateUnchanged, None, None),
+          ("bench10k.fit", _HalfBatch, None, None)] + [
+    (w, _WrongFamily, "Dot", None) for w in CELLS] + [
+    (w, _WrongFamily, "Dot", 0) for w in FIT_CELLS]
+FAULT_IDS = ["-".join([w, f.__name__] + ([f"draw{d}"] if d is not None
+                                         else []))
+             for w, f, _, d in FAULTS]
 
 
-@pytest.mark.parametrize("workload,fault,family", FAULTS,
-                         ids=[f"{w}-{f.__name__}" for w, f, _ in FAULTS])
-def test_fault_is_not_correct(monkeypatch, workload, fault, family):
-    r = run_tiny(monkeypatch, workload, backend=fault, family=family)
+@pytest.mark.parametrize("workload,fault,family,draw_seed", FAULTS,
+                         ids=FAULT_IDS)
+def test_fault_is_not_correct(monkeypatch, workload, fault, family,
+                              draw_seed):
+    r = run_tiny(monkeypatch, workload, backend=fault, family=family,
+                 draw_seed=draw_seed)
     assert not r["correct"], r["checks"]
+
+
+def _parents_draw(dat, seed):
+    """The training set as drawn before ``data.draw_seed`` existed, copied:
+    the configuration without the key must still get exactly this."""
+    m_e, m_f, envs, d = dat["m_e"], dat["m_f"], dat["envs"], dat["d"]
+    rs = np.random.RandomState(int(seed) % 2 ** 32)
+    f32 = np.float32
+    ex = rs.uniform(*dat["x_range"], (m_e, envs, d)).astype(f32)
+    ee = rs.choice(dat["elements"], (m_e, envs))
+    fx = rs.uniform(*dat["x_range"], (m_f, envs, d)).astype(f32)
+    fd = rs.uniform(*dat["dxdr_range"], (m_f, envs, d, 3)).astype(f32)
+    fe = rs.choice(dat["elements"], (m_f, envs))
+    rl = np.random.RandomState((int(seed) + 100) % 2 ** 32)
+    sd = dat["label_std"]
+    ye = np.array([rl.normal(0.0, sd) for _ in range(m_e)])
+    yf = np.stack([rl.normal(0.0, sd, 3) for _ in range(m_f)])
+    return {"ex": ex, "ee": ee, "fx": fx, "fd": fd, "fe": fe, "ye": ye,
+            "yf": yf}
+
+
+SYNTHETIC = next(cfg for cfg in (harness.cell_spec(BENCH, w)[1]
+                                  for w in CELLS)
+                 if cfg["kind"] == "synthetic")
+
+
+def _synthetic(seed, draw_seed=None):
+    """A synthetic configuration's system at its own sizes, without the key
+    or with ``draw_seed``."""
+    cfg = copy.deepcopy(SYNTHETIC)
+    cfg["data"].pop("draw_seed", None)
+    if draw_seed is not None:
+        cfg["data"]["draw_seed"] = draw_seed
+    return cfg, synthetic.System(cfg, seed, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_synthetic_draw_without_the_key_is_the_seeds(seed):
+    cfg, system = _synthetic(seed)
+    want = _parents_draw(cfg["data"], seed)
+    for name, a in want.items():
+        b = getattr(system, name)
+        assert b.dtype == a.dtype and np.array_equal(b, a), name
+
+
+def _rows(system):
+    """Each side's points as rows (descriptors, Jacobians, elements) and
+    their labels, both sorted by the rows."""
+    m_e, m_f = len(system.ex), len(system.fx)
+    e = np.c_[system.ex.reshape(m_e, -1), system.ee]
+    f = np.c_[system.fx.reshape(m_f, -1), system.fd.reshape(m_f, -1),
+              system.fe]
+
+    def order(rows):
+        return np.array(sorted(range(len(rows)),
+                               key=lambda i: rows[i].tobytes()))
+    oe, of = order(e), order(f)
+    return e[oe], system.ye[oe], f[of], system.yf[of]
+
+
+def test_synthetic_draw_seed_fixes_the_points():
+    """With ``draw_seed`` the run's seeds draw one training set: the same
+    points (``draw_seed`` 0: seed 0's draw), each side in an order of the
+    run's seed, every label times one sign of the run's seed."""
+    _, base = _synthetic(0)
+    be, bye, bf, byf = _rows(base)
+    signs, orders = set(), {(base.ex[:, 0, 0].tobytes(),
+                             base.fx[:, 0, 0].tobytes())}
+    seeds = (1, 2, 3, 4, 5, 6, 2 ** 31 + 9)
+    for seed in seeds:
+        _, s = _synthetic(seed, draw_seed=0)
+        e, ye, f, yf = _rows(s)
+        assert np.array_equal(e, be) and np.array_equal(f, bf)
+        sign = ye[0] / bye[0]
+        assert sign in (-1.0, 1.0)
+        assert np.array_equal(ye, sign * bye)
+        assert np.array_equal(yf, sign * byf)
+        signs.add(sign)
+        orders.add((s.ex[:, 0, 0].tobytes(), s.fx[:, 0, 0].tobytes()))
+    assert signs == {-1.0, 1.0}
+    # each seed its own order of each side, none the draw's own
+    assert len({e for e, _ in orders}) == len({f for _, f in orders}) \
+        == len(seeds) + 1
+
+
+# float32: the K blocks' rounding follows the GEMM's tiling, so the order
+# of the points moves theta* and the NLL by float32 rounding (read here:
+# 8e-8 and 2e-9); float64: the factorisation's rounding alone
+SAME_FIT_TOL = {"float32": (1e-6, 1e-7), "float64": (1e-9, 1e-12)}
+
+
+@pytest.mark.parametrize("dtype", sorted(SAME_FIT_TOL))
+@pytest.mark.parametrize("family", [None, "Dot"])
+@pytest.mark.parametrize("workload", FIT_CELLS)
+def test_draw_seed_gives_every_seed_the_same_fit(monkeypatch, workload,
+                                                 family, dtype):
+    """The tiny fit cell with its draw fixed, through the driver's set-up
+    fit, on 4 run seeds: the same evaluation count, theta* and first NLL
+    (to rounding)."""
+    from gpr_calculator_tpu_torch import config
+    monkeypatch.setattr(config, "_DEVICE", None)
+    config.set_device("cpu")
+    _, cfg, traffic, _ = tiny_spec(BENCH, workload, family=family,
+                                   draw_seed=0)
+    cfg["dtype"] = dtype
+    fits = []
+    for seed in (11, 12, 13, 2 ** 31 + 14):
+        run = harness.Run(traffic, seed, 0.0, False, torch.device("cpu"))
+        st = fit.setup(run, harness.system_module(cfg).System(
+            cfg, seed, run.device))
+        evals = st.backend.evals[-1]
+        fits.append((len(evals), st.backend.theta(), evals[0][1]))
+    theta_tol, nll_tol = SAME_FIT_TOL[dtype]
+    n0, theta0, nll0 = fits[0]
+    for n, theta, nll in fits[1:]:
+        assert n == n0
+        assert np.max(np.abs(theta - theta0) / np.abs(theta0)) < theta_tol
+        assert abs(nll - nll0) / abs(nll0) < nll_tol
 
 
 def test_forbidden_modules_by_whole_top_level_name():
