@@ -26,7 +26,9 @@ FIT_TREE = {"fit": None, "fit.pack": "fit", "fit.gate": "fit",
             "fit.lbfgs": "fit", "nll.eval": "fit.lbfgs",
             "nll.k_self_dual": "nll.eval", "nll.factor": "nll.eval",
             "nll.traces": "nll.eval", "fit.factorize": "fit"}
-COUNTERS = ("serve.requests", "lbfgs.nfev", "lbfgs.nit")
+COUNTERS = ("serve.requests", "lbfgs.nfev", "lbfgs.nit",
+            "predict.solve_inv", "predict.solve_trsm", "factor_inv.build",
+            "factor_inv.extend")
 
 
 @pytest.fixture
@@ -65,7 +67,10 @@ def model():
     for lab in labelled[:3]:
         gp.add_structure(lab)
     gp.fit(show=False, opt=False)
-    return gp, [s for s, _, _ in labelled[3:]]
+    strucs = [s for s, _, _ in labelled[3:]]
+    # the first request with stds builds the kept L^-1 (``predict.inverse``)
+    gp.predict_structure(strucs[0], return_std=True)
+    return gp, strucs
 
 
 def _parents(recs):
@@ -90,7 +95,8 @@ def test_served_call_gives_the_span_tree(model, recording, n):
     """One served call (one structure, or a band of three in one call)
     leaves the serving tree: every span once but descriptor.prep once a
     structure, depths by nesting, one id shared by all, the serve span
-    carrying the number of structures, serve.requests counted once."""
+    carrying the number of structures, serve.requests counted once, and
+    the variance served from the kept L^-1 once."""
     gp, strucs = model
     if n == 1:
         gp.predict_structure(strucs[0], return_std=True)
@@ -104,7 +110,7 @@ def test_served_call_gives_the_span_tree(model, recording, n):
         k: (n if k == "descriptor.prep" else 1) for k in SERVE_TREE}
     assert len({r.id for r in recs}) == 1
     assert [r.n for r in spans if r.name == "serve"] == [n]
-    assert up.counters == {"serve.requests": 1}
+    assert up.counters == {"serve.requests": 1, "predict.solve_inv": 1}
 
 
 @pytest.fixture(scope="module")
