@@ -557,6 +557,20 @@ def bench_gp(T, device, dtype, *point_sets):
     return gp
 
 
+def fresh_posterior(post):
+    """A copy of ``post`` through its constructor, with nothing built
+    beside it (no operands, no L^-1)."""
+    from gpr_calculator_tpu_torch.models.posterior import Posterior
+    e, f, _, _ = post.snapshot
+    return Posterior(e, f, post.L, post.alpha[post.cols], post.groups,
+                     post.sig)
+
+
+def served_np(gp, pe, pf):
+    """The GP's served (mean, std) of the packed points, host copies."""
+    return [t.cpu().numpy() for t in gp._serve_device(pe, pf, True)]
+
+
 def served_off(a, b, m_e, natoms, noise):
     """|dE|, max|dF|, |dsigma_E|, max|dsigma_F| between two served
     (mean, std) of one structure (energy rows [:m_e], per atom), each
@@ -587,9 +601,8 @@ def run_incremental(T, torch, kff, dev, dtype, query, log, card,
     new factor against the same append in place into a capacity
     buffer.
     Returns the launch counts of each incremental fit by (mode, k)."""
-    from gpr_calculator_tpu_torch.models.gp import (_factorize,
-                                                    _factor_perm,
-                                                    _noise_diag)
+    from gpr_calculator_tpu_torch.models.gp import _factorize, _noise_diag
+    from gpr_calculator_tpu_torch.models.posterior import _factor_perm
     from gpr_calculator_tpu_torch.ops import kernels as K_ops
     from gpr_calculator_tpu_torch.ops import linalg
     pe, pf, natoms = query
@@ -607,7 +620,7 @@ def run_incremental(T, torch, kff, dev, dtype, query, log, card,
             ref.fit(opt=False, show=False)
             # the blocks the refit builds against those of a full k_self
             B, C = gp._append_blocks(m_e, m_f)
-            e_all, f_all, _, _ = ref._train_view()
+            e_all, f_all, _, _ = ref._fit_snapshot
             K = K_ops.k_self(e_all, f_all, ref.kernel.params(), 2,
                              dtype=torch.float64)
             K.diagonal().add_(_noise_diag(e_all, f_all, 0.01, 0.1))
@@ -643,7 +656,7 @@ def run_incremental(T, torch, kff, dev, dtype, query, log, card,
             # of 256-row steps
             L0, k = gp.L_, C.shape[0]
             perm = _factor_perm([(m_e, m_f), (kE, kF)], m_e + kE)
-            ylab = gp._y_factor_order(perm)
+            ylab = gp._y_real()[torch.as_tensor(perm, device=dev)]
 
             def append():
                 L, d = linalg.chol_append(L0, *gp._append_blocks(m_e, m_f))
@@ -688,11 +701,8 @@ def run_incremental(T, torch, kff, dev, dtype, query, log, card,
                 f"{json.dumps(nonzero(launched(kff)))}")
             if rs["incremental"] != 1 or rs["full"] != 1:
                 raise AssertionError(f"(n1) {tag}: refit_stats {rs}")
-            te, tf, _, _ = gp._train_view()
-            re_, rf_, _, _ = ref._train_view()
-            offs = served_off(gp._serve(pe, pf, te, tf, True),
-                              ref._serve(pe, pf, re_, rf_, True), pe.m,
-                              natoms, (0.01, 0.1))
+            offs = served_off(served_np(gp, pe, pf), served_np(ref, pe, pf),
+                              pe.m, natoms, (0.01, 0.1))
             log(f"(n1) {tag}: served against the full refit: |dE| "
                 f"{offs[0][0]:.3e} eV, max|dF| {offs[1][0]:.3e} eV/A, "
                 f"|dsigma_E| {offs[2][0]:.3e} eV, max|dsigma_F| "
@@ -749,7 +759,7 @@ def run_md(T, torch, kff, K_ops, dev, dtype, log, card, steps=MD_STEPS,
         f"{per_k(launches, rec['md_steps'])}; launches "
         f"{json.dumps(nonzero(launches))}; operand builds "
         f"{json.dumps(builds)}; refit_stats {json.dumps(gp.refit_stats)}")
-    te, tf, _, _ = gp._train_view()
+    te, tf, _, _ = gp._fit_snapshot
     t_ops = host_ms(torch, lambda: K_ops.side_operands(
         te, tf, T.config.kff_precision(), "train"), 5)
     log(f"{phase} [{card}] the training side's operands at the final "
@@ -959,7 +969,7 @@ def f64_split(T, torch, kff, K_ops, gp, strucs, noise, log, phase):
         return np.max([[v for v, _ in served_off((ma, sa), (mb, sb), me, n,
                                                  noise)]
                        for (n, me, ma, sa), (_, _, mb, sb) in zip(a, b)], 0)
-    own = [(n, me, *gp._serve(*q32, *gp._train_view()[:2], True))
+    own = [(n, me, *served_np(gp, *q32))
            for (n, _, q32), (_, me, _, _) in zip(queries, end)]
     d_own = dist(served[MODEL_STEP], own)
     log(f"{phase} float64 split: '{MODEL_STEP}' against the model itself: "
@@ -1429,6 +1439,7 @@ def sigma_vs_f64(torch, K_ops, pe, pf, be, bf, params, K, Kt, L, alpha,
     same solve against the float64 factor rounded to float32.  Fails
     when _factorize's sigma is outside the limits."""
     from gpr_calculator_tpu_torch.models.gp import _predict_packed
+    from gpr_calculator_tpu_torch.models.posterior import Posterior
     f64 = torch.float64
     diag = torch.cat([K_ops.diag_energy(pe, params, 2),
                       K_ops.diag_force(pf, params, 2).reshape(-1)]).to(f64)
@@ -1441,7 +1452,8 @@ def sigma_vs_f64(torch, K_ops, pe, pf, be, bf, params, K, Kt, L, alpha,
     lim_e, lim_f = 0.1 * 0.01 * natoms, 0.1 * 0.1
     readings = {}
     for what, std in (("_factorize's factor", _predict_packed(
-            pe, pf, be, bf, params, alpha, L, 2, True)[1].to(f64)),
+            pe, pf, Posterior.from_packed(be, bf, L, alpha), params, 2,
+            "rbf", True)[1].to(f64)),
             ("the float64 factor rounded to float32",
              std_from(L64.float()))):
         d = (std - ref).abs()
@@ -1527,7 +1539,7 @@ def compare_sources(torch, T, kff, alt_source, log):
         f"{alt_source}")
     gp, images, _ = run_slice(T, dev, f32, lambda msg: None)
     pe, pf = slice_request(gp, images[2], dev, f32)
-    te, tf, _, _ = gp._train_view()
+    te, tf, _, _ = gp._fit_snapshot
     me, mf = bench_data(torch, dev, m_e=250, m_f=750)
     be, bf = bench_data(torch, dev)
     bparams = {"sigma": 2.0, "l": 1.0}
@@ -1582,12 +1594,15 @@ def predict_packed_of(torch, T, log):
     dev, f32 = torch.device("cuda"), torch.float32
     gp, images, _ = run_slice(T, dev, f32, lambda msg: None)
     pe, pf = slice_request(gp, images[2], dev, f32)
-    te, tf, _, _ = gp._train_view()
-    kept = getattr(gp, "_train_operands", None)
-    kw = {} if kept is None else {"train_ops": kept()}
-    ms = host_ms(torch, lambda: _predict_packed(
-        pe, pf, te, tf, gp.kernel.params(), gp.alpha_, gp.L_, 2, True, "rbf",
-        **kw), 30)
+    post = getattr(gp, "posterior", None)
+    if post is not None:
+        ms = host_ms(torch, lambda: _predict_packed(
+            pe, pf, post, gp.kernel.params(), 2, "rbf", True), 30)
+    else:   # a checkout from before the Posterior
+        te, tf, _, _ = gp._fit_snapshot
+        ms = host_ms(torch, lambda: _predict_packed(
+            pe, pf, te, tf, gp.kernel.params(), gp.alpha_, gp.L_, 2, True,
+            "rbf", train_ops=gp._train_operands()), 30)
     be, bf = bench_data(torch, dev)
     y = torch.as_tensor(np.random.RandomState(1).normal(
         0.0, 0.1, be.m + 3 * bf.m), dtype=f32, device=dev)
@@ -1791,21 +1806,23 @@ def card_f64_copy(T, torch, kff, K_ops, gp):
         state.pop(key, None)
     ref = convert.gp_from_state(state, device=gp.device,
                                 dtype=torch.float64, log_file=None)
-    serve, (e, f) = plain_serve(torch, kff, K_ops, ref)
-    ref._fit_snapshot = (e, f, ref.N_energy, ref.N_forces)
-    # every served path (_serve, _serve_structures) goes through it
+    serve, post = plain_serve(torch, kff, K_ops, ref)
+    ref.posterior = post
+    # every served path (_predict_points, _serve_structures) goes through it
     ref._serve_device = serve
     return ref
 
 
 def plain_serve(torch, kff, K_ops, ref):
-    """(serve, (e, f)) of the float64 GP ``ref``'s training set fitted at
-    its hyperparameters through the plain versions on its device: the
-    plain K, a float64 Cholesky factor and weights; serve(pe, pf, te, tf,
-    return_std) takes the served block of float64 descriptors from the
-    plain versions against (te, tf) = (e, f), with _predict_packed's mean
-    and std, on the device (``GP._serve_device``'s form)."""
+    """(serve, post) of the float64 GP ``ref``'s training set (e, f)
+    fitted at its hyperparameters through the plain versions on its
+    device: the plain K, a float64 Cholesky factor and weights, ``post``
+    their ``Posterior``; serve(pe, pf, return_std) takes the served block
+    of float64 descriptors from the plain versions against (e, f), with
+    _predict_packed's mean and std, on the device (``GP._serve_device``'s
+    form)."""
     from gpr_calculator_tpu_torch.models.gp import _noise_diag
+    from gpr_calculator_tpu_torch.models.posterior import Posterior
     e, f = ref._pack(ref.N_energy, ref.N_forces)
     y = ref._y_vector(e, f, ref.N_energy, ref.N_forces)
     params, zeta, kind = (ref.kernel.params(), ref.kernel.zeta,
@@ -1816,8 +1833,8 @@ def plain_serve(torch, kff, K_ops, ref):
     del K
     alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
 
-    def serve(pe, pf, te, tf, return_std):
-        Kt = plain_block(torch, kff, pe, pf, te, tf, params, zeta, kind)
+    def serve(pe, pf, return_std):
+        Kt = plain_block(torch, kff, pe, pf, e, f, params, zeta, kind)
         mean = Kt @ alpha
         if not return_std:
             return mean, None
@@ -1826,7 +1843,7 @@ def plain_serve(torch, kff, K_ops, ref):
                                            kind).reshape(-1)])
         V = torch.linalg.solve_triangular(L, Kt.T, upper=False)
         return mean, torch.clamp(diag - (V * V).sum(0), min=0.0).sqrt()
-    return serve, (e, f)
+    return serve, Posterior.from_packed(e, f, L, alpha)
 
 
 def sigma_jitter(torch, K_ops, gp, ref, bands, log, card):
@@ -1841,10 +1858,10 @@ def sigma_jitter(torch, K_ops, gp, ref, bands, log, card):
     throughout), the prior over the posterior variance, and one float32
     step of the prior variance as a sigma_E difference."""
     from gpr_calculator_tpu_torch.models.gp import _pack_structures
-    te, tf, _, _ = gp._train_view()
+    te, tf, _, _ = gp._fit_snapshot
     params, zeta, kind = gp.kernel.params(), gp.kernel.zeta, gp.kernel.kind
     L32 = gp.L_.float()
-    ops = gp._train_operands()
+    ops = gp.posterior.operands()
     for tag, band in bands.items():
         n, natoms = len(band), len(band[0])
         old, port, xs, prior = [], [], [], None
@@ -2143,7 +2160,7 @@ def run_ingest(T, torch, kff, K_ops, dev, log, card):
         f"_so3_core float64 with derivatives: {so3.bytes_per_pair(dev):.0f} "
         f"bytes a pair (peak above the allocation, probe of "
         f"{so3_mod.PROBE_PAIRS} pairs); default pair budget {budget} "
-        f"({so3_mod.MEMORY_SHARE} of the free memory)")
+        f"({T.config.MEMORY_SHARE} of the free memory)")
     one = [so3.calculate(a, device=dev, dtype=f64) for a in strucs]
     small = sum(pairs) // 5
     groups, cur = 1, 0
@@ -2351,6 +2368,7 @@ def sharded_bench(T, torch, K_ops, par, mesh, be, bf, pe, pf, params, y,
     from gpr_calculator_tpu_torch.models.gp import (
         _factorize, _nll_dot_analytic, _nll_rbf_analytic, _noise_diag,
         _predict_packed, _resolve_chol_mode)
+    from gpr_calculator_tpu_torch.models.posterior import Posterior
     T.config.set_kff_precision(mode)
     m, n = be.m, be.m + 3 * bf.m
     tag = f"(l2) bench {mode}"
@@ -2423,10 +2441,10 @@ def sharded_bench(T, torch, K_ops, par, mesh, be, bf, pe, pf, params, y,
     del K, L64
     Kt_s = K_ops.k_block(pe, pf, be, bf, params, 2, mesh=mesh)
     Kt_u = K_ops.k_block(pe, pf, be, bf, params, 2)
-    mean_s, std_s = _predict_packed(pe, pf, be, bf, params, a_u, L_u, 2,
-                                    True, "rbf", mesh=mesh)
-    mean_u, std_u = _predict_packed(pe, pf, be, bf, params, a_u, L_u, 2,
-                                    True, "rbf")
+    post = Posterior.from_packed(be, bf, L_u, a_u)
+    mean_s, std_s = _predict_packed(pe, pf, post, params, 2, "rbf", True,
+                                    mesh=mesh)
+    mean_u, std_u = _predict_packed(pe, pf, post, params, 2, "rbf", True)
     same = torch.equal(Kt_s, Kt_u)
     dm, ds = rel_to(mean_s, mean_u), rel_to(std_s, std_u)
     log(f"{tag} one 13-atom request against the bench training set: "
@@ -2704,8 +2722,8 @@ def run_stress(T, torch, kff, dev, log, card, slice_gp, slice_image):
             f"{ms_s[0]:.3f} / {ms_s[1]:.3f} / {ms_s[2]:.3f} ms, plain "
             f"(a descriptor without strain rows) {ms_p[0]:.3f} / "
             f"{ms_p[1]:.3f} / {ms_p[2]:.3f} ms")
-    te, tf, _, _ = gp._train_view()
-    ste, stf, _, _ = sgp._train_view()
+    te, tf, _, _ = gp._fit_snapshot
+    ste, stf, _, _ = sgp._fit_snapshot
     shapes = [("LJ Cu stress request", stress_request(gp, probes[0]), te, tf,
                gp.kernel.params()),
               ("slice stress request", stress_request(sgp, slice_image), ste,
@@ -3162,7 +3180,7 @@ def f64_path_shapes(torch, kff, gp, query, tag, errs, log, kinds=None,
     (default: the model's family) on ``query`` (EnergyData, ForceData)
     against ``gp``'s training set, as the path builds the operands,
     within F64_RTOL max|plain| of its plain version."""
-    te, tf, _, _ = gp._train_view()
+    te, tf, _, _ = gp._fit_snapshot
     dparams = {"sigma": 0.6, "sigma0": 1.7}
     cases = []
     for kind in kinds or (gp.kernel.kind,):
@@ -3320,26 +3338,24 @@ def run_f64_bench(T, torch, kff, K_ops, dev, log, card, query, errs):
     paths["f64_bench_factorize"] = counts = counted(kff)
     check_f64_path(counts, [kname(b, F64) for b in ("kff_tri", "kef_rect")],
                    "float64 bench _factorize", RBF_F64)
-    e, f, _, _ = gp._train_view()
+    e, f, _, _ = gp._fit_snapshot
     yv = gp._y_vector(e, f, gp.N_energy, gp.N_forces)
     ms = cuda_ms(torch, lambda: _factorize(e, f, yv, gp.kernel.params(),
                                            0.01, 0.1, 2, "rbf"), 2)
     log(f"(p3) [{card}] bench _factorize in float64 ({e.m} E + {f.m} F "
         f"points): {ms:.3f} ms, the fit's peak {gib:.3f} GiB")
     for step in ("factorised", "appended"):
-        te, tf, _, _ = gp._train_view()
+        te, tf, _, _ = gp._fit_snapshot
         reset_counts(kff)
-        served, gib = cuda_peak(torch, lambda: gp._serve(pe, pf, te, tf,
-                                                         True))
+        served, gib = cuda_peak(torch, lambda: served_np(gp, pe, pf))
         counts = counted(kff)
         check_f64_path(counts, [kname(b, F64) for b in ("kef_rect",
                                                         "kff_rect")],
                        f"float64 bench request ({step})", RBF_F64)
-        t = host_ms(torch, lambda: gp._serve(pe, pf, te, tf, True), 5)
+        t = host_ms(torch, lambda: served_np(gp, pe, pf), 5)
         serve, ref = plain_serve(torch, kff, K_ops, gp)
         offs = served_off(served, [t.cpu().numpy() for t in
-                                   serve(pe, pf, *ref, True)], pe.m, natoms,
-                          noise)
+                                   serve(pe, pf, True)], pe.m, natoms, noise)
         log(f"(p3) [{card}] bench request ({step}, {te.m} E + {tf.m} F): "
             f"{t[1]:.3f} ms (median of 5, host clock), peak {gib:.3f} GiB; "
             f"against the plain float64 build: |dE| {offs[0][0]:.3e} eV, "
@@ -3466,7 +3482,7 @@ def run_wide(T, torch, kff, dev, log, card, errs, f64_errs):
     gp, images = run_training(T, dev, f64, **W50_SO3)
     torch.cuda.synchronize()
     paths["w50_f64_training"] = counted(kff)
-    width = gp._train_view()[1].x.shape[2]
+    width = gp._fit_snapshot[1].x.shape[2]
     theta = gp.kernel.parameters()
     log(f"(q) [{card}] float64 set_GPR at nmax 4, lmax 4 (d = {width}): "
         f"{time.time() - t0:.2f} s, theta = ({theta[0]:.10f}, "
@@ -3519,7 +3535,7 @@ def run_wide(T, torch, kff, dev, log, card, errs, f64_errs):
                 raise AssertionError(
                     f"the float32 d = 50 NEB did not converge within "
                     f"{BARRIER_TOL} eV of the JAX barrier")
-            te, tf, _, _ = gp._train_view()
+            te, tf, _, _ = gp._fit_snapshot
             compare(torch, kernel_cases(
                 kff, *slice_request(gp, images[2], dev, f32), te, tf,
                 gp.kernel.params()), "d = 50 NEB training set, image 2",
@@ -3940,7 +3956,7 @@ def main(argv=None) -> int:
     # shape, in every mode, and the card's split against the CPU's
     params = gp.kernel.params()
     dparams = dgp.kernel.params()
-    te, tf, _, _ = gp._train_view()
+    te, tf, _, _ = gp._fit_snapshot
     pe, pf = slice_request(gp, images[2], dev, f32)
     errs = {}
     slice_cases = all_cases(kff, pe, pf, te, tf, params, dparams)
@@ -3950,12 +3966,12 @@ def main(argv=None) -> int:
                                  sort=sort),
                 f"slice, envs {'sorted by element' if sort else 'as packed'}",
                 errs, log)
-    nte, ntf, _, _ = tgp._train_view()
+    nte, ntf, _, _ = tgp._fit_snapshot
     compare(torch, [c for c in kernel_cases(kff, pe, pf, nte, ntf,
                                             tgp.kernel.params())
                     if c[0].endswith("_dual")], "NEB training set", errs,
             log)
-    dte, dtf, _, _ = dgp._train_view()
+    dte, dtf, _, _ = dgp._fit_snapshot
     compare(torch, kernel_cases(kff, pe, pf, dte, dtf, dparams, "dot"),
             "Dot NEB training set", errs, log)
     # the batched paths' shapes, in every mode: the bands of 3 and 7
@@ -3968,7 +3984,7 @@ def main(argv=None) -> int:
         compare(torch, all_cases(kff, qe, qf, te, tf, params, dparams),
                 f"slice training set, {tag}", errs, log)
     for kernel, (bgp, bimages) in batched_models.items():
-        bte, btf, _, _ = bgp._train_view()
+        bte, btf, _, _ = bgp._fit_snapshot
         for tag, band in (("its final band", bimages[1:-1]),
                           ("band of 7", bands["band of 7"])):
             qe, qf = band_request(bgp, band)
@@ -3976,7 +3992,7 @@ def main(argv=None) -> int:
                 kff, qe, qf, bte, btf, bgp.kernel.params(), kernel.lower(),
                 mode)], f"batched {kernel} NEB training set, {tag}", errs,
                 log)
-    ite, itf, _, _ = lgp._train_view()
+    ite, itf, _, _ = lgp._fit_snapshot
     qe, qf = band_request(lgp, ingest_band)
     compare(torch, all_cases(kff, qe, qf, ite, itf, lgp.kernel.params(),
                              dparams),
@@ -3985,7 +4001,7 @@ def main(argv=None) -> int:
     # the MD path's shapes: the final MD model's training set (SO3 nmax 2,
     # lmax 2: d = 9, 8 envs a point) against the last volume's 8-atom
     # request, K1 at its rows and the dual kernels of its NLL included
-    mte, mtf, _, _ = md_gp._train_view()
+    mte, mtf, _, _ = md_gp._fit_snapshot
     qe, qf = slice_request(md_gp, md_last, dev, f32)
     compare(torch, all_cases(kff, qe, qf, mte, mtf, md_gp.kernel.params(),
                              dparams),
@@ -4001,7 +4017,7 @@ def main(argv=None) -> int:
     for tag, mgp in mode_models.items():
         mode = tag.split("_")[0]
         kind = "dot" if tag.endswith("_dot") else "rbf"
-        mte, mtf, _, _ = mgp._train_view()
+        mte, mtf, _, _ = mgp._fit_snapshot
         compare(torch, kernel_cases(kff, pe, pf, mte, mtf,
                                     mgp.kernel.params(), kind, mode),
                 f"{tag} NEB training set", errs, log)
@@ -4235,19 +4251,22 @@ def main(argv=None) -> int:
             "(recorded, not a gate)")
 
     # (g) one slice request's _predict_packed with the training side's
-    # operands kept by the model, and rebuilt at every request
+    # operands kept by the model's Posterior, and rebuilt at every request
+    # (a new Posterior a request)
     from gpr_calculator_tpu_torch.models.gp import (_factorize,
                                                     _predict_packed)
-    sargs = (pe, pf, te, tf, params, gp.alpha_, gp.L_, 2, True, "rbf")
-    kept = host_ms(torch, lambda: _predict_packed(
-        *sargs, train_ops=gp._train_operands()), 30)
-    rebuilt = host_ms(torch, lambda: _predict_packed(*sargs), 30)
+    from gpr_calculator_tpu_torch.models.posterior import Posterior
+    sargs = (params, 2, "rbf", True)
+    kept = host_ms(torch, lambda: _predict_packed(pe, pf, gp.posterior,
+                                                  *sargs), 30)
+    rebuilt = host_ms(torch, lambda: _predict_packed(
+        pe, pf, fresh_posterior(gp.posterior), *sargs), 30)
     log(f"(g) [{card}] _predict_packed, one slice request with std, host "
         f"clock to a synchronise, min / median / max of 30: training "
         f"operands kept {kept[0]:.3f} / {kept[1]:.3f} / {kept[2]:.3f} ms, "
         f"rebuilt {rebuilt[0]:.3f} / {rebuilt[1]:.3f} / {rebuilt[2]:.3f} ms")
     K_ops.reset_operand_builds()
-    gp._serve_ops = None
+    gp.posterior = fresh_posterior(gp.posterior)
     for img in images[:2]:
         gp.predict_structure(img, return_std=True)
     log(f"(g) two requests without a refit: operand builds "
@@ -4274,7 +4293,9 @@ def main(argv=None) -> int:
         mean = mean.double()
         return (float((mean[0] - mean64[0]).abs()) * natoms,
                 float((mean[pe.m:] - mean64[pe.m:]).abs().max()))
-    served, _ = _predict_packed(pe, pf, be, bf, bparams, a_b, L_b, 2, False)
+    served, _ = _predict_packed(pe, pf,
+                                Posterior.from_packed(be, bf, L_b, a_b),
+                                bparams, 2, "rbf", False)
     dE, dF = off(served)
     log(f"(g) bench weights from _factorize ({a_b.dtype}) against a float64 "
         f"solve of the same K: max|da| = {rel_to(a_b.double(), a64):.3e} of "

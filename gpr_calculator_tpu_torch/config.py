@@ -37,8 +37,15 @@ GPR_CALC_TPU_SHARDED_CHOL; the port has no environment variables):
                 shard gets real work (ops/kernels.py); "off": always
   sharded_chol  "auto": the sharded blocked Cholesky from 4 shards and
                 4096 rows (models/gp.py); "on" / "off": always / never
+
+``MEMORY_SHARE`` of a device's ``free_bytes`` bounds what the port sizes
+itself: the float64 buffers of ``predict(return_cov=True)``, ``CUR``,
+``sparsify`` and the kept L^-1 (models/), the ingest's pairs a call
+(ops/so3.py).
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -52,6 +59,8 @@ torch.backends.cudnn.allow_tf32 = False
 EPS = 1e-8
 
 PRECISIONS = ("highest", "bf16x4", "bf16")
+
+MEMORY_SHARE = 0.5
 
 _DTYPE: torch.dtype | None = None
 _DEVICE: torch.device | None = None
@@ -133,3 +142,12 @@ def set_sharded_chol(mode: str) -> None:
         raise ValueError(f"unknown sharded Cholesky setting: {mode!r} "
                          "(auto, on or off)")
     _SHARDED_CHOL = mode
+
+
+def free_bytes(dev) -> int:
+    """The device's free memory: ``torch.cuda.mem_get_info`` on a card,
+    the host's available physical memory on the CPU."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

@@ -14,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.gp import GP, _factor_perm
+from .models.gp import GP
 from .models.kernels import kernel_from_dict
+from .models.posterior import Posterior, _factor_perm, _packed_rows
 from .ops.so3 import SO3
 
 
@@ -24,10 +25,6 @@ def _numpy(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu()
     return np.array(a, dtype=float)
-
-
-def _real_rows(m_e: int, n_e: int, n_f: int) -> np.ndarray:
-    return np.r_[np.arange(n_e), m_e + np.arange(3 * n_f)]
 
 
 def state_of(gp) -> dict:
@@ -47,15 +44,16 @@ def state_of(gp) -> dict:
     snap = getattr(gp, "_fit_snapshot", None)
     if snap is not None and gp.alpha_ is not None:
         e, _, n_e, n_f = snap
-        rows = _real_rows(int(e.x.shape[0]), n_e, n_f)
+        rows = _packed_rows(n_e, n_f, int(e.x.shape[0]))
         state["alpha"] = _numpy(gp.alpha_)[rows]
         state["n_fit"] = (n_e, n_f)
         if isinstance(gp, GP):
             # the port: the factor over the real rows in the insertion
-            # order of its groups [(kE, kF), ...] (canonical for one)
-            if gp._inc is not None:
+            # order of its groups [(kE, kF), ...] (canonical for one),
+            # while it is the factor of the training lists
+            if gp.posterior.appendable:
                 state["L"] = _numpy(gp.L_)
-                state["L_groups"] = [tuple(g) for g in gp._inc["groups"]]
+                state["L_groups"] = [tuple(g) for g in gp.posterior.groups]
             return state
         L = _canonical_factor(gp, rows)
         if L is not None:
@@ -65,24 +63,24 @@ def state_of(gp) -> dict:
 
 def _canonical_factor(gp, rows):
     """The JAX GP's lower factor over the real rows in canonical order
-    [E..., F...], or None when it holds it in another order.  It keeps it
-    in a capacity buffer after a full factorisation (one group, no ghost
-    rows: canonical order); after incremental appends the rows are
-    permuted, and that factor is not carried."""
-    if getattr(gp, "L_", None) is not None:
-        return _numpy(gp.L_)[np.ix_(rows, rows)]
-    inc = getattr(gp, "_inc", None)
-    if inc is not None and len(inc["groups"]) == 1 \
-            and inc["groups"][0][2] == 0 and inc["n"] == len(rows):
-        return _numpy(inc["L_buf"])[:len(rows), :len(rows)]
-    return None
+    [E..., F...] (``_serve_factor``'s, where its columns are the real rows
+    in order, as a full factorisation leaves them), else None."""
+    try:
+        L, index = gp._serve_factor()
+    except RuntimeError:         # no factor kept
+        return None
+    cols, pos = (rows, rows) if index is None else index
+    if not np.array_equal(np.asarray(cols), rows):
+        return None
+    return _numpy(L)[np.ix_(np.asarray(pos), np.asarray(pos))]
 
 
 def gp_from_state(state: dict, device=None, dtype=None,
                   log_file: str = "gpr.log") -> GP:
-    """The port's GP holding ``state``; fitted (alpha_, L_) when the state
-    carries the weights and factor (in the order of ``L_groups``, default
-    canonical), else ready for ``fit(opt=False)``."""
+    """The port's GP holding ``state``; fitted (its ``Posterior``) when
+    the state carries the weights and factor (in the order of
+    ``L_groups``, default canonical), else ready for
+    ``fit(opt=False)``."""
     sd = state["save_dict"]
     gp = GP(kernel=kernel_from_dict(sd["kernel"]),
             descriptor=SO3.from_dict(sd["descriptor"]),
@@ -102,7 +100,8 @@ def gp_from_state(state: dict, device=None, dtype=None,
         perm = _factor_perm(groups, n_e)
         # float64 whatever the working dtype, as ``_factorize`` keeps them
         kw = dict(dtype=torch.float64, device=gp.device)
-        gp._adopt_factor(e, f, n_e, n_f, torch.as_tensor(state["L"], **kw),
-                         torch.as_tensor(np.asarray(state["alpha"])[perm],
-                                         **kw), groups)
+        gp.posterior = Posterior(
+            e, f, torch.as_tensor(state["L"], **kw),
+            torch.as_tensor(np.asarray(state["alpha"])[perm], **kw), groups,
+            gp._params_signature(), gp.logging.info)
     return gp

@@ -40,10 +40,10 @@ from scipy.optimize import minimize
 from .. import config, utils_profiling
 from ..atoms.atoms import ATOMIC_NUMBERS
 from ..ops import kernels as K_ops
-from ..ops import linalg
 from ..ops.packing import EnergyData, ForceData, pack_energy, pack_force
 from ..ops.so3 import SO3
 from .kernels import RBF, Dot, kernel_from_dict
+from .posterior import Posterior, _packed_rows
 
 
 def _params_from_theta(kind: str, kp):
@@ -95,30 +95,16 @@ def _chol_mesh(K, mesh, chol_mode: str = "replicated"):
     return L, int(info)
 
 
-# the share of a device's free memory that the float64 buffers of
-# ``GP._predict_cov``, ``CUR`` and ``GP.sparsify`` may take
-MEMORY_SHARE = 0.5
-
-
-def _free_bytes(device) -> int:
-    """The device's free memory: ``torch.cuda.mem_get_info`` on a card,
-    the host's available physical memory on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return torch.cuda.mem_get_info(device)[0]
-    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-
-
 def _check_buffers(device, nbytes: int, what: str) -> None:
     """ValueError when ``nbytes`` of buffers for ``what`` exceed
-    MEMORY_SHARE of the device's free memory (the JAX package builds
-    these dense n^2 and n x n_query buffers unguarded)."""
-    free = _free_bytes(device)
-    if nbytes > MEMORY_SHARE * free:
+    ``config.MEMORY_SHARE`` of the device's free memory (the JAX package
+    builds these dense n^2 and n x n_query buffers unguarded)."""
+    free = config.free_bytes(device)
+    if nbytes > config.MEMORY_SHARE * free:
         raise ValueError(
             f"{what} needs {nbytes / 2 ** 30:.3g} GiB of float64 buffers, "
-            f"more than {MEMORY_SHARE} of the {free / 2 ** 30:.3g} GiB "
-            f"free on {torch.device(device)}")
+            f"more than {config.MEMORY_SHARE} of the {free / 2 ** 30:.3g} "
+            f"GiB free on {torch.device(device)}")
 
 
 def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
@@ -393,14 +379,14 @@ def _prior(pe: EnergyData, pf: ForceData, params, zeta: int, kind: str,
                       .to(dtype)])
 
 
-def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
-                    tf: ForceData, params, alpha, L, zeta: int,
-                    return_std: bool, kind: str = "rbf", mesh=None,
-                    train_ops=None, cols=None, L_inv=None):
-    """Cross covariance, GEMV with alpha and (optionally) the predictive
+def _predict_packed(pe: EnergyData, pf: ForceData, post: Posterior,
+                    params, zeta: int, kind: str, return_std: bool,
+                    mesh=None, L_inv=None):
+    """Cross covariance against the fit ``post``'s training snapshot (its
+    kept operands), GEMV with its weights and (optionally) the predictive
     std: var = diag - |L^-1 k|^2 (gaussianprocess.py:873-911), V = L^-1 k
-    by one GEMM with the kept inverse factor L_inv (``GP._served_inverse``)
-    when it is given, else by a triangular solve against the factor L;
+    by one GEMM with L_inv (``Posterior.inverse``) when it is given, else
+    by a triangular solve against the factor L, k in L's row order;
     counted as ``predict.solve_inv`` / ``predict.solve_trsm``.  The two
     served variances differ by ~1e-13 of the prior in float64 numpy and
     by 2e-15 on the card, where at 10 000 rows the GEMM takes 0.29 ms
@@ -413,14 +399,12 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
     float64 model and moving by 60-90 % of itself from one call to the
     next (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).  mesh: the training
     force axis of the cross covariance runs in stripes over the shards;
-    the GEMV and the solve stay on the root.  train_ops: the training
-    side's operands when the caller keeps them (``GP._train_operands``).
-    cols: the packed training column of each row of L (and L_inv) when
-    the factor is in another order (after incremental appends,
-    ``GP._factor_cols``); alpha stays in packed order."""
+    the GEMV and the solve stay on the root."""
+    te, tf, _, _ = post.snapshot
+    L, alpha = post.L, post.alpha
     with utils_profiling.span("predict.block"):
         Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh,
-                           train_ops=train_ops, dtype=alpha.dtype)
+                           train_ops=post.operands(mesh), dtype=alpha.dtype)
         # alpha is float64 on every device (``_factorize``): the weights
         # are large and cancel in this product, and K_EE, whose rounding
         # to float32 they amplify most, stays in float64 (k_block's dtype)
@@ -429,7 +413,7 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
         return mean, None
     with utils_profiling.span("predict.solve"):
         dt = L.dtype
-        KtT = (Kt.T if cols is None else Kt.T.index_select(0, cols)).to(dt)
+        KtT = Kt.T.index_select(0, post.cols).to(dt)
         # V is launched before the prior's small operations, so the device
         # works on it while the host launches those
         if L_inv is None:
@@ -447,27 +431,6 @@ def _predict_packed(pe: EnergyData, pf: ForceData, te: EnergyData,
 # serving pack: gather the prediction blocks from the device-resident
 # descriptor tensors (SO3.calculate_device), host index maps only
 # ---------------------------------------------------------------------------
-
-def _packed_rows(nE: int, nF: int, m_e: int) -> np.ndarray:
-    """Packed row of each real training row in canonical order [E...,
-    3 rows per force point...] (padding sits after each block's real
-    points)."""
-    return np.r_[np.arange(nE), m_e + np.arange(3 * nF)]
-
-
-def _factor_perm(groups, nE_total: int) -> np.ndarray:
-    """Canonical real row of each factor row for the insertion-order
-    groups [(kE, kF), ...] of an incrementally extended factor: each
-    group's energy rows, then its force rows (the JAX package's
-    ``_factor_perm`` without its ghost rows)."""
-    perm, e_off, f_off = [], 0, 0
-    for ke, kf in groups:
-        perm.append(np.arange(e_off, e_off + ke))
-        perm.append(nE_total + np.arange(3 * f_off, 3 * (f_off + kf)))
-        e_off += ke
-        f_off += kf
-    return np.concatenate(perm).astype(np.int64)
-
 
 # the strain rows a stress request appends to a force point's columns:
 # (xx, yy, zz, xy, xz, yz) of the flattened 3 x 3 rdxdr (the reference's
@@ -707,17 +670,7 @@ class GP:
         self.N_forces_queue = 0
         self.N_queue = 0
 
-        self.alpha_ = None          # float64 weights, packed order
-        self.L_ = None              # float64 lower factor, factor order
-        self.Linv_ = None           # its inverse, for the served variance
-        self._inv_declined = False  # L^-1 did not fit beside this factor
-        self._factor_cols = None    # packed column of each factor row
-        self._fit_snapshot = None   # (EnergyData, ForceData, nE, nF)
-        self._serve_ops = None      # (snapshot, its serving operands)
-        # what the factor holds, for the incremental refit: {"sig",
-        # "groups": [(kE, kF), ...]}; None forces the next fit to
-        # refactorise
-        self._inc = None
+        self.posterior = None       # what the last fit left behind
         # the factorisation step of fit() by path: counts, and ms while
         # the span recorder is on (``refit_stats``)
         self._refit_stats = {"full": 0, "incremental": 0,
@@ -826,8 +779,9 @@ class GP:
             self.N_energy = self.N_forces = 0
             self.N_energy_queue = self.N_forces_queue = self.N_queue = 0
             # a replaced training set must not be appended to the factor
-            # of the old one
-            self._inc = None
+            # of the old one, which serves until the next fit
+            if self.posterior is not None:
+                self.posterior.appendable = False
 
         N_E, N_F = 0, 0
         for d in data.get("db", []):
@@ -1145,8 +1099,9 @@ class GP:
                     except FloatingPointError as exc:
                         self.logging.error(str(exc))
                         raise
-                    self._record_full_factor(e, f, self.N_energy,
-                                             self.N_forces, L, alpha)
+                    self.posterior = Posterior.from_packed(
+                        e, f, L, alpha, self._params_signature(),
+                        self.logging.info)
                     path = "full"
                     self.logging.info("Cholesky decomposition complete")
                 if sp:
@@ -1159,11 +1114,18 @@ class GP:
 
     def set_K_inv(self):
         """API parity (gaussianprocess.py:128-131): the reference forms
-        K^-1 here for prediction.  This GP keeps the factor ``L_`` and,
-        for the served variance, its inverse ``Linv_``, which the first
-        request with stds builds after each from-scratch factorisation
-        (``_served_inverse``) and appends extend; it forms no K^-1."""
+        K^-1 here for prediction.  This GP keeps the factor and, for the
+        served variance, its inverse, which the first request with stds
+        builds after each from-scratch factorisation and appends extend
+        (``Posterior``); it forms no K^-1."""
         return
+
+    # the last fit's state (``posterior``), under the reference's names
+    L_ = property(lambda self: getattr(self.posterior, "L", None))
+    alpha_ = property(lambda self: getattr(self.posterior, "alpha", None))
+    Linv_ = property(lambda self: getattr(self.posterior, "Linv", None))
+    _fit_snapshot = property(
+        lambda self: getattr(self.posterior, "snapshot", None))
 
     # -- incremental refit (gp.py:1223-1425 of the JAX package) --------------
     def _params_signature(self):
@@ -1175,47 +1137,11 @@ class GP:
                 round(self.noise_e, 14), round(self.noise_f, 14),
                 self.dtype, config.kff_precision())
 
-    def _record_full_factor(self, e: EnergyData, f: ForceData, nE: int,
-                            nF: int, L, alpha):
-        """Keep a from-scratch factor and weights (``_factorize``'s, over
-        the packed rows) for serving and later appends: their real rows,
-        in canonical order.  The padded rows have unit noise and no
-        coupling, so the real rows of the padded factor are the factor of
-        the real covariance."""
-        rows = _packed_rows(nE, nF, e.m)
-        r = torch.as_tensor(rows, device=L.device)
-        if len(rows) != L.shape[0]:
-            L = L[r[:, None], r[None, :]]
-        self._inv_declined = False
-        self._adopt_factor(e, f, nE, nF, L, alpha[r], [(nE, nF)])
-
-    def _adopt_factor(self, e: EnergyData, f: ForceData, nE: int, nF: int,
-                      L, alpha_fac, groups, L_inv=None):
-        """Serve from, and append to, the float64 factor L and weights
-        alpha_fac of the real rows in the insertion order of ``groups``
-        (``_factor_perm``): the weights scattered into packed order, and
-        the packed column of each factor row (``_factor_cols``), which
-        ``_predict_packed`` gathers the cross covariance by.  L_inv: L^-1
-        where it is kept across an append, else None (built at the next
-        request with stds, ``_served_inverse``)."""
-        self._inc = {"sig": self._params_signature(), "groups": list(groups)}
-        cols = torch.as_tensor(_packed_rows(nE, nF, e.m)[
-            _factor_perm(groups, nE)], device=self.device)
-        alpha = torch.zeros(e.m + 3 * f.m, dtype=torch.float64,
-                            device=self.device)
-        alpha[cols] = alpha_fac
-        self.L_, self.alpha_, self._factor_cols = L, alpha, cols
-        self.Linv_ = L_inv
-        self._fit_snapshot = (e, f, nE, nF)
-        self._serve_ops = None
-
-    def _y_factor_order(self, perm):
-        """The labels in factor order, float64 on the model's device."""
-        y = np.concatenate([
-            np.asarray(self._energy_y[:self.N_energy], float),
-            np.asarray(self._force_y[:self.N_forces], float).reshape(-1)])
-        return torch.as_tensor(y[perm], dtype=torch.float64,
-                               device=self.device)
+    def _y_real(self):
+        """The real rows' labels [E..., F...], float64 on the model's
+        device."""
+        return torch.as_tensor(self.update_y_train()[:, 0],
+                               dtype=torch.float64, device=self.device)
 
     def _append_blocks(self, nE0: int, nF0: int):
         """(B, C) of the rows appended since the last fit, float64, in
@@ -1231,7 +1157,8 @@ class GP:
         sum then runs in the same order), so they are the blocks of the K
         a full refit would build up to the kernels' float32 summation
         order."""
-        te, tf, _, _ = self._fit_snapshot
+        post = self._fitted()
+        te, tf, _, _ = post.snapshot
         kw = dict(d=te.d, device=self.device, dtype=self.dtype)
         e_new = pack_energy(self._energy_pts[nE0:self.N_energy], **kw)
         f_new = pack_force(self._force_pts[nF0:self.N_forces], **kw)
@@ -1240,8 +1167,8 @@ class GP:
         f64 = torch.float64
         K_no = K_ops.k_block(e_new, f_new, te, tf, params, zeta, kind,
                              mesh=self._mesh_arg(),
-                             train_ops=self._train_operands(), gram=True,
-                             dtype=f64)
+                             train_ops=post.operands(self._mesh_arg()),
+                             gram=True, dtype=f64)
         C = K_ops.k_self(e_new, f_new, params, zeta, kind, rest=(te, tf),
                          dtype=f64)
         C.diagonal().add_(_noise_diag(e_new, f_new, self.noise_e,
@@ -1249,128 +1176,62 @@ class GP:
         new = torch.as_tensor(_packed_rows(self.N_energy - nE0,
                                            self.N_forces - nF0, e_new.m),
                               device=self.device)
-        B = K_no.index_select(0, new).index_select(1, self._factor_cols)
+        B = K_no.index_select(0, new).index_select(1, post.cols)
         return B.T, C[new[:, None], new[None, :]]
 
     def _try_incremental_fit(self, e: EnergyData, f: ForceData) -> bool:
-        """Extend the factor of the last fit by the rows appended since,
-        in O(n^2 k) (``linalg.chol_append``), and solve the weights
-        against it; a kept L^-1 is extended too (``linalg.inv_append``,
-        counter ``factor_inv.extend``), or dropped where it no longer fits
-        (``_inverse_fits``).  False when a refactorisation is needed: no
-        factor kept, another signature (hyperparameters, noise, dtype,
-        precision), rows removed, or an extension that is not positive
-        definite (then the state is dropped and logged)."""
-        st = self._inc
-        if st is None or st["sig"] != self._params_signature():
+        """Extend the last fit's ``Posterior`` by the rows appended since,
+        in O(n^2 k) (``Posterior.append``).  False when a
+        refactorisation is needed: no fit kept, a replaced training set
+        (the one way rows leave it), another signature (hyperparameters,
+        noise, dtype, precision), or an extension that is not positive
+        definite (logged)."""
+        post = self.posterior
+        if (post is None or not post.appendable
+                or post.sig != self._params_signature()):
             return False
-        nE0, nF0 = (sum(g[i] for g in st["groups"]) for i in (0, 1))
-        kE, kF = self.N_energy - nE0, self.N_forces - nF0
-        if kE < 0 or kF < 0:
+        _, _, nE0, nF0 = post.snapshot
+        if (self.N_energy, self.N_forces) == (nE0, nF0):
+            return True
+        new = post.append(e, f, *self._append_blocks(nE0, nF0),
+                          self._y_real())
+        if new is None:
+            self.logging.info("Cholesky rank-update not positive definite: "
+                              "refactorising from scratch")
             return False
-        groups = st["groups"] + ([(kE, kF)] if kE or kF else [])
-        L, L_inv = self.L_, self.Linv_
-        if kE or kF:
-            L, lc_diag = linalg.chol_append(L, *self._append_blocks(nE0,
-                                                                    nF0))
-            lc_diag = lc_diag.cpu().numpy()
-            if not (np.all(np.isfinite(lc_diag)) and np.all(lc_diag > 0)):
-                self._inc = None
-                self.logging.info(
-                    "Cholesky rank-update not positive definite: "
-                    "refactorising from scratch")
-                return False
-            if L_inv is not None and self._inverse_fits(L.shape[0]):
-                L_inv = linalg.inv_append(L_inv, L)
-                utils_profiling.count("factor_inv.extend")
-            else:
-                L_inv = None
-        alpha = linalg.chol_solve(L, self._y_factor_order(
-            _factor_perm(groups, self.N_energy)))
-        self._adopt_factor(e, f, self.N_energy, self.N_forces, L, alpha,
-                           groups, L_inv)
+        self.posterior = new
         return True
 
     # -- prediction ----------------------------------------------------------
-    def _train_view(self):
-        """Training snapshot the current alpha_ was fitted on."""
-        if self._fit_snapshot is None:
+    def _fitted(self) -> Posterior:
+        """The last fit's ``Posterior``."""
+        if self.posterior is None:
             raise RuntimeError("model is not fitted")
-        return self._fit_snapshot
+        return self.posterior
 
-    def _train_operands(self):
-        """The fit snapshot's operands for serving, built once per fit in
-        the matmul precision in force and kept with the snapshot: a refit
-        (a new snapshot), another precision or another device drops
-        them.  None on a mesh: the sharded block builds its own."""
-        if self._mesh_arg() is not None:
-            return None
-        snap = self._train_view()
-        mode = config.kff_precision()
-        kept = self._serve_ops      # (snapshot, its operands)
-        if (kept is None or kept[0] is not snap or kept[1].mode != mode
-                or kept[1].X.device != snap[1].x.device):
-            kept = (snap, K_ops.side_operands(snap[0], snap[1], mode,
-                                              "train"))
-            self._serve_ops = kept
-        return kept[1]
-
-    def _inverse_fits(self, n: int) -> bool:
-        """Whether L^-1 of an n-row factor may be kept: its float64
-        buffers, 2 n^2 (L^-1 and the identity it is solved from, or the
-        L^-1 an append extends), within MEMORY_SHARE of the device's free
-        memory.  Once they do not fit, False until the next from-scratch
-        factorisation, logged once."""
-        if self._inv_declined:
-            return False
-        need, free = 2 * 8 * n * n, _free_bytes(self.device)
-        if need <= MEMORY_SHARE * free:
-            return True
-        self._inv_declined = True
-        self.logging.info(
-            "the variance is served by the triangular solve: L^-1 of %d "
-            "rows needs %.3g GiB, more than %s of the %.3g GiB free", n,
-            need / 2 ** 30, MEMORY_SHARE, free / 2 ** 30)
-        return False
-
-    def _served_inverse(self):
-        """The kept L^-1 that ``_predict_packed`` serves the variance
-        from: built at the first request with stds after a from-scratch
-        factorisation (span ``predict.inverse``, counter
-        ``factor_inv.build``), so a model never asked for stds never pays
-        its O(n^3); None while it does not fit (``_inverse_fits``)."""
-        if self.Linv_ is None and self._inverse_fits(self.L_.shape[0]):
-            with utils_profiling.span("predict.inverse"):
-                self.Linv_ = linalg.tri_inverse(self.L_)
-            utils_profiling.count("factor_inv.build")
-        return self.Linv_
-
-    def _serve_device(self, pe, pf, te, tf, return_std):
-        """(mean, std or None) of the packed points, on the device."""
-        return _predict_packed(pe, pf, te, tf, self.kernel.params(),
-                               self.alpha_, self.L_, self.kernel.zeta,
-                               return_std, self.kernel.kind,
-                               mesh=self._mesh_arg(),
-                               train_ops=self._train_operands(),
-                               cols=self._factor_cols,
-                               L_inv=self._served_inverse() if return_std
-                               else None)
-
-    def _serve(self, pe, pf, te, tf, return_std):
-        mean, std = self._serve_device(pe, pf, te, tf, return_std)
-        mean = mean.cpu().numpy()
-        return mean, None if std is None else std.cpu().numpy()
+    def _serve_device(self, pe, pf, return_std):
+        """(mean, std or None) of the packed points, on the device.  A
+        fit's first request builds the training operands before L^-1:
+        their build's temporaries then do not add to the peak of L and
+        L^-1."""
+        post, mesh = self._fitted(), self._mesh_arg()
+        post.operands(mesh)
+        L_inv = post.inverse() if return_std else None
+        return _predict_packed(pe, pf, post, self.kernel.params(),
+                               self.kernel.zeta, self.kernel.kind,
+                               return_std, mesh=mesh, L_inv=L_inv)
 
     def _predict_points(self, energy_pts, force_pts, return_std=False,
                         total_E=False):
         """Means (and stds) for explicit descriptor points, ordered
         [energies..., forces...] (gaussianprocess.py:319-379); a force
         point gives 3 rows, or 9 when its dxdr carries the strain rows."""
-        te, tf, _, _ = self._train_view()
-        kw = dict(d=te.d, device=self.device, dtype=self.dtype)
+        kw = dict(d=self._fitted().snapshot[0].d, device=self.device,
+                  dtype=self.dtype)
         pe = pack_energy(energy_pts, **kw)
         pf = pack_force(force_pts, **kw)
-        mean, std = self._serve(pe, pf, te, tf, return_std)
+        mean, std = (None if t is None else t.cpu().numpy()
+                     for t in self._serve_device(pe, pf, return_std))
         nE, nF = len(energy_pts), len(force_pts)
         f_rows = slice(pe.m, pe.m + pf.ncart * nF)
         mean_e = mean[:nE]
@@ -1420,15 +1281,16 @@ class GP:
         device in float64: K_t from ``k_block`` (K2, K3) and the points'
         own block from ``k_self`` (K1, K2), both float64 as serving and
         ``_factorize`` assemble them, solved against the float64 factor
-        ``L_`` in its insertion order (``_factor_cols``).  Its diagonal
+        in its row order (``Posterior``).  Its diagonal
         takes the prior that ``predict``'s std is served from
         (``_prior``), so the two give one variance: on the card the
         self block's float32 diagonal and that prior differ by float32
         rounding of a prior far larger than the posterior variance.  Only
         the returned arrays go to the host.  Raises ValueError, before any
         allocation, when its float64 buffers would take more than
-        MEMORY_SHARE of the device's free memory."""
-        te, tf, _, _ = self._train_view()
+        ``config.MEMORY_SHARE`` of the device's free memory."""
+        post = self._fitted()
+        te, tf, _, _ = post.snapshot
         kw = dict(d=te.d, device=self.device, dtype=self.dtype)
         pe = pack_energy(energy_pts, **kw)
         pf = pack_force(force_pts, **kw)
@@ -1440,10 +1302,11 @@ class GP:
                               self.kernel.kind)
         Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind,
                            mesh=self._mesh_arg(),
-                           train_ops=self._train_operands(), dtype=f64)
-        mean = Kt @ self.alpha_
+                           train_ops=post.operands(self._mesh_arg()),
+                           dtype=f64)
+        mean = Kt @ post.alpha
         V = torch.linalg.solve_triangular(
-            self.L_, Kt.T.index_select(0, self._factor_cols), upper=False)
+            post.L, Kt.T.index_select(0, post.cols), upper=False)
         del Kt
         cov = K_ops.k_self(pe, pf, params, zeta, kind, dtype=f64)
         cov.diagonal().copy_(_prior(pe, pf, params, zeta, kind, f64))
@@ -1507,11 +1370,10 @@ class GP:
                     for key in ("x", "dxdr", "rdxdr"):
                         if d[key] is not None:
                             d[key] = d[key].to(self.dtype)
-            te, tf, _, _ = self._train_view()
             with utils_profiling.span("pack"):
                 pe, pf, sels = _pack_structures(strucs, descs, stress)
             with utils_profiling.span("predict"):
-                mean, std = self._serve_device(pe, pf, te, tf, return_std)
+                mean, std = self._serve_device(pe, pf, return_std)
             with utils_profiling.span("host_out"):
                 mean = mean.cpu().numpy()
                 std = None if std is None else std.cpu().numpy()
@@ -1655,7 +1517,7 @@ class GP:
         force = force - force_off
         my_data = self.convert_train_data([(atoms, energy, force)])
 
-        if self.alpha_ is not None:
+        if self.posterior is not None:
             E, E1, E_std, F, F1, F_std = self.validate_data(
                 my_data, return_std=True)
             E_std = float(E_std[0])
@@ -1871,8 +1733,8 @@ def CUR(K, l_tol=1e-10):
     eigenvectors of U_ij^2.  ``torch.linalg.eigh`` in float64 runs on K's
     device (a NumPy K: on the CPU), the ranking on the host (NumPy's
     argsort, as the JAX package's).  Raises ValueError, before it
-    allocates, when its float64 buffers would take more than MEMORY_SHARE
-    of that device's free memory."""
+    allocates, when its float64 buffers would take more than
+    ``config.MEMORY_SHARE`` of that device's free memory."""
     K = torch.as_tensor(K)
     n = K.shape[0]
     _check_buffers(K.device, 8 * 3 * n * n, "CUR")

@@ -87,17 +87,16 @@ def cosine_cutoff(r, rcut, derivative=False):
 CUTOFFS = {"cosine": cosine_cutoff}
 
 # the batched ingest's pairs per core call: the JAX package's flat budget
-# on the CPU; on a card MEMORY_SHARE of the free memory over the measured
-# float64 bytes per pair (SO3.bytes_per_pair, from a probe of PROBE_PAIRS
-# pairs).  nmax 3, lmax 4, on the descriptor kernels: 2 000 bytes a pair
-# measured, 4 344 with strain rows (NVIDIA H100 80GB HBM3, 700.00 W;
-# PERF.md), as the shapes give them: the pair record's 150 doubles and a
-# dxdr row of 90 a pair (3 x 90 more with strain rows); half of that
-# card's free memory holds ~21 million pairs, the ingest of 100 65-atom
-# slabs 0.008 of them.
+# on the CPU; on a card config.MEMORY_SHARE of the free memory over the
+# measured float64 bytes per pair (SO3.bytes_per_pair, from a probe of
+# PROBE_PAIRS pairs).  nmax 3, lmax 4, on the descriptor kernels: 2 000
+# bytes a pair measured, 4 344 with strain rows (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md), as the shapes give them: the pair record's 150
+# doubles and a dxdr row of 90 a pair (3 x 90 more with strain rows); half
+# of that card's free memory holds ~21 million pairs, the ingest of 100
+# 65-atom slabs 0.008 of them.
 CPU_PAIR_BUDGET = 262144
 PROBE_PAIRS = 4096
-MEMORY_SHARE = 0.5
 
 
 # launches of the descriptor kernels (csrc/so3.cu) since the last
@@ -633,15 +632,15 @@ class SO3:
     def default_pair_budget(self, device) -> int:
         """Pairs per ``_core`` call of the batched ingest.  On the
         CPU the JAX package's flat 262 144.  On a card, the float64
-        ``bytes_per_pair`` against MEMORY_SHARE of the free memory
-        (``torch.cuda.mem_get_info``); the first call on a card runs the
+        ``bytes_per_pair`` against ``config.MEMORY_SHARE`` of the free
+        memory (``config.free_bytes``); the first call on a card runs the
         probe, which resets the card's peak memory statistics."""
         dev = torch.device(device)
         if dev.type != "cuda" or not self.derivative:
             return CPU_PAIR_BUDGET
         per_pair = self.bytes_per_pair(dev)
-        free, _ = torch.cuda.mem_get_info(dev)
-        return max(PROBE_PAIRS, int(MEMORY_SHARE * free / per_pair))
+        return max(PROBE_PAIRS, int(config.MEMORY_SHARE
+                                    * config.free_bytes(dev) / per_pair))
 
     def _groups(self, atoms_list, pair_budget, device, dtype):
         """Greedy grouping under the pair budget (at least one structure

@@ -27,6 +27,7 @@ import torch
 
 from .. import config
 from ..models.gp import (_factorize, _nll_rbf_analytic, _predict_packed)
+from ..models.posterior import Posterior
 from ..ops import kernels as K_ops
 from ..ops.packing import pack_energy, pack_force
 from .cholesky import cholesky_sharded
@@ -90,12 +91,13 @@ def dryrun_multichip(n_shards: int, devices=None) -> dict:
         # 4. sharded serving of one structure, gate auto and off, against
         # the unsharded block
         pe, pf = _synthetic_data(1, 12, 6, 20, d, 5, dev, dt)
+        post = Posterior.from_packed(e, f, L, alpha)
         serve = {}
         for label, setting, m in (("auto", "auto", mesh), ("off", "off", mesh),
                                   ("unsharded", "auto", None)):
             config.set_sharded_gate(setting)
-            serve[label] = _predict_packed(pe, pf, e, f, params, alpha, L, 2,
-                                           True, "rbf", mesh=m)
+            serve[label] = _predict_packed(pe, pf, post, params, 2, "rbf",
+                                           True, mesh=m)
         config.set_sharded_gate("off")
         mean_ref = serve["unsharded"][0]
         serve_err = max(_rel(serve[k][0], mean_ref) for k in ("auto", "off"))

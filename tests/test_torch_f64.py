@@ -301,7 +301,7 @@ def test_float64_model_from_a_jax_state_serves_as_jax(jax_model, carried, k):
         gp.fit(opt=False, show=False)
     assert gp.dtype == torch.float64
     assert gp.alpha_.dtype == gp.L_.dtype == torch.float64
-    te, tf, _, _ = gp._train_view()
+    te, tf, _, _ = gp._fit_snapshot
     assert te.x.dtype == tf.x.dtype == tf.dxdr.dtype == torch.float64
     E, F, _, sE, sF = gp.predict_structure(images[k], return_std=True)
     Ej, Fj, _, sEj, sFj = jgp.predict_structure(_jax_atoms(images[k]),

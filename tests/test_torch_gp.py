@@ -64,7 +64,7 @@ def _real(e, n_e, n_f):
 def test_k_self_matches_jax(models):
     _, jgp, tgp, _ = models
     je, jf, n_e, n_f = jgp._train_view()
-    te, tf, _, _ = tgp._train_view()
+    te, tf, _, _ = tgp._fit_snapshot
     Kj = np.asarray(JK.k_self(je, jf, jgp.kernel.jax_params(), "rbf", 2))
     Kt = TK.k_self(te, tf, tgp.kernel.params(), 2).numpy()
     r = _real(je, n_e, n_f)
@@ -79,7 +79,7 @@ def test_k_block_matches_jax(models):
     fpts = _group_force_points(d, ele, range(8, 13))
     epts = [(d["x"], ele)]
     je, jf, n_e, n_f = jgp._train_view()
-    te, tf, _, _ = tgp._train_view()
+    te, tf, _, _ = tgp._fit_snapshot
     from gpr_calculator_tpu.ops.packing import pack_energy, pack_force
     Kj = np.asarray(JK.k_block(pack_energy(epts), pack_force(fpts), je, jf,
                                jgp.kernel.jax_params(), "rbf", 2))

@@ -205,10 +205,10 @@ def test_incremental_fit_matches_a_full_refit(grown, kernel):
     gp, strucs = grown[kernel]
     assert gp.refit_stats["full"] == 1 and gp.refit_stats["incremental"] == 3
     assert gp.refit_stats["incremental_ms"] > 0
-    assert [kE for kE, _ in gp._inc["groups"]] == [3, 2, 1, 1]
+    assert [kE for kE, _ in gp.posterior.groups] == [3, 2, 1, 1]
     # the factor rows are in insertion order, not packed order
-    assert not torch.equal(gp._factor_cols,
-                           torch.arange(len(gp._factor_cols)))
+    cols = gp.posterior.cols
+    assert not torch.equal(cols, torch.arange(len(cols)))
     _same(_served(gp, strucs), _served(_full(gp), strucs))
 
 
@@ -243,7 +243,7 @@ def test_opt_fit_and_replacement_invalidate_the_state():
     for lab in labels[:3]:
         gp.add_structure(lab)
     gp.fit(show=False, opt=True, maxiter=2)
-    assert gp._inc["sig"] == gp._params_signature()
+    assert gp.posterior.sig == gp._params_signature()
     gp.kernel.update([1.4, 1.0])
     gp.add_structure(labels[3])
     gp.fit(show=False, opt=False)          # another signature: full
@@ -257,7 +257,7 @@ def test_opt_fit_and_replacement_invalidate_the_state():
                    in zip(other._energy_pts, other._energy_y)],
         "force": [(x, dx, y, ele) for (x, dx, ele), y
                   in zip(other._force_pts, other._force_y)]}, mode="w")
-    assert gp._inc is None
+    assert not gp.posterior.appendable
     gp.kernel.update([1.5, 1.1])
     gp.fit(show=False, opt=False)
     assert gp.refit_stats["full"] == 3
@@ -282,7 +282,7 @@ def test_non_pd_extension_refactorises_from_scratch(monkeypatch):
     gp.add_structure(labels[3])
     gp.fit(show=False, opt=False)
     assert gp.refit_stats["full"] == 2 and gp.refit_stats["incremental"] == 0
-    assert len(gp._inc["groups"]) == 1
+    assert len(gp.posterior.groups) == 1
     monkeypatch.undo()
     strucs = [s for s, _, _ in labels]
     _same(_served(gp, strucs), _served(_full(gp), strucs))

@@ -399,13 +399,13 @@ def test_model_builds_training_operands_once_per_fit():
     first = _served(gp, images[1])
     again = _served(gp, images[3])
     assert TK.operand_builds == {"query": 2, "train": 1}
-    kept = gp._train_operands()
-    assert gp._train_operands() is kept
+    kept = gp.posterior.operands()
+    assert gp.posterior.operands() is kept
     np.testing.assert_allclose(first, _served(_model(images, (0, 4)),
                                               images[1]), rtol=0, atol=1e-12)
     _add(gp, images[2])
     gp.fit(opt=False, show=False)
-    assert gp._train_operands() is not kept
+    assert gp.posterior.operands() is not kept
     TK.reset_operand_builds()
     after = _served(gp, images[3])
     assert TK.operand_builds == {"query": 1, "train": 0}
@@ -435,13 +435,13 @@ def test_set_kff_precision_between_requests_is_honoured():
     gp = _model(images, (0, 4, 2), torch.float32)
     try:
         hi = _served(gp, images[1])
-        assert gp._train_operands().mode == "highest"
+        assert gp.posterior.operands().mode == "highest"
         config.set_kff_precision("bf16x4")
         TK.reset_operand_builds()
         x4 = _served(gp, images[1])
         assert TK.operand_builds["train"] == 1
-        assert gp._train_operands().mode == "bf16x4"
-        assert gp._train_operands().X.dtype == torch.bfloat16
+        assert gp.posterior.operands().mode == "bf16x4"
+        assert gp.posterior.operands().X.dtype == torch.bfloat16
         K_hi = TK.k_block(*_request(gp, images[1]), gp.kernel.params(), 2,
                           mm_precision="highest")
         K_x4 = TK.k_block(*_request(gp, images[1]), gp.kernel.params(), 2)
@@ -462,7 +462,7 @@ def _request(gp, image):
     free = [i for i in range(len(ele))
             if i not in set(image.fixed_indices())]
     pe, pf = _pack_from_device_descs([dd], [ele], [free])
-    te, tf, _, _ = gp._train_view()
+    te, tf, _, _ = gp._fit_snapshot
     return pe, pf, te, tf
 
 
@@ -505,7 +505,9 @@ def test_factorize_solves_float32_covariance_in_float64():
     assert ours <= 1e-12 and plain32 > 1e-6
     _close((L.double() @ L.double().T).numpy(), K.double().numpy(), 1e-6)
     from gpr_calculator_tpu_torch.models.gp import _predict_packed
-    mean, std = _predict_packed(e, f, e, f, params, alpha, L, 2, True)
+    from gpr_calculator_tpu_torch.models.posterior import Posterior
+    mean, std = _predict_packed(e, f, Posterior.from_packed(e, f, L, alpha),
+                                params, 2, "rbf", True)
     Kt = TK.k_block(e, f, e, f, params, 2, dtype=torch.float64)
     assert mean.dtype == torch.float64 and std.dtype == torch.float64
     assert torch.equal(mean, Kt @ alpha)

@@ -20,7 +20,7 @@ import torch
 import gpr_calculator_tpu as J
 import gpr_calculator_tpu_torch as T
 from gpr_calculator_tpu.models.gp import CUR as JCUR
-from gpr_calculator_tpu_torch import convert
+from gpr_calculator_tpu_torch import config, convert
 from gpr_calculator_tpu_torch.models import gp as gp_mod
 
 from test_torch_kff import _on_cpu  # noqa: F401 (fixture)
@@ -198,7 +198,7 @@ def test_size_guards_raise(monkeypatch):
     gp = _duplicated(T)
     X = _points_of(T, gp, _structs(T, 1, 4, 51)[0], False)
     gp.predict(X, return_cov=True)
-    monkeypatch.setattr(gp_mod, "_free_bytes", lambda device: 1024)
+    monkeypatch.setattr(config, "free_bytes", lambda device: 1024)
     with pytest.raises(ValueError, match="predictive covariance"):
         gp.predict(X, return_cov=True)
     with pytest.raises(ValueError, match="CUR"):
@@ -211,7 +211,7 @@ def test_size_guards_raise(monkeypatch):
 
 def test_free_bytes_reads_the_device():
     """The CPU's free memory is the host's available physical memory."""
-    assert gp_mod._free_bytes("cpu") > 2 ** 20
+    assert config.free_bytes("cpu") > 2 ** 20
 
 
 # -- the small methods -------------------------------------------------------

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 import gpr_calculator_tpu_torch as T
-from gpr_calculator_tpu_torch import utils_profiling
+from gpr_calculator_tpu_torch import config, utils_profiling
 from gpr_calculator_tpu_torch.models import gp as gp_mod
 from gpr_calculator_tpu_torch.models.gp import GP
+from gpr_calculator_tpu_torch.models.posterior import Posterior
 
 from test_torch_kff import _on_cpu, make_points  # noqa: F401 (fixture)
 
@@ -97,7 +98,7 @@ def _both_paths(gp, serve, monkeypatch):
     std_inv = serve(gp)
     assert gp.Linv_ is not None
     with monkeypatch.context() as m:
-        m.setattr(GP, "_served_inverse", lambda self: None)
+        m.setattr(Posterior, "inverse", lambda self: None)
         std_trsm = serve(gp)
     return std_inv, std_trsm, max(priors)
 
@@ -188,13 +189,13 @@ def test_no_room_serves_by_the_solve(short_at, monkeypatch, recorder):
     strucs = [s for s, _, _ in labels]
     gp, ref = _model(labels[:5]), _model(labels[:5])
     if short_at == "build":
-        monkeypatch.setattr(gp_mod, "_free_bytes", lambda device: 1)
+        monkeypatch.setattr(config, "free_bytes", lambda device: 1)
     else:
         for m in (ref, gp):
             m.add_structure(labels[5])
         ref.fit(show=False, opt=False)
         _structure_std(gp, strucs[:1])
-        monkeypatch.setattr(gp_mod, "_free_bytes", lambda device: 1)
+        monkeypatch.setattr(config, "free_bytes", lambda device: 1)
         gp.fit(show=False, opt=False)
         assert gp.refit_stats["incremental"] == 1
     recorder.clear()

@@ -187,7 +187,7 @@ def test_fit_at_nmax4_lmax4_matches_jax(wide_models):
     """fit(opt=False) of the d = 50 model: the port's weights are the JAX
     GP's (1e-8 of the largest), on descriptors of width 50."""
     _, _, tgp, state = wide_models
-    assert tgp._train_view()[1].x.shape[2] == 50
+    assert tgp._fit_snapshot[1].x.shape[2] == 50
     _close(tgp.alpha_.numpy(), state["alpha"], rtol=1e-8)
 
 
@@ -223,7 +223,7 @@ def wide_neb():
                 counts=(gp.use_base, gp.use_surrogate, gp.fits, gp.N_energy,
                         gp.N_forces),
                 barrier=float(e.max() - e[0]),
-                width=gp._train_view()[1].x.shape[2])
+                width=gp._fit_snapshot[1].x.shape[2])
 
 
 @pytest.mark.parametrize("what", ["steps", "counts", "barrier", "theta"])
