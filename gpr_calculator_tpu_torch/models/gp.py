@@ -379,6 +379,61 @@ def _prior(pe: EnergyData, pf: ForceData, params, zeta: int, kind: str,
                       .to(dtype)])
 
 
+def _served_block(pe: EnergyData, pf: ForceData, post: Posterior, params,
+                  zeta: int, kind: str, mesh=None):
+    """(K_t, mean): the cross covariance against the fit ``post``'s
+    training snapshot (its kept operands) and the GEMV with its weights."""
+    te, tf, _, _ = post.snapshot
+    Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh,
+                       train_ops=post.operands(mesh), dtype=post.alpha.dtype)
+    # alpha is float64 on every device (``_factorize``): the weights are
+    # large and cancel in this product, and K_EE, whose rounding to float32
+    # they amplify most, stays in float64 (k_block's dtype)
+    return Kt, Kt @ post.alpha
+
+
+def _served_std(pe: EnergyData, pf: ForceData, post: Posterior, Kt, params,
+                zeta: int, kind: str, L_inv=None):
+    """The predictive std of the rows of K_t, in the factor's dtype."""
+    L = post.L
+    KtT = Kt.T.index_select(0, post.cols).to(L.dtype)
+    # V is launched before the prior's small operations, so the device
+    # works on it while the host launches those
+    V = torch.linalg.solve_triangular(L, KtT, upper=False) \
+        if L_inv is None else L_inv @ KtT
+    diag = _prior(pe, pf, params, zeta, kind, L.dtype)
+    return torch.sqrt(torch.clamp(diag - (V * V).sum(dim=0), min=0.0))
+
+
+def _graph_key(pe: EnergyData, pf: ForceData, params, zeta: int, kind: str,
+               return_std: bool, inverse: bool) -> tuple:
+    """What a served graph bakes in: the packed shapes and dtype of the
+    points, return_std, the solve (by L^-1 or by the triangular solve),
+    the matmul precision and the kernel's scalars."""
+    return (tuple(pe.x.shape), tuple(pf.dxdr.shape), pe.x.dtype,
+            bool(return_std), bool(inverse), config.kff_precision(), kind,
+            int(zeta), tuple(sorted((k, float(v)) for k, v in params.items())))
+
+
+def _points(pe: EnergyData, pf: ForceData) -> tuple:
+    return pe.x, pe.ele, pe.counts, pf.x, pf.dxdr, pf.ele
+
+
+def _capture(graphs, key, pe: EnergyData, pf: ForceData, post: Posterior,
+             params, zeta: int, kind: str, return_std: bool, L_inv=None):
+    """Capture the served chain of the key into ``graphs``: the block and
+    the GEMV, then (return_std) the solve, on copies of the points that
+    each replay refills."""
+    se = EnergyData(pe.x.clone(), pe.ele.clone(), pe.counts.clone(),
+                    pe.nreal)
+    sf = ForceData(pf.x.clone(), pf.dxdr.clone(), pf.ele.clone(), pf.nreal)
+    stages = [lambda: _served_block(se, sf, post, params, zeta, kind)]
+    if return_std:
+        stages.append(lambda Kt, mean: (_served_std(se, sf, post, Kt, params,
+                                                    zeta, kind, L_inv),))
+    graphs.capture(key, _points(se, sf), stages)
+
+
 def _predict_packed(pe: EnergyData, pf: ForceData, post: Posterior,
                     params, zeta: int, kind: str, return_std: bool,
                     mesh=None, L_inv=None):
@@ -399,32 +454,47 @@ def _predict_packed(pe: EnergyData, pf: ForceData, post: Posterior,
     float64 model and moving by 60-90 % of itself from one call to the
     next (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).  mesh: the training
     force axis of the cross covariance runs in stripes over the shards;
-    the GEMV and the solve stay on the root."""
-    te, tf, _, _ = post.snapshot
-    L, alpha = post.L, post.alpha
+    the GEMV and the solve stay on the root.
+    On a card with no mesh, a request shape served twice is served from
+    CUDA graphs of the chain (``post.graphs``, ``ServedGraphs``), which
+    the fit's ``Posterior`` drops with its factor: the key
+    (``_graph_key``) is the points' packed shapes and dtype, return_std,
+    the solve's path, the matmul precision and the kernel's scalars.  A
+    key's first request runs eagerly; its second runs eagerly too and
+    then captures, on the card's capture stream, one graph of the block
+    and the GEMV and, with return_std, one of the solve (counter
+    ``predict.graph_capture``); later ones copy their points into the
+    graphs' inputs and replay them in the same spans (counter
+    ``predict.graph_replay``): the same kernels with the same arguments
+    in the same order, so the same answers bit for bit, without the ~170
+    launches from the host.  The returned tensors are copies of the
+    graphs' outputs, so a later replay does not change them.  A caller's
+    own L_inv, not the Posterior's, is served eagerly."""
+    graphs, key = post.graphs, None
+    if pe.x.device.type == "cuda" and mesh is None \
+            and (L_inv is None or L_inv is post.Linv):
+        key = _graph_key(pe, pf, params, zeta, kind, return_std,
+                         L_inv is not None)
+    kept = graphs.get(key)
+    if kept is not None:
+        utils_profiling.count("predict.graph_replay")
     with utils_profiling.span("predict.block"):
-        Kt = K_ops.k_block(pe, pf, te, tf, params, zeta, kind, mesh=mesh,
-                           train_ops=post.operands(mesh), dtype=alpha.dtype)
-        # alpha is float64 on every device (``_factorize``): the weights
-        # are large and cancel in this product, and K_EE, whose rounding
-        # to float32 they amplify most, stays in float64 (k_block's dtype)
-        mean = Kt @ alpha
-    if not return_std:
-        return mean, None
-    with utils_profiling.span("predict.solve"):
-        dt = L.dtype
-        KtT = Kt.T.index_select(0, post.cols).to(dt)
-        # V is launched before the prior's small operations, so the device
-        # works on it while the host launches those
-        if L_inv is None:
-            utils_profiling.count("predict.solve_trsm")
-            V = torch.linalg.solve_triangular(L, KtT, upper=False)
+        if kept is None:
+            Kt, mean = _served_block(pe, pf, post, params, zeta, kind, mesh)
         else:
-            utils_profiling.count("predict.solve_inv")
-            V = L_inv @ KtT
-        diag = _prior(pe, pf, params, zeta, kind, dt)
-        var = torch.clamp(diag - (V * V).sum(dim=0), min=0.0)
-        return mean, torch.sqrt(var)
+            kept.load(_points(pe, pf))
+            mean = kept.replay(0)[1].clone()
+    std = None
+    if return_std:
+        with utils_profiling.span("predict.solve"):
+            utils_profiling.count("predict.solve_trsm" if L_inv is None
+                                  else "predict.solve_inv")
+            std = _served_std(pe, pf, post, Kt, params, zeta, kind, L_inv) \
+                if kept is None else kept.replay(1)[0].clone()
+    if kept is None and key is not None and graphs.seen_before(key):
+        _capture(graphs, key, pe, pf, post, params, zeta, kind, return_std,
+                 L_inv)
+    return mean, std
 
 
 # ---------------------------------------------------------------------------

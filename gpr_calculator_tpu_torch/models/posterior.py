@@ -1,14 +1,146 @@
 """What a fit leaves behind, the state a GP serves from and appends to:
 ``GP`` holds one ``Posterior`` and replaces it whole at every fit, so
-nothing built from an old factor outlives it."""
+nothing built from an old factor outlives it -- its CUDA graphs of the
+served chain (``ServedGraphs``) included."""
 from __future__ import annotations
+
+import collections
+import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import config, utils_profiling
 from ..ops import kernels as K_ops
+from ..ops import kff
 from ..ops import linalg
+
+# the plain counters the served chain bumps as it launches: a graph's
+# replay adds what its capture would have added
+_COUNTS = (kff.launches, K_ops.operand_builds)
+
+
+@contextlib.contextmanager
+def _on_stream(side):
+    """Run the block on the stream ``side``, after the work queued on the
+    current stream and before what is queued there next."""
+    current = torch.cuda.current_stream(side.device)
+    side.wait_stream(current)
+    try:
+        with torch.cuda.stream(side):
+            yield
+    finally:
+        current.wait_stream(side)
+
+
+class _Graphs(NamedTuple):
+    """One key's static input tensors and, for each stage, its graph, its
+    static outputs and the counts its capture added (``_COUNTS``)."""
+    inputs: tuple
+    stages: list
+
+    def load(self, tensors):
+        """Copy a request's tensors into the static inputs."""
+        for dst, src in zip(self.inputs, tensors):
+            dst.copy_(src)
+
+    def replay(self, i: int):
+        """Replay stage i on the current stream: its static outputs."""
+        graph, out, counts = self.stages[i]
+        graph.replay()
+        for counter, added in zip(_COUNTS, counts):
+            for k, n in added.items():
+                counter[k] += n
+        return out
+
+
+class ServedGraphs:
+    """The CUDA graphs a ``Posterior`` serves repeated request shapes
+    from: for each key (``gp._graph_key``) one graph a stage of the
+    served chain, captured on a side stream into one memory pool, both
+    this object's, the CAP most recently used kept.  ``seen_before``
+    remembers the keys of eager requests, so a key is captured at its
+    second request."""
+    CAP = 16
+
+    def __init__(self):
+        self._kept = collections.OrderedDict()
+        self._seen = collections.OrderedDict()
+        self._pool = self._stream = None
+
+    def __len__(self) -> int:
+        return len(self._kept)
+
+    def get(self, key):
+        """The key's graphs (now the most recently used), or None."""
+        graphs = self._kept.get(key)
+        if graphs is not None:
+            self._kept.move_to_end(key)
+        return graphs
+
+    def seen_before(self, key) -> bool:
+        """Whether an earlier request had ``key``; this one is noted (the
+        4 CAP latest keys are remembered)."""
+        seen = key in self._seen
+        self._seen[key] = None
+        self._seen.move_to_end(key)
+        if len(self._seen) > 4 * self.CAP:
+            self._seen.popitem(last=False)
+        return seen
+
+    def _keep(self, key, graphs) -> None:
+        self._kept[key] = graphs
+        self._kept.move_to_end(key)
+        if len(self._kept) > self.CAP:
+            self._kept.popitem(last=False)
+
+    def capture(self, key, inputs, stages) -> None:
+        """Capture ``stages`` on a side stream of the inputs' card once
+        the key's eager requests have loaded every kernel and library
+        handle they launch: stage 0 takes no argument, each later one the
+        outputs of the one before, all reading the static tensors
+        ``inputs``.  Counted as ``predict.graph_capture``; the counters'
+        bumps during the capture are taken back and kept for the replays.
+        cuBLAS's workspaces are dropped before and after (as PyTorch's own
+        graph trees do), so the one the capture's GEMMs take is allocated
+        in the graphs' pool, not kept beside the current stream's for the
+        life of the process (32 MiB on an H100).  A graph's workspace and
+        the other graphs' outputs may then share the pool's memory: every
+        replay rewrites its outputs before they are read, and the caller's
+        copies are taken at once."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(inputs[0].device)
+        with _on_stream(self._stream):
+            torch._C._cuda_clearCublasWorkspaces()
+            try:
+                self._capture(key, inputs, stages)
+            finally:
+                torch._C._cuda_clearCublasWorkspaces()
+        utils_profiling.count("predict.graph_capture")
+
+    def _capture(self, key, inputs, stages) -> None:
+        out, done = (), []
+        for stage in stages:
+            before = [dict(c) for c in _COUNTS]
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = stage(*out)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+            added = []
+            for counter, b in zip(_COUNTS, before):
+                added.append({k: n - b.get(k, 0) for k, n in counter.items()
+                              if n != b.get(k, 0)})
+                counter.update(b)
+            done.append((graph, out, added))
+        self._keep(key, _Graphs(tuple(inputs), done))
 
 
 def _packed_rows(nE: int, nF: int, m_e: int) -> np.ndarray:
@@ -41,8 +173,9 @@ class Posterior:
     covariance; ``alpha``: the weights in packed order, zero on padded
     rows; ``sig``: the GP's ``_params_signature()`` at the fit;
     ``appendable``: False once the GP's training set is replaced;
-    ``Linv``: L^-1 once ``inverse`` has built it.  log: a logger's
-    ``info``, told when L^-1 does not fit."""
+    ``Linv``: L^-1 once ``inverse`` has built it; ``graphs``: the CUDA
+    graphs ``_predict_packed`` replays (``ServedGraphs``).  log: a
+    logger's ``info``, told when L^-1 does not fit."""
 
     def __init__(self, e, f, L, alpha, groups, sig=None, log=None):
         nE, nF = e.nreal, f.nreal
@@ -58,6 +191,7 @@ class Posterior:
         self._declined = False   # L^-1 did not fit beside this factor
         self._ops = {}           # matmul precision -> training operands
         self._log = log
+        self.graphs = ServedGraphs()
 
     @classmethod
     def from_packed(cls, e, f, L, alpha, sig=None, log=None):

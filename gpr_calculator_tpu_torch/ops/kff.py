@@ -268,8 +268,10 @@ def force_operands(f, mm_precision: str | None = None,
     q = torch.einsum("ndu,nd->nu", J, u)
     Jt = J - u[:, :, None] * q[:, None, :]
     X = torch.cat([u[None], Jt.permute(2, 0, 1)], dim=0)  # (1 + ncart, N, d)
+    # slices, not a list index: its index tensor would be copied from the
+    # host, which a CUDA graph's capture refuses
     groups = [X] if ncart == 3 else [
-        X[[0, 1 + c, 2 + c, 3 + c]] for c in range(0, ncart, 3)]
+        torch.cat([X[:1], X[1 + c:4 + c]]) for c in range(0, ncart, 3)]
     re = torch.stack([rinv, ele.to(x.dtype)])
     return ([_pad_lanes(_rounded(Xg, mode)) for Xg in groups],
             re.contiguous())

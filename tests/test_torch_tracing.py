@@ -28,7 +28,8 @@ FIT_TREE = {"fit": None, "fit.pack": "fit", "fit.gate": "fit",
             "nll.traces": "nll.eval", "fit.factorize": "fit"}
 COUNTERS = ("serve.requests", "lbfgs.nfev", "lbfgs.nit",
             "predict.solve_inv", "predict.solve_trsm", "factor_inv.build",
-            "factor_inv.extend")
+            "factor_inv.extend", "predict.graph_replay",
+            "predict.graph_capture")
 
 
 @pytest.fixture
