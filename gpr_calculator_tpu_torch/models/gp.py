@@ -5,8 +5,9 @@ gpr_calc/gaussianprocess.py): the same covariance structure, per-atom
 energy labels, queue semantics and dispatch thresholds.  ``fit(opt=True)``
 first runs scipy's L-BFGS-B over the analytic-gradient NLL of the
 kernel's family (``_nll_rbf_analytic``: one fused (K, dK/dgamma) pass
-per evaluation; ``_nll_dot_analytic``: one K build and the pair-count
-matrix), its traces exact or estimated (``GP(trace=)``), then
+per evaluation; ``_nll_dot_analytic``: one K build per evaluation and
+the factor of the pair counts, built once a fit), its traces exact or
+estimated (``GP(trace=)``), then
 refactorises from scratch; ``fit(opt=False)`` extends the factor of the
 last fit by the rows appended since (``ops/linalg.py``, the JAX
 package's ``_try_incremental_fit``).  Serving gives energies, forces and,
@@ -217,15 +218,21 @@ class _Traces:
             self.Kinv = torch.cholesky_inverse(L)
             self.kinv_diag = self.Kinv.diagonal().clone()
 
-    def of(self, A, m=None):
-        """tr(K^-1 A) of a symmetric A on the leading m rows and columns
-        (m None: all of them), zero elsewhere."""
+    def of(self, A):
+        """tr(K^-1 A) of a symmetric A."""
         if self.Kinv is None:
-            Z = self.Z[:m]
-            return torch.sum(self.W[:m] * (A @ Z)) / Z.shape[1]
-        if m is None:
-            return torch.dot(self.Kinv.reshape(-1), A.reshape(-1))
-        return (self.Kinv[:m, :m] * A).sum()
+            return torch.sum(self.W * (A @ self.Z)) / self.Z.shape[1]
+        return torch.dot(self.Kinv.reshape(-1), A.reshape(-1))
+
+    def of_factor(self, S):
+        """tr(K^-1 S S^T) of a factor S (k, c) on the leading k rows and
+        columns, from S alone: exact, the k x k corner of K^-1 times S;
+        estimated, <S^T W, S^T Z> / p, which is <W, S S^T Z> / p."""
+        k = S.shape[0]
+        if self.Kinv is None:
+            return torch.sum((S.T @ self.W[:k]) * (S.T @ self.Z[:k])) / \
+                self.Z.shape[1]
+        return torch.sum((self.Kinv[:k, :k] @ S) * S)
 
     def of_diag(self, v):
         """tr(K^-1 diag(v))."""
@@ -337,31 +344,44 @@ def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
                       f_coef, zeta: int, noise_opt: bool,
                       plain: bool = False, mesh=None,
                       chol_mode: str = "replicated", trace: str = "exact",
-                      n_probe: int = 64, probes=None):
+                      n_probe: int = 64, probes=None, pair_counts=None):
     """(-LML, grad) of the Dot kernel with ANALYTIC hyperparameter
     derivatives (gp.py:353-436 of the JAX package), theta = (sigma,
     sigma0[, noise_e]).  K comes from ONE gradient-free build per
-    evaluation (K1-dot, K2-dot on the card): sigma0 enters k = s2 (c^z +
-    s0^2) only through the additive constant, so dK/dsigma0 = 2 s2 s0 W
-    on the energy block alone, W = ``count_ee`` (float64), and g_sigma0 =
-    0.5 * 2 s2 s0 (tr(K^-1_EE W) - a_E^T W a_E), the trace exact or, with
-    trace="hutch", estimated (``_analytic_nll``).  plain=True builds the
+    evaluation (K1-dot, K2-dot on the card), the span ``nll.k_self``:
+    sigma0 enters k = s2 (c^z + s0^2) only through the additive constant,
+    so dK/dsigma0 = 2 s2 s0 W on the energy block alone, W = S S^T with S
+    = ``pair_counts`` (``K_ops.pair_counts``, (m, elements), float64;
+    built here when not given: it does not depend on theta, so
+    ``GP.fit`` builds it once a fit), and g_sigma0 = 0.5 * 2 s2 s0
+    (tr(K^-1_EE S S^T) - |S^T a_E|^2).  The trace is taken from the factor
+    (``_Traces.of_factor``): exact from the (m, m) corner of K^-1 times S,
+    or with trace="hutch" estimated from the probes as <S^T W_E, S^T
+    Z_E> / p (``_analytic_nll``); neither forms W.  plain=True builds the
     blocks with the plain versions on any device; mesh shards the build
     and, by chol_mode, the factorisation."""
     kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
                                         noise_opt)
     params = _params_from_theta("dot", kp)
     sigma, sigma0 = params["sigma"], params["sigma0"]
-    Kk = K_ops.k_self(e, f, params, zeta, "dot", plain=plain,
-                      dtype=torch.float64, mesh=mesh)
-    W = K_ops.count_ee(e).to(torch.float64)
+    S = K_ops.pair_counts(e) if pair_counts is None else pair_counts
     m = e.m
 
+    def k_self():
+        # the host leaves the build long before the card has run it: the
+        # span's device marks time the work launched inside it
+        with utils_profiling.span("nll.k_self", device=e.x.device):
+            return K_ops.k_self(e, f, params, zeta, "dot", plain=plain,
+                                dtype=torch.float64, mesh=mesh)
+
     def g_sigma0(traces, alpha):
-        a_e = alpha[:m]
-        return sigma * sigma * sigma0 * (traces.of(W, m)
-                                         - torch.dot(a_e, W @ a_e))
-    return _analytic_nll(Kk, e, f, y, sigma, noise_e, noise_f, f_coef,
+        s_a = S.T @ alpha[:m]
+        return sigma * sigma * sigma0 * (traces.of_factor(S)
+                                         - torch.dot(s_a, s_a))
+    # K is built in the call's arguments, so that _analytic_nll holds its
+    # only reference and frees it once factored, before K^-1 is formed
+    # (n^2 float64 words: 800 MB at n = 10 000)
+    return _analytic_nll(k_self(), e, f, y, sigma, noise_e, noise_f, f_coef,
                          noise_opt, g_sigma0, mesh, chol_mode, trace,
                          n_probe, probes)
 
@@ -941,7 +961,9 @@ class GP:
     # -- LML / fit -----------------------------------------------------------
     def _nll_fn(self, trace: str = "exact"):
         """The analytic-gradient NLL of the kernel's family, its traces
-        exact or (trace="hutch") estimated from the kept probe block."""
+        exact or (trace="hutch") estimated from the kept probe block.  Its
+        last argument, pair_counts, is a fit's Dot pair counts
+        (``_pair_counts``); without them the Dot NLL builds its own."""
         nll = {"rbf": _nll_rbf_analytic,
                "dot": _nll_dot_analytic}.get(self.kernel.kind)
         if nll is None:
@@ -949,14 +971,25 @@ class GP:
                 f"no NLL for the {self.kernel.name} kernel")
         zeta = self.kernel.zeta
 
-        def call(theta, e, f, y, noise_fixed, f_coef, noise_opt):
+        def call(theta, e, f, y, noise_fixed, f_coef, noise_opt,
+                 pair_counts=None):
             probes = self._probe_block(e.m + 3 * f.m) \
                 if trace == "hutch" else None
+            kw = {} if pair_counts is None else {"pair_counts": pair_counts}
             return nll(theta, e, f, y, noise_fixed, f_coef, zeta, noise_opt,
                        mesh=self._mesh_arg(),
                        chol_mode=self._chol_mode(e, f), trace=trace,
-                       n_probe=self.n_probe, probes=probes)
+                       n_probe=self.n_probe, probes=probes, **kw)
         return call
+
+    def _pair_counts(self, e: EnergyData):
+        """The Dot NLL's pair counts S of the packed energy points
+        (``K_ops.pair_counts``), built as the span ``fit.pair_counts``;
+        None for a family that has none."""
+        if self.kernel.kind != "dot":
+            return None
+        with utils_profiling.span("fit.pair_counts"):
+            return K_ops.pair_counts(e)
 
     def _probe_block(self, n: int):
         """The Rademacher block of the Hutchinson traces at n rows, drawn
@@ -966,7 +999,8 @@ class GP:
             Z = self._probes = _probe_block(n, self.n_probe, self.device)
         return Z
 
-    def _gated_trace_mode(self, e, f, y, theta0, noise_opt: bool) -> str:
+    def _gated_trace_mode(self, e, f, y, theta0, noise_opt: bool,
+                          pair_counts=None) -> str:
         """The trace one ``fit(opt=True)`` takes: ``trace`` resolved at
         the training size (``_resolve_trace_mode``); where "auto" picks
         the estimate, its gradient at theta0 is held against the exact
@@ -976,7 +1010,7 @@ class GP:
         (bumped by ``set_train_pts``, which ``add_structure`` calls),
         theta0, the noise and the precision: new data or other
         hyperparameters measure again (the JAX package keyed it by size
-        alone, so it never went stale)."""
+        alone, so it never went stale).  pair_counts: as ``_nll_fn``."""
         n = e.m + 3 * f.m
         mode = _resolve_trace_mode(n, self.trace)
         if mode == "exact" or self.trace == "hutch":
@@ -988,9 +1022,9 @@ class GP:
         noise_fixed = (self.noise_e, self.noise_f)
         f_coef = float(self.f_coef)
         _, g_h = self._nll_fn("hutch")(theta0, e, f, y, noise_fixed, f_coef,
-                                       noise_opt)
+                                       noise_opt, pair_counts)
         _, g_e = self._nll_fn("exact")(theta0, e, f, y, noise_fixed, f_coef,
-                                       noise_opt)
+                                       noise_opt, pair_counts)
         g_h = g_h.detach().cpu().numpy().astype(float)
         g_e = g_e.detach().cpu().numpy().astype(float)
         err = float(np.linalg.norm(g_h - g_e))
@@ -1015,12 +1049,12 @@ class GP:
         return theta0, bounds, noise_opt
 
     def _objective(self, e, f, y, noise_opt: bool, show: bool = False,
-                   trace: str = "exact", first: int = 0):
+                   trace: str = "exact", first: int = 0, pair_counts=None):
         """theta -> (NLL, gradient) as float and float64 array for
         L-BFGS-B; a non-finite NLL (K not positive definite) gives
         (inf, zeros), gp.py:1163-1164 of the JAX package.  Each call is
         an ``nll.eval`` span carrying its index within the fit, counted
-        from ``first``."""
+        from ``first``.  pair_counts: as ``_nll_fn``."""
         nll_fn = self._nll_fn(trace)
         noise_fixed = (self.noise_e, self.noise_f)
         index = itertools.count(first)
@@ -1028,7 +1062,7 @@ class GP:
         def obj(theta):
             with utils_profiling.span("nll.eval", n=next(index)):
                 nll, grad = nll_fn(theta, e, f, y, noise_fixed,
-                                   float(self.f_coef), noise_opt)
+                                   float(self.f_coef), noise_opt, pair_counts)
                 nll = float(nll)
                 grad = grad.detach().cpu().numpy().astype(float)
             if not np.isfinite(nll):
@@ -1117,8 +1151,10 @@ class GP:
         opt=False: extend the factor of the last fit by the rows appended
         since (``_try_incremental_fit``), or refactorise where it cannot.
         ``refit_stats`` counts each path.  The fit is the span ``fit``,
-        its steps ``fit.pack``, ``fit.gate``, ``fit.lbfgs`` and
-        ``fit.factorize`` (``utils_profiling``)."""
+        its steps ``fit.pack``, ``fit.pair_counts`` (the Dot kernel's,
+        ``_pair_counts``: built once for every evaluation of the fit),
+        ``fit.gate``, ``fit.lbfgs`` and ``fit.factorize``
+        (``utils_profiling``)."""
         with utils_profiling.span("fit"):
             if TrainData is not None:
                 self.set_train_pts(TrainData)
@@ -1130,12 +1166,13 @@ class GP:
             if opt:
                 print(f"Update GP model => {self.N_queue}/{maxiter}")
                 theta0, bounds, noise_opt = self._theta()
+                counts = self._pair_counts(e)
                 with utils_profiling.span("fit.gate"):
                     trace = self._gated_trace_mode(e, f, y, theta0,
-                                                   noise_opt)
+                                                   noise_opt, counts)
                 res = self._lbfgs(self._objective(e, f, y, noise_opt, show,
-                                                  trace), theta0, bounds,
-                                  maxiter)
+                                                  trace, pair_counts=counts),
+                                  theta0, bounds, maxiter)
                 if trace == "hutch" and res.status == 2:
                     self.logging.info(
                         "L-BFGS-B with the Hutchinson trace ended in %r: "
@@ -1143,8 +1180,8 @@ class GP:
                     trace = "exact"
                     res = self._lbfgs(self._objective(
                         e, f, y, noise_opt, show,
-                        first=getattr(res, "nfev", 0)), theta0, bounds,
-                        maxiter)
+                        first=getattr(res, "nfev", 0), pair_counts=counts),
+                        theta0, bounds, maxiter)
                 self._nll_trace_used = trace
                 params = res.x
                 if noise_opt:

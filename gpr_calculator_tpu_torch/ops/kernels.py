@@ -1,7 +1,8 @@
 r"""Covariance assembly for the GP: the training covariance ``k_self``,
 its RBF hyperparameter pair ``k_self_dual``, the serving
 cross-covariance ``k_block``, the variance diagonals and the Dot
-kernel's pair-count matrix ``count_ee`` -- the part of the JAX package's
+kernel's pair counts (``pair_counts``, the factor S of ``count_ee``'s
+W = S S^T) -- the part of the JAX package's
 ``ops/kernels.py`` that fitting, training and serving call.
 
 Every block function goes through the operand form of ``ops/kff.py``:
@@ -31,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import config
+from .. import config, utils_profiling
 from .kff import (TP, _coeffs, _mirror, _point_sum, _scalars, _sorts,
                   dense, energy_operand, force_operand, force_operands,
                   kee_from_ops, kee_served, kef_from_ops, kef_plain,
@@ -402,16 +403,32 @@ def k_block(e1: EnergyData, f1: ForceData, e2: EnergyData, f2: ForceData,
     return K
 
 
+def pair_counts(e: EnergyData):
+    """The factor S (m, elements) of the Dot kernel's pair-count matrix,
+    float64: S[p, j] sums the weights w_a of point p's valid envs of the
+    j-th element present, so that W = S S^T (W[p, q] sums w_a w_b over
+    the same-element env pairs of p and q, one element at a time).  Read
+    from the energy operand's weights, as K_EE is; O(m A) memory where W's
+    pair sum held (m A)^2 products.  Each build bumps the counter
+    ``pair_counts.build``."""
+    utils_profiling.count("pair_counts.build")
+    m, A = e.x.shape[:2]
+    _, w = energy_operand(e, "highest")
+    wgt, ele = w[0].to(torch.float64), w[1]
+    kinds = torch.unique(ele[wgt > 0])
+    held = (ele[:, None] == kinds[None, :]).to(torch.float64)
+    return (wgt[:, None] * held).reshape(m, A, len(kinds)).sum(1)
+
+
 def count_ee(e: EnergyData):
     """Masked pair-count matrix W[p, q] = sum over valid same-element env
     pairs (a in p, b in q) of 1 / (N_p N_q), (m, m) -- dK_EE/d(sigma0^2)
     / sigma^2 of the Dot kernel, whose sigma0 enters only through the
     additive constant s2 s0^2 (kernels.py:492-505 of the JAX package).
-    Read from the energy operand, as K_EE is."""
-    A = e.x.shape[1]
-    _, w = energy_operand(e, "highest")
-    pair = w[0][:, None] * w[0][None, :] * (w[1][:, None] == w[1][None, :])
-    return _point_sum(pair, A, A)
+    Formed as S S^T from ``pair_counts`` in float64 and given in the
+    data's dtype."""
+    S = pair_counts(e)
+    return (S @ S.T).to(e.x.dtype)
 
 
 def diag_energy(e: EnergyData, params, zeta: int = 2, kind: str = "rbf",

@@ -17,9 +17,15 @@ The reference's observability is per-rank cProfile dumps
   events' ``start_ns()`` that ``torch.profiler`` gives for host and
   device operations alike, so a span and the device operations it
   launched compare directly.  A span never synchronises: a layer's device
-  time comes from the device trace.  Spans nested in one another share
-  the outermost one's id (one a served call, one a fit); ``n`` is a
-  number the span carries (structures served, an evaluation's index).
+  time comes from the device trace.  Where the host leaves a span before
+  the card has run what it launched there, the trace gives those
+  operations to later spans; a span opened with ``device=`` also records
+  a timing CUDA event on the card's stream as it opens and as it closes
+  (no wait), and ``device_ms(record)`` reads, once the window is over,
+  the device time of the work launched inside it.  Spans nested in one
+  another share the outermost one's id (one a served call, one a fit);
+  ``n`` is a number the span carries (structures served, an evaluation's
+  index).
   A counter is a plain integer in ``counters``; each bump is also kept
   as a record whose start and end are the moment of the bump and whose
   ``n`` is the amount added.
@@ -51,6 +57,7 @@ class Record(NamedTuple):
     depth: int
     id: int
     n: Optional[int]
+    marks: Optional[tuple] = None   # a span's two CUDA events (device=)
 
 
 _profiling = torch._C._autograd._profiler_enabled
@@ -102,10 +109,11 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("name", "n", "start_ns", "end_ns", "depth", "id", "_rf")
+    __slots__ = ("name", "n", "device", "marks", "start_ns", "end_ns",
+                 "depth", "id", "_rf")
 
-    def __init__(self, name, n):
-        self.name, self.n = name, n
+    def __init__(self, name, n, device):
+        self.name, self.n, self.device = name, n, device
 
     def __enter__(self):
         global _last_id
@@ -123,25 +131,43 @@ class _Span:
         if self._rf is not None:
             self._rf.__enter__()
         self.start_ns = clock()
+        self.marks = None if self.device is None \
+            else device_mark(self.device)
         return self
 
     def __exit__(self, *exc):
+        if self.marks is not None:
+            self.marks = (self.marks, device_mark(self.device))
         self.end_ns = clock()
         if self._rf is not None:
             self._rf.__exit__(*exc)
         _stack.pop()
         _records.append(Record(self.name, self.start_ns, self.end_ns,
-                               self.depth, self.id, self.n))
+                               self.depth, self.id, self.n, self.marks))
         return False
 
 
-def span(name: str, n: Optional[int] = None):
+def span(name: str, n: Optional[int] = None, device=None):
     """A context that records the block as span ``name`` when the
     recorder is on; ``with span(...) as s`` gives the span (its
-    ``start_ns`` / ``end_ns`` once closed), or None when off."""
+    ``start_ns`` / ``end_ns`` once closed), or None when off.  device: on
+    a card, the span's record also keeps a timing event recorded on the
+    device's current stream at each end (``device_ms``)."""
     if not _on:
         return _OFF
-    return _Span(name, n)
+    return _Span(name, n, device)
+
+
+def device_ms(record) -> Optional[float]:
+    """The device ms between the two events of a span opened with
+    ``device=`` on a card: the work launched inside it, from where the
+    stream reached the span's start to where it reached its end (waits
+    for the later event); None for a span without them."""
+    if record.marks is None:
+        return None
+    start, end = record.marks
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def count(name: str, n: int = 1):

@@ -26,10 +26,14 @@ FIT_TREE = {"fit": None, "fit.pack": "fit", "fit.gate": "fit",
             "fit.lbfgs": "fit", "nll.eval": "fit.lbfgs",
             "nll.k_self_dual": "nll.eval", "nll.factor": "nll.eval",
             "nll.traces": "nll.eval", "fit.factorize": "fit"}
+# a Dot fit: the build's own span, and the pair counts built once a fit
+DOT_FIT_TREE = {**{k: v for k, v in FIT_TREE.items()
+                   if k != "nll.k_self_dual"},
+                "nll.k_self": "nll.eval", "fit.pair_counts": "fit"}
 COUNTERS = ("serve.requests", "lbfgs.nfev", "lbfgs.nit",
             "predict.solve_inv", "predict.solve_trsm", "factor_inv.build",
             "factor_inv.extend", "predict.graph_replay",
-            "predict.graph_capture")
+            "predict.graph_capture", "pair_counts.build")
 
 
 @pytest.fixture
@@ -114,23 +118,38 @@ def test_served_call_gives_the_span_tree(model, recording, n):
     assert up.counters == {"serve.requests": 1, "predict.solve_inv": 1}
 
 
-@pytest.fixture(scope="module")
-def fit_port():
-    """The benchmark's program (``Port``) on its fit cell's tiny inputs."""
+def _fit_port(workload):
+    """The benchmark's program (``Port``) on a fit cell's tiny inputs."""
     from bench_port import harness
     from bench_port.backends import Port
     from bench_port.tests.helpers import tiny_spec
-    _, cfg, _, _ = tiny_spec(harness.benchmark(), "bench10k.fit")
+    _, cfg, _, _ = tiny_spec(harness.benchmark(), workload)
     system = harness.system_module(cfg).System(cfg, 7, torch.device("cpu"))
     return Port(system), system
 
 
-def test_fit_gives_the_span_tree_and_lbfgs_counts(fit_port, recording):
+@pytest.fixture(scope="module")
+def fit_port():
+    """The RBF fit cell's program."""
+    return _fit_port("bench10k.fit")
+
+
+@pytest.fixture(scope="module")
+def dot_fit_port():
+    """The Dot fit cell's program."""
+    return _fit_port("bench10k-dot.fit")
+
+
+def _two_fits_give_the_tree(port, system):
     """fit(opt=True) twice: each fit's records share one id of their
-    own; the fit tree, an nll.eval span for each evaluation, carrying
-    its index; lbfgs.nfev equal to those spans and to the evaluations
-    the benchmark's Port counted, lbfgs.nit at most the cap."""
-    port, system = fit_port
+    own; the family's fit tree, an nll.eval span for each evaluation,
+    carrying its index, and in it the covariance build's span;
+    lbfgs.nfev equal to those spans and to the evaluations the
+    benchmark's Port counted, lbfgs.nit at most the cap; a Dot fit's pair
+    counts built once (one fit.pair_counts span, pair_counts.build 1)."""
+    dot = system.family == "Dot"
+    tree = DOT_FIT_TREE if dot else FIT_TREE
+    build = "nll.k_self" if dot else "nll.k_self_dual"
     for _ in range(2):
         port.fit(opt=True, theta=system.theta0, maxiter=3)
     recs = up.records()
@@ -139,16 +158,29 @@ def test_fit_gives_the_span_tree_and_lbfgs_counts(fit_port, recording):
     for fit_id, evals in zip(ids, port.evals[-2:]):
         mine = [r for r in recs if r.id == fit_id]
         spans = _spans(mine)
-        assert _parents(spans) == FIT_TREE
+        assert _parents(spans) == tree
         nfev = [r.n for r in mine if r.name == "lbfgs.nfev"]
         nit = [r.n for r in mine if r.name == "lbfgs.nit"]
         ev = [r.n for r in spans if r.name == "nll.eval"]
-        assert nfev == [len(ev)] == [len(evals)]
+        names = [r.name for r in spans]
+        assert nfev == [len(ev)] == [len(evals)] == [names.count(build)]
         assert ev == list(range(len(ev)))
         assert 1 <= nit[0] <= 3
-        assert [r.name for r in spans].count("fit") == 1
+        assert names.count("fit") == 1
+        builds = [r.n for r in mine if r.name == "pair_counts.build"]
+        assert builds == ([1] if dot else [])
+        assert names.count("fit.pair_counts") == len(builds)
     assert up.counters["lbfgs.nfev"] == sum(len(e)
                                             for e in port.evals[-2:])
+
+
+def test_fit_gives_the_span_tree_and_lbfgs_counts(fit_port, recording):
+    _two_fits_give_the_tree(*fit_port)
+
+
+def test_dot_fit_gives_the_span_tree_and_lbfgs_counts(dot_fit_port,
+                                                      recording):
+    _two_fits_give_the_tree(*dot_fit_port)
 
 
 def test_fit_without_opt_gives_pack_and_factorize(model, recording):
@@ -180,9 +212,10 @@ def test_refit_ms_are_summed_only_while_recording(model):
 
 
 def test_recorder_off_records_and_reads_nothing(model, fit_port,
-                                                monkeypatch):
-    """Off, a request and a fit leave no record and no counter, read no
-    clock and open no record_function: every span is one shared no-op."""
+                                                dot_fit_port, monkeypatch):
+    """Off, a request and a fit of each family leave no record and no
+    counter, read no clock and open no record_function: every span is one
+    shared no-op."""
     up.clear()
     up.disable()
 
@@ -192,8 +225,8 @@ def test_recorder_off_records_and_reads_nothing(model, fit_port,
     monkeypatch.setattr(torch.profiler, "record_function", boom)
     gp, strucs = model
     gp.predict_structure(strucs[0], return_std=True)
-    port, system = fit_port
-    port.fit(opt=True, theta=system.theta0, maxiter=2)
+    for port, system in (fit_port, dot_fit_port):
+        port.fit(opt=True, theta=system.theta0, maxiter=2)
     assert up.records() == [] and up.counters == {}
     assert up.span("a") is up.span("b", n=3)
     with up.span("a") as s:
