@@ -31,7 +31,10 @@ Au on Al(100) (13 atoms, SO3 nmax=3 lmax=4 rcut=5.0, zeta=2):
       analytic RBF NLL (the dual kernels), its NLL and gradient held
       against a float64 CPU model of the same training set;
   (i) the on-the-fly NEB from that model, every refit re-optimising the
-      hyperparameters, its barrier held against the JAX package's;
+      hyperparameters, its barrier held against the JAX package's; a
+      fit(opt=True) serves from its theta* evaluation's float64 factor
+      (counter fit.factor_reuse), so the RBF K1 runs on such a path only
+      for a fit that refactorised (``check_reuse``);
   (j) the same with the Dot kernel: GP.set_GPR(kernel="Dot") over the
       analytic Dot NLL, its NLL and gradient against float64, the NEB
       and a re-serve of its final model against float64 -- through the
@@ -291,6 +294,9 @@ BASES = {
 # the kernels each family's main path runs (the deriv kernels and K3-dual
 # are on no path of the JAX package or of the port)
 RBF = ("kff_tri", "kff_tri_dual", "kef_rect", "kef_rect_dual", "kff_rect")
+# what an RBF path whose every fit is fit(opt=True) launches for sure: K1
+# runs there only in a fit that refactorised (``check_reuse``)
+RBF_OPT = tuple(b for b in RBF if b != "kff_tri")
 DOT = ("kff_tri_dot", "kef_rect_dot", "kff_rect_dot")
 # the descriptor kernels (csrc/so3.cu): every path that serves or ingests
 # structures runs them
@@ -1196,17 +1202,32 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
+REUSE = "fit.factor_reuse"
+_reuse_at_reset = [0]
+
+
+def reuse_count():
+    """The fits so far that served from their theta* evaluation's factor
+    (``GP.fit``; counted while the span recorder is on, as in ``main``)."""
+    from gpr_calculator_tpu_torch import utils_profiling
+    return utils_profiling.counters.get(REUSE, 0)
+
+
 def launched(kff):
     """The launch counts of the K1-K3 kernels and of the descriptor
-    kernels (csrc/so3.cu, ``SO3``) since the last ``reset_counts``."""
+    kernels (csrc/so3.cu, ``SO3``) since the last ``reset_counts``, and
+    under ``REUSE`` the fits that served from their theta* evaluation's
+    factor since then."""
     from gpr_calculator_tpu_torch.ops import so3
-    return {**kff.launches, **so3.launches}
+    return {**kff.launches, **so3.launches,
+            REUSE: reuse_count() - _reuse_at_reset[0]}
 
 
 def reset_counts(kff):
     from gpr_calculator_tpu_torch.ops import so3
     kff.reset_launches()
     so3.reset_launches()
+    _reuse_at_reset[0] = reuse_count()
 
 
 def counted(kff):
@@ -1224,6 +1245,21 @@ def check_launches(counts, names, path, absent=()):
     for name in absent:
         if counts[name] != 0:
             raise AssertionError(f"kernel {name} ran on the {path} path")
+
+
+def check_reuse(counts, k1, fits, path, least=1):
+    """Each of the path's ``fits`` fit(opt=True) calls, its only fits,
+    served from its theta* evaluation's factor (``REUSE``) or, where
+    L-BFGS-B ended at another theta, refactorised with one launch of the
+    RBF K1 ``k1`` (``_factorize``, its only launch on such a path); at
+    least ``least`` of them reused."""
+    reuse = counts[REUSE]
+    if not least <= reuse <= fits or counts[k1] != fits - reuse:
+        raise AssertionError(f"{reuse} of the {fits} fits on the {path} path "
+                             f"served from their theta* evaluation (at "
+                             f"least {least} expected) and {k1} ran "
+                             f"{counts[k1]} times: one for each fit that "
+                             "refactorised expected")
 
 
 def nll_vs_f64(gp, ref, theta, tag, log, phase="(h)", gate=True):
@@ -3096,6 +3132,7 @@ def f64_neb(T, torch, kff, gp, images, kernel, jref, fam, log, card,
     what = f"{'batched ' if batched else ''}{kernel} NEB"
     decisions = []
     reset_counts(kff)
+    full0 = gp.refit_stats["full"]
     t0 = time.time()
     with recorded_decisions(decisions):
         neb, E = run_neb(T, gp, images, batched=batched)
@@ -3111,8 +3148,12 @@ def f64_neb(T, torch, kff, gp, images, kernel, jref, fam, log, card,
     log(f"{phase} float64 {what}: launches a step "
         f"{per_k(counts, neb['nsteps'])}; launches "
         f"{json.dumps(nonzero(counts))}")
-    check_f64_path(counts, [kname(b, F64) for b in fam] + list(SO3_KERNELS),
-                   f"float64 {what}", [kname(b, F64) for b in fam])
+    check_f64_path(counts, [kname(b, F64) for b in fam if b != "kff_tri"]
+                   + list(SO3_KERNELS), f"float64 {what}",
+                   [kname(b, F64) for b in fam])
+    if "kff_tri" in fam:
+        check_reuse(counts, kname("kff_tri", F64),
+                    gp.refit_stats["full"] - full0, f"float64 {what}")
     same = all(neb[k] == v for k, v in jref.items() if k != "barrier") \
         and abs(neb["barrier"] - jref["barrier"]) <= F64_BARRIER_TOL
     if not same:
@@ -3522,10 +3563,14 @@ def run_wide(T, torch, kff, dev, log, card, errs, f64_errs):
             f"base/surrogate/fits {neb['use_base']}/{neb['use_surrogate']}/"
             f"{neb['fits']}, launches a step {per_k(counts, neb['nsteps'])};"
             f" launches {json.dumps(nonzero(counts))}")
-        check_launches(counts, fam + list(SO3_KERNELS),
-                       f"float32 {mode} d = 50 NEB",
+        k1 = kname("kff_tri", mode)
+        check_launches(counts, [n for n in fam if n != k1]
+                       + list(SO3_KERNELS), f"float32 {mode} d = 50 NEB",
                        absent=[n for n in NAMES + F64_NAMES if n not in fam]
                        + ["kff_plain", "kef_plain"])
+        # set_GPR's fit and the NEB's, counted together
+        check_reuse(counts, k1, gp.refit_stats["full"],
+                    f"float32 {mode} d = 50 NEB")
         if not np.isfinite(E).all():
             raise AssertionError(f"the {mode} d = 50 NEB gave non-finite "
                                  "energies")
@@ -3699,12 +3744,14 @@ def main(argv=None) -> int:
     log(f"(h) launches in set_GPR: {json.dumps(nonzero(train_launches))}")
     check_launches(train_launches, ("kff_tri_dual", "kef_rect_dual",
                                     *SO3_KERNELS), "training", absent=DOT)
+    check_reuse(train_launches, "kff_tri", 1, "training", least=0)
     tref = cpu_f64_copy(T, tgp, fit=False)
     for tag, th in (("theta0", THETA0), ("JAX theta*", (SIGMA, L_SCALE))):
         nll_vs_f64(tgp, tref, th, tag, log)
 
     # (i) the on-the-fly NEB on the card from the card-trained model
     reset_counts(kff)
+    full0 = tgp.refit_stats["full"]
     t0 = time.time()
     neb, E = run_neb(T, tgp, timages)
     torch.cuda.synchronize()
@@ -3715,7 +3762,10 @@ def main(argv=None) -> int:
     for key, ref_val in JAX_NEB.items():
         log(f"(i) {key}: card {neb[key]}, JAX CPU f64 {ref_val}")
     log(f"(i) launches in the NEB: {json.dumps(nonzero(neb_launches))}")
-    check_launches(neb_launches, (*RBF, *SO3_KERNELS), "NEB", absent=DOT)
+    check_launches(neb_launches, (*RBF_OPT, *SO3_KERNELS), "NEB",
+                   absent=DOT)
+    check_reuse(neb_launches, "kff_tri", tgp.refit_stats["full"] - full0,
+                "NEB")
     if not neb["converged"] or \
             abs(neb["barrier"] - JAX_NEB["barrier"]) > BARRIER_TOL:
         raise AssertionError(f"the card NEB did not converge to the JAX "
@@ -3789,10 +3839,11 @@ def main(argv=None) -> int:
     # (i) / (j), beside the serial NEB of this run
     batched_models = {}
     for kernel, jref, serial, fam in (
-            ("RBF", JAX_BATCHED_NEB, (neb, neb_launches), RBF),
+            ("RBF", JAX_BATCHED_NEB, (neb, neb_launches), RBF_OPT),
             ("Dot", JAX_BATCHED_DOT_NEB, (dneb, dot_neb_launches), DOT)):
         bgp, bimages = run_training(T, dev, f32, kernel=kernel)
         reset_counts(kff)
+        full0 = bgp.refit_stats["full"]
         t0 = time.time()
         bneb, E = run_neb(T, bgp, bimages, batched=True)
         torch.cuda.synchronize()
@@ -3816,6 +3867,9 @@ def main(argv=None) -> int:
         check_launches(blaunches, (*fam, *SO3_KERNELS),
                        f"batched {kernel} NEB",
                        absent=DOT if kernel == "RBF" else RBF)
+        if kernel == "RBF":
+            check_reuse(blaunches, "kff_tri",
+                        bgp.refit_stats["full"] - full0, "batched RBF NEB")
         if not bneb["converged"] or bneb["nsteps"] > 150 or \
                 abs(bneb["barrier"] - jref["barrier"]) > BARRIER_TOL:
             raise AssertionError(f"the batched {kernel} NEB did not "
@@ -3880,6 +3934,7 @@ def main(argv=None) -> int:
         T.config.set_kff_precision(mode)
         fam = RBF if kernel == "RBF" else DOT
         names = [kname(b, mode) for b in fam]
+        k1 = kname("kff_tri", mode)
         tag = f"{mode}{'_dot' if kernel == 'Dot' else ''}"
         reset_counts(kff)
         t0 = time.time()
@@ -3908,6 +3963,7 @@ def main(argv=None) -> int:
                 nll_vs_f64(mgp, ref, th, ttag, log, phase=f"(k1) {mode}",
                            gate=False)
         reset_counts(kff)
+        full0 = mgp.refit_stats["full"]
         t0 = time.time()
         try:
             mneb, E = run_neb(T, mgp, mimages)
@@ -3935,9 +3991,14 @@ def main(argv=None) -> int:
                     f"f64 {ref_val}")
         log(f"(k1) {mode} launches in the {kernel} NEB: "
             f"{json.dumps(nonzero(launched(kff)))}")
-        check_launches(launched(kff), names + list(SO3_KERNELS),
-                       f"{mode} {kernel} NEB",
+        check_launches(launched(kff), [n for n in names if n != k1]
+                       + list(SO3_KERNELS), f"{mode} {kernel} NEB",
                        absent=[n for n in NAMES if n not in names])
+        if kernel == "RBF":
+            # bf16 alone may stop before the NEB's first refit
+            fits = mgp.refit_stats["full"] - full0
+            check_reuse(launched(kff), k1, fits, f"{mode} RBF NEB",
+                        least=min(1, fits))
         if not np.all(np.isfinite(E)):
             raise AssertionError(f"non-finite band energies or training "
                                  f"error in {mode}")
@@ -4366,24 +4427,36 @@ def main(argv=None) -> int:
         f"sharded builds {json.dumps(builds)}")
     log(f"(l3) launches in set_GPR(mesh=): {json.dumps(nonzero(launched(kff)))}")
 
-    def check_mesh_path(on_path, path):
+    def check_mesh_path(on_path, path, fits, least=1):
         """Only ``on_path`` ran, and every sharded training build took
         the range form: one launch per shard that owns a tile (3 or 4 of
-        the 4 shards here, the smallest training set having 3 tiles)."""
-        check_launches(launched(kff), on_path, path,
+        the 4 shards here, the smallest training set having 3 tiles).
+        Of the path's ``fits`` fit(opt=True) calls, at least ``least``
+        served from their theta* evaluation's factor, and the others
+        refactorised: the only builds of the RBF K1, kff_tri_range."""
+        counts = launched(kff)
+        check_launches(counts, on_path, path,
                        absent=[n for n in NAMES + RANGE_NAMES
-                               if n not in on_path])
+                               if n not in on_path + ("kff_tri_range",)])
         ranged = sum(kff.launches[n] for n in RANGE_NAMES)
         if not 3 * builds["self_blocks"] <= ranged \
                 <= N_SHARDS * builds["self_blocks"]:
             raise AssertionError(f"{ranged} range launches for "
                                  f"{builds['self_blocks']} sharded builds "
                                  f"on the {path} path")
-    check_mesh_path(("kff_tri_range", "kff_tri_dual_range", "kef_rect",
-                     "kef_rect_dual", "kff_rect", *SO3_KERNELS),
-                    "mesh training")
+        redone, k1 = fits - counts[REUSE], counts["kff_tri_range"]
+        if not (least <= counts[REUSE] <= fits
+                and 3 * redone <= k1 <= N_SHARDS * redone):
+            raise AssertionError(f"{counts[REUSE]} of the {fits} fits on the "
+                                 f"{path} path served from their theta* "
+                                 f"evaluation, with {k1} kff_tri_range "
+                                 "launches")
+    mesh_opt = ("kff_tri_dual_range", "kef_rect", "kef_rect_dual", "kff_rect",
+                *SO3_KERNELS)
+    check_mesh_path(mesh_opt, "mesh training", 1, least=0)
     reset_counts(kff)
     par.sharded_kernels.reset_builds()
+    full0 = sgp.refit_stats["full"]
     t0 = time.time()
     sneb, E = run_neb(T, sgp, simages)
     torch.cuda.synchronize()
@@ -4394,8 +4467,7 @@ def main(argv=None) -> int:
     for key, ref_val in JAX_NEB.items():
         log(f"(l3) {key}: card {sneb[key]}, JAX CPU f64 {ref_val}")
     log(f"(l3) launches in the NEB: {json.dumps(nonzero(launched(kff)))}")
-    check_mesh_path(("kff_tri_range", "kff_tri_dual_range", "kef_rect",
-                     "kef_rect_dual", "kff_rect", *SO3_KERNELS), "mesh NEB")
+    check_mesh_path(mesh_opt, "mesh NEB", sgp.refit_stats["full"] - full0)
     if builds["k_block"] <= 0:
         raise AssertionError("no served block took the sharded route")
     if not sneb["converged"] or \

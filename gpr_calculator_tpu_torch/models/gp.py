@@ -7,10 +7,11 @@ first runs scipy's L-BFGS-B over the analytic-gradient NLL of the
 kernel's family (``_nll_rbf_analytic``: one fused (K, dK/dgamma) pass
 per evaluation; ``_nll_dot_analytic``: one K build per evaluation and
 the factor of the pair counts, built once a fit), its traces exact or
-estimated (``GP(trace=)``), then
-refactorises from scratch; ``fit(opt=False)`` extends the factor of the
-last fit by the rows appended since (``ops/linalg.py``, the JAX
-package's ``_try_incremental_fit``).  Serving gives energies, forces and,
+estimated (``GP(trace=)``), then serves from the float64 factor of its
+evaluation at theta* (refactorising from scratch where that is not at
+hand); ``fit(opt=False)`` extends the factor of the last fit by the rows
+appended since (``ops/linalg.py``, the JAX package's
+``_try_incremental_fit``).  Serving gives energies, forces and,
 with a stress-enabled descriptor, each atom's stress rows
 (``predict_structure(stress=True)``), their stds, or the full predictive
 covariance (``predict(return_cov=True)``); ``sparsify`` drops the
@@ -32,7 +33,7 @@ import logging
 import math
 import itertools
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -152,6 +153,16 @@ def _factorize(e: EnergyData, f: ForceData, y, params, noise_e: float,
     return L, alpha
 
 
+class _KeptFactor(NamedTuple):
+    """A fit's latest positive definite NLL evaluation (``GP._objective``):
+    its theta (a copy) and its float64 factor L of K plus the noise and
+    weights alpha -- ``_factorize``'s (L, alpha) at the kernel parameters
+    and noise that theta maps to, on the fit's packed data."""
+    theta: np.ndarray
+    L: torch.Tensor
+    alpha: torch.Tensor
+
+
 def _split_theta(theta, noise_fixed, f_coef, noise_opt: bool):
     """theta = (sigma, second[, noise_e]) -> (kernel theta, noise_e,
     noise_f), with noise_f = f_coef noise_e when the noise is optimised."""
@@ -245,7 +256,8 @@ class _Traces:
 def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
                   noise_e: float, noise_f: float, f_coef, noise_opt: bool,
                   second_grad, mesh=None, chol_mode: str = "replicated",
-                  trace: str = "exact", n_probe: int = 64, probes=None):
+                  trace: str = "exact", n_probe: int = 64, probes=None,
+                  keep=None):
     """(-LML, grad) from the kernel covariance Kk: the part both kernel
     families share (gp.py:270-436 of the JAX package).
 
@@ -257,7 +269,10 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
     (``probes``: a given block (n, p), else ``_probe_block``) without
     forming K^-1; the value is the same computation in both.  A K that is
     not positive definite (``cholesky_ex`` info != 0) gives (+inf,
-    zeros).
+    zeros).  keep: a callback handed the float64 factor L of K and the
+    weights alpha as soon as both exist (nothing computed for it, no
+    copy), so that ``GP.fit`` can serve from the evaluation at theta*
+    (``GP._objective``); never called where K is not positive definite.
 
     Precision: Kk comes in float64 (K_EE computed in float64 from the
     rounded operands, the kernels' force blocks cast from the working
@@ -284,6 +299,8 @@ def _analytic_nll(Kk, e: EnergyData, f: ForceData, y, sigma: float,
                     torch.zeros(n_theta, dtype=f64))
         y = y.to(f64)
         alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+        if keep is not None:
+            keep(L, alpha)
         n_real = e.nreal + 3 * f.nreal
         ya = torch.dot(y, alpha)
         nll = (0.5 * ya + torch.log(L.diagonal()).sum()
@@ -315,7 +332,7 @@ def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
                       f_coef, zeta: int, noise_opt: bool,
                       plain: bool = False, mesh=None,
                       chol_mode: str = "replicated", trace: str = "exact",
-                      n_probe: int = 64, probes=None):
+                      n_probe: int = 64, probes=None, keep=None):
     """(-LML, grad) of the RBF kernel with ANALYTIC hyperparameter
     derivatives (gp.py:270-346 of the JAX package), theta = (sigma,
     l[, noise_e]): dK/dl = dK/dgamma * (-1/l^3), where dK/dgamma comes
@@ -324,27 +341,34 @@ def _nll_rbf_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
     and the trace tr(K^-1 dK/dgamma) is exact or, with trace="hutch",
     estimated (``_analytic_nll``).  plain=True builds the blocks with the
     plain versions on any device; mesh shards the dual pass
-    (``k_self_dual``) and, by chol_mode, the factorisation."""
+    (``k_self_dual``) and, by chol_mode, the factorisation; keep: as
+    ``_analytic_nll``."""
     kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
                                         noise_opt)
     params = _params_from_theta("rbf", kp)
     with utils_profiling.span("nll.k_self_dual"):
-        Kk, Kd = K_ops.k_self_dual(e, f, params, zeta, plain=plain,
-                                   mesh=mesh, dtype=torch.float64)
+        planes = list(K_ops.k_self_dual(e, f, params, zeta, plain=plain,
+                                        mesh=mesh, dtype=torch.float64))
+    Kd = planes.pop()
 
     def g_l(traces, alpha):
         g_gamma = 0.5 * (traces.of(Kd) - torch.dot(alpha, Kd @ alpha))
         return g_gamma * (-1.0 / params["l"] ** 3)
-    return _analytic_nll(Kk, e, f, y, params["sigma"], noise_e, noise_f,
-                         f_coef, noise_opt, g_l, mesh, chol_mode, trace,
-                         n_probe, probes)
+    # K is handed over as its only reference, so that _analytic_nll frees
+    # it once factored: a factor given to ``keep`` then outlives it, and
+    # no K is left beside K^-1 (n^2 float64 words each: 800 MB at
+    # n = 10 000)
+    return _analytic_nll(planes.pop(), e, f, y, params["sigma"], noise_e,
+                         noise_f, f_coef, noise_opt, g_l, mesh, chol_mode,
+                         trace, n_probe, probes, keep)
 
 
 def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
                       f_coef, zeta: int, noise_opt: bool,
                       plain: bool = False, mesh=None,
                       chol_mode: str = "replicated", trace: str = "exact",
-                      n_probe: int = 64, probes=None, pair_counts=None):
+                      n_probe: int = 64, probes=None, pair_counts=None,
+                      keep=None):
     """(-LML, grad) of the Dot kernel with ANALYTIC hyperparameter
     derivatives (gp.py:353-436 of the JAX package), theta = (sigma,
     sigma0[, noise_e]).  K comes from ONE gradient-free build per
@@ -359,7 +383,7 @@ def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
     or with trace="hutch" estimated from the probes as <S^T W_E, S^T
     Z_E> / p (``_analytic_nll``); neither forms W.  plain=True builds the
     blocks with the plain versions on any device; mesh shards the build
-    and, by chol_mode, the factorisation."""
+    and, by chol_mode, the factorisation; keep: as ``_analytic_nll``."""
     kp, noise_e, noise_f = _split_theta(theta, noise_fixed, f_coef,
                                         noise_opt)
     params = _params_from_theta("dot", kp)
@@ -383,7 +407,7 @@ def _nll_dot_analytic(theta, e: EnergyData, f: ForceData, y, noise_fixed,
     # (n^2 float64 words: 800 MB at n = 10 000)
     return _analytic_nll(k_self(), e, f, y, sigma, noise_e, noise_f, f_coef,
                          noise_opt, g_sigma0, mesh, chol_mode, trace,
-                         n_probe, probes)
+                         n_probe, probes, keep)
 
 
 def _prior(pe: EnergyData, pf: ForceData, params, zeta: int, kind: str,
@@ -744,6 +768,7 @@ class GP:
         self._probes = None          # the kept Rademacher block Z
         self._trace_gate = None      # (key, mode) of the last gate verdict
         self._nll_trace_used = "exact"
+        self._kept = None            # _KeptFactor of the fit in progress
         self._data_version = 0       # bumped by every set_train_pts
 
         # host-side ragged training store
@@ -961,9 +986,9 @@ class GP:
     # -- LML / fit -----------------------------------------------------------
     def _nll_fn(self, trace: str = "exact"):
         """The analytic-gradient NLL of the kernel's family, its traces
-        exact or (trace="hutch") estimated from the kept probe block.  Its
-        last argument, pair_counts, is a fit's Dot pair counts
-        (``_pair_counts``); without them the Dot NLL builds its own."""
+        exact or (trace="hutch") estimated from the kept probe block.
+        pair_counts: a fit's Dot pair counts (``_pair_counts``); without
+        them the Dot NLL builds its own.  keep: as ``_analytic_nll``."""
         nll = {"rbf": _nll_rbf_analytic,
                "dot": _nll_dot_analytic}.get(self.kernel.kind)
         if nll is None:
@@ -972,14 +997,14 @@ class GP:
         zeta = self.kernel.zeta
 
         def call(theta, e, f, y, noise_fixed, f_coef, noise_opt,
-                 pair_counts=None):
+                 pair_counts=None, keep=None):
             probes = self._probe_block(e.m + 3 * f.m) \
                 if trace == "hutch" else None
             kw = {} if pair_counts is None else {"pair_counts": pair_counts}
             return nll(theta, e, f, y, noise_fixed, f_coef, zeta, noise_opt,
                        mesh=self._mesh_arg(),
                        chol_mode=self._chol_mode(e, f), trace=trace,
-                       n_probe=self.n_probe, probes=probes, **kw)
+                       n_probe=self.n_probe, probes=probes, keep=keep, **kw)
         return call
 
     def _pair_counts(self, e: EnergyData):
@@ -1049,24 +1074,45 @@ class GP:
         return theta0, bounds, noise_opt
 
     def _objective(self, e, f, y, noise_opt: bool, show: bool = False,
-                   trace: str = "exact", first: int = 0, pair_counts=None):
+                   trace: str = "exact", first: int = 0, pair_counts=None,
+                   keep: bool = False):
         """theta -> (NLL, gradient) as float and float64 array for
         L-BFGS-B; a non-finite NLL (K not positive definite) gives
         (inf, zeros), gp.py:1163-1164 of the JAX package.  Each call is
         an ``nll.eval`` span carrying its index within the fit, counted
-        from ``first``.  pair_counts: as ``_nll_fn``."""
+        from ``first``.  pair_counts: as ``_nll_fn``.
+
+        keep (``fit``'s own objective, ``_optimise``, which empties the
+        slot when L-BFGS-B is done): a call with a finite NLL leaves its
+        float64 factor and weights in the GP's one slot (``_KeptFactor``),
+        for ``fit`` to serve from where L-BFGS-B ends at that theta.  Each
+        such call empties the slot before it builds K, so the last factor
+        (800 MB at n = 10 000) never sits beside this call's K, K^-1 and
+        dK.  Without keep the slot is left alone."""
         nll_fn = self._nll_fn(trace)
         noise_fixed = (self.noise_e, self.noise_f)
+        f_coef = float(self.f_coef)
         index = itertools.count(first)
 
         def obj(theta):
+            got = []
+            if keep:
+                self._kept = None
             with utils_profiling.span("nll.eval", n=next(index)):
-                nll, grad = nll_fn(theta, e, f, y, noise_fixed,
-                                   float(self.f_coef), noise_opt, pair_counts)
+                nll, grad = nll_fn(theta, e, f, y, noise_fixed, f_coef,
+                                   noise_opt, pair_counts,
+                                   (lambda L, alpha: got.append((L, alpha)))
+                                   if keep else None)
                 nll = float(nll)
                 grad = grad.detach().cpu().numpy().astype(float)
             if not np.isfinite(nll):
                 return np.inf, np.zeros_like(grad)
+            if keep:
+                # finite: K was positive definite, and every weight is
+                # finite (one that is not makes y^T alpha, and so the NLL,
+                # so)
+                self._kept = _KeptFactor(np.array(theta, dtype=float),
+                                         *got[0])
             if show:
                 strs = "Loss: {:12.3f} ".format(nll)
                 for para in theta:
@@ -1117,7 +1163,10 @@ class GP:
         recorder was on (``utils_profiling.enable()``), its ms
         ("full_ms", "incremental_ms"): from the ``fit.factorize`` span's
         start to the end of the work launched in it, on the card the
-        device's finish, which is waited for here, not in the fit."""
+        device's finish, which is waited for here, not in the fit.  A
+        fit(opt=True) that serves from its theta* evaluation's factor
+        counts as "full" (a factor from scratch, made in L-BFGS-B), its
+        ms those of taking that factor up."""
         for path, sp, marks in self._refit_marks:
             if marks[0] is None:
                 ms = (sp.end_ns - sp.start_ns) * 1e-6
@@ -1138,16 +1187,72 @@ class GP:
         utils_profiling.count("lbfgs.nit", getattr(res, "nit", 0))
         return res
 
+    def _optimise(self, e, f, y, show: bool, maxiter: int):
+        """L-BFGS-B over the NLL from the current hyperparameters, which
+        it sets to theta*: its traces as ``trace`` and the gate decide
+        (``_gated_trace_mode``), and a Hutchinson run that ends in a failed
+        line search is run once more with the exact trace (``fit``).
+        Returns the float64 (L, alpha) of the evaluation at theta*
+        (``_kept_factor``), or None; the slot is empty on return."""
+        theta0, bounds, noise_opt = self._theta()
+        counts = self._pair_counts(e)
+        with utils_profiling.span("fit.gate"):
+            trace = self._gated_trace_mode(e, f, y, theta0, noise_opt,
+                                           counts)
+        try:
+            res = self._lbfgs(self._objective(e, f, y, noise_opt, show,
+                                              trace, pair_counts=counts,
+                                              keep=True),
+                              theta0, bounds, maxiter)
+            if trace == "hutch" and res.status == 2:
+                self.logging.info(
+                    "L-BFGS-B with the Hutchinson trace ended in %r: "
+                    "rerun with the exact trace", str(res.message))
+                trace = "exact"
+                res = self._lbfgs(self._objective(
+                    e, f, y, noise_opt, show,
+                    first=getattr(res, "nfev", 0), pair_counts=counts,
+                    keep=True), theta0, bounds, maxiter)
+            self._nll_trace_used = trace
+            params = res.x
+            if noise_opt:
+                self.kernel.update(params[:-1])
+                self.noise_e = float(params[-1])
+                self.noise_f = float(self.f_coef * params[-1])
+            else:
+                self.kernel.update(params)
+            return self._kept_factor(res.x)
+        finally:
+            self._kept = None
+
+    def _kept_factor(self, x):
+        """(L, alpha) of the slot (``_objective``) where they are what
+        ``_factorize`` would give now, else None: the slot's evaluation
+        was at L-BFGS-B's result x.  That is enough: the kernel parameters
+        and noise in force are float() of x's entries, as the evaluation
+        took them (``_split_theta``), and the slot's objective was made
+        over the fit's own packed (e, f, y) (``_optimise``).  The factor
+        and weights are the same under either trace."""
+        kept = self._kept
+        if kept is None or not np.array_equal(kept.theta, x):
+            return None
+        return kept.L, kept.alpha
+
     def fit(self, TrainData=None, show: bool = True, opt: bool = True,
             maxiter: int = 10):
         """opt=True: optimise the kernel's (sigma, l) or (sigma, sigma0)
-        [and the noise] by L-BFGS-B over the NLL from the current values,
-        its traces as ``trace`` and the gate decide
-        (``_gated_trace_mode``), then refactorise the training covariance
-        from scratch.  With the estimated traces L-BFGS-B pairs an exact
-        value with an estimated gradient, so a run that ends in a failed
-        line search (scipy's status 2, e.g. ABNORMAL_TERMINATION_IN_LNSRCH)
-        is run once more with the exact trace, and logged.
+        [and the noise] by L-BFGS-B over the NLL from the current values
+        (``_optimise``), then take the factor of the training covariance
+        at theta*.  That is the float64 factor and weights the NLL
+        evaluation at theta* made (K, its Cholesky factor and the solve,
+        as ``_factorize`` makes them), kept from L-BFGS-B's last
+        evaluation (counter ``fit.factor_reuse``); where that evaluation
+        was not at the result or was not positive definite, ``_factorize``
+        refactorises from scratch.
+        With the estimated traces L-BFGS-B pairs an exact value with an
+        estimated gradient, so a run that ends in a failed line search
+        (scipy's status 2, e.g. ABNORMAL_TERMINATION_IN_LNSRCH) is run
+        once more with the exact trace, and logged.
         opt=False: extend the factor of the last fit by the rows appended
         since (``_try_incremental_fit``), or refactorise where it cannot.
         ``refit_stats`` counts each path.  The fit is the span ``fit``,
@@ -1163,33 +1268,10 @@ class GP:
             with utils_profiling.span("fit.pack"):
                 e, f = self._pack(self.N_energy, self.N_forces)
                 y = self._y_vector(e, f, self.N_energy, self.N_forces)
+            kept = None
             if opt:
                 print(f"Update GP model => {self.N_queue}/{maxiter}")
-                theta0, bounds, noise_opt = self._theta()
-                counts = self._pair_counts(e)
-                with utils_profiling.span("fit.gate"):
-                    trace = self._gated_trace_mode(e, f, y, theta0,
-                                                   noise_opt, counts)
-                res = self._lbfgs(self._objective(e, f, y, noise_opt, show,
-                                                  trace, pair_counts=counts),
-                                  theta0, bounds, maxiter)
-                if trace == "hutch" and res.status == 2:
-                    self.logging.info(
-                        "L-BFGS-B with the Hutchinson trace ended in %r: "
-                        "rerun with the exact trace", str(res.message))
-                    trace = "exact"
-                    res = self._lbfgs(self._objective(
-                        e, f, y, noise_opt, show,
-                        first=getattr(res, "nfev", 0), pair_counts=counts),
-                        theta0, bounds, maxiter)
-                self._nll_trace_used = trace
-                params = res.x
-                if noise_opt:
-                    self.kernel.update(params[:-1])
-                    self.noise_e = float(params[-1])
-                    self.noise_f = float(self.f_coef * params[-1])
-                else:
-                    self.kernel.update(params)
+                kept = self._optimise(e, f, y, show, maxiter)
             with utils_profiling.span("fit.factorize") as sp:
                 marks = [utils_profiling.device_mark(self.device)] \
                     if sp else None
@@ -1197,20 +1279,26 @@ class GP:
                     path = "incremental"
                     self.logging.info("Cholesky rank-update complete")
                 else:
-                    try:
-                        L, alpha = _factorize(
-                            e, f, y, self.kernel.params(), self.noise_e,
-                            self.noise_f, self.kernel.zeta,
-                            self.kernel.kind, mesh=self._mesh_arg(),
-                            chol_mode=self._chol_mode(e, f))
-                    except FloatingPointError as exc:
-                        self.logging.error(str(exc))
-                        raise
+                    if kept is not None:
+                        L, alpha = kept
+                        utils_profiling.count("fit.factor_reuse")
+                        msg = "Cholesky factor of the theta* evaluation kept"
+                    else:
+                        try:
+                            L, alpha = _factorize(
+                                e, f, y, self.kernel.params(), self.noise_e,
+                                self.noise_f, self.kernel.zeta,
+                                self.kernel.kind, mesh=self._mesh_arg(),
+                                chol_mode=self._chol_mode(e, f))
+                        except FloatingPointError as exc:
+                            self.logging.error(str(exc))
+                            raise
+                        msg = "Cholesky decomposition complete"
                     self.posterior = Posterior.from_packed(
                         e, f, L, alpha, self._params_signature(),
                         self.logging.info)
                     path = "full"
-                    self.logging.info("Cholesky decomposition complete")
+                    self.logging.info(msg)
                 if sp:
                     marks.append(utils_profiling.device_mark(self.device))
             self._refit_stats[path] += 1

@@ -33,7 +33,8 @@ DOT_FIT_TREE = {**{k: v for k, v in FIT_TREE.items()
 COUNTERS = ("serve.requests", "lbfgs.nfev", "lbfgs.nit",
             "predict.solve_inv", "predict.solve_trsm", "factor_inv.build",
             "factor_inv.extend", "predict.graph_replay",
-            "predict.graph_capture", "pair_counts.build")
+            "predict.graph_capture", "pair_counts.build",
+            "fit.factor_reuse")
 
 
 @pytest.fixture
@@ -146,7 +147,8 @@ def _two_fits_give_the_tree(port, system):
     carrying its index, and in it the covariance build's span;
     lbfgs.nfev equal to those spans and to the evaluations the
     benchmark's Port counted, lbfgs.nit at most the cap; a Dot fit's pair
-    counts built once (one fit.pair_counts span, pair_counts.build 1)."""
+    counts built once (one fit.pair_counts span, pair_counts.build 1);
+    each fit's factor its theta* evaluation's (fit.factor_reuse 1)."""
     dot = system.family == "Dot"
     tree = DOT_FIT_TREE if dot else FIT_TREE
     build = "nll.k_self" if dot else "nll.k_self_dual"
@@ -170,8 +172,10 @@ def _two_fits_give_the_tree(port, system):
         builds = [r.n for r in mine if r.name == "pair_counts.build"]
         assert builds == ([1] if dot else [])
         assert names.count("fit.pair_counts") == len(builds)
+        assert [r.n for r in mine if r.name == "fit.factor_reuse"] == [1]
     assert up.counters["lbfgs.nfev"] == sum(len(e)
                                             for e in port.evals[-2:])
+    assert up.counters["fit.factor_reuse"] == 2
 
 
 def test_fit_gives_the_span_tree_and_lbfgs_counts(fit_port, recording):
